@@ -1,0 +1,69 @@
+"""Hand the JAX reference's arrays to the port, through numpy.
+
+The reference's params come as a nested dict of numpy arrays (the caller
+does ``jax.tree.map(np.asarray, params)``; this module imports no jax).
+`params_from_reference` turns that tree into the port's layout: the same
+dict, with the stacked ``layers`` axis split into a list of per-layer dicts.
+
+Dtypes that torch and numpy do not share travel by bit pattern:
+bfloat16 (ml_dtypes) -> uint16 -> int16 -> ``view(torch.bfloat16)``, and
+uint32 spike words -> int32 with the same bits (`words_to_torch`,
+`words_to_numpy`).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def to_torch(a, device="cpu") -> torch.Tensor:
+    """One numpy array -> a torch tensor with the same values (bf16 and
+    uint32 by bit pattern)."""
+    a = np.array(a, copy=True, order="C")  # a writable copy torch may own
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).view(np.int16)).view(torch.bfloat16)
+    elif a.dtype == np.uint32:
+        t = torch.from_numpy(a.view(np.int32))
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def words_to_torch(words, device="cpu") -> torch.Tensor:
+    """Reference uint32 spike words -> the port's int32 words (same bits)."""
+    return to_torch(np.asarray(words, np.uint32), device)
+
+
+def words_to_numpy(words: torch.Tensor) -> np.ndarray:
+    """The port's int32 spike words -> uint32 words (same bits)."""
+    return words.detach().cpu().numpy().astype(np.int32).view(np.uint32)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_reference(tree: dict, *, device="cpu") -> dict:
+    """Reference param tree (numpy leaves, layers stacked on axis 0) ->
+    the port's param tree (torch leaves on ``device``, per-layer list)."""
+    out = {k: _map(v, lambda a: to_torch(a, device))
+           for k, v in tree.items() if k != "layers"}
+    stacked = tree["layers"]
+    n_layers = {np.shape(a)[0] for a in _leaves(stacked)}
+    if len(n_layers) != 1:
+        raise ValueError(f"layer leaves disagree on depth: {n_layers}")
+    out["layers"] = [
+        _map(stacked, lambda a, i=i: to_torch(np.asarray(a)[i], device))
+        for i in range(n_layers.pop())
+    ]
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

@@ -1,0 +1,185 @@
+"""Dual-sparse spiking layers on the FTP dataflow (port of
+`repro.core.snn_layers`, main-path parts).
+
+* **train**: float {0,1} spikes, surrogate-gradient LIF, differentiable.
+* **infer**: packed int32 spike words through the dual-sparse BSR kernel,
+  driven by load-time `WeightJoinPlan`s.
+
+`spiking_ffn_apply` is the drop-in transformer MLP replacement: direct
+encoding in, rate decoding out.  Pruning happens once, at init/load; the
+apply paths never re-prune (the plans are built from the stored zeros).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from .ftp import ftp_spmspm_unpacked
+from .lif import DEFAULT_TAU, DEFAULT_VTH, direct_encode, lif_forward, rate_decode
+from .packing import pack_spikes
+
+
+@dataclass(frozen=True)
+class SpikingConfig:
+    T: int = 4
+    v_th: float = DEFAULT_VTH
+    tau: float = DEFAULT_TAU
+    weight_density: float = 1.0
+
+
+def _kth_largest(x: torch.Tensor, k: int) -> torch.Tensor:
+    return torch.topk(x.reshape(-1), k, sorted=False).values.min()
+
+
+def prune_by_magnitude(
+    w: torch.Tensor, density: float, block: tuple[int, int] | None = None
+) -> torch.Tensor:
+    """Magnitude pruning to the target density (one LTH round's pruning
+    step); returns the pruned weights with hard zeros.
+
+    ``block=(bk, bn)``: two-stage structured variant — keep the top
+    ceil(nblocks * density) whole blocks by L2 norm, then element-prune
+    inside them down to the exact element count.  Same thresholds and
+    tie rule (keep ``>= threshold``) as the reference."""
+    if density >= 1.0:
+        return w
+    if block is None:
+        k = max(1, int(w.numel() * density))
+        thresh = _kth_largest(w.abs(), k)
+        return torch.where(w.abs() >= thresh, w, torch.zeros_like(w))
+    bk, bn = block
+    K, N = w.shape
+    if K % bk or N % bn:
+        raise ValueError(f"shape {(K, N)} not divisible by block {block}")
+    nkb, nnb = K // bk, N // bn
+    blocks = w.reshape(nkb, bk, nnb, bn)
+    score = blocks.to(torch.float32).square().sum(dim=(1, 3))  # (nkb, nnb)
+    nblocks = nkb * nnb
+    kb = min(nblocks, max(1, -int(-nblocks * density)))
+    thresh = _kth_largest(score, kb)
+    keep = (score >= thresh)[:, None, :, None]
+    wb = (blocks * keep.to(w.dtype)).reshape(K, N)
+    n_keep = max(1, int(w.numel() * density))
+    if kb * bk * bn > n_keep:
+        et = _kth_largest(wb.abs(), n_keep)
+        wb = torch.where(wb.abs() >= et, wb, torch.zeros_like(wb))
+    return wb
+
+
+def weight_density(w: torch.Tensor) -> float:
+    """Measured fraction of non-zero weights (host helper)."""
+    return float((w != 0).float().mean())
+
+
+def assert_weight_density(w, density: float, tol: float = 0.05) -> None:
+    """Load-time check that stored params carry the hard zeros the config
+    promises (the prune-once contract)."""
+    got = weight_density(w)
+    if got > density + tol:
+        raise ValueError(
+            f"stored weights have density {got:.3f} > configured "
+            f"{density:.3f}; prune at init/load (prune_by_magnitude) before "
+            "serving the dual-sparse path"
+        )
+
+
+def freeze_pruned(w: torch.Tensor) -> torch.Tensor:
+    """Identity on values; gradients reach surviving weights only."""
+    return w * (w != 0).to(w.dtype).detach()
+
+
+def init_spiking_ffn(
+    generator: torch.Generator,
+    d_model: int,
+    d_ff: int,
+    dtype=torch.float32,
+    weight_density: float = 1.0,
+    prune_block: tuple[int, int] | None = None,
+) -> dict:
+    """Init (and, when ``weight_density < 1``, LTH-prune) the FFN weights
+    with draws from ``generator`` (on the generator's device)."""
+    dev = generator.device
+    w_in = torch.randn((d_model, d_ff), generator=generator, device=dev)
+    w_out = torch.randn((d_ff, d_model), generator=generator, device=dev)
+    w_in = (w_in / math.sqrt(d_model)).to(dtype)
+    w_out = (w_out / math.sqrt(d_ff)).to(dtype)
+    if weight_density < 1.0:
+        w_in = prune_by_magnitude(w_in, weight_density, block=prune_block)
+        w_out = prune_by_magnitude(w_out, weight_density, block=prune_block)
+    return {"w_in": w_in, "w_out": w_out}
+
+
+def attach_join_plans(params: dict, cfg: SpikingConfig) -> dict:
+    """Load-time step of the dual-sparse serving path: one `WeightJoinPlan`
+    per GEMM from the stored (pruned) weights, attached as ``plan_in`` /
+    ``plan_out``.  Also where the configured density is asserted."""
+    from repro_torch.kernels.join_plan import build_weight_plan
+
+    if cfg.weight_density < 1.0:
+        assert_weight_density(params["w_in"], cfg.weight_density)
+        assert_weight_density(params["w_out"], cfg.weight_density)
+    return dict(
+        params,
+        plan_in=build_weight_plan(params["w_in"]),
+        plan_out=build_weight_plan(params["w_out"]),
+    )
+
+
+def _ffn_dual_sparse(pm, plan_in, plan_out, w_in, w_out, cfg: SpikingConfig):
+    """Both FFN GEMMs through the dual-sparse BSR kernel: fused P-LIF on the
+    hidden layer (packed words out), full sums on the output layer.
+    Returns (packed hidden words (M, F), full sums (T, M, D))."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.policy import PACKED_DUAL
+
+    packed_h, _ = ops.dispatch(
+        pm, plan_in, PACKED_DUAL, cfg.T,
+        fuse_lif=True, v_th=cfg.v_th, tau=cfg.tau, n_out=w_in.shape[1],
+    )
+    o, _ = ops.dispatch(
+        packed_h, plan_out, PACKED_DUAL, cfg.T,
+        fuse_lif=False, n_out=w_out.shape[1],
+    )
+    return packed_h, o
+
+
+def spiking_ffn_apply(
+    params: dict,
+    x: torch.Tensor,
+    cfg: SpikingConfig,
+    mode: str = "train",
+    plans: tuple | None = None,
+) -> torch.Tensor:
+    """x: (..., d_model) analog activations -> (..., d_model).
+
+    direct-encode(x) -> spikes --W_in--> LIF -> spikes --W_out--> full sums
+    -> rate decode.  ``infer`` needs the (plan_in, plan_out) pair (argument
+    or attached by `attach_join_plans`): both GEMMs then run through the
+    dual-sparse BSR kernel."""
+    w_in, w_out = params["w_in"], params["w_out"]
+    if plans is None:
+        plans = (params.get("plan_in"), params.get("plan_out"))
+    plan_in, plan_out = plans
+    lead = x.shape[:-1]
+    xm = x.reshape(-1, x.shape[-1])
+    spikes_in = direct_encode(xm, cfg.T, v_th=cfg.v_th, tau=cfg.tau)
+    if mode == "train":
+        if cfg.weight_density < 1.0:
+            w_in, w_out = freeze_pruned(w_in), freeze_pruned(w_out)
+        hidden, _ = lif_forward(
+            ftp_spmspm_unpacked(spikes_in, w_in), v_th=cfg.v_th, tau=cfg.tau
+        )
+        o = ftp_spmspm_unpacked(hidden, w_out)
+    elif mode == "infer":
+        if plan_in is None:
+            raise NotImplementedError(
+                "infer mode without join plans runs the dense-weight FTP "
+                "kernels, which are not ported yet; attach plans "
+                "(attach_join_plans) — see ROADMAP.md"
+            )
+        _, o = _ffn_dual_sparse(pack_spikes(spikes_in), plan_in, plan_out, w_in, w_out, cfg)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    return rate_decode(o).reshape(*lead, -1).to(x.dtype)

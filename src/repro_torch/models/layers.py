@@ -1,0 +1,233 @@
+"""Primitive layers of the transformer (port of `repro.models.layers`, the
+dense-attention and spiking-FFN parts the main path runs).
+
+Params are plain dicts of tensors.  Compute runs in ``cfg.compute_dtype``
+(bf16) with reductions and softmax in f32, in the reference's op order.
+The reference switches the spiking FFN between its float training path and
+the packed inference path with a module-level mode; here the mode is an
+explicit ``spiking_mode`` argument ("train" | "infer") threaded from the
+model entry points, so two callers in one process never see each other's
+setting.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+
+SPIKING_MODES = ("train", "infer")
+
+
+def _dt(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+def _ct(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def dense_init(gen: torch.Generator, shape, dtype, fan_in=None) -> torch.Tensor:
+    fan_in = fan_in if fan_in is not None else shape[0]
+    w = torch.randn(shape, generator=gen, device=gen.device)
+    return (w / math.sqrt(fan_in)).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms and RoPE
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMS norm scaled by ``1 + scale`` (scales are zero-initialised)."""
+    x32 = x.float()
+    var = (x32 * x32).mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+def rope_apply(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, dh); positions: (B, S) int."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(half, dtype=torch.float32, device=x.device) / half)
+    ang = positions.float()[..., None] * freqs  # (B, S, half)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA, causal, exact softmax chunked over queries)
+# ---------------------------------------------------------------------------
+
+def attn_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    D, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    if cfg.qk_norm:
+        raise NotImplementedError("qk_norm archs are a later slice; see ROADMAP.md")
+    return {
+        "wq": dense_init(gen, (D, H * dh), _dt(cfg)),
+        "wk": dense_init(gen, (D, KV * dh), _dt(cfg)),
+        "wv": dense_init(gen, (D, KV * dh), _dt(cfg)),
+        "wo": dense_init(gen, (H * dh, D), _dt(cfg)),
+    }
+
+
+def _attn_mask(iq, jk) -> torch.Tensor:
+    """Causal mask.  iq: (cq,) absolute query positions; jk: (Skv,) absolute
+    kv positions of the cache slots (-1 = empty slot)."""
+    return (jk[None, :] <= iq[:, None]) & (jk[None, :] >= 0)
+
+
+def multihead_attention(q, k, v, cfg: ArchConfig, *, q_offset: int,
+                        kv_positions: torch.Tensor):
+    """q: (B, Sq, H, dh); k, v: (B, Skv, KV, dh) -> (B, Sq, H, dh); the
+    queries sit at positions ``q_offset ..``, the kv slots at
+    ``kv_positions`` (Skv,).
+
+    f32 scores, a -1e30 mask, f32 softmax, probabilities rounded to v's
+    dtype before the value contraction — the reference's form, not a fused
+    attention kernel.  Queries run in chunks of ``cfg.attn_chunk`` when it
+    divides Sq, which bounds the live (cq, Skv) score tile; every query row
+    computes the same values either way."""
+    B, Sq, H, dh = q.shape
+    G = H // k.shape[2]
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, G, dh)
+    scale = dh ** -0.5
+    jk = kv_positions
+    kf, vf = k.float(), v.float()
+
+    def chunk_attn(q_c, iq):
+        s = torch.einsum("bqkgd,bskd->bkgqs", q_c.float(), kf) * scale
+        m = _attn_mask(iq, jk)
+        s = torch.where(m[None, None, None], s, torch.full_like(s, -1e30))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), vf)
+        return o.to(q.dtype)
+
+    iq = q_offset + torch.arange(Sq, device=q.device)
+    cq = cfg.attn_chunk
+    if cq and Sq > cq and Sq % cq == 0:
+        o = torch.cat([chunk_attn(qg[:, c:c + cq], iq[c:c + cq])
+                       for c in range(0, Sq, cq)], dim=1)
+    else:
+        o = chunk_attn(qg, iq)
+    return o.reshape(B, Sq, H, dh)
+
+
+def attn_apply(p, x, cfg: ArchConfig, *, positions, cache):
+    """Projections + RoPE + attention over a KV cache.  ``cache`` is one
+    layer's dict(k, v, kv_pos, pos): k/v (B, S_cache, KV, dh) are written IN
+    PLACE at rows ``pos .. pos+S`` (the cohort owns its cache; the
+    reference returns an updated copy instead), ``kv_pos`` is the
+    already-updated slot-position vector and ``pos`` a host int.  The
+    cache-free training forward is a later slice."""
+    if cfg.attn != "causal" or cfg.expand_kv:
+        raise NotImplementedError(
+            f"attn={cfg.attn!r}/expand_kv archs are a later slice; see ROADMAP.md"
+        )
+    B, S, D = x.shape
+    H, KV, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    ct = _ct(cfg)
+    xc = x.to(ct)
+    q = (xc @ p["wq"].to(ct)).reshape(B, S, H, dh)
+    k = (xc @ p["wk"].to(ct)).reshape(B, S, KV, dh)
+    v = (xc @ p["wv"].to(ct)).reshape(B, S, KV, dh)
+    q = rope_apply(q, positions, cfg.rope_theta)
+    k = rope_apply(k, positions, cfg.rope_theta)
+    pos = cache["pos"]
+    if pos + S > cache["k"].shape[1]:
+        raise ValueError(
+            f"cache of {cache['k'].shape[1]} slots cannot take positions "
+            f"{pos}..{pos + S - 1} (admission bounds prompt + new tokens "
+            "by max_len)"
+        )
+    cache["k"][:, pos:pos + S] = k.to(cache["k"].dtype)
+    cache["v"][:, pos:pos + S] = v.to(cache["v"].dtype)
+    o = multihead_attention(
+        q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), cfg,
+        q_offset=pos, kv_positions=cache["kv_pos"],
+    )
+    out = o.reshape(B, S, H * dh) @ p["wo"].to(ct)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP: the spiking dual-sparse FFN branch
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, cfg: ArchConfig, d_ff=None) -> dict:
+    """Spiking FFN weights (two GEMMs, no gate), LTH-pruned ONCE here to the
+    plan's block grid when ``spiking_weight_density < 1``; forwards never
+    re-prune."""
+    if not cfg.spiking_ffn:
+        raise NotImplementedError(
+            "the dense (non-spiking) MLP is a later slice; the port serves "
+            "the spiking FFN — see ROADMAP.md"
+        )
+    from repro_torch.core.snn_layers import prune_by_magnitude
+    from repro_torch.kernels.join_plan import pick_plan_blocks
+
+    D, F = cfg.d_model, d_ff or cfg.d_ff
+    p = {
+        "wu": dense_init(gen, (D, F), _dt(cfg)),
+        "wd": dense_init(gen, (F, D), _dt(cfg)),
+    }
+    if cfg.spiking_weight_density < 1.0:
+        for name in ("wu", "wd"):
+            K, N = p[name].shape
+            bk, bn = pick_plan_blocks(K, N)
+            block = (bk, bn) if (K % bk == 0 and N % bn == 0) else None
+            p[name] = prune_by_magnitude(
+                p[name], cfg.spiking_weight_density, block=block
+            )
+    return p
+
+
+def attach_spiking_ffn_plans(params: dict, cfg: ArchConfig) -> dict:
+    """Load-time step of the dual-sparse serving path: assert the prune-once
+    density contract and attach one `WeightJoinPlan` per GEMM per layer
+    (``plan_in`` / ``plan_out``, payload in the compute dtype, on the
+    weights' device).  Returns a new tree; host work happens once here."""
+    if not cfg.spiking_ffn:
+        return params
+    from repro_torch.core.snn_layers import assert_weight_density
+    from repro_torch.kernels.join_plan import build_weight_plan
+
+    ct = _ct(cfg)
+
+    def prepare(mlp):
+        if cfg.spiking_weight_density < 1.0:
+            assert_weight_density(mlp["wu"], cfg.spiking_weight_density)
+            assert_weight_density(mlp["wd"], cfg.spiking_weight_density)
+        # the payload carries the compute-dtype cast the apply path uses
+        return dict(mlp, plan_in=build_weight_plan(mlp["wu"].to(ct)),
+                    plan_out=build_weight_plan(mlp["wd"].to(ct)))
+
+    layers = [dict(lp, mlp=prepare(lp["mlp"])) for lp in params["layers"]]
+    return dict(params, layers=layers)
+
+
+def mlp_apply(p, x, cfg: ArchConfig, spiking_mode: str = "train"):
+    """Spiking dual-sparse FFN under the FTP dataflow.  ``infer`` with
+    attached plans routes both GEMMs through the dual-sparse BSR kernel;
+    ``train`` runs the differentiable float path."""
+    if not cfg.spiking_ffn:
+        raise NotImplementedError(
+            "the dense (non-spiking) MLP is a later slice; see ROADMAP.md"
+        )
+    if spiking_mode not in SPIKING_MODES:
+        raise ValueError(f"unknown spiking FFN mode {spiking_mode!r}")
+    from repro_torch.core.snn_layers import SpikingConfig, spiking_ffn_apply
+
+    ct = _ct(cfg)
+    xc = x.to(ct)
+    scfg = SpikingConfig(T=cfg.spiking_T, weight_density=cfg.spiking_weight_density)
+    weights = {"w_in": p["wu"], "w_out": p["wd"]}
+    plans = None
+    if spiking_mode == "infer" and "plan_in" in p:
+        plans = (p["plan_in"], p["plan_out"])  # the kernel reads only these
+    else:  # the float path contracts the compute-dtype values
+        weights = {k: w.to(ct) for k, w in weights.items()}
+    y = spiking_ffn_apply(weights, xc, scfg, mode=spiking_mode, plans=plans)
+    return y.to(x.dtype)

@@ -1,0 +1,174 @@
+"""Decoder-only transformer LM, dense-attention family (port of
+`repro.models.transformer`, the serving half: prefill and decode over a KV
+cache).
+
+Params are a dict; ``params["layers"]`` is a list of per-layer dicts (the
+reference stacks them on a leading axis and scans; the port walks them in a
+Python loop).  The KV cache keeps the reference's stacked layout —
+``k/v (L, B, S, KV, dh)`` — with ``kv_pos`` (S,) the absolute position held
+by each slot (-1 = empty) and ``pos`` the number of positions written, a
+host int.  A forward writes its new k/v rows into the cache IN PLACE and
+returns the cache dict with the advanced ``kv_pos``/``pos``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+
+from .layers import (
+    _ct,
+    _dt,
+    attn_apply,
+    attn_init,
+    dense_init,
+    mlp_apply,
+    mlp_init,
+    rmsnorm,
+)
+
+
+def _check_arch(cfg: ArchConfig) -> None:
+    if (cfg.n_experts or not cfg.embed_inputs or cfg.encoder_only
+            or cfg.n_img_tokens or not cfg.tie_embeddings):
+        raise NotImplementedError(
+            f"{cfg.name}: MoE, audio/VLM front ends, encoders and untied "
+            "heads are later slices of the port; see ROADMAP.md"
+        )
+
+
+def block_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    dev = gen.device
+    return {
+        "ln1": torch.zeros((cfg.d_model,), dtype=_dt(cfg), device=dev),
+        "attn": attn_init(gen, cfg),
+        "ln2": torch.zeros((cfg.d_model,), dtype=_dt(cfg), device=dev),
+        "mlp": mlp_init(gen, cfg),
+    }
+
+
+def block_apply(p, x, cfg: ArchConfig, *, positions, cache,
+                spiking_mode: str = "train"):
+    """Pre-norm transformer block; returns the new residual stream."""
+    h = attn_apply(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
+                   positions=positions, cache=cache)
+    x = x + h
+    h2 = mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg,
+                   spiking_mode=spiking_mode)
+    return x + h2
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
+    """Random params drawn from ``gen`` on its device: the reference's
+    shapes, scaling and prune-once rule (not its numbers — torch and jax
+    generators differ; parity tests bridge the reference's params)."""
+    _check_arch(cfg)
+    return {
+        "embed": dense_init(gen, (cfg.vocab, cfg.d_model), _dt(cfg),
+                            fan_in=cfg.d_model),
+        "layers": [block_init(gen, cfg) for _ in range(cfg.n_layers)],
+        "final_norm": torch.zeros((cfg.d_model,), dtype=_dt(cfg),
+                                  device=gen.device),
+    }
+
+
+def prepare_params(cfg: ArchConfig, params: dict) -> dict:
+    """Load-time casts the reference repeats inside every forward: the
+    attention matrices in the compute dtype, and the tied unembedding as
+    the f32 values of the compute-dtype embedding, transposed once.  The
+    values every forward sees are unchanged; only the per-call casts go.
+    The f32 embedding stays for the token lookup (`embed_tokens` casts the
+    gathered rows)."""
+    ct = _ct(cfg)
+    layers = [
+        dict(lp, attn={k: w.to(ct) for k, w in lp["attn"].items()})
+        for lp in params["layers"]
+    ]
+    return dict(params, layers=layers,
+                unembed=_unembed_weight(params, cfg))
+
+
+def embed_tokens(p, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    return p["embed"][tokens].to(_ct(cfg))
+
+
+def _unembed_weight(p, cfg: ArchConfig) -> torch.Tensor:
+    """(D, V) f32 weight of the logits contraction: the compute-dtype values
+    of the tied embedding, so an f32 product equals the reference's bf16 x
+    bf16 contraction with f32 accumulation."""
+    if "unembed" in p:
+        return p["unembed"]
+    return p["embed"].to(_ct(cfg)).float().T.contiguous()
+
+
+def unembed(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """(B, S, D) -> (B, S, V) f32 logits."""
+    return x.to(_ct(cfg)).float() @ _unembed_weight(p, cfg)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
+               device: torch.device, dtype=torch.bfloat16) -> dict:
+    if cfg.attn != "causal":
+        raise NotImplementedError(
+            f"attn={cfg.attn!r} ring caches are a later slice; see ROADMAP.md"
+        )
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "kv_pos": torch.full((max_len,), -1, dtype=torch.int32, device=device),
+        "pos": 0,
+    }
+
+
+def cache_axes(cfg: ArchConfig) -> dict:
+    return {
+        "k": ("layers", "batch", "cache_seq", "kv_heads", None),
+        "v": ("layers", "batch", "cache_seq", "kv_heads", None),
+        "kv_pos": (None,),
+        "pos": (),
+    }
+
+
+def _stack_forward_cached(layers, x, cfg: ArchConfig, positions, cache,
+                          spiking_mode: str):
+    """Walk the layer stack, writing each layer's k/v rows into the cache."""
+    S = x.shape[1]
+    pos = cache["pos"]
+    kv_pos = cache["kv_pos"].clone()
+    kv_pos[pos:pos + S] = pos + torch.arange(S, dtype=torch.int32,
+                                             device=kv_pos.device)
+    for i, lp in enumerate(layers):
+        lc = {"k": cache["k"][i], "v": cache["v"][i], "kv_pos": kv_pos,
+              "pos": pos}
+        x = block_apply(lp, x, cfg, positions=positions, cache=lc,
+                        spiking_mode=spiking_mode)
+    return x, {"k": cache["k"], "v": cache["v"], "kv_pos": kv_pos,
+               "pos": pos + S}
+
+
+def prefill(p, cfg: ArchConfig, batch: dict, cache, *,
+            spiking_mode: str = "train"):
+    """Process the whole prompt, fill the cache, return last-token logits
+    (B, 1, V) and the cache."""
+    x = embed_tokens(p, cfg, batch["tokens"])
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    x, new_cache = _stack_forward_cached(p["layers"], x, cfg, positions,
+                                         cache, spiking_mode)
+    x = rmsnorm(x, p["final_norm"], cfg.norm_eps)
+    return unembed(p, cfg, x[:, -1:]), new_cache
+
+
+def decode_step(p, cfg: ArchConfig, tokens, cache, *,
+                spiking_mode: str = "train"):
+    """tokens (B, S) -> (logits (B, S, V), cache).  S > 1 is a window of
+    consecutive positions; the causal mask inside it comes from the
+    absolute positions, as in the reference."""
+    x = embed_tokens(p, cfg, tokens)
+    B, S = x.shape[:2]
+    positions = (cache["pos"] + torch.arange(S, device=x.device))[None].expand(B, S)
+    x, new_cache = _stack_forward_cached(p["layers"], x, cfg, positions,
+                                         cache, spiking_mode)
+    x = rmsnorm(x, p["final_norm"], cfg.norm_eps)
+    return unembed(p, cfg, x), new_cache

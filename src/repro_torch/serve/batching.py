@@ -1,0 +1,148 @@
+"""Batch-composition machinery for the continuous-batching engine (port of
+`repro.serve.batching`, the dense cache backend).
+
+A model exposes its serving cache as a dict plus a parallel `cache_axes()`
+dict of logical-axis tuples.  `DenseCacheOps` locates the ``"batch"`` axis
+of every leaf and concatenates / gathers along it.  Leaves without a
+batch axis are position-like (``kv_pos``, ``pos``): two cohorts merge only
+when those are equal — the "same sequence position" precondition of
+continuous batching.
+
+Also here: `PackedSpikeCache`, which carries each slot's direct-encoded
+current token between engine steps as packed 32-bit spike words (bit t =
+timestep t) instead of (T, ...) float planes, on the device.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+
+def _batch_axis(ax: tuple) -> int | None:
+    return ax.index("batch") if "batch" in ax else None
+
+
+def _equal(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and bool(torch.equal(a, b))
+    return a == b
+
+
+class DenseCacheOps:
+    """Cohort caches as plain dicts of tensors; batch-axis concat and
+    gather located through the model's logical-axes dict."""
+
+    def __init__(self, axes: dict):
+        self.axes = axes
+
+    def concat(self, caches: list) -> dict:
+        """Merge cohort caches (same sequence position) into one."""
+        if len(caches) == 1:
+            return caches[0]
+        out = {}
+        for k, ax in self.axes.items():
+            leaves = [c[k] for c in caches]
+            b = _batch_axis(ax)
+            if b is None:
+                if not all(_equal(leaves[0], o) for o in leaves[1:]):
+                    raise ValueError(
+                        "refusing to merge cohorts with differing "
+                        f"position-like cache leaf {k!r}"
+                    )
+                out[k] = leaves[0]
+            else:
+                out[k] = torch.cat(leaves, dim=b)
+        return out
+
+    def take(self, cache: dict, idx) -> dict:
+        """Keep only batch rows ``idx`` (host ints)."""
+        out = {}
+        for k, ax in self.axes.items():
+            b = _batch_axis(ax)
+            leaf = cache[k]
+            if b is not None:
+                leaf = leaf.index_select(
+                    b, torch.as_tensor(idx, dtype=torch.long, device=leaf.device)
+                )
+            out[k] = leaf
+        return out
+
+
+def pad_batch(tokens: np.ndarray, align: int) -> tuple[np.ndarray, int]:
+    """Pad the batch dimension of a (B, S) prompt batch up to a multiple of
+    ``align`` with dummy rows (token 0).  Rows are independent, so dummy
+    rows never perturb real ones.  Returns (padded tokens, n_dummy)."""
+    B = tokens.shape[0]
+    pad = (-B) % max(1, align)
+    if pad == 0:
+        return tokens, 0
+    dummy = np.zeros((pad, tokens.shape[1]), dtype=tokens.dtype)
+    return np.concatenate([tokens, dummy], axis=0), pad
+
+
+def bucket_key(prompt_len: int, align: int = 1) -> int:
+    """Bucket id for a prompt length: exact length at ``align=1`` (the
+    models have no pad-token masking), rounded up otherwise."""
+    return -(-prompt_len // max(1, align)) * max(1, align)
+
+
+def spike_sparsity(words: torch.Tensor, T: int) -> float:
+    """Fraction of (neuron, timestep) positions with no spike in packed
+    int32 words (bit t = timestep t).  Reads the words back to the host, so
+    callers keep it off the per-step path."""
+    if words.numel() == 0:
+        return 1.0
+    bits = torch.arange(T, dtype=torch.int32, device=words.device)
+    fired = (words[..., None] >> bits) & 1
+    return 1.0 - int(fired.sum()) / fired.numel()
+
+
+@dataclass
+class PackedSpikeCache:
+    """Per-slot SNN activations between engine steps as packed 32-bit spike
+    words, one ``(width,)`` row per active slot (int32 with the bits of the
+    reference's uint32, on the words' device).  Slot bookkeeping mirrors the
+    KV cache: rows concat on merge, gather on retire.  No method but
+    `spike_sparsity` waits for the device."""
+
+    T: int
+    width: int
+    device: torch.device | str
+    words: torch.Tensor = field(init=False)
+
+    def __post_init__(self):
+        self.words = torch.zeros((0, self.width), dtype=torch.int32,
+                                 device=self.device)
+
+    def __len__(self) -> int:
+        return self.words.shape[0]
+
+    def _rows(self, words: torch.Tensor) -> torch.Tensor:
+        if words.dtype != torch.int32:
+            raise ValueError(f"packed spike words are int32, got {words.dtype}")
+        return words.reshape(-1, self.width)
+
+    def append(self, words: torch.Tensor) -> None:
+        self.words = torch.cat([self.words, self._rows(words)], dim=0)
+
+    def update(self, words: torch.Tensor) -> None:
+        """Replace all slots' words with this step's (B, width) batch."""
+        w = self._rows(words)
+        if w.shape[0] != len(self):
+            raise ValueError(f"update of {w.shape[0]} rows into {len(self)} slots")
+        self.words = w
+
+    def merge(self, other: "PackedSpikeCache") -> None:
+        if (other.T, other.width) != (self.T, self.width):
+            raise ValueError("merging incompatible spike caches")
+        self.words = torch.cat([self.words, other.words], dim=0)
+
+    def take(self, idx) -> None:
+        self.words = self.words.index_select(
+            0, torch.as_tensor(idx, dtype=torch.long, device=self.words.device))
+
+    def spike_sparsity(self) -> float:
+        """Fraction of (neuron, timestep) positions with no spike."""
+        return spike_sparsity(self.words, self.T)

@@ -1,0 +1,92 @@
+"""Per-request and engine-level serving metrics (port of
+`repro.serve.metrics`, the counters the sync dense path moves).
+
+Times are host wall clock (`time.perf_counter`).  The sync executor waits
+for each step's sampled tokens on the host, so on a GPU every stage time
+covers the device work it launched.
+"""
+from __future__ import annotations
+
+from dataclasses import MISSING, dataclass, field, fields
+
+
+def _percentile(sorted_vals: list[float], q: float) -> float:
+    if not sorted_vals:
+        return float("nan")
+    idx = min(len(sorted_vals) - 1, max(0, round(q * (len(sorted_vals) - 1))))
+    return sorted_vals[idx]
+
+
+@dataclass(frozen=True)
+class RequestMetrics:
+    rid: int
+    prompt_len: int
+    n_generated: int
+    ttft_s: float       # submit -> first token emitted
+    latency_s: float    # submit -> finished
+    finish_reason: str
+
+
+@dataclass
+class EngineMetrics:
+    """Aggregated over one engine lifetime (or between `reset()` calls)."""
+
+    completed: list[RequestMetrics] = field(default_factory=list)
+    n_prefill_batches: int = 0
+    n_decode_batches: int = 0
+    n_decode_rows: int = 0        # sum of cohort batch sizes over decode calls
+    n_merges: int = 0
+    n_padded_rows: int = 0        # dummy rows added for batch alignment
+    max_queue_depth: int = 0
+    wall_s: float = 0.0
+    # per-stage wall time: admit / prefill / merge / decode / sample_sync /
+    # encode / retire (sync: the per-step host wait lands in sample_sync)
+    stage_s: dict[str, float] = field(default_factory=dict)
+
+    def record(self, m: RequestMetrics) -> None:
+        self.completed.append(m)
+
+    def reset(self) -> None:
+        """Zero every aggregate in place (references stay live)."""
+        for f in fields(self):
+            setattr(self, f.name,
+                    f.default_factory() if f.default_factory is not MISSING
+                    else f.default)
+
+    def sample_queue_depth(self, depth: int) -> None:
+        self.max_queue_depth = max(self.max_queue_depth, int(depth))
+
+    @property
+    def total_tokens(self) -> int:
+        return sum(m.n_generated for m in self.completed)
+
+    @property
+    def throughput_tok_s(self) -> float:
+        return self.total_tokens / self.wall_s if self.wall_s > 0 else float("nan")
+
+    @property
+    def mean_decode_batch(self) -> float:
+        if not self.n_decode_batches:
+            return 0.0
+        return self.n_decode_rows / self.n_decode_batches
+
+    def summary(self) -> dict:
+        ttfts = sorted(m.ttft_s for m in self.completed)
+        lats = sorted(m.latency_s for m in self.completed)
+        return {
+            "n_requests": len(self.completed),
+            "total_tokens": self.total_tokens,
+            "wall_s": self.wall_s,
+            "throughput_tok_s": self.throughput_tok_s,
+            "ttft_s_p50": _percentile(ttfts, 0.50),
+            "ttft_s_p99": _percentile(ttfts, 0.99),
+            "latency_s_p50": _percentile(lats, 0.50),
+            "latency_s_p99": _percentile(lats, 0.99),
+            "prefill_batches": self.n_prefill_batches,
+            "decode_batches": self.n_decode_batches,
+            "mean_decode_batch": self.mean_decode_batch,
+            "cohort_merges": self.n_merges,
+            "padded_rows": self.n_padded_rows,
+            "max_queue_depth": self.max_queue_depth,
+            "stage_s": {k: self.stage_s[k] for k in sorted(self.stage_s)},
+        }
