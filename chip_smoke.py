@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch/CUDA port: drive its main path on one GPU.
+"""Chip smoke of the PyTorch/CUDA port: drive its paths on one GPU.
 
     python3 chip_smoke.py
 
@@ -8,35 +8,57 @@ Phases, each asserted; a failed phase ends the run with a non-zero exit:
 
 1. device  — a CUDA device is present; prints nvidia-smi's name and power
              limit.
-2. build   — compiles the hand-written kernel from ``src/repro_torch/
-             kernels/csrc``.
-3. kernel  — the dual-sparse BSR kernel against its plain torch version on
-             the card, at the main path's shapes: llama3.2-1b's W_in
-             2048->8192 (fused LIF) and W_out 8192->2048 (full sums), M = 4
-             (decode) and 512 (prefill), bf16 payload at block density 0.3;
-             plus an all-silent input and a plan with a cnt == 0 column
-             block.  Full sums must agree within ``TOL``; a spike word may
-             differ only where the LIF input sits within ``TOL`` of v_th.
-             Times the kernel, the plain version and one PyTorch matmul of
-             the same work (CUDA events, L2 flushed before each launch).
-4. serve   — full-width llama3.2-1b (16 layers, d_model 2048, d_ff 8192,
+2. build   — compiles every hand-written kernel from ``src/repro_torch/
+             kernels/csrc`` (one nvcc per source, in parallel).
+3. kernels — each kernel against its plain torch version on the card, at
+             the main path's shapes: llama3.2-1b's W_in 2048->8192 (fused
+             LIF) and W_out 8192->2048 (full sums), M = 4 (decode) and 512
+             (prefill), bf16 weights, block density 0.3; at T = 4, and at
+             T = 16 and 32 for kernels 1-4 (the deeper accumulator buckets).  The dual-sparse BSR
+             kernel (3) also on an all-silent input and a plan with a
+             cnt == 0 column block; the dense-weight kernels (1 full sums,
+             2 fused LIF) on the same weights with their pruned blocks as
+             zeros, where their outputs must EQUAL kernel 3's (both add in
+             ascending k).  Full sums must agree within ``TOL``; a spike
+             word may differ only where the LIF input sits within ``TOL`` of
+             v_th.  Times each kernel, its plain version and one PyTorch
+             matmul of the same work (CUDA events, L2 flushed before each).
+4. small   — a smoke-size model served on the card and on the CPU, under
+             the dual-sparse and the dense-weight policy: the same tokens.
+5. serve   — full-width llama3.2-1b (16 layers, d_model 2048, d_ff 8192,
              vocab 128256) with spiking FFNs at weight density 0.3, random
              weights from a seed, served by the `Engine` under PACKED_DUAL:
-             4 requests of 128 prompt tokens and 16 generated tokens.  The
-             kernel's launch count must be exactly 2 x 16 x forwards; tokens
-             must equal the port's own greedy loop; the served logits of
-             every step must lie within ``LOGIT_TOL`` of the same params run
-             on the CPU (plain versions), teacher-forced with the served
-             tokens.  Then every kernel call of that serve is replayed on its
-             own inputs: held against the plain version and timed against a
-             bound computed from its own activity map.  Three more serves
-             without logit capture give tok/s and TTFT, and one under
-             torch.profiler the device's busy time.  A smoke-size model
-             served on the card and on the CPU must give the same tokens.
+             4 requests of 128 prompt tokens and 16 generated tokens.  Kernel
+             3's launch count must be exactly 2 x 16 x forwards (and no other
+             kernel's move); tokens must equal the port's own greedy loop;
+             the served logits of every step must lie within ``LOGIT_TOL`` of
+             the same params run on the CPU (plain versions), teacher-forced
+             with the served tokens.  Then every kernel call of that serve is
+             replayed on its own inputs: held against the plain version and
+             timed against a bound computed from its own activity map.  Three
+             more serves without logit capture give tok/s and TTFT, and one
+             under torch.profiler the device's busy time.
+6. dense   — the same params served under ``weight_sparsity='dense'``: no
+             join plans, both FFN GEMMs through kernels 2 (W_in) and 1
+             (W_out), 16 x forwards launches each and none of kernel 3.  Its
+             tokens must equal the dual-sparse serve's, and its logits are
+             compared with them (the full sums are equal, so the expected
+             difference is 0).  Its calls are replayed, held and timed as in
+             phase 5, then three timed serves and a profiled one.
+7. adaptive — kernel 4 (the BSR kernel gated by a timestep-activity map):
+             every W_in/W_out call of the dual-sparse serve again through
+             `ops.dispatch` under PACKED_DUAL_ADAPTIVE (its launches counted
+             on that path), equal to kernel 3 bit for bit, and under
+             adaptive(min_spikes=2) equal to kernel 3 on the masked input;
+             the same on full-width inputs with silent front planes and on
+             the reference's adaptive bench shape (T = 16, M = 128, K = 2304,
+             N = 512, element density 0.03, 256-wide blocks, 12 of 16 planes
+             silent).  Timed against a bound that counts the live planes
+             (for kernel 3 as for kernel 4: a silent plane needs no work).
 
 Prints a JSON line of per-kernel measurements before the last line (the
-headline numbers are the serve's mean launch), and as the last line
-``{"ok": true, "device": {...}}``.
+headline numbers are each kernel's mean launch on its path), and as the
+last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -59,7 +81,16 @@ PEAK_BF16_FLOP_S = 989e12  # H100 SXM dense bf16 tensor cores
 T = 4
 SEED = 0
 PROMPT, GEN, REQUESTS = 128, 16, 4
-REPLACES = "src/repro/kernels/ftp_spmm.py:211"
+KERNEL_SRC = "src/repro/kernels/ftp_spmm.py"
+# name -> (CUDA source, the TPU kernel it replaces)
+KERNELS = {
+    "ftp_bsr": ("src/repro_torch/kernels/csrc/ftp_bsr.cu", f"{KERNEL_SRC}:211"),
+    "ftp_bsr_adaptive": ("src/repro_torch/kernels/csrc/ftp_bsr.cu",
+                         f"{KERNEL_SRC}:249"),
+    "ftp_spmm": ("src/repro_torch/kernels/csrc/ftp_dense.cu", f"{KERNEL_SRC}:83"),
+    "ftp_spmm_fused_lif": ("src/repro_torch/kernels/csrc/ftp_dense.cu",
+                           f"{KERNEL_SRC}:134"),
+}
 # Full-width logits, card vs CPU: the bound tests/test_torch_models.py holds
 # the port to against the jitted JAX reference, whose excess precision on
 # bf16 residual adds flips FFN spikes the same way other GEMM orders do.
@@ -97,15 +128,34 @@ def phase_device():
 def phase_build():
     from repro_torch.kernels import _build
 
+    t0 = time.perf_counter()
     built = _build.build()
-    log(f"built ftp_bsr in {built['seconds']:.1f}s -> {built['path']}")
-    for ln in built["log"].splitlines():
-        if "registers" in ln or "spill" in ln:
-            log(f"  ptxas: {ln.strip()}")
+    assert set(built) == {"ftp_bsr", "ftp_dense"}, sorted(built)
+    for name, b in built.items():
+        log(f"built {name} in {b['seconds']:.1f}s -> {b['path']}")
+        for ln in b["log"].splitlines():
+            if "registers" in ln or "spill" in ln:
+                log(f"  ptxas: {ln.strip()}")
+    log(f"build wall {time.perf_counter() - t0:.1f}s")
+
+
+def _counted(path, fn):
+    """Run ``fn`` with every launch count set to 0 just before and read just
+    after; returns (result, counts)."""
+    import torch
+
+    from repro_torch.kernels import ftp_spmm
+
+    ftp_spmm.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = ftp_spmm.launch_counts()
+    log(f"{path}: launches {counts}")
+    return out, counts
 
 
 # ---------------------------------------------------------------------------
-# phase 3: kernel vs plain version
+# timing, bounds, parity
 # ---------------------------------------------------------------------------
 
 def _time_ms(fn, reps: int, flush) -> float:
@@ -152,14 +202,23 @@ def _lif_margin(o, v_th=1.0, tau=0.5):
     return margin
 
 
-def _bound(args, bm, fuse):
-    """Least time for one call's work on the card: each input byte read
+def _bound_of(nbytes, ops):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_BF16_FLOP_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _bound(args, bm, fuse, tmap=None):
+    """Least time for one BSR call's work on the card: each input byte read
     once, each output byte written once (payload blocks that some live,
     spike-active join slot needs), against the dense bf16 operations of
-    those joins.  Returns (ms, "bytes" or "operations")."""
+    those joins over the planes that need work: those carrying a spike
+    (a silent plane adds nothing, with or without ``tmap``), less those
+    ``tmap`` gates.  Returns (ms, "bytes" or "operations")."""
     import torch
 
-    a, payload, kidx, vidx, cnt, act, n_out = args[:7]
+    from repro_torch.core.packing import timestep_activity_map
+
+    a, payload, kidx, vidx, cnt, act, n_out, Tc = args[:8]
     M = a.shape[0]
     _, bk, bn = payload.shape
     kidx, vidx, cnt = kidx.long(), vidx.long(), cnt.long()
@@ -167,15 +226,29 @@ def _bound(args, bm, fuse):
     joined = (act[:, kidx] > 0) & live[None]              # (nm, nnb, jmax)
     rows = torch.clamp(M - bm * torch.arange(act.shape[0], device=a.device),
                        max=bm)
-    ops = 2 * T * bk * bn * int((joined.sum((1, 2)) * rows).sum())
+    live = timestep_activity_map(a, Tc)
+    if tmap is not None:
+        live = live & (tmap > 0)
+    planes = int(live.sum())
+    ops = 2 * planes * bk * bn * int((joined.sum((1, 2)) * rows).sum())
     used = torch.zeros(payload.shape[0], dtype=torch.bool, device=a.device)
     used[vidx[joined.any(0)]] = True
-    out = M * n_out * 4 * (2 if fuse else T + 1)
+    out = M * n_out * 4 * (2 if fuse else Tc + 1)
     nbytes = (a.numel() * 4 + int(used.sum()) * bk * bn * payload.element_size()
               + act.numel() * 4 + (kidx.numel() + vidx.numel() + cnt.numel()) * 4
-              + out)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_BF16_FLOP_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+              + out + (0 if tmap is None else tmap.numel() * 4))
+    return _bound_of(nbytes, ops)
+
+
+def _bound_dense(a, w, Tc, fuse):
+    """Least time for one dense-weight call: the words and the weight read
+    once, the output written once, against 2 T N bf16 operations for every
+    spike word that is not silent (a silent word needs no work)."""
+    M, K = a.shape
+    N = w.shape[1]
+    out = M * N * 8 if fuse else Tc * M * N * 4
+    nbytes = a.numel() * 4 + w.numel() * w.element_size() + out
+    return _bound_of(nbytes, 2 * Tc * N * int((a != 0).sum()))
 
 
 def _dense_weight(args):
@@ -194,18 +267,12 @@ def _dense_weight(args):
     return w.reshape(act.shape[1] * bk, nnb * bn)[: a.shape[1], :n_out]
 
 
-def _parity(label, args, bm, fuse):
-    """Kernel vs plain version on one call's inputs: full sums within TOL,
-    spike words equal except where the LIF input is within TOL of v_th.
+def _hold(label, c_k, u_k, o_p, fuse):
+    """Kernel outputs against the plain full sums ``o_p``: full sums within
+    TOL, spike words equal except where the LIF input is within TOL of v_th.
     Returns (max abs error, spike-word flips)."""
-    import torch
-
-    from repro_torch.kernels import ftp_spmm
     from repro_torch.kernels.ref import lif_ref
 
-    c_k, u_k = ftp_spmm.ftp_spmm_bsr(*args, bm=bm, fuse_lif=fuse)
-    o_p, _ = ftp_spmm.ftp_spmm_bsr_plain(*args, bm=bm, fuse_lif=False)
-    torch.cuda.synchronize()
     if fuse:
         c_p, u_p = lif_ref(o_p)
         differ = c_k != c_p
@@ -218,68 +285,158 @@ def _parity(label, args, bm, fuse):
     else:
         flips = 0
         err = float((c_k - o_p).abs().max())
-        assert not bool(u_k.any()), f"{label}: U must be zero without the LIF"
     assert err <= TOL, f"{label}: max |kernel - plain| = {err:.3e} > {TOL}"
     return err, flips
 
 
-def _measure(args, bm, fuse, flush, w_dense, reps):
-    """Kernel, plain version and library yardstick timed on one call's
-    inputs, with the call's bound."""
+def _parity(label, args, bm, fuse, tmap=None):
+    """BSR kernel vs plain version on one call's inputs."""
+    import torch
+
+    from repro_torch.kernels import ftp_spmm
+
+    c_k, u_k = ftp_spmm.ftp_spmm_bsr(*args, bm=bm, fuse_lif=fuse, tmap=tmap)
+    o_p, _ = ftp_spmm.ftp_spmm_bsr_plain(*args, bm=bm, fuse_lif=False, tmap=tmap)
+    torch.cuda.synchronize()
+    if not fuse:
+        assert not bool(u_k.any()), f"{label}: U must be zero without the LIF"
+    return _hold(label, c_k, u_k, o_p, fuse)
+
+
+def _planes(a, Tc, tmap=None):
+    """The unpacked bf16 planes a library matmul contracts: all T, or the
+    live planes of ``tmap``."""
     import torch
 
     from repro_torch.core.packing import unpack_spikes
+
+    p = unpack_spikes(a, Tc, torch.bfloat16)
+    if tmap is not None:
+        p = p[tmap > 0]
+    return p.reshape(-1, a.shape[1])
+
+
+def _measure(args, bm, fuse, flush, w_dense, reps, tmap=None):
+    """BSR kernel, plain version and library yardstick timed on one call's
+    inputs, with the call's bound."""
+    import torch
+
     from repro_torch.kernels import ftp_spmm
 
-    a = args[0]
-    planes = unpack_spikes(a, T, torch.bfloat16).reshape(T * a.shape[0], -1)
+    planes = _planes(args[0], args[7], tmap)
     row = {
-        "ms": _time_ms(lambda: ftp_spmm.ftp_spmm_bsr(*args, bm=bm, fuse_lif=fuse),
-                       reps, flush),
+        "ms": _time_ms(lambda: ftp_spmm.ftp_spmm_bsr(*args, bm=bm, fuse_lif=fuse,
+                                                     tmap=tmap), reps, flush),
         "plain_ms": _time_ms(
-            lambda: ftp_spmm.ftp_spmm_bsr_plain(*args, bm=bm, fuse_lif=fuse),
+            lambda: ftp_spmm.ftp_spmm_bsr_plain(*args, bm=bm, fuse_lif=fuse,
+                                                tmap=tmap),
             max(1, reps // 5), flush),
         "library_ms": _time_ms(lambda: torch.matmul(planes, w_dense), reps, flush),
     }
-    row["bound_ms"], row["bound_by"] = _bound(args, bm, fuse)
+    row["bound_ms"], row["bound_by"] = _bound(args, bm, fuse, tmap)
     return row
 
 
-def _check_case(label, a, plan, n_out, fuse, flush=None):
-    """Kernel vs plain version on one synthetic input; timed when ``flush``
-    is given.  Returns the measurement row."""
+def _dense_parity(label, a, w, Tc, fuse):
+    """Dense kernel (1 or 2) vs its plain version; returns (err, flips)."""
+    import torch
+
+    from repro_torch.kernels import ftp_spmm
+
+    o_p = ftp_spmm.ftp_spmm_plain(a, w, Tc)
+    if fuse:
+        c_k, u_k = ftp_spmm.ftp_spmm_fused_lif(a, w, Tc)
+    else:
+        c_k, u_k = ftp_spmm.ftp_spmm(a, w, Tc), None
+    torch.cuda.synchronize()
+    return _hold(label, c_k, u_k, o_p, fuse)
+
+
+def _dense_measure(a, w, Tc, fuse, flush, reps):
+    import torch
+
+    from repro_torch.kernels import ftp_spmm
+
+    if fuse:
+        kern = lambda: ftp_spmm.ftp_spmm_fused_lif(a, w, Tc)
+        plain = lambda: ftp_spmm.ftp_spmm_fused_lif_plain(a, w, Tc)
+    else:
+        kern = lambda: ftp_spmm.ftp_spmm(a, w, Tc)
+        plain = lambda: ftp_spmm.ftp_spmm_plain(a, w, Tc)
+    planes, wb = _planes(a, Tc), w.to(torch.bfloat16)
+    row = {"ms": _time_ms(kern, reps, flush),
+           "plain_ms": _time_ms(plain, max(1, reps // 5), flush),
+           "library_ms": _time_ms(lambda: torch.matmul(planes, wb), reps, flush)}
+    row["bound_ms"], row["bound_by"] = _bound_dense(a, w, Tc, fuse)
+    return row
+
+
+def _fmt(row):
+    return (f", kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"matmul {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})" if "ms" in row else "")
+
+
+def _check_case(label, a, plan, n_out, fuse, flush=None, tmap=None, Tc=T):
+    """BSR kernel (kernel 4 with ``tmap``) vs plain version on one
+    synthetic input of ``Tc`` timesteps; timed when ``flush`` is given.
+    Returns the measurement row."""
     from repro_torch.kernels import ftp_spmm, ops
 
-    bm = ftp_spmm.pick_bm(a.shape[0])
+    Tc = tmap.numel() if tmap is not None else Tc
+    bm = ftp_spmm.pick_bm(a.shape[0], Tc)
     args = (a, plan.payload, plan.kidx, plan.vidx, plan.cnt,
-            ops._activity(a, bm, plan), n_out, T)
-    err, flips = _parity(label, args, bm, fuse)
-    row = {"case": label, "M": a.shape[0], "fuse_lif": fuse,
+            ops._activity(a, bm, plan), n_out, Tc)
+    err, flips = _parity(label, args, bm, fuse, tmap)
+    row = {"case": label, "M": a.shape[0], "T": Tc, "fuse_lif": fuse,
            "max_abs_err": err, "flips": flips}
     if flush is not None:
-        row.update(_measure(args, bm, fuse, flush, _dense_weight(args), 30))
-    log(f"{label}: max_abs_err {err:.3e}, flips {flips}"
-        + (f", kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-           f"matmul {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-           f"({row['bound_by']})" if "ms" in row else ""))
+        row.update(_measure(args, bm, fuse, flush, _dense_weight(args), 30, tmap))
+    log(f"{label}: max_abs_err {err:.3e}, flips {flips}{_fmt(row)}")
     return row
 
 
-def phase_kernel():
+def _ffn_weights(dev):
+    """llama3.2-1b's FFN shapes, block-pruned to density 0.3, bf16, with
+    their plans."""
+    import torch
+
+    from repro_torch.core.snn_layers import init_spiking_ffn
+    from repro_torch.kernels.join_plan import build_weight_plan
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    ffn = init_spiking_ffn(gen, 2048, 8192, weight_density=0.3,
+                           prune_block=(128, 128))
+    w_in, w_out = ffn["w_in"].to(torch.bfloat16), ffn["w_out"].to(torch.bfloat16)
+    return gen, w_in, w_out, build_weight_plan(w_in), build_weight_plan(w_out)
+
+
+def _spikes(gen, M, width, Tc=T, silent=()):
     import torch
 
     from repro_torch.core.lif import direct_encode
     from repro_torch.core.packing import pack_spikes
-    from repro_torch.core.snn_layers import init_spiking_ffn
+
+    x = torch.randn((M, width), generator=gen, device="cuda").to(torch.bfloat16)
+    words = pack_spikes(direct_encode(x, Tc))
+    for t in silent:
+        words = words & ~(1 << t)
+    return words
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels vs plain versions
+# ---------------------------------------------------------------------------
+
+def phase_kernel():
+    import torch
+
     from repro_torch.kernels.join_plan import build_weight_plan
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
-    D, F = 2048, 8192
-    ffn = init_spiking_ffn(gen, D, F, weight_density=0.3, prune_block=(128, 128))
-    w_in, w_out = ffn["w_in"].to(torch.bfloat16), ffn["w_out"].to(torch.bfloat16)
-    plan_in, plan_out = build_weight_plan(w_in), build_weight_plan(w_out)
+    gen, w_in, w_out, plan_in, plan_out = _ffn_weights(dev)
+    D, F = w_in.shape
     log(f"plans: W_in {plan_in.payload.shape[0]} of {plan_in.nkb * plan_in.nnb} "
         f"blocks, W_out {plan_out.payload.shape[0]} of "
         f"{plan_out.nkb * plan_out.nnb} blocks")
@@ -291,16 +448,14 @@ def phase_kernel():
         assert torch.equal(_dense_weight(args), w), "plan does not rebuild W"
     flush = _flush_buffer()
 
-    def spikes(M, width):
-        x = torch.randn((M, width), generator=gen, device=dev).to(torch.bfloat16)
-        return pack_spikes(direct_encode(x, T))
-
-    rows = []
+    rows, dense_rows = [], []
     for M in (4, 512):
-        rows.append(_check_case(f"W_in fused_lif M={M}", spikes(M, D), plan_in,
-                                F, True, flush))
-        rows.append(_check_case(f"W_out full_sums M={M}", spikes(M, F), plan_out,
-                                D, False, flush))
+        for label, a, w, plan, fuse in (
+                (f"W_in fused_lif M={M}", _spikes(gen, M, D), w_in, plan_in, True),
+                (f"W_out full_sums M={M}", _spikes(gen, M, F), w_out, plan_out,
+                 False)):
+            rows.append(_check_case(label, a, plan, w.shape[1], fuse, flush))
+            dense_rows.append(_check_dense_case(label, a, w, plan, fuse, flush))
     silent = torch.zeros((4, D), dtype=torch.int32, device=dev)
     for fuse in (True, False):
         _check_case(f"all-silent fuse_lif={fuse}", silent, plan_in, F, fuse)
@@ -309,24 +464,187 @@ def phase_kernel():
     plan_hole = build_weight_plan(holed)
     assert int(plan_hole.cnt[1]) == 0
     for fuse in (True, False):
-        _check_case(f"cnt==0 column block fuse_lif={fuse}", spikes(4, D),
+        _check_case(f"cnt==0 column block fuse_lif={fuse}", _spikes(gen, 4, D),
                     plan_hole, F, fuse)
-    return rows
+    for Tc in (16, 32):  # the deeper accumulator buckets, at full width
+        for M in (4, 512):
+            for label, width, w, plan, fuse in (
+                    (f"W_in fused_lif T={Tc} M={M}", D, w_in, plan_in, True),
+                    (f"W_out full_sums T={Tc} M={M}", F, w_out, plan_out, False)):
+                _deep_case(label, gen, M, width, w, plan, fuse, Tc)
+    return rows, dense_rows
+
+
+def _deep_case(label, gen, M, width, w, plan, fuse, Tc):
+    """Kernels 3, 1/2 and 4 at T = ``Tc`` on one full-width shape, each
+    against its plain version; kernel 4 (on an input whose planes 0-1 are
+    silent) also equal to kernel 3."""
+    import torch
+
+    from repro_torch.core.packing import timestep_activity_map
+    from repro_torch.kernels import ops
+    from repro_torch.serve.policy import PACKED_DUAL, PACKED_DUAL_ADAPTIVE
+
+    n_out = w.shape[1]
+    a = _spikes(gen, M, width, Tc)
+    _check_case(label, a, plan, n_out, fuse, Tc=Tc)
+    err, flips = _dense_parity(f"dense {label}", a, w, Tc, fuse)
+    log(f"dense {label}: max_abs_err {err:.3e}, flips {flips}")
+    a = _spikes(gen, M, width, Tc, (0, 1))
+    tmap = timestep_activity_map(a, Tc).to(torch.int32)
+    assert int(tmap.sum()) <= Tc - 2
+    _check_case(f"adaptive {label} planes 0-1 silent", a, plan, n_out, fuse,
+                tmap=tmap)
+    kw = dict(n_out=n_out, fuse_lif=fuse)
+    got = ops.dispatch(a, plan, PACKED_DUAL_ADAPTIVE, Tc, **kw)
+    want = ops.dispatch(a, plan, PACKED_DUAL, Tc, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+        f"{label}: kernel 4 != kernel 3 at min_spikes=1"
+
+
+def _check_dense_case(label, a, w, plan, fuse, flush):
+    """Kernels 1/2 vs their plain version on one synthetic input, equal to
+    kernel 3 on the same block-pruned weights, timed."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve.policy import PACKED_DENSE, PACKED_DUAL
+
+    label = f"dense {label}"
+    err, flips = _dense_parity(label, a, w, T, fuse)
+    got = ops.dispatch(a, w, PACKED_DENSE, T, fuse_lif=fuse)
+    want = ops.dispatch(a, plan, PACKED_DUAL, T, fuse_lif=fuse, n_out=w.shape[1])
+    same = (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            if fuse else torch.equal(got, want[0]))
+    assert same, f"{label}: dense kernel != BSR kernel on block-pruned weights"
+    row = {"case": label, "M": a.shape[0], "fuse_lif": fuse,
+           "max_abs_err": err, "flips": flips, "equals_bsr": same}
+    row.update(_dense_measure(a, w, T, fuse, flush, 30))
+    log(f"{label}: max_abs_err {err:.3e}, flips {flips}, == BSR kernel"
+        f"{_fmt(row)}")
+    return row
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serve
+# phase 4: smoke-size model, card vs CPU
 # ---------------------------------------------------------------------------
+
+def phase_small_cpu_vs_card():
+    """The smoke-size model served on the card and on the CPU (the kernels'
+    plain versions) from the same params, under the dual-sparse and the
+    dense-weight policy: the same greedy tokens."""
+    import numpy as np
+
+    from repro_torch.launch.serve import build_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import Engine, ExecutionPolicy
+
+    cfg = build_config("llama3_2_1b", smoke=True, spiking=True, weight_density=0.3)
+    model = build_model(cfg)
+    params = model.init(SEED, device="cpu")
+    prompts = list(np.random.default_rng(1).integers(0, cfg.vocab, size=(3, 8)))
+    for ws in ("dual_sparse", "dense"):
+        got, traces = {}, {}
+        for dev in ("cuda", "cpu"):
+            eng = Engine(model, params, max_len=16, max_slots=3, capture_logits=True,
+                         policy=ExecutionPolicy.for_arch(cfg, weight_sparsity=ws),
+                         device=dev)
+            got[dev] = eng.generate_batch(prompts, 6)
+            traces[dev] = np.stack([np.stack(eng.logit_traces[r])
+                                    for r in sorted(eng.logit_traces)])
+        for a, b in zip(got["cuda"], got["cpu"]):
+            np.testing.assert_array_equal(a, b)
+        # bf16 GEMM and f32 sums in other orders on the two devices: the same
+        # bound the CPU tests hold the jitted JAX reference to
+        drift = float(np.abs(traces["cuda"] - traces["cpu"]).max())
+        assert drift <= 0.25, drift
+        log(f"smoke-size model, {ws}: card and CPU emit the same tokens, "
+            f"max |logit drift| {drift:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# phases 5 and 6: full-width serves
+# ---------------------------------------------------------------------------
+
+def _record(names):
+    """Wrap the named kernel wrappers of `ftp_spmm` so every call's inputs
+    are kept; returns (calls, restore)."""
+    from repro_torch.kernels import ftp_spmm
+
+    calls = []
+    orig = {n: getattr(ftp_spmm, n) for n in names}
+
+    def wrap(name):
+        def recorded(*args, **kw):
+            calls.append((name, args, kw))
+            return orig[name](*args, **kw)
+        return recorded
+
+    for n in names:
+        setattr(ftp_spmm, n, wrap(n))
+
+    def restore():
+        for n, f in orig.items():
+            setattr(ftp_spmm, n, f)
+    return calls, restore
+
+
+def _serve(engine, prompts, label, record, expect):
+    """The counted serve: logits captured, every kernel call recorded, the
+    launch counts zeroed just before and read just after."""
+    import numpy as np
+
+    engine.metrics.reset()
+    engine.logit_traces = {}
+    calls, restore = _record(record)
+    try:
+        outs, counts = _counted(f"{label} serve",
+                                lambda: engine.generate_batch(prompts, GEN))
+    finally:
+        restore()
+    s = engine.summary()
+    forwards = s["prefill_batches"] + s["decode_batches"]
+    assert all(len(o) == GEN for o in outs), [len(o) for o in outs]
+    want = {k: v * engine.cfg.n_layers * forwards for k, v in expect.items()}
+    assert counts == {k: want.get(k, 0) for k in counts}, (counts, forwards)
+    assert sum(counts.values()) == len(calls)
+    traces = engine.logit_traces
+    assert len(traces) == REQUESTS and all(len(v) == GEN for v in traces.values())
+    got = np.stack([np.stack(traces[r]) for r in sorted(traces)])  # (B, GEN, V)
+    assert got.shape == (REQUESTS, GEN, engine.cfg.vocab) and np.isfinite(got).all()
+    return outs, got, calls, counts, forwards
+
+
+def _timed(engine, prompts, outs, label):
+    """TIMED_SERVES serves without logit capture: tokens unchanged; returns
+    (all summaries, the median-throughput one)."""
+    import numpy as np
+
+    engine.capture_logits = False
+    timed = []
+    for _ in range(TIMED_SERVES):
+        engine.metrics.reset()
+        again = engine.generate_batch(prompts, GEN)
+        for a, b in zip(again, outs):
+            np.testing.assert_array_equal(a, b)
+        timed.append(engine.summary())
+    tok_s = [t["throughput_tok_s"] for t in timed]
+    best = timed[tok_s.index(statistics.median(tok_s))]
+    log(f"{label} timed serves (no logit capture): {len(timed)} x "
+        f"{best['total_tokens']} tokens: tok/s {[round(x, 1) for x in tok_s]}, "
+        f"TTFT p50 ms {[round(t['ttft_s_p50'] * 1e3, 1) for t in timed]}; median "
+        f"run {best['wall_s']:.3f}s wall, stages {json.dumps(best['stage_s'])}")
+    return timed, best
+
 
 def phase_serve():
-    """The main path: full-width llama3.2-1b served by the engine.  The run
-    whose launches are counted captures its logits and records every
-    kernel call's inputs; the timed and profiled serves that follow run as
-    `launch/serve.py` does, without logit capture."""
+    """The main path: full-width llama3.2-1b served by the engine under
+    PACKED_DUAL.  The run whose launches are counted captures its logits and
+    records every kernel call's inputs; the timed and profiled serves that
+    follow run as `launch/serve.py` does, without logit capture."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels import ftp_spmm
     from repro_torch.launch.serve import build_config, generate
     from repro_torch.models.registry import build_model
     from repro_torch.serve import Engine, ExecutionPolicy
@@ -343,61 +661,60 @@ def phase_serve():
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     rng = np.random.default_rng(SEED)
     engine.generate_batch([rng.integers(0, cfg.vocab, size=(8,))], 2)  # warm-up
-    engine.metrics.reset()
-    engine.logit_traces = {}
     prompts = [rng.integers(0, cfg.vocab, size=(PROMPT,)).astype(np.int32)
                for _ in range(REQUESTS)]
-
-    calls = []  # (args, kwargs) of every kernel call of the counted run
-    kernel = ftp_spmm.ftp_spmm_bsr
-
-    def recorded(*args, **kw):
-        calls.append((args, kw))
-        return kernel(*args, **kw)
-
-    ftp_spmm.ftp_spmm_bsr = recorded
-    ftp_spmm.LAUNCHES = 0
-    try:
-        outs = engine.generate_batch(prompts, GEN)
-        torch.cuda.synchronize()
-    finally:
-        ftp_spmm.ftp_spmm_bsr = kernel
-    launches = ftp_spmm.LAUNCHES
-
-    s = engine.summary()
-    forwards = s["prefill_batches"] + s["decode_batches"]
-    assert all(len(o) == GEN for o in outs), [len(o) for o in outs]
-    assert launches == len(calls) == 2 * cfg.n_layers * forwards, (launches, forwards)
-    traces = engine.logit_traces
-    assert len(traces) == REQUESTS and all(len(v) == GEN for v in traces.values())
-    got = np.stack([np.stack(traces[r]) for r in sorted(traces)])  # (B, GEN, V)
-    assert got.shape == (REQUESTS, GEN, cfg.vocab) and np.isfinite(got).all()
+    outs, got, calls, counts, forwards = _serve(
+        engine, prompts, "dual-sparse", ["ftp_spmm_bsr"], {"ftp_bsr": 2})
     want = generate(model, engine.params,
                     torch.as_tensor(np.stack(prompts), device="cuda").long(),
                     model.init_cache(REQUESTS, PROMPT + GEN, device="cuda"), GEN,
                     spiking_mode="infer").cpu().numpy()
     for i in range(REQUESTS):
         np.testing.assert_array_equal(outs[i], want[i])
-    log(f"counted serve: {forwards} forwards, {launches} kernel launches; "
+    log(f"counted serve: {forwards} forwards, {counts['ftp_bsr']} kernel launches; "
         f"tokens identical to the greedy loop; sample {outs[0][:8].tolist()}")
     cpu_ref = _cpu_reference(model, cfg, params, prompts, outs, got)
-
-    engine.capture_logits = False
-    timed = []
-    for _ in range(TIMED_SERVES):
-        engine.metrics.reset()
-        again = engine.generate_batch(prompts, GEN)
-        for a, b in zip(again, outs):
-            np.testing.assert_array_equal(a, b)
-        timed.append(engine.summary())
-    tok_s = [t["throughput_tok_s"] for t in timed]
-    best = timed[tok_s.index(statistics.median(tok_s))]
-    log(f"timed serves (no logit capture): {len(timed)} x {best['total_tokens']} "
-        f"tokens: tok/s {[round(x, 1) for x in tok_s]}, TTFT p50 ms "
-        f"{[round(t['ttft_s_p50'] * 1e3, 1) for t in timed]}; median run "
-        f"{best['wall_s']:.3f}s wall, stages {json.dumps(best['stage_s'])}")
+    timed, best = _timed(engine, prompts, outs, "dual-sparse")
     prof = _profile(engine, prompts, best["wall_s"])
-    return {"launches": launches, "calls": calls, "cpu_reference": cpu_ref,
+    return {"launches": counts["ftp_bsr"], "calls": calls, "cpu_reference": cpu_ref,
+            "timed": timed, "median": best, "profile": prof,
+            "model": model, "params": params, "prompts": prompts, "outs": outs,
+            "logits": got, "engine": engine}
+
+
+def phase_serve_dense(dual):
+    """The dense-weight route at full width: the dual-sparse serve's params
+    and prompts under weight_sparsity='dense'."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import Engine, ExecutionPolicy
+
+    model, cfg = dual["model"], dual["model"].cfg
+    t0 = time.perf_counter()
+    engine = Engine(model, dual["params"], max_len=PROMPT + GEN, max_slots=REQUESTS,
+                    policy=ExecutionPolicy.for_arch(cfg, weight_sparsity="dense"),
+                    capture_logits=True)
+    torch.cuda.synchronize()
+    assert "plan_in" not in engine.params["layers"][0]["mlp"]
+    log(f"dense engine on the card: {time.perf_counter() - t0:.3f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    engine.generate_batch([np.arange(8) % cfg.vocab], 2)  # warm-up
+    outs, got, calls, counts, forwards = _serve(
+        engine, dual["prompts"], "dense-weight",
+        ["ftp_spmm", "ftp_spmm_fused_lif"],
+        {"ftp_spmm": 1, "ftp_spmm_fused_lif": 1})
+    for a, b in zip(outs, dual["outs"]):
+        np.testing.assert_array_equal(a, b)
+    diff = float(np.abs(got - dual["logits"]).max())
+    log(f"dense-weight serve: {forwards} forwards, launches {counts}; tokens equal "
+        f"the dual-sparse serve's; max |logit difference| from it {diff:.3e}")
+    # equal full sums (both kernels add in ascending k), the same GEMMs around
+    # them: the logits are the dual-sparse serve's, bit for bit
+    assert diff == 0.0, diff
+    timed, best = _timed(engine, dual["prompts"], outs, "dense-weight")
+    prof = _profile(engine, dual["prompts"], best["wall_s"])
+    return {"counts": counts, "calls": calls, "max_logit_diff_vs_dual": diff,
             "timed": timed, "median": best, "profile": prof}
 
 
@@ -448,41 +765,9 @@ def _cpu_reference(model, cfg, params, prompts, outs, got):
     return out
 
 
-def _replay(calls):
-    """Every kernel call of the counted serve again, on its own inputs:
-    kernel vs plain version, then kernel, plain version and library
-    yardstick timed against the call's bound.  Grouped by (M, fuse_lif):
-    W_in runs with the LIF fused, W_out without."""
-    import torch
-
-    from repro_torch.serve.batching import spike_sparsity
-
-    flush = _flush_buffer()
-    dense = {}
-    groups = {}
-    for n, (args, kw) in enumerate(calls):
-        args = args[:8]
-        bm, fuse = kw["bm"], kw["fuse_lif"]
-        label = f"serve {'W_in fused_lif' if fuse else 'W_out full_sums'} M={args[0].shape[0]}"
-        err, flips = _parity(f"{label} call {n}", args, bm, fuse)
-        key = args[1].data_ptr()
-        if key not in dense:
-            dense[key] = _dense_weight(args)
-        row = _measure(args, bm, fuse, flush, dense[key], 3)
-        g = groups.setdefault(label, {
-            "case": label, "M": args[0].shape[0], "fuse_lif": fuse,
-            "launches": 0, "max_abs_err": 0.0, "flips": 0, "ms": 0.0,
-            "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-            "bytes_bound_ms": 0.0, "active_blocks": 0.0, "spike_density": 0.0})
-        g["launches"] += 1
-        g["max_abs_err"] = max(g["max_abs_err"], err)
-        g["flips"] += flips
-        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
-            g[k] += row[k]
-        if row["bound_by"] == "bytes":
-            g["bytes_bound_ms"] += row["bound_ms"]
-        g["active_blocks"] += float((args[5] > 0).float().mean())
-        g["spike_density"] += 1.0 - spike_sparsity(args[0], T)
+def _group_rows(groups):
+    """Per-launch means of the replay groups, with the bound kind of the
+    larger share of the group's bound time."""
     rows = []
     for g in groups.values():
         n = g.pop("launches")
@@ -501,6 +786,65 @@ def _replay(calls):
     return rows
 
 
+def _add(groups, label, M, fuse, err, flips, row, active, density):
+    g = groups.setdefault(label, {
+        "case": label, "M": M, "fuse_lif": fuse,
+        "launches": 0, "max_abs_err": 0.0, "flips": 0, "ms": 0.0,
+        "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+        "bytes_bound_ms": 0.0, "active_blocks": 0.0, "spike_density": 0.0})
+    g["launches"] += 1
+    g["max_abs_err"] = max(g["max_abs_err"], err)
+    g["flips"] += flips
+    for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        g[k] += row[k]
+    if row["bound_by"] == "bytes":
+        g["bytes_bound_ms"] += row["bound_ms"]
+    g["active_blocks"] += active
+    g["spike_density"] += density
+
+
+def _replay(calls):
+    """Every BSR kernel call of the counted serve again, on its own inputs:
+    kernel vs plain version, then kernel, plain version and library
+    yardstick timed against the call's bound.  Grouped by (M, fuse_lif):
+    W_in runs with the LIF fused, W_out without."""
+    from repro_torch.serve.batching import spike_sparsity
+
+    flush = _flush_buffer()
+    dense, groups = {}, {}
+    for n, (_, args, kw) in enumerate(calls):
+        args = args[:8]
+        bm, fuse = kw["bm"], kw["fuse_lif"]
+        label = f"serve {'W_in fused_lif' if fuse else 'W_out full_sums'} M={args[0].shape[0]}"
+        err, flips = _parity(f"{label} call {n}", args, bm, fuse)
+        key = args[1].data_ptr()
+        if key not in dense:
+            dense[key] = _dense_weight(args)
+        row = _measure(args, bm, fuse, flush, dense[key], 3)
+        _add(groups, label, args[0].shape[0], fuse, err, flips, row,
+             float((args[5] > 0).float().mean()), 1.0 - spike_sparsity(args[0], T))
+    return _group_rows(groups)
+
+
+def _replay_dense(calls):
+    """Every dense-kernel call of the dense serve again, on its own inputs:
+    held against the plain version and timed against its bound."""
+    from repro_torch.serve.batching import spike_sparsity
+
+    flush = _flush_buffer()
+    groups = {}
+    for n, (name, args, _) in enumerate(calls):
+        a, w, Tc = args[:3]
+        fuse = name == "ftp_spmm_fused_lif"
+        label = (f"dense serve {'W_in fused_lif' if fuse else 'W_out full_sums'} "
+                 f"M={a.shape[0]}")
+        err, flips = _dense_parity(f"{label} call {n}", a, w, Tc, fuse)
+        row = _dense_measure(a, w, Tc, fuse, flush, 3)
+        _add(groups, label, a.shape[0], fuse, err, flips, row, 1.0,
+             1.0 - spike_sparsity(a, Tc))
+    return _group_rows(groups)
+
+
 def _profile(engine, prompts, unprofiled_wall):
     """One more serve of the same requests under torch.profiler: device
     busy time (kernels and copies of the one stream, summed) against the
@@ -514,22 +858,22 @@ def _profile(engine, prompts, unprofiled_wall):
 
     from repro_torch.kernels import ftp_spmm
 
-    n0 = ftp_spmm.LAUNCHES
+    n0 = sum(ftp_spmm.launch_counts().values())
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.generate_batch(prompts, GEN)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    n_launch = ftp_spmm.LAUNCHES - n0
+    n_launch = sum(ftp_spmm.launch_counts().values()) - n0
     by_name = Counter()
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] += e.device_time_total * 1e-6
     busy = sum(by_name.values())
-    bsr = sum(v for k, v in by_name.items() if "ftp_bsr" in k)
-    out = {"wall_s": wall, "device_busy_s": busy, "ftp_bsr_device_s": bsr,
-           "ftp_bsr_launches": n_launch,
-           "ftp_bsr_ms_per_launch": 1e3 * bsr / n_launch,
+    ftp = sum(v for k, v in by_name.items() if "ftp_" in k)
+    out = {"wall_s": wall, "device_busy_s": busy, "ftp_device_s": ftp,
+           "ftp_launches": n_launch,
+           "ftp_ms_per_launch": 1e3 * ftp / n_launch,
            "idle_share_profiled": 1.0 - busy / wall if busy else None,
            "idle_share_unprofiled": 1.0 - busy / unprofiled_wall if busy else None}
     if not busy:
@@ -537,85 +881,223 @@ def _profile(engine, prompts, unprofiled_wall):
         return out
     log(f"profile: device busy {busy:.3f}s; idle share {out['idle_share_profiled']:.3f} "
         f"of the profiled wall ({wall:.3f}s), {out['idle_share_unprofiled']:.3f} of "
-        f"the unprofiled one ({unprofiled_wall:.3f}s); ftp_bsr {bsr:.4f}s, "
-        f"{out['ftp_bsr_ms_per_launch']:.4f} ms per launch in the serve")
+        f"the unprofiled one ({unprofiled_wall:.3f}s); FTP kernels {ftp:.4f}s, "
+        f"{out['ftp_ms_per_launch']:.4f} ms per launch in the serve")
     for name, sec in by_name.most_common(12):
         log(f"  {sec * 1e3:9.3f} ms  {name[:110]}")
     return out
 
 
-def phase_small_cpu_vs_card():
-    """The smoke-size model served on the card and on the CPU (the kernels'
-    plain versions) from the same params: the same greedy tokens."""
+# ---------------------------------------------------------------------------
+# phase 7: kernel 4, the adaptive BSR kernel
+# ---------------------------------------------------------------------------
+
+def _plans_by_payload(params):
+    return {p.payload.data_ptr(): p for lp in params["layers"]
+            for p in (lp["mlp"]["plan_in"], lp["mlp"]["plan_out"])}
+
+
+def phase_adaptive(dual):
+    """Kernel 4 on the dual-sparse serve's calls through `ops.dispatch`
+    (its own counted path), bit-equal to kernel 3; lossy (min_spikes=2)
+    equal to kernel 3 on the masked input; full-width silent-front inputs
+    and the reference's T = 16 bench shape; timed."""
     import numpy as np
+    import torch
 
-    from repro_torch.launch.serve import build_config
-    from repro_torch.models.registry import build_model
-    from repro_torch.serve import Engine, ExecutionPolicy
+    from repro_torch.core.packing import (
+        mask_low_activity_timesteps,
+        timestep_activity_map,
+    )
+    from repro_torch.kernels import ftp_spmm, ops
+    from repro_torch.kernels.join_plan import build_weight_plan
+    from repro_torch.serve.batching import spike_sparsity
+    from repro_torch.serve.policy import (
+        PACKED_DUAL,
+        PACKED_DUAL_ADAPTIVE,
+        ExecutionPolicy,
+        adaptive_t,
+        approximate,
+    )
 
-    cfg = build_config("llama3_2_1b", smoke=True, spiking=True, weight_density=0.3)
-    model = build_model(cfg)
-    params = model.init(SEED, device="cpu")
-    prompts = list(np.random.default_rng(1).integers(0, cfg.vocab, size=(3, 8)))
-    got, traces = {}, {}
-    for dev in ("cuda", "cpu"):
-        eng = Engine(model, params, max_len=16, max_slots=3, capture_logits=True,
-                     policy=ExecutionPolicy.for_arch(cfg), device=dev)
-        got[dev] = eng.generate_batch(prompts, 6)
-        traces[dev] = np.stack([np.stack(eng.logit_traces[r])
-                                for r in sorted(eng.logit_traces)])
-    for a, b in zip(got["cuda"], got["cpu"]):
-        np.testing.assert_array_equal(a, b)
-    # bf16 GEMM and f32 sums in other orders on the two devices: the same
-    # bound the CPU tests hold the jitted JAX reference to
-    drift = float(np.abs(traces["cuda"] - traces["cpu"]).max())
-    assert drift <= 0.25, drift
-    log(f"smoke-size model: card and CPU emit the same tokens, "
-        f"max |logit drift| {drift:.3e}")
+    plans = _plans_by_payload(dual["engine"].params)
+    calls = []
+    for _, args, kw in dual["calls"]:
+        a, payload, n_out, Tc, v_th, tau = (args[0], args[1], args[6], args[7],
+                                            args[8], args[9])
+        calls.append((a, plans[payload.data_ptr()], n_out, Tc, v_th, tau,
+                      kw["fuse_lif"]))
+
+    def path():
+        return [ops.dispatch(a, plan, PACKED_DUAL_ADAPTIVE, Tc, n_out=n_out,
+                             fuse_lif=fuse, v_th=v_th, tau=tau)
+                for a, plan, n_out, Tc, v_th, tau, fuse in calls]
+
+    outs, counts = _counted("adaptive replay of the serve", path)
+    assert counts == {"ftp_bsr": 0, "ftp_bsr_adaptive": len(calls),
+                      "ftp_spmm": 0, "ftp_spmm_fused_lif": 0}, counts
+    lossy = ExecutionPolicy(spike_format="packed", weight_sparsity="dual_sparse",
+                            temporal=adaptive_t(2), exactness=approximate(8.0))
+    n_live, n_lossy_differs = [], 0
+    for (a, plan, n_out, Tc, v_th, tau, fuse), got in zip(calls, outs):
+        kw = dict(n_out=n_out, fuse_lif=fuse, v_th=v_th, tau=tau)
+        want = ops.dispatch(a, plan, PACKED_DUAL, Tc, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+            "kernel 4 != kernel 3 at min_spikes=1 on a serve call"
+        n_live.append(int(timestep_activity_map(a, Tc).sum()))
+        lo = ops.dispatch(a, plan, lossy, Tc, **kw)
+        masked = mask_low_activity_timesteps(a, Tc, 2)
+        n_lossy_differs += int(not torch.equal(masked, a))
+        mo = ops.dispatch(masked, plan, PACKED_DUAL, Tc, **kw)
+        assert torch.equal(lo[0], mo[0]) and torch.equal(lo[1], mo[1]), \
+            "kernel 4 at min_spikes=2 != kernel 3 on the masked input"
+    log(f"kernel 4 == kernel 3 on all {len(calls)} serve calls; live planes per "
+        f"call {min(n_live)}..{max(n_live)} of {T}; min_spikes=2 == kernel 3 on "
+        f"the masked input ({n_lossy_differs} calls had a plane masked)")
+
+    # replay timing, grouped as in phase 5
+    flush = _flush_buffer()
+    groups, dense = {}, {}
+    for n, (a, plan, n_out, Tc, v_th, tau, fuse) in enumerate(calls):
+        bm = ftp_spmm.pick_bm(a.shape[0], Tc)
+        tmap = timestep_activity_map(a, Tc).to(torch.int32)
+        args = (a, plan.payload, plan.kidx, plan.vidx, plan.cnt,
+                ops._activity(a, bm, plan), n_out, Tc, v_th, tau)
+        label = (f"adaptive serve {'W_in fused_lif' if fuse else 'W_out full_sums'} "
+                 f"M={a.shape[0]}")
+        err, flips = _parity(f"{label} call {n}", args[:8], bm, fuse, tmap)
+        key = plan.payload.data_ptr()
+        if key not in dense:
+            dense[key] = _dense_weight(args)
+        row = _measure(args[:8], bm, fuse, flush, dense[key], 3, tmap)
+        _add(groups, label, a.shape[0], fuse, err, flips, row,
+             float((args[5] > 0).float().mean()), 1.0 - spike_sparsity(a, Tc))
+    served = _group_rows(groups)
+
+    # synthetic: full width with silent front planes, and the bench shape
+    dev = torch.device("cuda")
+    gen, w_in, w_out, plan_in, plan_out = _ffn_weights(dev)
+    cases = []
+    for M in (4, 512):
+        for label, a, plan, n_out, fuse in (
+                (f"W_in fused_lif M={M}", _spikes(gen, M, 2048, T, (0, 1)), plan_in,
+                 8192, True),
+                (f"W_out full_sums M={M}", _spikes(gen, M, 8192, T, (0, 1)),
+                 plan_out, 2048, False)):
+            tmap = timestep_activity_map(a, T).to(torch.int32)
+            assert int(tmap.sum()) <= T - 2
+            cases.append(_check_case(f"adaptive {label} planes 0-1 silent", a,
+                                     plan, n_out, fuse, flush, tmap))
+            want = ops.dispatch(a, plan, PACKED_DUAL, T, n_out=n_out, fuse_lif=fuse)
+            got = ops.dispatch(a, plan, PACKED_DUAL_ADAPTIVE, T, n_out=n_out,
+                               fuse_lif=fuse)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # the reference's adaptive bench row (benchmarks/kernels_bench.py:127)
+    Tb, Mb, Kb, Nb = 16, 128, 2304, 512
+    rng = np.random.default_rng(0)
+    spk = rng.random((Tb, Mb, Kb)) < 0.15
+    spk[:12] = False
+    words = torch.zeros((Mb, Kb), dtype=torch.int64)
+    for t in range(Tb):
+        words |= torch.from_numpy(spk[t]).to(torch.int64) << t
+    a = words.to(torch.int32).to(dev)
+    from repro_torch.core.snn_layers import prune_by_magnitude
+
+    w = prune_by_magnitude(torch.from_numpy(rng.normal(size=(Kb, Nb)).astype(
+        np.float32)).to(dev), 0.03)
+    plan = build_weight_plan(w, bk=256, bn=256)
+    tmap = timestep_activity_map(a, Tb).to(torch.int32)
+    assert int(tmap.sum()) == 4
+    bench = _check_case("adaptive bench T=16 M=128 K=2304 N=512", a, plan, Nb,
+                        True, flush, tmap)
+    full = _check_case("full bench T=16 M=128 K=2304 N=512", a, plan, Nb, True,
+                       flush, Tc=Tb)
+    got = ops.dispatch(a, plan, PACKED_DUAL_ADAPTIVE, Tb, n_out=Nb, fuse_lif=True)
+    want = ops.dispatch(a, plan, PACKED_DUAL, Tb, n_out=Nb, fuse_lif=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    lo = ops.dispatch(a, plan, lossy, Tb, n_out=Nb, fuse_lif=True)
+    mo = ops.dispatch(mask_low_activity_timesteps(a, Tb, 2), plan, PACKED_DUAL,
+                      Tb, n_out=Nb, fuse_lif=True)
+    assert torch.equal(lo[0], mo[0]) and torch.equal(lo[1], mo[1])
+    log(f"bench shape: adaptive {bench['ms']:.4f} ms vs full {full['ms']:.4f} ms "
+        f"({full['ms'] / bench['ms']:.2f}x), both == on the outputs")
+    return {"launches": counts["ftp_bsr_adaptive"], "served": served,
+            "cases": cases + [bench, full]}
+
+
+def _headline(rows):
+    """Per-launch means over a path's replay groups, weighted by launches."""
+    n = sum(r["launches"] for r in rows)
+    mean = {k: sum(r[k] * r["launches"] for r in rows) / n
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    bytes_share = sum(r["bound_ms"] * r["launches"] for r in rows
+                      if r["bound_by"] == "bytes") / (mean["bound_ms"] * n)
+    mean["bound_by"] = "bytes" if bytes_share >= 0.5 else "operations"
+    return n, mean
+
+
+def _entry(name, launches, rows, extra):
+    n, mean = _headline(rows)
+    log(f"{name}: {n} replayed launches, kernel {mean['ms']:.4f} ms per launch "
+        f"against a bound of {mean['bound_ms']:.4f} ms ({mean['bound_by']})")
+    src, replaces = KERNELS[name]
+    return dict({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                 "launches": launches,
+                 "max_abs_err": max(r["max_abs_err"] for r in rows + extra),
+                 "ms": mean["ms"], "plain_ms": mean["plain_ms"],
+                 "bound_ms": mean["bound_ms"], "bound_by": mean["bound_by"],
+                 "library_ms": mean["library_ms"]})
+
+
+def _serve_summary(s):
+    med = s["median"]
+    return {"tok_s": med["throughput_tok_s"], "ttft_s_p50": med["ttft_s_p50"],
+            "wall_s": med["wall_s"], "stage_s": med["stage_s"],
+            "tok_s_runs": [t["throughput_tok_s"] for t in s["timed"]],
+            "ttft_s_p50_runs": [t["ttft_s_p50"] for t in s["timed"]],
+            "profile": s["profile"]}
 
 
 def main() -> int:
     t0 = time.perf_counter()
     phase_device()
     phase_build()
-    rows = phase_kernel()
+    rows, dense_rows = phase_kernel()
     phase_small_cpu_vs_card()
-    serve = phase_serve()
-    served = _replay(serve["calls"])
+    dual = phase_serve()
+    served = _replay(dual["calls"])
+    dense = phase_serve_dense(dual)
+    dense_served = _replay_dense(dense["calls"])
+    adaptive = phase_adaptive(dual)
     import torch
 
-    # headline: the mean launch of the counted serve, on its own inputs
-    n = sum(r["launches"] for r in served)
-    mean = {k: sum(r[k] * r["launches"] for r in served) / n
-            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    bytes_share = sum(r["bound_ms"] * r["launches"] for r in served
-                      if r["bound_by"] == "bytes") / (mean["bound_ms"] * n)
-    med = serve["median"]
-    log(f"serve mix: {n} launches, kernel {mean['ms']:.4f} ms per launch against "
-        f"a bound of {mean['bound_ms']:.4f} ms (replayed, L2 flushed); "
-        f"{serve['profile'].get('ftp_bsr_ms_per_launch', float('nan')):.4f} ms "
-        "per launch inside the profiled serve")
-    kernels = [{
-        "name": "ftp_bsr",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ftp_bsr.cu",
-        "replaces": REPLACES,
-        "launches": serve["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows + served),
-        "ms": mean["ms"],
-        "plain_ms": mean["plain_ms"],
-        "bound_ms": mean["bound_ms"],
-        "bound_by": "bytes" if bytes_share >= 0.5 else "operations",
-        "library_ms": mean["library_ms"],
-        "serve_cases": served,
-        "cases": rows,
-        "serve": {"tok_s": med["throughput_tok_s"], "ttft_s_p50": med["ttft_s_p50"],
-                  "wall_s": med["wall_s"], "stage_s": med["stage_s"],
-                  "tok_s_runs": [t["throughput_tok_s"] for t in serve["timed"]],
-                  "ttft_s_p50_runs": [t["ttft_s_p50"] for t in serve["timed"]],
-                  "cpu_reference": serve["cpu_reference"],
-                  "profile": serve["profile"]},
-    }]
+    ratios = {}
+    for d in dense_served:
+        twin = next(r for r in served if r["case"] == d["case"].removeprefix("dense "))
+        ratios[twin["case"]] = d["ms"] / twin["ms"]
+    ratios["serve_tok_s_dual_over_dense"] = (dual["median"]["throughput_tok_s"]
+                                             / dense["median"]["throughput_tok_s"])
+    log(f"dense / dual-sparse kernel time per launch at the serve's shapes: "
+        f"{json.dumps({k: round(v, 3) for k, v in ratios.items()})}")
+    bsr = _entry("ftp_bsr", dual["launches"], served, rows)
+    bsr.update(serve_cases=served, cases=rows,
+               serve=dict(_serve_summary(dual), cpu_reference=dual["cpu_reference"]))
+    kernels = [bsr]
+    for name, fuse in (("ftp_spmm", False), ("ftp_spmm_fused_lif", True)):
+        mine = [r for r in dense_served if r["fuse_lif"] == fuse]
+        entry = _entry(name, dense["counts"][name], mine,
+                       [r for r in dense_rows if r["fuse_lif"] == fuse])
+        entry.update(serve_cases=mine,
+                     cases=[r for r in dense_rows if r["fuse_lif"] == fuse])
+        kernels.append(entry)
+    kernels[-1].update(serve=dict(_serve_summary(dense),
+                                  max_logit_diff_vs_dual=dense["max_logit_diff_vs_dual"]),
+                       dense_over_dual=ratios)
+    ad = _entry("ftp_bsr_adaptive", adaptive["launches"], adaptive["served"],
+                adaptive["cases"])
+    ad.update(serve_cases=adaptive["served"], cases=adaptive["cases"])
+    kernels.append(ad)
+    assert all(k["launches"] > 0 for k in kernels), [k["launches"] for k in kernels]
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {

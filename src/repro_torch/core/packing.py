@@ -64,3 +64,44 @@ def block_activity_map(packed: torch.Tensor, bm: int, bk: int) -> torch.Tensor:
         raise ValueError(f"shape {(M, K)} not divisible by block {(bm, bk)}")
     blocks = packed.reshape(M // bm, bm, K // bk, bk)
     return (blocks != 0).any(dim=3).any(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Timestep (bit-plane) activity: the temporal third of the join.  A plane
+# whose bit is clear in every word contributes exactly zero to every sum,
+# so skipping its work is bitwise (the LIF still walks all T).  Scoring is
+# popcount arithmetic over the words already on the device.
+# ---------------------------------------------------------------------------
+
+def timestep_popcount(packed: torch.Tensor, T: int) -> torch.Tensor:
+    """Per-timestep spike totals of a packed tensor: (...) int32 words ->
+    (T,) int32, entry t = number of words with bit t set."""
+    if T > MAX_T:
+        raise ValueError(f"T={T} exceeds MAX_T={MAX_T}")
+    return unpack_spikes(packed, T, torch.int32).reshape(T, -1).sum(
+        1, dtype=torch.int32)
+
+
+def timestep_activity_map(
+    packed: torch.Tensor, T: int, min_spikes: int = 1
+) -> torch.Tensor:
+    """(...) packed words -> (T,) bool, True where timestep plane t carries
+    at least ``min_spikes`` spikes in total.  ``min_spikes=1`` marks exactly
+    the all-silent planes inactive (skipping them is bitwise); larger
+    thresholds also drop near-silent planes (approximate)."""
+    return timestep_popcount(packed, T) >= min_spikes
+
+
+def mask_low_activity_timesteps(
+    packed: torch.Tensor, T: int, min_spikes: int = 1
+) -> torch.Tensor:
+    """Clear the bits of every timestep plane scoring below ``min_spikes``;
+    bits at t >= T are preserved untouched.  Identity for ``min_spikes=1``
+    and idempotent.  Computed on the words' device, with no host copy."""
+    keep = timestep_activity_map(packed, T, min_spikes).to(torch.int64)
+    planes = torch.arange(T, dtype=torch.int64, device=packed.device)
+    live = (keep << planes).sum()
+    above_t = 0xFFFFFFFF & ~((1 << T) - 1)
+    bits = live | above_t                     # 0 .. 2**32 - 1
+    bits = torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32)
+    return packed & bits

@@ -2,8 +2,11 @@
 `repro.core.snn_layers`, main-path parts).
 
 * **train**: float {0,1} spikes, surrogate-gradient LIF, differentiable.
-* **infer**: packed int32 spike words through the dual-sparse BSR kernel,
-  driven by load-time `WeightJoinPlan`s.
+* **infer**: packed int32 spike words.  With load-time `WeightJoinPlan`s
+  both GEMMs run through the dual-sparse BSR kernel; without plans they run
+  against the dense weights: through the dense-weight FTP kernels when the
+  words are on the card, through the plain `ftp_layer` / `ftp_spmspm` when
+  they are on the CPU.  The route follows the tensors' device alone.
 
 `spiking_ffn_apply` is the drop-in transformer MLP replacement: direct
 encoding in, rate decoding out.  Pruning happens once, at init/load; the
@@ -16,7 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .ftp import ftp_spmspm_unpacked
+from .ftp import ftp_layer, ftp_spmspm, ftp_spmspm_unpacked
 from .lif import DEFAULT_TAU, DEFAULT_VTH, direct_encode, lif_forward, rate_decode
 from .packing import pack_spikes
 
@@ -90,6 +93,25 @@ def freeze_pruned(w: torch.Tensor) -> torch.Tensor:
     return w * (w != 0).to(w.dtype).detach()
 
 
+def spiking_linear_infer(
+    packed: torch.Tensor, w: torch.Tensor, cfg: SpikingConfig
+) -> torch.Tensor:
+    """(M, K) packed words x (K, N) dense weights -> (M, N) packed words
+    (one LoAS layer): the fused dense-weight kernel (kernel 2) for words on
+    the card, the plain `ftp_layer` for words on the CPU."""
+    if packed.is_cuda:
+        from repro_torch.kernels import ops
+        from repro_torch.serve.policy import PACKED_DENSE
+
+        out_packed, _ = ops.dispatch(
+            packed, w, PACKED_DENSE, cfg.T,
+            fuse_lif=True, v_th=cfg.v_th, tau=cfg.tau,
+        )
+        return out_packed
+    out_packed, _ = ftp_layer(packed, w, cfg.T, v_th=cfg.v_th, tau=cfg.tau)
+    return out_packed
+
+
 def init_spiking_ffn(
     generator: torch.Generator,
     d_model: int,
@@ -127,6 +149,50 @@ def attach_join_plans(params: dict, cfg: SpikingConfig) -> dict:
     )
 
 
+def spiking_ffn_apply_packed(
+    params: dict,
+    packed_in: torch.Tensor,
+    cfg: SpikingConfig,
+    plans: tuple | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Spike-domain FFN: (..., d_model) packed int32 words in, (analog out
+    (..., d_model), packed hidden words (..., d_ff)).
+
+    Callers that already hold packed words skip the direct encode and keep
+    the hidden activations packed.  With plans (argument or attached) both
+    GEMMs run dual-sparse through the BSR kernel; without, against the dense
+    weights (`_ffn_dense`)."""
+    w_in, w_out = params["w_in"], params["w_out"]
+    if plans is None:
+        plans = (params.get("plan_in"), params.get("plan_out"))
+    plan_in, plan_out = plans
+    lead = packed_in.shape[:-1]
+    pm = packed_in.reshape(-1, packed_in.shape[-1])
+    if plan_in is not None:
+        packed_h, o = _ffn_dual_sparse(pm, plan_in, plan_out, w_in, w_out, cfg)
+    else:
+        packed_h, o = _ffn_dense(pm, w_in, w_out, cfg)
+    return rate_decode(o).reshape(*lead, -1), packed_h.reshape(*lead, -1)
+
+
+def _ffn_dense(pm, w_in, w_out, cfg: SpikingConfig):
+    """Both FFN GEMMs against the dense weights: the dense-weight kernels
+    (fused P-LIF on the hidden layer, full sums on the output layer) for
+    words on the card, the plain FTP layer and contraction for words on the
+    CPU.  Returns (packed hidden words (M, F), full sums (T, M, D))."""
+    if pm.is_cuda:
+        from repro_torch.kernels import ops
+        from repro_torch.serve.policy import PACKED_DENSE
+
+        packed_h, _ = ops.dispatch(
+            pm, w_in, PACKED_DENSE, cfg.T,
+            fuse_lif=True, v_th=cfg.v_th, tau=cfg.tau,
+        )
+        return packed_h, ops.dispatch(packed_h, w_out, PACKED_DENSE, cfg.T)
+    packed_h, _ = ftp_layer(pm, w_in, cfg.T, cfg.v_th, cfg.tau)
+    return packed_h, ftp_spmspm(packed_h, w_out, cfg.T)
+
+
 def _ffn_dual_sparse(pm, plan_in, plan_out, w_in, w_out, cfg: SpikingConfig):
     """Both FFN GEMMs through the dual-sparse BSR kernel: fused P-LIF on the
     hidden layer (packed words out), full sums on the output layer.
@@ -155,9 +221,11 @@ def spiking_ffn_apply(
     """x: (..., d_model) analog activations -> (..., d_model).
 
     direct-encode(x) -> spikes --W_in--> LIF -> spikes --W_out--> full sums
-    -> rate decode.  ``infer`` needs the (plan_in, plan_out) pair (argument
-    or attached by `attach_join_plans`): both GEMMs then run through the
-    dual-sparse BSR kernel."""
+    -> rate decode.  In ``infer`` mode a (plan_in, plan_out) pair (argument
+    or attached by `attach_join_plans`) runs both GEMMs through the
+    dual-sparse BSR kernel; without plans they run against the dense
+    weights: the dense-weight kernels on the card, the plain FTP path on the
+    CPU."""
     w_in, w_out = params["w_in"], params["w_out"]
     if plans is None:
         plans = (params.get("plan_in"), params.get("plan_out"))
@@ -173,13 +241,11 @@ def spiking_ffn_apply(
         )
         o = ftp_spmspm_unpacked(hidden, w_out)
     elif mode == "infer":
-        if plan_in is None:
-            raise NotImplementedError(
-                "infer mode without join plans runs the dense-weight FTP "
-                "kernels, which are not ported yet; attach plans "
-                "(attach_join_plans) — see ROADMAP.md"
-            )
-        _, o = _ffn_dual_sparse(pack_spikes(spikes_in), plan_in, plan_out, w_in, w_out, cfg)
+        packed_in = pack_spikes(spikes_in)
+        if plan_in is not None:
+            _, o = _ffn_dual_sparse(packed_in, plan_in, plan_out, w_in, w_out, cfg)
+        else:
+            _, o = _ffn_dense(packed_in, w_in, w_out, cfg)
     else:
         raise ValueError(f"unknown mode {mode!r}")
     return rate_decode(o).reshape(*lead, -1).to(x.dtype)

@@ -1,11 +1,12 @@
-"""Build and load the port's CUDA kernel library.
+"""Build and load the port's CUDA kernel libraries.
 
-``kernels/csrc/ftp_bsr.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ctypes.  The build
-happens at first use, from the checkout's sources only, into
-``<repo>/build/kernels/`` (listed in .gitignore).  The library name carries a
-hash of the source and the flags, so a second run with the same sources
-loads the library it finds instead of building again.
+Every ``kernels/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library of its own with a plain C interface, loaded with ctypes.
+The builds happen at first use, from the checkout's sources only, into
+``<repo>/build/kernels/`` (listed in .gitignore), one ``nvcc`` process per
+source, all started together.  A library's name carries a hash of its
+source, the shared headers and the flags, so a second run with the same
+sources loads the library it finds instead of building again.
 """
 from __future__ import annotations
 
@@ -18,12 +19,17 @@ import subprocess
 import time
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "ftp_bsr.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+
+def sources() -> dict[str, Path]:
+    """{library name: source} for every ``csrc/*.cu``."""
+    return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
 
 
 def _nvcc() -> str:
@@ -37,35 +43,54 @@ def _nvcc() -> str:
     return str(path)
 
 
-def library_path() -> Path:
-    key = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"libftp_bsr-{key}.so"
+def library_path(name: str) -> Path:
+    src = sources()[name]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> dict:
-    """Build the kernel library if it is missing.  Returns {"path",
-    "seconds", "log"} (log = nvcc's output, with ``-Xptxas -v``'s registers,
-    shared memory and spills; empty when the library was already built)."""
-    lib = library_path()
-    if lib.exists():
-        return {"path": str(lib), "seconds": 0.0, "log": ""}
+def build() -> dict[str, dict]:
+    """Build every kernel library that is missing, one ``nvcc`` per source,
+    in parallel.  Returns {name: {"path", "seconds", "log"}} (log = nvcc's
+    output, with ``-Xptxas -v``'s registers, shared memory and spills;
+    empty when the library was already built)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{proc.stdout}")
-    os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
-    return {"path": str(lib), "seconds": time.perf_counter() - t0,
-            "log": proc.stdout}
+    nvcc = None
+    out, running = {}, {}
+    for name, src in sources().items():
+        lib = library_path(name)
+        if lib.exists():
+            out[name] = {"path": str(lib), "seconds": 0.0, "log": ""}
+            continue
+        nvcc = nvcc or _nvcc()
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        running[name] = (proc, tmp, lib, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, lib, t0) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+        out[name] = {"path": str(lib), "seconds": time.perf_counter() - t0,
+                     "log": log}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
 @functools.cache
-def load() -> ctypes.CDLL:
-    """The loaded kernel library, built first if missing."""
-    return ctypes.CDLL(build()["path"])
+def load(name: str) -> ctypes.CDLL:
+    """The loaded kernel library built from ``csrc/<name>.cu`` (every
+    missing library is built first)."""
+    path = library_path(name)
+    if not path.exists():
+        build()
+    return ctypes.CDLL(str(path))

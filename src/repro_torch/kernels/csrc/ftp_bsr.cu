@@ -2,7 +2,8 @@
 // (sm_90a), with a plain C interface loaded through ctypes.
 //
 // Replaces: src/repro/kernels/ftp_spmm.py::_ftp_bsr_kernel (entered through
-// ftp_spmm_bsr with tmap=None), both settings of fuse_lif.
+// ftp_spmm_bsr with tmap=None) and ::_ftp_bsr_adaptive_kernel (tmap given),
+// both settings of fuse_lif.
 //
 // What it computes, for output tile (row tile i, column block j):
 //   acc[t, r, n] = sum over live join slots jj < cnt[j], ascending, skipping
@@ -13,6 +14,13 @@
 //                 u = tau * x * (1 - c)); writes packed spike words (M, N)
 //                 (bit t = c_t) and the final U (M, N).
 //   fuse_lif = 0: writes the full sums (T, M, N) and a zero U (M, N).
+//   adaptive (tmap != NULL): the add of plane t is skipped wherever
+//                 tmap[t] == 0 (the spike word is masked to the live
+//                 planes before its bits are read); the LIF epilogue still
+//                 walks all T.  A plane the map gates at min_spikes = 1 has
+//                 no bit set anywhere, so the adds that remain, and their
+//                 order, are the full kernel's: the outputs are equal bit
+//                 for bit.
 //
 // What bounds it on the H100: at decode (M = batch rows, a handful) the
 // bytes of the weight payload it must stream (one bf16 128x128 block is
@@ -37,31 +45,31 @@
 // Ragged rows (M not a multiple of the row tile), K tails and columns past
 // n_out are masked here: the host pads nothing.
 //
+// T may be anything up to the 32 bits of a word.  The accumulator depth is
+// a template bucket (TMAX = 8, 16 or 32, the smallest that holds T), and the
+// rows a thread owns shrink as it grows (4 rows at TMAX 8, 2 above), so the
+// (RPT x TMAX) f32 accumulator stays within the register file.  The
+// accumulate step, the LIF epilogue and the bucket dispatch are shared with
+// ftp_dense.cu (ftp_common.cuh).
+//
 // A simple SIMT kernel: wgmma/TMA/mma.sync come in later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ftp_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kCols = 32;   // output columns per thread block: one per lane
-constexpr int kMaxT = 8;
+using ftp::kCols;
+using ftp::kThreads;
+using ftp::kWarps;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename W, int RPT>
+template <typename W, int RPT, int TMAX, bool ADAPTIVE>
 __global__ void __launch_bounds__(kThreads) ftp_bsr_kernel(
     const int32_t* __restrict__ a, int M, int K,
     const W* __restrict__ payload, int bk, int bn,
     const int32_t* __restrict__ kidx, const int32_t* __restrict__ vidx,
     const int32_t* __restrict__ cnt, int jmax,
     const int32_t* __restrict__ act, int nkb,
+    const int32_t* __restrict__ tmap,
     int n_out, int T, float v_th, float tau, int fuse_lif,
     void* __restrict__ out, float* __restrict__ u_out) {
   constexpr int BM = kWarps * RPT;
@@ -77,11 +85,18 @@ __global__ void __launch_bounds__(kThreads) ftp_bsr_kernel(
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  float acc[RPT][kMaxT];
+  uint32_t live_planes = 0xFFFFFFFFu;
+  if (ADAPTIVE) {
+    live_planes = 0u;
+    for (int t = 0; t < T; ++t)
+      if (tmap[t] > 0) live_planes |= 1u << t;
+  }
+
+  float acc[RPT][TMAX];
 #pragma unroll
   for (int r = 0; r < RPT; ++r)
 #pragma unroll
-    for (int t = 0; t < kMaxT; ++t) acc[r][t] = 0.f;
+    for (int t = 0; t < TMAX; ++t) acc[r][t] = 0.f;
 
   const int n_slots = cnt[j];
   for (int jj = 0; jj < n_slots; ++jj) {
@@ -104,14 +119,12 @@ __global__ void __launch_bounds__(kThreads) ftp_bsr_kernel(
     __syncthreads();
 
     for (int kk = 0; kk < bk; ++kk) {
-      const float w = to_f32(w_s[kk * kCols + lane]);
+      const float w = ftp::to_f32(w_s[kk * kCols + lane]);
 #pragma unroll
       for (int r = 0; r < RPT; ++r) {
-        const uint32_t word = (uint32_t)a_s[(warp * RPT + r) * bk + kk];
-        if (word == 0u) continue;  // silent neuron: warp-uniform skip
-#pragma unroll
-        for (int t = 0; t < kMaxT; ++t)
-          if (t < T && ((word >> t) & 1u)) acc[r][t] = __fadd_rn(acc[r][t], w);
+        uint32_t word = (uint32_t)a_s[(warp * RPT + r) * bk + kk];
+        if (ADAPTIVE) word &= live_planes;  // gated planes add nothing
+        ftp::accumulate(acc[r], word, w, T);
       }
     }
     __syncthreads();
@@ -125,73 +138,70 @@ __global__ void __launch_bounds__(kThreads) ftp_bsr_kernel(
     if (row >= M) continue;
     const size_t at = (size_t)row * n_out + col;
     if (fuse_lif) {
-      float u = 0.f;
-      uint32_t packed = 0u;
-#pragma unroll
-      for (int t = 0; t < kMaxT; ++t) {
-        if (t < T) {
-          // _rn intrinsics: never contracted into an FMA, so the epilogue
-          // rounds exactly like the plain version's separate ops.
-          const float x = __fadd_rn(acc[r][t], u);
-          const bool c = x > v_th;
-          u = __fmul_rn(__fmul_rn(tau, x), c ? 0.f : 1.f);
-          packed |= (uint32_t)c << t;
-        }
-      }
-      reinterpret_cast<int32_t*>(out)[at] = (int32_t)packed;
-      u_out[at] = u;
+      reinterpret_cast<int32_t*>(out)[at] =
+          (int32_t)ftp::lif(acc[r], T, v_th, tau, &u_out[at]);
     } else {
       float* o = reinterpret_cast<float*>(out);
 #pragma unroll
-      for (int t = 0; t < kMaxT; ++t)
+      for (int t = 0; t < TMAX; ++t)
         if (t < T) o[(size_t)t * M * n_out + at] = acc[r][t];
       u_out[at] = 0.f;
     }
   }
 }
 
-template <typename W, int RPT>
-int launch(const void* a, int M, int K, const void* payload, int bk, int bn,
-           const void* kidx, const void* vidx, const void* cnt, int nnb,
-           int jmax, const void* act, int nkb, int n_out, int T, float v_th,
-           float tau, int fuse_lif, void* out, void* u_out,
-           cudaStream_t stream) {
-  constexpr int BM = kWarps * RPT;
-  const dim3 grid(nnb * (bn / kCols), (M + BM - 1) / BM);
-  const size_t smem = (size_t)bk * kCols * sizeof(W) + (size_t)BM * bk * 4;
-  ftp_bsr_kernel<W, RPT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const int32_t*>(a), M, K, static_cast<const W*>(payload),
-      bk, bn, static_cast<const int32_t*>(kidx),
-      static_cast<const int32_t*>(vidx), static_cast<const int32_t*>(cnt),
-      jmax, static_cast<const int32_t*>(act), nkb, n_out, T, v_th, tau,
-      fuse_lif, out, static_cast<float*>(u_out));
-  return (int)cudaGetLastError();
-}
+template <typename W>
+struct Launch {
+  template <int RPT, int TMAX>
+  static int run(const void* a, int M, int K, const void* payload, int bk,
+                 int bn, const void* kidx, const void* vidx, const void* cnt,
+                 int nnb, int jmax, const void* act, int nkb,
+                 const void* tmap, int n_out, int T, float v_th, float tau,
+                 int fuse_lif, void* out, void* u_out, cudaStream_t stream) {
+    constexpr int BM = kWarps * RPT;
+    const dim3 grid(nnb * (bn / kCols), (M + BM - 1) / BM);
+    const size_t smem = (size_t)bk * kCols * sizeof(W) + (size_t)BM * bk * 4;
+#define FTP_BSR_KERNEL_ARGS                                                  \
+  static_cast<const int32_t*>(a), M, K, static_cast<const W*>(payload), bk, \
+      bn, static_cast<const int32_t*>(kidx),                                 \
+      static_cast<const int32_t*>(vidx), static_cast<const int32_t*>(cnt),   \
+      jmax, static_cast<const int32_t*>(act), nkb,                           \
+      static_cast<const int32_t*>(tmap), n_out, T, v_th, tau, fuse_lif, out, \
+      static_cast<float*>(u_out)
+    if (tmap != nullptr)
+      ftp_bsr_kernel<W, RPT, TMAX, true>
+          <<<grid, kThreads, smem, stream>>>(FTP_BSR_KERNEL_ARGS);
+    else
+      ftp_bsr_kernel<W, RPT, TMAX, false>
+          <<<grid, kThreads, smem, stream>>>(FTP_BSR_KERNEL_ARGS);
+#undef FTP_BSR_KERNEL_ARGS
+    return (int)cudaGetLastError();
+  }
+};
 
 }  // namespace
 
 extern "C" {
 
-// Row tile of the kernel for rows_per_thread: bm = 4 * rows_per_thread.
-// payload_bf16: 1 = bf16 payload, 0 = f32.  Returns cudaGetLastError().
+// Row tile of the kernel: bm = 4 * rows_per_thread (1 or 4 for T <= 8, 1 or
+// 2 for 8 < T <= 32).  payload_bf16: 1 = bf16 payload, 0 = f32.  tmap: NULL
+// for the full temporal walk, else a (T,) int32 device map (adaptive).
+// Returns cudaGetLastError().
 int ftp_bsr_launch(const void* a, int M, int K, const void* payload,
                    int payload_bf16, int bk, int bn, const void* kidx,
                    const void* vidx, const void* cnt, int nnb, int jmax,
-                   const void* act, int nkb, int rows_per_thread, int n_out,
-                   int T, float v_th, float tau, int fuse_lif, void* out,
-                   void* u_out, void* stream) {
+                   const void* act, int nkb, const void* tmap,
+                   int rows_per_thread, int n_out, int T, float v_th,
+                   float tau, int fuse_lif, void* out, void* u_out,
+                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FTP_BSR_ARGS a, M, K, payload, bk, bn, kidx, vidx, cnt, nnb, jmax, \
-    act, nkb, n_out, T, v_th, tau, fuse_lif, out, u_out, s
-  if (payload_bf16) {
-    if (rows_per_thread == 1) return launch<__nv_bfloat16, 1>(FTP_BSR_ARGS);
-    if (rows_per_thread == 4) return launch<__nv_bfloat16, 4>(FTP_BSR_ARGS);
-  } else {
-    if (rows_per_thread == 1) return launch<float, 1>(FTP_BSR_ARGS);
-    if (rows_per_thread == 4) return launch<float, 4>(FTP_BSR_ARGS);
-  }
+    act, nkb, tmap, n_out, T, v_th, tau, fuse_lif, out, u_out, s
+  if (payload_bf16)
+    return ftp::launch_bucket<Launch<__nv_bfloat16>>(rows_per_thread, T,
+                                                     FTP_BSR_ARGS);
+  return ftp::launch_bucket<Launch<float>>(rows_per_thread, T, FTP_BSR_ARGS);
 #undef FTP_BSR_ARGS
-  return (int)cudaErrorInvalidValue;
 }
 
 const char* ftp_bsr_error_string(int code) {

@@ -1,11 +1,19 @@
-"""Dual-sparse FTP spMspM: the Hopper kernel's wrapper and its plain torch
-version (port of `repro.kernels.ftp_spmm.ftp_spmm_bsr` with ``tmap=None``).
+"""The FTP kernels' wrappers and their plain torch versions (port of
+`repro.kernels.ftp_spmm`).
 
-`ftp_spmm_bsr` launches the CUDA kernel in ``csrc/ftp_bsr.cu`` for CUDA
-tensors and runs `ftp_spmm_bsr_plain` only for tensors on the CPU.  There is
-no fallback: a CUDA input the kernel does not take raises.  ``LAUNCHES``
-counts kernel launches (not plain-version calls), so a run can show that its
-main path went through the kernel.
+* `ftp_spmm` / `ftp_spmm_fused_lif`: packed spikes x dense weights, full
+  sums or the fused P-LIF (kernels 1 and 2 of the reference, one CUDA
+  kernel in ``csrc/ftp_dense.cu``);
+* `ftp_spmm_bsr`: dual-sparse, against a load-time weight join plan
+  (kernel 3, ``csrc/ftp_bsr.cu``); with a timestep-activity map ``tmap`` it
+  launches the adaptive instance of the same kernel (kernel 4).
+
+Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
+version only for tensors on the CPU.  There is no fallback: a CUDA input a
+kernel does not take raises.  One integer per kernel counts its launches
+(not plain-version calls), so a run can show that its main path went
+through the kernel: ``LAUNCHES`` (kernel 3), ``ADAPTIVE_LAUNCHES`` (4),
+``SPMM_LAUNCHES`` (1) and ``SPMM_LIF_LAUNCHES`` (2).
 """
 from __future__ import annotations
 
@@ -15,53 +23,180 @@ import functools
 import torch
 
 from repro_torch.core.lif import DEFAULT_TAU, DEFAULT_VTH
-from repro_torch.core.packing import unpack_spikes
+from repro_torch.core.packing import MAX_T, unpack_spikes
 
 from . import _build
+from .ref import ftp_spmm_fused_lif_ref as ftp_spmm_fused_lif_plain
+from .ref import ftp_spmm_ref as ftp_spmm_plain
 from .ref import lif_ref
 
-LAUNCHES = 0
+LAUNCHES = 0           # kernel 3: ftp_bsr, every timestep plane
+ADAPTIVE_LAUNCHES = 0  # kernel 4: ftp_bsr gated by a timestep-activity map
+SPMM_LAUNCHES = 0      # kernel 1: ftp_dense, full sums
+SPMM_LIF_LAUNCHES = 0  # kernel 2: ftp_dense, fused P-LIF
 
-# The kernel's row tile: bm = 4 warps x rows per thread.  Small tiles keep
+
+def launch_counts() -> dict[str, int]:
+    """{kernel name: launches} of the four kernels."""
+    return {"ftp_bsr": LAUNCHES, "ftp_bsr_adaptive": ADAPTIVE_LAUNCHES,
+            "ftp_spmm": SPMM_LAUNCHES, "ftp_spmm_fused_lif": SPMM_LIF_LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    global LAUNCHES, ADAPTIVE_LAUNCHES, SPMM_LAUNCHES, SPMM_LIF_LAUNCHES
+    LAUNCHES = ADAPTIVE_LAUNCHES = SPMM_LAUNCHES = SPMM_LIF_LAUNCHES = 0
+
+
+# The kernels' row tile: bm = 4 warps x rows per thread.  Small tiles keep
 # decode (M = batch rows) from computing masked rows; large tiles read each
-# payload block once per 16 rows in prefill.
-_SMALL_BM, _LARGE_BM = 4, 16
-_MAX_T = 8        # accumulator depth compiled into the kernel
+# weight tile once per 16 (T <= 8) or 8 (T <= 32: the deeper accumulator
+# leaves room for fewer rows per thread) rows in prefill.
+_SMALL_BM = 4
 _COLS = 32        # output columns per thread block
-_MAX_BK = 256     # keeps the kernel's shared memory under the 48 KB default
+_MAX_BK = 256     # keeps the BSR kernel's shared memory under the 48 KB default
+_MAX_ROW_TILES = 65535  # the grid's y extent
 
 
-def pick_bm(M: int) -> int:
-    """Row tile for M rows.  Outputs do not depend on it: the accumulation
-    order of every output element is fixed by the join list alone."""
-    return _LARGE_BM if M >= 256 else _SMALL_BM
+def _large_bm(T: int) -> int:
+    return 16 if T <= 8 else 8
+
+
+def pick_bm(M: int, T: int) -> int:
+    """Row tile for M rows at T timesteps.  Outputs do not depend on it: the
+    accumulation order of every output element is fixed by k alone."""
+    return _large_bm(T) if M >= 256 else _SMALL_BM
+
+
+def _check_T(T: int) -> None:
+    if not 1 <= T <= MAX_T:
+        raise ValueError(f"the kernels take 1 <= T <= {MAX_T}, got {T}")
 
 
 @functools.cache
-def _kernel_lib() -> ctypes.CDLL:
-    """The kernel library (built at first use) with its C signature set."""
-    lib = _build.load()
+def _kernel_lib(name: str) -> ctypes.CDLL:
+    """A kernel library (built at first use) with its C signatures set."""
+    lib = _build.load(name)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ftp_bsr_launch.argtypes = [
-        p, i, i, p, i, i, i, p, p, p, i, i, p, i, i, i, i, f, f, i, p, p, p,
-    ]
-    lib.ftp_bsr_launch.restype = i
-    lib.ftp_bsr_error_string.argtypes = [i]
-    lib.ftp_bsr_error_string.restype = ctypes.c_char_p
+    if name == "ftp_bsr":
+        lib.ftp_bsr_launch.argtypes = [
+            p, i, i, p, i, i, i, p, p, p, i, i, p, i, p, i, i, i, f, f, i,
+            p, p, p,
+        ]
+        lib.ftp_bsr_launch.restype = i
+    else:
+        lib.ftp_dense_launch.argtypes = [
+            p, i, i, p, i, i, i, i, i, f, f, i, p, p, p,
+        ]
+        lib.ftp_dense_launch.restype = i
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [i]
+    err.restype = ctypes.c_char_p
     return lib
 
 
-def _check(a, payload, kidx, vidx, cnt, act, n_out, bm):
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = getattr(_kernel_lib(name), f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")
+
+
+# ---------------------------------------------------------------------------
+# kernels 1 and 2: packed spikes x dense weights
+# ---------------------------------------------------------------------------
+
+def _check_dense(a: torch.Tensor, b: torch.Tensor, T: int):
+    if a.dtype != torch.int32 or a.ndim != 2 or not a.is_contiguous():
+        raise ValueError("spikes must be a contiguous (M, K) int32 tensor")
+    if b.device != a.device:
+        raise ValueError(f"weights are on {b.device}, spikes on {a.device}")
+    if b.dtype not in (torch.bfloat16, torch.float32) or b.ndim != 2:
+        raise ValueError(f"weights must be (K, N) bf16 or f32, got {b.dtype}")
+    if not b.is_contiguous():
+        raise ValueError("weights must be contiguous")
+    if b.shape[0] != a.shape[1]:
+        raise ValueError(f"spikes {tuple(a.shape)} do not meet weights "
+                         f"{tuple(b.shape)}")
+    _check_T(T)
+
+
+def _dense_launch(a, b, T, v_th, tau, fuse_lif):
+    if a.device.type != "cuda":
+        raise ValueError(f"no ftp_dense kernel for device {a.device}")
+    M, K = a.shape
+    N = b.shape[1]
+    bm = pick_bm(M, T)
+    if min(M, K, N) < 1 or -(-M // bm) > _MAX_ROW_TILES:
+        raise ValueError(f"the kernel takes 1 <= M <= {_MAX_ROW_TILES} row "
+                         f"tiles and K, N >= 1, got {(M, K, N)}")
+    if fuse_lif:
+        out = torch.empty((M, N), dtype=torch.int32, device=a.device)
+        u = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    else:
+        out = torch.empty((T, M, N), dtype=torch.float32, device=a.device)
+        u = None
+    vec_ok = b.data_ptr() % 16 == 0 and (N * b.element_size()) % 16 == 0
+    rc = _kernel_lib("ftp_dense").ftp_dense_launch(
+        a.data_ptr(), M, K, b.data_ptr(), int(b.dtype == torch.bfloat16), N,
+        int(vec_ok), bm // 4, T, float(v_th), float(tau), int(fuse_lif),
+        out.data_ptr(), None if u is None else u.data_ptr(),
+        torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    _raise_on(rc, "ftp_dense")
+    return out, u
+
+
+def ftp_spmm(a: torch.Tensor, b: torch.Tensor, T: int) -> torch.Tensor:
+    """(M, K) int32 packed spikes x (K, N) bf16/f32 dense weights -> (T, M,
+    N) f32 full sums (kernel 1)."""
+    _check_dense(a, b, T)
+    if a.device.type == "cpu":
+        return ftp_spmm_plain(a, b, T)
+    out, _ = _dense_launch(a, b, T, DEFAULT_VTH, DEFAULT_TAU, False)
+    global SPMM_LAUNCHES
+    SPMM_LAUNCHES += 1
+    return out
+
+
+def ftp_spmm_fused_lif(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    T: int,
+    v_th: float = DEFAULT_VTH,
+    tau: float = DEFAULT_TAU,
+):
+    """(M, K) int32 packed spikes x (K, N) dense weights -> (packed spikes
+    (M, N) int32, final U (M, N) f32): kernel 1 with the hard-reset P-LIF
+    fused into its epilogue (kernel 2); the full sums never leave the
+    registers."""
+    _check_dense(a, b, T)
+    if a.device.type == "cpu":
+        return ftp_spmm_fused_lif_plain(a, b, T, v_th, tau)
+    out = _dense_launch(a, b, T, v_th, tau, True)
+    global SPMM_LIF_LAUNCHES
+    SPMM_LIF_LAUNCHES += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernels 3 and 4: dual-sparse, against a load-time weight join plan
+# ---------------------------------------------------------------------------
+
+def _check(a, payload, kidx, vidx, cnt, act, n_out, bm, T, tmap):
     dev = a.device
-    for name, t in (("payload", payload), ("kidx", kidx), ("vidx", vidx),
-                    ("cnt", cnt), ("act", act)):
+    named = [("payload", payload), ("kidx", kidx), ("vidx", vidx),
+             ("cnt", cnt), ("act", act)]
+    if tmap is not None:
+        named.append(("tmap", tmap))
+        if tmap.shape != (T,):
+            raise ValueError(f"tmap must be ({T},), got {tuple(tmap.shape)}")
+    for name, t in named:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, spikes on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if a.dtype != torch.int32 or a.ndim != 2 or not a.is_contiguous():
         raise ValueError("spikes must be a contiguous (M, K) int32 tensor")
-    for name, t in (("kidx", kidx), ("vidx", vidx), ("cnt", cnt), ("act", act)):
+    for name, t in named[1:]:
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
     if payload.dtype not in (torch.bfloat16, torch.float32) or payload.ndim != 3:
@@ -75,6 +210,7 @@ def _check(a, payload, kidx, vidx, cnt, act, n_out, bm):
         raise ValueError(f"act {tuple(act.shape)} does not tile {(M, K)} by bm={bm}")
     if not 0 < n_out <= nnb * bn:
         raise ValueError(f"n_out={n_out} outside the plan's {nnb * bn} columns")
+    _check_T(T)
     return M, K, bk, bn, nnb
 
 
@@ -92,6 +228,7 @@ def ftp_spmm_bsr(
     *,
     bm: int,
     fuse_lif: bool = True,
+    tmap: torch.Tensor | None = None,
 ):
     """Dual-sparse FTP spMspM over a load-time weight join plan.
 
@@ -100,59 +237,69 @@ def ftp_spmm_bsr(
     kidx, vidx: (nnb, jmax) int32 join lists; cnt: (nnb,) int32 live slots.
     act:     (ceil(M/bm), nkb) int32 spike block-activity map for row tile
              ``bm`` (>0 where the (bm, bk) spike block has a non-silent word).
+    tmap:    optional (T,) int32 timestep-activity map: planes with
+             ``tmap[t] == 0`` add nothing (kernel 4); the LIF still walks
+             all T.  None walks every plane (kernel 3).
 
     Returns (packed spikes (M, n_out) int32, final U (M, n_out) f32) when
     ``fuse_lif``, else ((T, M, n_out) f32 full sums, zeros (M, n_out))."""
-    M, K, bk, bn, nnb = _check(a, payload, kidx, vidx, cnt, act, n_out, bm)
+    M, K, bk, bn, nnb = _check(a, payload, kidx, vidx, cnt, act, n_out, bm,
+                               T, tmap)
     if a.device.type == "cpu":
         return ftp_spmm_bsr_plain(a, payload, kidx, vidx, cnt, act, n_out, T,
-                                  v_th, tau, bm=bm, fuse_lif=fuse_lif)
+                                  v_th, tau, bm=bm, fuse_lif=fuse_lif,
+                                  tmap=tmap)
     if a.device.type != "cuda":
         raise ValueError(f"no ftp_bsr kernel for device {a.device}")
-    if bm not in (_SMALL_BM, _LARGE_BM):
-        raise ValueError(f"the kernel's row tile is {_SMALL_BM} or {_LARGE_BM}, got {bm}")
-    if not 1 <= T <= _MAX_T:
-        raise ValueError(f"the kernel takes 1 <= T <= {_MAX_T}, got {T}")
+    if bm not in (_SMALL_BM, _large_bm(T)):
+        raise ValueError(f"the kernel's row tile at T={T} is {_SMALL_BM} or "
+                         f"{_large_bm(T)}, got {bm}")
     if bn % _COLS or bk > _MAX_BK or payload.data_ptr() % 16:
         raise ValueError(
             f"the kernel needs bn % {_COLS} == 0, bk <= {_MAX_BK} and a "
             f"16-byte aligned payload (bk={bk}, bn={bn})"
         )
-    lib = _kernel_lib()
+    if -(-M // bm) > _MAX_ROW_TILES:
+        raise ValueError(f"M={M} needs more than {_MAX_ROW_TILES} row tiles")
     if fuse_lif:
         out = torch.empty((M, n_out), dtype=torch.int32, device=a.device)
     else:
         out = torch.empty((T, M, n_out), dtype=torch.float32, device=a.device)
     u = torch.empty((M, n_out), dtype=torch.float32, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = lib.ftp_bsr_launch(
+    rc = _kernel_lib("ftp_bsr").ftp_bsr_launch(
         a.data_ptr(), M, K, payload.data_ptr(),
         int(payload.dtype == torch.bfloat16), bk, bn,
         kidx.data_ptr(), vidx.data_ptr(), cnt.data_ptr(), nnb, kidx.shape[1],
-        act.data_ptr(), act.shape[1], bm // 4, n_out, T, float(v_th),
-        float(tau), int(fuse_lif), out.data_ptr(), u.data_ptr(), stream,
+        act.data_ptr(), act.shape[1],
+        None if tmap is None else tmap.data_ptr(), bm // 4, n_out, T,
+        float(v_th), float(tau), int(fuse_lif), out.data_ptr(), u.data_ptr(),
+        stream,
     )
-    if rc != 0:
-        msg = lib.ftp_bsr_error_string(rc).decode()
-        raise RuntimeError(f"ftp_bsr kernel launch failed: CUDA error {rc} ({msg})")
-    global LAUNCHES
-    LAUNCHES += 1
+    _raise_on(rc, "ftp_bsr")
+    global LAUNCHES, ADAPTIVE_LAUNCHES
+    if tmap is None:
+        LAUNCHES += 1
+    else:
+        ADAPTIVE_LAUNCHES += 1
     return out, u
 
 
 def ftp_spmm_bsr_plain(
     a, payload, kidx, vidx, cnt, act, n_out, T,
-    v_th=DEFAULT_VTH, tau=DEFAULT_TAU, *, bm, fuse_lif=True,
+    v_th=DEFAULT_VTH, tau=DEFAULT_TAU, *, bm, fuse_lif=True, tmap=None,
 ):
     """Plain torch version of the kernel: unpack -> per-join-slot block
     products in f32, ascending slot, every column block at once -> LIF.
-    Skips exactly what the kernel skips: dead join slots and spike blocks
-    the activity map marks silent."""
+    Skips exactly what the kernel skips: dead join slots, spike blocks the
+    activity map marks silent and, with ``tmap``, the gated planes."""
     M, K = a.shape
     _, bk, bn = payload.shape
     nnb, jmax = kidx.shape
     nkb = act.shape[1]
     planes = unpack_spikes(a, T, torch.float32)  # (T, M, K)
+    if tmap is not None:
+        planes = planes * (tmap > 0).to(torch.float32)[:, None, None]
     if K < nkb * bk:
         planes = torch.nn.functional.pad(planes, (0, nkb * bk - K))
     planes = planes.reshape(T, M, nkb, bk)

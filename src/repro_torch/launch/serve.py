@@ -8,6 +8,13 @@ dense transformer family, on the CUDA device by default.
 kernels' plain torch versions.  Params are drawn with a torch generator
 on the device (seed 0).  `generate` is the single-shot greedy loop
 the engine is held token-identical against.
+
+Policy flags: ``--weight-sparsity dense`` serves the spiking FFNs through
+the dense-weight kernels instead of the dual-sparse one; ``--temporal
+adaptive --min-spikes N`` adds the temporal axis (N > 1 drops real spikes
+and needs ``--exactness approximate --tol X``: the launcher then serves a
+bitwise reference engine too and reports the measured logit drift against
+the bound).
 """
 from __future__ import annotations
 
@@ -62,6 +69,26 @@ def main(argv=None) -> int:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--max-slots", type=int, default=0,
                     help="engine slot budget (0 = one slot per request)")
+    ap.add_argument("--weight-sparsity", choices=("dense", "dual_sparse"),
+                    default=None,
+                    help="policy.weight_sparsity (default: dual_sparse for "
+                         "packed + LTH-pruned archs)")
+    ap.add_argument("--exactness", choices=("bitwise", "approximate"),
+                    default="bitwise",
+                    help="policy.exactness: approximate bounds the logit "
+                         "drift of a lossy --temporal by --tol")
+    ap.add_argument("--tol", type=float, default=0.05,
+                    help="max logit drift allowed under --exactness "
+                         "approximate")
+    ap.add_argument("--temporal", choices=("full", "adaptive"),
+                    default="full",
+                    help="policy.temporal: adaptive = score each timestep "
+                         "bit-plane on the device and skip planes below "
+                         "--min-spikes; full = walk every timestep")
+    ap.add_argument("--min-spikes", type=int, default=1,
+                    help="minimum total spikes for a timestep plane under "
+                         "--temporal adaptive; 1 skips only all-silent "
+                         "planes (bitwise), >1 needs --exactness approximate")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain versions)")
@@ -70,12 +97,26 @@ def main(argv=None) -> int:
     from repro_torch import resolve_device
     from repro_torch.kernels import ftp_spmm
     from repro_torch.models.registry import build_model
-    from repro_torch.serve import Engine, ExecutionPolicy
+    from repro_torch.serve import (
+        Engine,
+        ExecutionPolicy,
+        Temporal,
+        adaptive_t,
+        approximate,
+        bitwise,
+        check_parity,
+    )
 
     cfg = build_config(args.arch, smoke=args.smoke, spiking=args.spiking,
                        weight_density=args.weight_density)
     device = resolve_device(args.device)
-    policy = ExecutionPolicy.for_arch(cfg)
+    policy = ExecutionPolicy.for_arch(
+        cfg, weight_sparsity=args.weight_sparsity,
+        exactness=(approximate(args.tol) if args.exactness == "approximate"
+                   else bitwise()),
+        temporal=(adaptive_t(args.min_spikes) if args.temporal == "adaptive"
+                  else Temporal()),
+    )
     print(f"policy: {policy.describe()}  device: {device}")
     model = build_model(cfg)
     params = model.init(0, device=device)
@@ -84,11 +125,34 @@ def main(argv=None) -> int:
                for _ in range(args.batch)]
     engine = Engine(model, params, max_len=args.prompt_len + args.gen,
                     max_slots=args.max_slots or args.batch, policy=policy,
-                    device=device)
-    launches0 = ftp_spmm.LAUNCHES
+                    capture_logits=not policy.token_identical, device=device)
+    before = ftp_spmm.launch_counts()
     outs = engine.generate_batch(prompts, args.gen)
     s = engine.summary()
-    s["ftp_bsr_launches"] = ftp_spmm.LAUNCHES - launches0
+    s["kernel_launches"] = {k: n - before[k]
+                            for k, n in ftp_spmm.launch_counts().items()}
+    if not policy.token_identical:
+        # drift against a bitwise run of the same prompts with the same
+        # spike format and weight sparsity: what --tol bounds is the lossy
+        # timestep skipping alone
+        ref_policy = dataclasses.replace(policy, exactness=bitwise(),
+                                         temporal=Temporal())
+        ref = Engine(model, params, max_len=args.prompt_len + args.gen,
+                     max_slots=args.max_slots or args.batch,
+                     policy=ref_policy, capture_logits=True, device=device)
+        ref_outs = ref.generate_batch(prompts, args.gen)
+        rep = check_parity(policy, ref_outs, outs,
+                           ref_logits=ref.drain_logit_traces(),
+                           got_logits=engine.drain_logit_traces())
+        # s["token_identical"] stays the policy's contract (False here)
+        s["max_logit_drift"] = rep["max_logit_drift"]
+        s["token_match_fraction"] = rep["token_match_fraction"]
+        print(f"approximate drift: max |logit drift| "
+              f"{rep['max_logit_drift']:.3e} <= tol {policy.exactness.tol} "
+              f"(token match {rep['token_match_fraction']:.0%})")
+    if policy.temporal.enabled:
+        print(f"temporal: {policy.temporal.describe()} — "
+              f"{s['timesteps_skipped']} timestep planes skipped")
     print(f"served {s['n_requests']} requests / {s['total_tokens']} tokens "
           f"in {s['wall_s']:.2f}s ({s['throughput_tok_s']:.1f} tok/s, "
           f"ttft_p50 {s['ttft_s_p50'] * 1e3:.0f}ms, "

@@ -211,7 +211,10 @@ def attach_spiking_ffn_plans(params: dict, cfg: ArchConfig) -> dict:
 def mlp_apply(p, x, cfg: ArchConfig, spiking_mode: str = "train"):
     """Spiking dual-sparse FFN under the FTP dataflow.  ``infer`` with
     attached plans routes both GEMMs through the dual-sparse BSR kernel;
-    ``train`` runs the differentiable float path."""
+    ``infer`` without plans runs them against the dense weights, through the
+    dense-weight kernels when the activations are on the card (the
+    reference turns its kernels on when its backend is the TPU); ``train``
+    runs the differentiable float path."""
     if not cfg.spiking_ffn:
         raise NotImplementedError(
             "the dense (non-spiking) MLP is a later slice; see ROADMAP.md"
@@ -227,7 +230,7 @@ def mlp_apply(p, x, cfg: ArchConfig, spiking_mode: str = "train"):
     plans = None
     if spiking_mode == "infer" and "plan_in" in p:
         plans = (p["plan_in"], p["plan_out"])  # the kernel reads only these
-    else:  # the float path contracts the compute-dtype values
+    else:  # the float and dense paths contract the compute-dtype values
         weights = {k: w.to(ct) for k, w in weights.items()}
     y = spiking_ffn_apply(weights, xc, scfg, mode=spiking_mode, plans=plans)
     return y.to(x.dtype)

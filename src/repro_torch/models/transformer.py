@@ -74,16 +74,19 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
 
 def prepare_params(cfg: ArchConfig, params: dict) -> dict:
     """Load-time casts the reference repeats inside every forward: the
-    attention matrices in the compute dtype, and the tied unembedding as
-    the f32 values of the compute-dtype embedding, transposed once.  The
-    values every forward sees are unchanged; only the per-call casts go.
-    The f32 embedding stays for the token lookup (`embed_tokens` casts the
-    gathered rows)."""
+    attention and FFN matrices in the compute dtype, and the tied
+    unembedding as the f32 values of the compute-dtype embedding,
+    transposed once.  The values every forward sees are unchanged; only the
+    per-call casts go.  The f32 embedding stays for the token lookup
+    (`embed_tokens` casts the gathered rows)."""
     ct = _ct(cfg)
-    layers = [
-        dict(lp, attn={k: w.to(ct) for k, w in lp["attn"].items()})
-        for lp in params["layers"]
-    ]
+
+    def cast(tree):
+        return {k: w.to(ct) if isinstance(w, torch.Tensor) else w
+                for k, w in tree.items()}
+
+    layers = [dict(lp, attn=cast(lp["attn"]), mlp=cast(lp["mlp"]))
+              for lp in params["layers"]]
     return dict(params, layers=layers,
                 unembed=_unembed_weight(params, cfg))
 

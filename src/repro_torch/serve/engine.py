@@ -16,7 +16,13 @@ The `ExecutionPolicy` picks the spiking FFN's execution:
 keeps a `PackedSpikeCache` of each slot's direct-encoded current token;
 ``weight_sparsity='dual_sparse'`` attaches per-layer `WeightJoinPlan`s at
 construction (host work, once), so both GEMMs of every spiking FFN run
-through the dual-sparse BSR kernel.
+through the dual-sparse BSR kernel; ``weight_sparsity='dense'`` attaches
+none, and they run through the dense-weight kernels.  Under
+``temporal='adaptive'`` the engine counts, at the encode boundary, the
+timestep planes the policy's scorer marks skippable
+(``timesteps_skipped``).  As in the reference, the served model's FFNs
+still walk every plane: the temporal axis reaches the kernels only
+through `kernels.ops.dispatch`.
 
 The engine runs on the CUDA device unless ``device`` names another one; it
 raises when there is no card and no device was named.
@@ -30,7 +36,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.lif import direct_encode
-from repro_torch.core.packing import pack_spikes
+from repro_torch.core.packing import pack_spikes, timestep_popcount
 
 from .batching import DenseCacheOps, PackedSpikeCache, spike_sparsity
 from .executor import SyncExecutor
@@ -89,7 +95,7 @@ class Engine:
         self.max_len = max_len
         self.eos_id = eos_id
         self.batch_align = batch_align
-        self.capture_logits = bool(capture_logits)
+        self.capture_logits = capture_logits
         self.logit_traces: dict[int, list[np.ndarray]] = {}
         self.metrics = EngineMetrics()
         self.cache_ops = DenseCacheOps(model.cache_axes())
@@ -156,7 +162,21 @@ class Engine:
         toks = torch.tensor([st.generated[-1] for st in cohort.slots],
                             dtype=torch.int64, device=self.device)
         x = self.params["embed"][toks].float()
-        return pack_spikes(direct_encode(x, self.cfg.spiking_T))
+        words = pack_spikes(direct_encode(x, self.cfg.spiking_T))
+        self.record_timestep_skips(words)
+        return words
+
+    def record_timestep_skips(self, words: torch.Tensor) -> None:
+        """Count the timestep planes of one packed batch that the policy's
+        temporal scorer marks skippable (``metrics.timesteps_skipped``):
+        the reference's rule, kept on the device (no host copy per step)."""
+        temporal = self.policy.temporal
+        if not temporal.enabled or words.numel() == 0:
+            return
+        counts = timestep_popcount(words, self.cfg.spiking_T)
+        self.metrics.timesteps_skipped = (
+            self.metrics.timesteps_skipped
+            + (counts < temporal.min_spikes).sum(dtype=torch.int64))
 
     def new_spike_cache(self) -> PackedSpikeCache:
         return PackedSpikeCache(self.cfg.spiking_T, self.cfg.d_model,
@@ -183,6 +203,13 @@ class Engine:
         """One decode step for a cohort; returns (device logits, cache)."""
         return self.model.decode(self.params, tokens.long(), cache,
                                  spiking_mode=self.spiking_mode)
+
+    def drain_logit_traces(self) -> list[list[np.ndarray]]:
+        """Per-request logit traces in rid order, clearing the store (pass
+        the result to `serve.policy.check_parity`)."""
+        out = [self.logit_traces[r] for r in sorted(self.logit_traces)]
+        self.logit_traces = {}
+        return out
 
     def _capture(self, slots: list[RequestState], logits) -> None:
         """Record each live slot's last-position logits (the vector whose
@@ -212,7 +239,7 @@ class Engine:
         s["rejected"] = self.scheduler.n_rejected
         s["device"] = str(self.device)
         s["policy"] = self.policy.describe()
-        s["exactness"] = "bitwise"
+        s["exactness"] = self.policy.exactness.mode
         s["execution"] = self.policy.execution
         s["token_identical"] = self.policy.token_identical
         if self.spiking_packed:
@@ -224,5 +251,5 @@ class Engine:
                 self.cfg.d_model * self.cfg.spiking_T * 4
             )
             s["dual_sparse"] = self.spiking_dual_sparse
-        s["temporal"] = self.policy.temporal
+        s["temporal"] = self.policy.temporal.describe()
         return s

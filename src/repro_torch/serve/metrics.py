@@ -42,6 +42,11 @@ class EngineMetrics:
     # per-stage wall time: admit / prefill / merge / decode / sample_sync /
     # encode / retire (sync: the per-step host wait lands in sample_sync)
     stage_s: dict[str, float] = field(default_factory=dict)
+    # temporal='adaptive': timestep planes of encoded spike batches scoring
+    # below the policy's min_spikes, counted at the encode boundary.  It
+    # accumulates on the device (an int, or a 0-d tensor once counted) and
+    # is read on the host only in `summary()`.
+    timesteps_skipped: object = 0
 
     def record(self, m: RequestMetrics) -> None:
         self.completed.append(m)
@@ -89,4 +94,5 @@ class EngineMetrics:
             "padded_rows": self.n_padded_rows,
             "max_queue_depth": self.max_queue_depth,
             "stage_s": {k: self.stage_s[k] for k in sorted(self.stage_s)},
+            "timesteps_skipped": int(self.timesteps_skipped),
         }

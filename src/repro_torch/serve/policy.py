@@ -1,21 +1,132 @@
 """`ExecutionPolicy`: one declarative serve/kernel execution policy (port of
-`repro.serve.policy`, main-path axes only).
+`repro.serve.policy`, the single-device axes).
 
 Ported axes: ``spike_format`` (float | packed), ``weight_sparsity``
-(dense | dual_sparse), ``execution`` (sync) and ``temporal`` (full).  The
-reference's other axes and values (placement/mesh, approximate exactness,
-pipelined execution, paging, adaptive temporal, speculation) are later
-slices of the port: asking for one raises `NotImplementedError`.
+(dense | dual_sparse), ``exactness`` (bitwise, or approximate(tol) as far as
+lossy temporal skipping needs it), ``execution`` (sync) and ``temporal``
+(full | adaptive(min_spikes)).  The reference's other axes and values
+(placement/mesh and the psum-TP approximation it enables, pipelined
+execution, paging, speculation) are later slices of the port: asking for
+one raises `NotImplementedError`.
+
+Also here, as in the reference: `check_parity`, `max_logit_drift` and
+`drift_report`, the assertion and the measurement of a policy's exactness
+contract between a reference run and a policy run.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+
+import numpy as np
 
 SPIKE_FORMATS = ("float", "packed")
 WEIGHT_SPARSITIES = ("dense", "dual_sparse")
+EXACTNESS_MODES = ("bitwise", "approximate")
+TEMPORAL_MODES = ("full", "adaptive")
 
 _LATER = "not ported yet; see the port's queue in ROADMAP.md"
 
+
+# ---------------------------------------------------------------------------
+# policy axes
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Exactness:
+    """The output contract of a serving run.
+
+    ``bitwise``: outputs are token-identical to the reference loop.
+    ``approximate``: greedy tokens may flip, but logit drift against the
+    bitwise reference is bounded by ``tol`` (asserted by `check_parity`)."""
+
+    mode: str = "bitwise"
+    tol: float = 0.0  # max |logit drift| allowed (approximate mode only)
+
+    def __post_init__(self):
+        if self.mode not in EXACTNESS_MODES:
+            raise ValueError(
+                f"exactness mode {self.mode!r} not in {EXACTNESS_MODES}"
+            )
+        if self.mode == "approximate" and not self.tol > 0.0:
+            raise ValueError(
+                "exactness='approximate' needs a positive drift bound: "
+                f"tol={self.tol!r} (use exactness.approximate(tol=...))"
+            )
+        if self.mode == "bitwise" and self.tol:
+            raise ValueError(
+                "exactness='bitwise' is token-identical by definition; "
+                f"tol={self.tol!r} is meaningless — drop it or use "
+                "approximate(tol)"
+            )
+
+
+def bitwise() -> Exactness:
+    """Token-identity contract (the default)."""
+    return Exactness("bitwise")
+
+
+def approximate(tol: float = 0.05) -> Exactness:
+    """Relaxed contract: logit drift <= tol instead of token identity."""
+    return Exactness("approximate", tol)
+
+
+@dataclass(frozen=True)
+class Temporal:
+    """The third sparsity axis: which timesteps the FTP kernels walk.
+
+    ``"full"``: every timestep plane of the packed payload is contracted.
+    ``"adaptive"``: a device-side scorer
+    (`core.packing.timestep_activity_map`) popcounts each timestep plane;
+    planes carrying fewer than ``min_spikes`` spikes in total add nothing
+    in the kernel.  ``min_spikes=1`` skips only all-silent planes and is
+    bitwise (the LIF still walks all T); ``min_spikes>1`` drops real spikes
+    and requires ``exactness=approximate(tol)``."""
+
+    mode: str = "full"
+    min_spikes: int = 1
+
+    def __post_init__(self):
+        if self.mode not in TEMPORAL_MODES:
+            raise ValueError(
+                f"temporal mode {self.mode!r} not in {TEMPORAL_MODES}"
+            )
+        if self.min_spikes < 1:
+            raise ValueError(
+                "temporal.min_spikes must be >= 1 (a plane can only be "
+                f"skipped for carrying too FEW spikes), got {self.min_spikes}"
+            )
+        if self.mode == "full" and self.min_spikes != 1:
+            raise ValueError(
+                "temporal='full' walks every timestep; min_spikes="
+                f"{self.min_spikes} is meaningless — use "
+                "temporal=adaptive_t(min_spikes=...)"
+            )
+
+    @property
+    def enabled(self) -> bool:
+        return self.mode == "adaptive"
+
+    @property
+    def lossy(self) -> bool:
+        """True when the scorer may drop planes that carry real spikes."""
+        return self.mode == "adaptive" and self.min_spikes > 1
+
+    def describe(self) -> str:
+        if self.mode == "full":
+            return "full"
+        return f"adaptive(min_spikes={self.min_spikes})"
+
+
+def adaptive_t(min_spikes: int = 1) -> Temporal:
+    """Adaptive temporal sparsity: skip timestep planes scoring below
+    ``min_spikes``.  The default (1) skips only all-silent planes and stays
+    bitwise."""
+    return Temporal("adaptive", min_spikes)
+
+
+# ---------------------------------------------------------------------------
+# the policy
+# ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
 class ExecutionPolicy:
@@ -25,14 +136,13 @@ class ExecutionPolicy:
 
     spike_format: str = "float"
     weight_sparsity: str = "dense"
+    exactness: Exactness = field(default_factory=bitwise)
     execution: str = "sync"
-    temporal: str = "full"
+    temporal: Temporal = field(default_factory=Temporal)
 
     def __post_init__(self):
         if self.execution != "sync":
             raise NotImplementedError(f"execution={self.execution!r} is {_LATER}")
-        if self.temporal != "full":
-            raise NotImplementedError(f"temporal={self.temporal!r} is {_LATER}")
         if self.spike_format not in SPIKE_FORMATS:
             raise ValueError(
                 f"spike_format {self.spike_format!r} not in {SPIKE_FORMATS}"
@@ -48,16 +158,41 @@ class ExecutionPolicy:
                 "kernel, which consumes packed spike words; it requires "
                 f"spike_format='packed' (got {self.spike_format!r})"
             )
+        if self.temporal.enabled and self.spike_format != "packed":
+            raise ValueError(
+                "temporal='adaptive' scores the packed timestep bit-planes; "
+                f"it requires spike_format='packed' (got {self.spike_format!r})"
+            )
+        if self.temporal.lossy and self.exactness.mode != "approximate":
+            raise ValueError(
+                f"temporal=adaptive(min_spikes={self.temporal.min_spikes}) "
+                "drops timestep planes that carry real spikes — an "
+                "approximation.  Pair it with exactness=approximate(tol) so "
+                "the drift is measured and bounded, or use min_spikes=1 "
+                "(skip only all-silent planes: provably bitwise)."
+            )
+        if self.exactness.mode == "approximate" and not self.temporal.lossy:
+            # the reference relaxes psum-TP reductions on a model axis here;
+            # the port has no mesh yet
+            raise NotImplementedError(
+                "exactness='approximate' without lossy temporal skipping "
+                "relaxes cross-shard reductions on a model axis, and the "
+                f"mesh placement is {_LATER}"
+            )
 
     @property
     def token_identical(self) -> bool:
-        """Every ported policy is bitwise (approximate is a later slice)."""
-        return True
+        """Whether this policy promises bitwise token identity."""
+        return self.exactness.mode == "bitwise"
 
     def describe(self) -> str:
+        ex = self.exactness.mode
+        if ex == "approximate":
+            ex += f"(tol={self.exactness.tol})"
         return (f"spike_format={self.spike_format!r}, "
-                f"weight_sparsity={self.weight_sparsity!r}, "
-                f"execution={self.execution!r}, temporal={self.temporal!r}")
+                f"weight_sparsity={self.weight_sparsity!r}, exactness={ex}, "
+                f"execution={self.execution!r}, "
+                f"temporal={self.temporal.describe()}")
 
     def validate_for(self, cfg) -> "ExecutionPolicy":
         """Arch-dependent checks (an `ArchConfig`); returns self."""
@@ -75,18 +210,16 @@ class ExecutionPolicy:
                     f"{cfg.spiking_weight_density} (unpruned); prune at init "
                     "(spiking_weight_density < 1) or use weight_sparsity='dense'"
                 )
-        elif self.spike_format == "packed":
-            raise NotImplementedError(
-                "spike_format='packed' with dense weights runs the "
-                f"dense-weight FTP kernels, which are {_LATER}"
-            )
         return self
 
     @classmethod
     def for_arch(cls, cfg, *, spike_format: str | None = None,
-                 weight_sparsity: str | None = None) -> "ExecutionPolicy":
+                 weight_sparsity: str | None = None,
+                 exactness: Exactness | None = None,
+                 temporal: Temporal | None = None) -> "ExecutionPolicy":
         """Arch-aware constructor, ``None`` = the natural default: packed
-        spikes for spiking archs, dual-sparse when the weights are pruned."""
+        spikes for spiking archs, dual-sparse when the weights are pruned,
+        bitwise, full temporal walk."""
         if spike_format is None:
             spike_format = "packed" if cfg.spiking_ffn else "float"
         if weight_sparsity is None:
@@ -95,9 +228,103 @@ class ExecutionPolicy:
                 if spike_format == "packed" and cfg.spiking_weight_density < 1.0
                 else "dense"
             )
-        return cls(spike_format=spike_format,
-                   weight_sparsity=weight_sparsity).validate_for(cfg)
+        return cls(
+            spike_format=spike_format,
+            weight_sparsity=weight_sparsity,
+            exactness=exactness if exactness is not None else bitwise(),
+            temporal=temporal if temporal is not None else Temporal(),
+        ).validate_for(cfg)
 
 
+# Common arch-independent policies (kernel-level callers: dispatch, tests,
+# spiking layers).  Engine-level code should go through `for_arch`.
 FLOAT_DENSE = ExecutionPolicy()
+PACKED_DENSE = ExecutionPolicy(spike_format="packed")
 PACKED_DUAL = ExecutionPolicy(spike_format="packed", weight_sparsity="dual_sparse")
+# Triple-sparse: weights x spikes x timesteps, bitwise (min_spikes=1).
+PACKED_DUAL_ADAPTIVE = ExecutionPolicy(spike_format="packed",
+                                       weight_sparsity="dual_sparse",
+                                       temporal=adaptive_t())
+
+
+# ---------------------------------------------------------------------------
+# parity checking
+# ---------------------------------------------------------------------------
+
+class ParityError(AssertionError):
+    """A serving run broke its policy's exactness contract."""
+
+
+def max_logit_drift(ref_tokens, got_tokens, ref_logits, got_logits) -> float:
+    """Max |logit difference| over the common-prefix steps of one request.
+
+    Drift is only defined while both runs saw identical inputs: once a
+    greedy token flips, later steps compute different functions.  The step
+    of the first mismatch is included (its logits came from identical
+    inputs; the flip is its consequence)."""
+    drift = 0.0
+    for i in range(min(len(ref_logits), len(got_logits))):
+        a = np.asarray(ref_logits[i], np.float32)
+        b = np.asarray(got_logits[i], np.float32)
+        drift = max(drift, float(np.max(np.abs(a - b))))
+        if i < min(len(ref_tokens), len(got_tokens)) and \
+                int(ref_tokens[i]) != int(got_tokens[i]):
+            break  # inputs diverge from the next step on
+    return drift
+
+
+def drift_report(ref_tokens_by_req, got_tokens_by_req,
+                 ref_logits_by_req, got_logits_by_req) -> dict:
+    """Aggregate drift/match stats across requests (parallel lists)."""
+    drift, n_tok, n_match = 0.0, 0, 0
+    for rt, gt, rl, gl in zip(ref_tokens_by_req, got_tokens_by_req,
+                              ref_logits_by_req, got_logits_by_req):
+        drift = max(drift, max_logit_drift(rt, gt, rl, gl))
+        # max-length denominator: a run that stopped early counts its
+        # missing tokens as mismatches
+        n_tok += max(len(rt), len(gt))
+        n_match += sum(int(a) == int(b) for a, b in zip(rt, gt))
+    return {
+        "max_logit_drift": drift,
+        "token_match_fraction": n_match / max(1, n_tok),
+        "tokens_compared": n_tok,
+    }
+
+
+def check_parity(policy: ExecutionPolicy, ref_tokens, got_tokens, *,
+                 ref_logits=None, got_logits=None) -> dict:
+    """Assert the policy's exactness contract between a reference run and a
+    policy run; returns the measured report.
+
+    Bitwise policies assert token identity.  Approximate policies assert
+    max logit drift <= ``tol`` (needs the per-request logit traces of both
+    runs, e.g. `Engine.drain_logit_traces`) and report the drift and the
+    token-match fraction."""
+    if len(ref_tokens) != len(got_tokens):
+        raise ParityError(
+            f"request count mismatch: reference produced {len(ref_tokens)} "
+            f"outputs, policy run produced {len(got_tokens)} — a run "
+            "dropped requests; zip-truncating would hide that"
+        )
+    if policy.token_identical:
+        for i, (a, b) in enumerate(zip(ref_tokens, got_tokens)):
+            if not np.array_equal(np.asarray(a), np.asarray(b)):
+                raise ParityError(
+                    f"bitwise policy broke token identity on request {i}: "
+                    f"{np.asarray(a)!r} != {np.asarray(b)!r}"
+                )
+        return {"token_identical": True}
+    if ref_logits is None or got_logits is None:
+        raise ValueError(
+            "approximate parity needs logit traces from both runs "
+            "(Engine(capture_logits=True) keeps them in engine.logit_traces)"
+        )
+    rep = drift_report(ref_tokens, got_tokens, ref_logits, got_logits)
+    rep["token_identical"] = rep["token_match_fraction"] == 1.0
+    rep["tol"] = policy.exactness.tol
+    if rep["max_logit_drift"] > policy.exactness.tol:
+        raise ParityError(
+            f"approximate policy exceeded its drift bound: measured "
+            f"{rep['max_logit_drift']:.3e} > tol {policy.exactness.tol:.3e}"
+        )
+    return rep

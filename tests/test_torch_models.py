@@ -379,14 +379,17 @@ def test_attention_query_chunks_match_reference():
 def test_policy_refuses_unported_axes_and_bad_combinations(slice_models):
     """Later-slice axes raise NotImplementedError pointing at the queue;
     arch-dependent misuse raises ValueError, as in the reference."""
+    from repro_torch.serve import approximate
+
     _, (tcfg, _, _) = slice_models
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ExecutionPolicy(spike_format="packed", weight_sparsity="dual_sparse",
                         execution="pipelined")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ExecutionPolicy(spike_format="packed", temporal="adaptive")
+        # approximate without lossy temporal skipping needs a model axis
+        ExecutionPolicy(spike_format="packed", exactness=approximate(0.1))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ExecutionPolicy.for_arch(tcfg, weight_sparsity="dense")
+        ExecutionPolicy.for_arch(tcfg, exactness=approximate(0.1))
     with pytest.raises(ValueError, match="packed"):
         ExecutionPolicy(weight_sparsity="dual_sparse")
     dense = dataclasses.replace(tcfg, spiking_weight_density=1.0)
