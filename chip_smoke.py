@@ -56,6 +56,30 @@ Phases, each asserted; a failed phase ends the run with a non-zero exit:
              silent).  Timed against a bound that counts the live planes
              (for kernel 3 as for kernel 4: a silent plane needs no work).
 
+8. train  — full-width, full-depth llama3.2-1b with spiking FFNs (T = 4,
+             weight density 0.3), seed 0, trained 5 steps by
+             `make_train_step` (default AdamW, warmup-cosine) on
+             `SyntheticLMData` at launch/train.py's 8 x 128 tokens: every
+             loss and grad norm finite, step 0's loss within 0.5 of
+             ln(vocab) + 1/2 (random init), every pruned wu/wd entry still
+             exactly 0 and the survivors moved; median step time, tokens/s,
+             peak memory and the device's idle share from a profiled step.
+             A 2-layer full-width copy: step 0's loss and grad norm on the
+             card and on the CPU, and 2 steps + save + restore_latest + 2
+             steps == 4 straight steps bit for bit (deterministic
+             algorithms on for that check).
+9. flash  — kernels 5-7 (flash attention forward, the dq and dk/dv
+             backward kernels, the autograd Function over them) on the train
+             step's own attention inputs (every layer of phase 8's first
+             forward: q (256, 128, 64) bf16, k and v repeated over the GQA
+             groups, causal) through `flash_mha` with a seeded do: the
+             counted path; each layer held against the plain versions,
+             layer 0 also against autograd through the model's plain
+             attention.  Then BH = 32, S = 4096 bf16 causal and window 1024,
+             two runs equal bit for bit, and the reference test's f32 cases.
+             Each kernel timed (CUDA events, L2 flushed) against its bound,
+             its plain version and scaled_dot_product_attention.
+
 Prints a JSON line of per-kernel measurements before the last line (the
 headline numbers are each kernel's mean launch on its path), and as the
 last line ``{"ok": true, "device": {...}}``.
@@ -82,6 +106,7 @@ T = 4
 SEED = 0
 PROMPT, GEN, REQUESTS = 128, 16, 4
 KERNEL_SRC = "src/repro/kernels/ftp_spmm.py"
+FLASH_SRC = "src/repro/kernels/flash_mha.py"
 # name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "ftp_bsr": ("src/repro_torch/kernels/csrc/ftp_bsr.cu", f"{KERNEL_SRC}:211"),
@@ -90,12 +115,36 @@ KERNELS = {
     "ftp_spmm": ("src/repro_torch/kernels/csrc/ftp_dense.cu", f"{KERNEL_SRC}:83"),
     "ftp_spmm_fused_lif": ("src/repro_torch/kernels/csrc/ftp_dense.cu",
                            f"{KERNEL_SRC}:134"),
+    "flash_fwd": ("src/repro_torch/kernels/csrc/flash_mha.cu", f"{FLASH_SRC}:43"),
+    "flash_bwd_dq": ("src/repro_torch/kernels/csrc/flash_mha.cu",
+                     f"{FLASH_SRC}:123"),
+    "flash_bwd_dkv": ("src/repro_torch/kernels/csrc/flash_mha.cu",
+                      f"{FLASH_SRC}:152"),
+    # kernel 7, the custom_vjp, is an autograd Function over the three above
+    "flash_mha": ("src/repro_torch/kernels/flash_mha.py", f"{FLASH_SRC}:241"),
 }
 # Full-width logits, card vs CPU: the bound tests/test_torch_models.py holds
 # the port to against the jitted JAX reference, whose excess precision on
 # bf16 residual adds flips FFN spikes the same way other GEMM orders do.
 LOGIT_TOL = 0.25
 TIMED_SERVES = 3
+PEAK_F32_FLOP_S = 67e12    # H100 SXM f32 outside the tensor cores
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 8, 128  # launch/train.py's batch, seq
+# Random-init CE: logits of unit variance give ln V + 1/2 on average; the
+# batch moves it by less than this.
+LOSS0_TOL = 0.5
+# Card vs CPU train step (same params and batch): the bounds
+# tests/test_torch_train.py holds the port to against the jitted reference —
+# bf16 GEMMs summed in other orders round some values the other way and
+# flip a few FFN spikes.
+TRAIN_LOSS_RTOL = 2e-3
+TRAIN_GNORM_RTOL = 5e-2
+# Flash kernels vs plain versions on bf16 inputs: both round an f32 value
+# that differs in its last bits to bf16, one bf16 step at most.
+FLASH_TOL_BF16 = 1e-2
+# Flash vs autograd of the model's own attention, which rounds p to bf16
+# before the value product (relative norm of the difference).
+FLASH_VS_MODEL_TOL = 2e-2
 
 
 def log(msg: str) -> None:
@@ -130,7 +179,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     built = _build.build()
-    assert set(built) == {"ftp_bsr", "ftp_dense"}, sorted(built)
+    assert set(built) == {"ftp_bsr", "ftp_dense", "flash_mha"}, sorted(built)
     for name, b in built.items():
         log(f"built {name} in {b['seconds']:.1f}s -> {b['path']}")
         for ln in b["log"].splitlines():
@@ -144,12 +193,13 @@ def _counted(path, fn):
     after; returns (result, counts)."""
     import torch
 
-    from repro_torch.kernels import ftp_spmm
+    from repro_torch.kernels import flash_mha, ftp_spmm
 
     ftp_spmm.reset_launch_counts()
+    flash_mha.reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    counts = ftp_spmm.launch_counts()
+    counts = {**ftp_spmm.launch_counts(), **flash_mha.launch_counts()}
     log(f"{path}: launches {counts}")
     return out, counts
 
@@ -158,10 +208,11 @@ def _counted(path, fn):
 # timing, bounds, parity
 # ---------------------------------------------------------------------------
 
-def _time_ms(fn, reps: int, flush) -> float:
+def _time_ms(fn, reps: int, flush, busy_cycles: int = 1_000_000) -> float:
     """Median device time of one call: the L2 is flushed before each call
-    and the stream is kept busy while the host enqueues it, so the events
-    bracket the call's device work only."""
+    and the stream is kept busy (``busy_cycles`` of a sleep kernel) while
+    the host enqueues it, so the events bracket the call's device work
+    only."""
     import torch
 
     fn()
@@ -169,7 +220,7 @@ def _time_ms(fn, reps: int, flush) -> float:
     times = []
     for _ in range(reps):
         flush.zero_()
-        torch.cuda._sleep(1_000_000)
+        torch.cuda._sleep(busy_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -934,8 +985,8 @@ def phase_adaptive(dual):
                 for a, plan, n_out, Tc, v_th, tau, fuse in calls]
 
     outs, counts = _counted("adaptive replay of the serve", path)
-    assert counts == {"ftp_bsr": 0, "ftp_bsr_adaptive": len(calls),
-                      "ftp_spmm": 0, "ftp_spmm_fused_lif": 0}, counts
+    assert counts == dict(dict.fromkeys(counts, 0),
+                          ftp_bsr_adaptive=len(calls)), counts
     lossy = ExecutionPolicy(spike_format="packed", weight_sparsity="dual_sparse",
                             temporal=adaptive_t(2), exactness=approximate(8.0))
     n_live, n_lossy_differs = [], 0
@@ -1025,6 +1076,544 @@ def phase_adaptive(dual):
             "cases": cases + [bench, full]}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the train step at full width
+# ---------------------------------------------------------------------------
+
+def _train_cfg(n_layers=None):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("llama3_2_1b"), spiking_ffn=True,
+                              spiking_T=T, spiking_weight_density=0.3)
+    return cfg if n_layers is None else dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def _capture_attention(store, n):
+    """Keep the (q, k, v) of the first ``n`` calls of the model's attention
+    (one forward's layers, in order: the remat recompute comes later);
+    returns the function that undoes the wrapping."""
+    from repro_torch.models import layers
+
+    orig = layers.multihead_attention
+
+    def recorded(q, k, v, cfg, **kw):
+        if len(store) < n:
+            store.append(tuple(t.detach().clone() for t in (q, k, v)))
+        return orig(q, k, v, cfg, **kw)
+
+    layers.multihead_attention = recorded
+    return lambda: setattr(layers, "multihead_attention", orig)
+
+
+def _device_busy(fn):
+    """fn() under torch.profiler: (host wall s, device busy s, the largest
+    device entries by name)."""
+    from collections import Counter
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.device_time_total * 1e-6
+    return wall, sum(by_name.values()), by_name.most_common(10)
+
+
+def phase_train():
+    """Full-width, full-depth llama3.2-1b with spiking FFNs (T = 4, weight
+    density 0.3), seed 0, trained TRAIN_STEPS steps by `make_train_step`
+    with the default optimizer on `SyntheticLMData` (launch/train.py's
+    batch and sequence); every step timed with a synchronised host clock.
+    Layer by layer, the first forward's attention inputs are kept for
+    phase 9."""
+    import math
+
+    import torch
+
+    from repro_torch.data import SyntheticLMData, batch_to_torch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import tree_paths
+
+    cfg = _train_cfg()
+    assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab) == (16, 2048, 8192, 128256)
+    model = build_model(cfg)
+    data = SyntheticLMData(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(model, SEED, device="cuda")
+    torch.cuda.synchronize()
+    ffn = {p: w.clone() for p, w in tree_paths(state["params"])
+           if p.endswith(("mlp/wu", "mlp/wd"))}
+    log(f"train state on the card: {time.perf_counter() - t0:.3f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    step = make_train_step(model)
+    captured, losses, gnorms, times = [], [], [], []
+    for s in range(TRAIN_STEPS):
+        batch = batch_to_torch(data.batch(s), "cuda")
+        undo = _capture_attention(captured, cfg.n_layers) if s == 0 else None
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        finally:
+            if undo:
+                undo()
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+        log(f"train step {s}: loss {losses[-1]:.5f}, grad norm {gnorms[-1]:.5f}, "
+            f"{times[-1] * 1e3:.1f} ms")
+    peak = torch.cuda.max_memory_allocated()
+    assert all(math.isfinite(x) for x in losses + gnorms), (losses, gnorms)
+    assert len(captured) == cfg.n_layers
+    # unit-variance logits at random init: CE ~ ln V + 1/2
+    expect0 = math.log(cfg.vocab) + 0.5
+    assert abs(losses[0] - expect0) <= LOSS0_TOL, (losses[0], expect0)
+    params = dict(tree_paths(state["params"]))
+    moved = {}
+    for p, w0 in ffn.items():
+        pruned = w0 == 0
+        assert 0.69 < float(pruned.float().mean()) < 0.71, p
+        assert not bool(params[p][pruned].any()), f"{p}: a pruned weight moved"
+        moved[p] = float((params[p][~pruned] != w0[~pruned]).float().mean())
+    # every wu survivor gets a surrogate gradient; a wd row moves only where
+    # its hidden neuron fired in some step
+    assert all(m > 0 for m in moved.values()), moved
+    assert min(m for p, m in moved.items() if p.endswith("wu")) > 0.5, moved
+    del ffn
+    median = statistics.median(times)
+    wall, busy, top = _device_busy(
+        lambda: step(state, batch_to_torch(data.batch(TRAIN_STEPS), "cuda")))
+    out = {"losses": losses, "grad_norms": gnorms, "step_s": times,
+           "median_step_s": median,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median,
+           "peak_memory_gib": peak / 2**30,
+           "survivors_moved": {"wu_min": min(m for p, m in moved.items() if p.endswith("wu")),
+                               "wd_min": min(m for p, m in moved.items() if p.endswith("wd"))},
+           "profiled_step_wall_s": wall, "device_busy_s": busy,
+           "idle_share_profiled": 1.0 - busy / wall if busy else None,
+           "idle_share_unprofiled": 1.0 - busy / median if busy else None}
+    log(f"train: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (step 0 expected {expect0:.3f} +- "
+        f"{LOSS0_TOL}); median step {median * 1e3:.1f} ms, "
+        f"{out['tokens_per_s']:.0f} tokens/s, peak memory {out['peak_memory_gib']:.2f} "
+        f"GiB; all {len(moved)} pruned FFN patterns still exactly zero; survivors "
+        f"moved: {json.dumps(out['survivors_moved'])} (least share per matrix)")
+    if busy:
+        log(f"train profile: device busy {busy:.3f}s of a {wall:.3f}s profiled step; "
+            f"idle share {out['idle_share_profiled']:.3f} profiled, "
+            f"{out['idle_share_unprofiled']:.3f} of the median unprofiled step")
+        for name, sec in top:
+            log(f"  {sec * 1e3:9.3f} ms  {name[:110]}")
+    else:
+        log("train profile: no device time recorded (not measured)")
+    del state
+    out["card_vs_cpu"] = _train_card_vs_cpu(data)
+    out["restart"] = _train_restart(data)
+    return out, captured
+
+
+def _train_card_vs_cpu(data):
+    """Step 0 of a 2-layer full-width copy on the card and on the CPU (the
+    same params and batch): loss and grad norm within TRAIN_LOSS_RTOL and
+    TRAIN_GNORM_RTOL."""
+    import torch
+
+    from repro_torch.data import batch_to_torch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import tree_map
+
+    model = build_model(_train_cfg(2))
+    card = init_train_state(model, SEED, device="cuda")
+    cpu = tree_map(lambda t: t.cpu(), card)
+    step = make_train_step(model)
+    batch = data.batch(0)
+    _, mg = step(card, batch_to_torch(batch, "cuda"))
+    t0 = time.perf_counter()
+    _, mc = step(cpu, batch_to_torch(batch, "cpu"))
+    out = {"loss_card": float(mg["loss"]), "loss_cpu": float(mc["loss"]),
+           "grad_norm_card": float(mg["grad_norm"]),
+           "grad_norm_cpu": float(mc["grad_norm"]),
+           "cpu_step_s": time.perf_counter() - t0}
+    out["loss_rel"] = abs(out["loss_card"] - out["loss_cpu"]) / out["loss_cpu"]
+    out["grad_norm_rel"] = (abs(out["grad_norm_card"] - out["grad_norm_cpu"])
+                            / out["grad_norm_cpu"])
+    log(f"2-layer full-width step 0, card vs CPU: loss {out['loss_card']:.6f} vs "
+        f"{out['loss_cpu']:.6f} (rel {out['loss_rel']:.2e} <= {TRAIN_LOSS_RTOL}), "
+        f"grad norm {out['grad_norm_card']:.5f} vs {out['grad_norm_cpu']:.5f} (rel "
+        f"{out['grad_norm_rel']:.2e} <= {TRAIN_GNORM_RTOL}); CPU step "
+        f"{out['cpu_step_s']:.1f}s")
+    assert out["loss_rel"] <= TRAIN_LOSS_RTOL, out
+    assert out["grad_norm_rel"] <= TRAIN_GNORM_RTOL, out
+    return out
+
+
+def _train_restart(data):
+    """2 steps, checkpoint, restore into a fresh state, 2 more steps equal 4
+    straight steps bit for bit (2 layers, full width).  Deterministic
+    algorithms are on for this check only: the embedding and gather
+    backwards add with atomics otherwise."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.data import batch_to_torch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    model = build_model(_train_cfg(2))
+    step = make_train_step(model)
+    batches = [batch_to_torch(data.batch(s), "cuda") for s in range(4)]
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        start = init_train_state(model, SEED, device="cuda")
+        straight = start
+        for b in batches:
+            straight, _ = step(straight, b)
+        resumed = start
+        for b in batches[:2]:
+            resumed, _ = step(resumed, b)
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+            mgr = CheckpointManager(d, interval=1)
+            mgr.maybe_save(2, resumed, force=True)
+            mgr.wait()
+            resumed, at = mgr.restore_latest(
+                init_train_state(model, SEED + 1, device="cuda"))
+        assert at == 2 and int(resumed["step"]) == 2
+        for b in batches[2:]:
+            resumed, _ = step(resumed, b)
+        leaves = list(zip(tree_leaves(straight), tree_leaves(resumed)))
+        equal = sum(bool(torch.equal(a, b)) for a, b in leaves)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    log(f"restart: 2 steps + save + restore_latest + 2 steps == 4 straight steps "
+        f"in {equal} of {len(leaves)} state leaves, bit for bit (deterministic "
+        "algorithms on)")
+    assert equal == len(leaves)
+    return {"leaves": len(leaves), "equal": equal}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: flash attention (kernels 5-7)
+# ---------------------------------------------------------------------------
+
+def _to_bh(t, groups=1):
+    """(B, S, heads, dh) -> (B * heads * groups, S, dh), each head repeated
+    ``groups`` times (k, v over the GQA groups)."""
+    if groups > 1:
+        t = t.repeat_interleave(groups, dim=2)
+    B, S, H, dh = t.shape
+    return t.permute(0, 2, 1, 3).reshape(B * H, S, dh).contiguous()
+
+
+def _visible_pairs(S, Skv, causal, window):
+    """(query, key) pairs the mask leaves visible: the work the kernels
+    need (a tile the mask fills adds nothing)."""
+    import torch
+
+    from repro_torch.kernels.ref import _attn_mask
+
+    return int(_attn_mask(S, Skv, causal, window, "cpu").sum())
+
+
+def _flash_bounds(q, Skv, causal, window):
+    """{kernel: (bound ms, bound_by)} for one attention call: each input
+    read once and each output written once, against 4 dh (forward), 6 dh
+    (dq: s, dp, dq), 8 dh (dk/dv: s, dp, dk, dv) and 12 dh (forward and
+    backward without recompute) multiply-adds x 2 per visible pair, at the
+    bf16 tensor-core peak for bf16 inputs and the f32 peak for f32."""
+    BH, S, dh = q.shape
+    e = q.element_size()
+    pairs = BH * _visible_pairs(S, Skv, causal, window)
+    peak = PEAK_BF16_FLOP_S if e == 2 else PEAK_F32_FLOP_S
+    qo, kv, rows = BH * S * dh * e, BH * Skv * dh * e, BH * S * 4
+    work = {"flash_fwd": (2 * qo + 2 * kv + rows, 4 * dh),
+            "flash_bwd_dq": (3 * qo + 2 * kv + 2 * rows, 6 * dh),
+            "flash_bwd_dkv": (2 * qo + 4 * kv + 2 * rows, 8 * dh),
+            "flash_mha": (4 * qo + 4 * kv, 12 * dh)}
+    out = {}
+    for name, (nbytes, flop_per_pair) in work.items():
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S, flop_per_pair * pairs / peak
+        out[name] = (1e3 * max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def _sdpa_args(q, k, v, causal, window, B):
+    """The (B, H, S, dh) views and mask arguments of
+    scaled_dot_product_attention for the same work."""
+    from repro_torch.kernels.ref import _attn_mask
+
+    view = lambda t: t.reshape(B, t.shape[0] // B, t.shape[1], t.shape[2])
+    kw = {}
+    if causal and window:
+        kw["attn_mask"] = _attn_mask(q.shape[1], k.shape[1], True, window, q.device)
+    elif causal:
+        kw["is_causal"] = True
+    return view(q), view(k), view(v), kw
+
+
+def _flash_case(label, q, k, v, do, causal, window, tol, grad_tol=None,
+                flush=None, reps=10, B=1):
+    """Kernels 5 and 6 (and 7 around them) against their plain versions on
+    one input: o and lse within ``tol``, dq, dk, dv within ``grad_tol``
+    (default ``tol``); timed with their bounds and the library yardstick
+    when ``flush`` is given.  Returns {kernel: row}."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_mha as fm
+    from repro_torch.kernels import ref
+
+    kw = dict(causal=causal, window=window)
+    o, lse = fm.flash_mha_fwd(q, k, v, **kw)
+    o_p, lse_p = ref.flash_mha_fwd_plain(q, k, v, causal, window)
+    delta = (o.float() * do.float()).sum(-1)
+    dq = fm.flash_mha_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fm.flash_mha_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq_p = ref.flash_mha_bwd_dq_plain(q, k, v, do, lse, delta, causal, window)
+    dk_p, dv_p = ref.flash_mha_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
+                                            window)
+    torch.cuda.synchronize()
+    err = lambda a, b: float((a.float() - b.float()).abs().max())
+    errs = {"flash_fwd": max(err(o, o_p), err(lse, lse_p)),
+            "flash_bwd_dq": err(dq, dq_p),
+            "flash_bwd_dkv": max(err(dk, dk_p), err(dv, dv_p))}
+    grad_tol = grad_tol or tol
+    for a, b, what, t in ((o, o_p, "o", tol), (lse, lse_p, "lse", tol),
+                          (dq, dq_p, "dq", grad_tol), (dk, dk_p, "dk", grad_tol),
+                          (dv, dv_p, "dv", grad_tol)):
+        assert torch.isfinite(a.float()).all(), f"{label}: {what} not finite"
+        torch.testing.assert_close(a.float(), b.float(), rtol=t, atol=t,
+                                   msg=lambda m: f"{label} {what}: {m}")
+    errs["flash_mha"] = max(errs.values())
+    rows = {n: {"case": label, "BH": q.shape[0], "S": q.shape[1],
+                "Skv": k.shape[1], "dh": q.shape[2], "dtype": str(q.dtype),
+                "causal": causal, "window": window, "max_abs_err": e,
+                "tol": tol if n == "flash_fwd" else grad_tol}
+            for n, e in errs.items()}
+    if flush is None:
+        log(f"flash {label}: max_abs_err {json.dumps({n: float(f'{e:.3e}') for n, e in errs.items()})} "
+            f"(tol {tol}, gradients {grad_tol})")
+        return rows
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+
+    def fwd_bwd():
+        torch.autograd.grad(fm.flash_mha(qs, ks, vs, causal, window),
+                            (qs, ks, vs), do)
+
+    def plain_fwd_bwd():
+        op, lp = ref.flash_mha_fwd_plain(q, k, v, causal, window)
+        ref.flash_mha_bwd_plain(q, k, v, op, lp, do, causal, window)
+
+    sq, sk, sv, skw = _sdpa_args(*(t.clone().requires_grad_() for t in (q, k, v)),
+                                 causal, window, B)
+    sdo = do.reshape(sq.shape)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(F.scaled_dot_product_attention(sq, sk, sv, **skw),
+                            (sq, sk, sv), sdo)
+
+    plain_reps = max(1, reps // 5)
+    # an autograd forward + backward takes the host ~1 ms to enqueue at the
+    # train step's small shape: keep the stream busy ~2 ms so that host
+    # time stays out of the events
+    busy = 4_000_000
+    timed = {
+        "flash_fwd": (lambda: fm.flash_mha_fwd(q, k, v, **kw),
+                      lambda: ref.flash_mha_fwd_plain(q, k, v, causal, window),
+                      lambda: F.scaled_dot_product_attention(
+                          sq.detach(), sk.detach(), sv.detach(), **skw)),
+        "flash_bwd_dq": (
+            lambda: fm.flash_mha_bwd_dq(q, k, v, do, lse, delta, **kw),
+            lambda: ref.flash_mha_bwd_dq_plain(q, k, v, do, lse, delta, causal,
+                                               window), None),
+        "flash_bwd_dkv": (
+            lambda: fm.flash_mha_bwd_dkv(q, k, v, do, lse, delta, **kw),
+            lambda: ref.flash_mha_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
+                                                window), None),
+        "flash_mha": (fwd_bwd, plain_fwd_bwd, sdpa_fwd_bwd),
+    }
+    bounds = _flash_bounds(q, k.shape[1], causal, window)
+    for n, (kern, plain, lib) in timed.items():
+        rows[n].update(ms=_time_ms(kern, reps, flush, busy),
+                       plain_ms=_time_ms(plain, plain_reps, flush, busy),
+                       library_ms=_time_ms(lib, reps, flush, busy) if lib else None,
+                       bound_ms=bounds[n][0], bound_by=bounds[n][1])
+    for n, r in rows.items():
+        lib = f"{r['library_ms']:.4f}" if r["library_ms"] is not None else "-"
+        log(f"flash {label} {n}: max_abs_err {r['max_abs_err']:.3e}, kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa {lib} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{r['ms'] / r['bound_ms']:.1f}x the bound")
+    return rows
+
+
+def _flash_inputs(gen, BH, S, dh, dtype, skv=None, scale_q=1.0):
+    import torch
+
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    skv = skv or S
+    return ((mk(BH, S, dh) * scale_q).to(dtype), mk(BH, skv, dh).to(dtype),
+            mk(BH, skv, dh).to(dtype), mk(BH, S, dh).to(dtype))
+
+
+def phase_flash(captured, cfg):
+    """Kernels 5-7 on the train step's own attention inputs (every layer of
+    phase 8's first forward, k and v repeated over the GQA groups; causal),
+    through the autograd Function with a seeded random do: the counted path.
+    Layer 0 is also held against autograd through the port's plain
+    `multihead_attention` and timed; then the long-sequence and reference
+    cases."""
+    import torch
+
+    from repro_torch.kernels import flash_mha as fm
+    from repro_torch.kernels import ref
+
+    G = cfg.n_heads // cfg.n_kv
+    B, S = captured[0][0].shape[:2]
+    inputs = [(_to_bh(q), _to_bh(k, G), _to_bh(v, G)) for q, k, v in captured]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    do = torch.randn(inputs[0][0].shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def path():
+        outs = []
+        for q, k, v in inputs:
+            qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+            o = fm.flash_mha(qs, ks, vs, True, 0)
+            o.backward(do)
+            outs.append((o.detach(), qs.grad, ks.grad, vs.grad))
+        return outs
+
+    outs, counts = _counted("flash attention on the train step's attention inputs",
+                            path)
+    n = len(inputs)
+    assert counts == dict(dict.fromkeys(counts, 0), flash_fwd=n, flash_bwd_dq=n,
+                          flash_bwd_dkv=n, flash_mha=n), counts
+    worst = 0.0
+    for (q, k, v), (o, dq, dk, dv) in zip(inputs, outs):
+        o_p, lse_p = ref.flash_mha_fwd_plain(q, k, v, True, 0)
+        want = (o_p, *ref.flash_mha_bwd_plain(q, k, v, o_p, lse_p, do, True, 0))
+        for a, b in zip((o, dq, dk, dv), want):
+            torch.testing.assert_close(a.float(), b.float(), rtol=FLASH_TOL_BF16,
+                                       atol=FLASH_TOL_BF16)
+            worst = max(worst, float((a.float() - b.float()).abs().max()))
+    log(f"flash on all {n} layers' attention inputs (BH {inputs[0][0].shape[0]}, "
+        f"S {S}, dh {cfg.head_dim}, bf16, causal): == plain versions within "
+        f"{FLASH_TOL_BF16} (max abs err {worst:.3e})")
+    vs_model = _flash_vs_model_attention(captured[0], outs[0], do, cfg, G)
+
+    flush = _flush_buffer()
+    rows = {name: [] for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                                  "flash_mha")}
+
+    def add(case_rows):
+        for name, r in case_rows.items():
+            rows[name].append(r)
+
+    add(_flash_case("train step layer 0", *inputs[0], do, True, 0, FLASH_TOL_BF16,
+                    flush=flush, reps=30, B=B))
+    for label, window in (("BH=32 S=4096 dh=64 causal", 0),
+                          ("BH=32 S=4096 dh=64 window=1024", 1024)):
+        q, k, v, g = _flash_inputs(gen, 32, 4096, 64, torch.bfloat16)
+        add(_flash_case(label, q, k, v, g, True, window, FLASH_TOL_BF16,
+                        flush=flush, reps=5, B=1))
+    # two runs equal bit for bit (no atomics)
+    runs = []
+    for _ in range(2):
+        o, lse = fm.flash_mha_fwd(q, k, v, window=1024)
+        runs.append((o, lse, *fm.flash_mha_bwd(q, k, v, o, lse, g, window=1024)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs)), "two runs differ"
+    log("flash: two runs of the S=4096 window case equal bit for bit")
+    # the reference test's cases, f32, at its tolerances (outputs 3e-4,
+    # large logits 1e-3, gradients 3e-3)
+    for label, (BH, Sc, dh, skv, causal, window, scale_q, tol) in {
+            "f32 (4,512,128) causal": (4, 512, 128, None, True, 0, 1.0, 3e-4),
+            "f32 (4,512,128) none": (4, 512, 128, None, False, 0, 1.0, 3e-4),
+            "f32 (4,512,128) window 64": (4, 512, 128, None, True, 64, 1.0, 3e-4),
+            "f32 cross 128 vs 512": (2, 128, 64, 512, False, 0, 1.0, 3e-4),
+            "f32 logits x30": (1, 256, 64, None, True, 0, 30.0, 1e-3)}.items():
+        q, k, v, g = _flash_inputs(gen, BH, Sc, dh, torch.float32, skv, scale_q)
+        add(_flash_case(label, q, k, v, g, causal, window, tol, grad_tol=3e-3))
+    q, k, v, _ = _flash_inputs(gen, 1, 128, 32, torch.float32)
+    o, _ = fm.flash_mha_fwd(q, k, v, bq=64, bk=64)
+    torch.testing.assert_close(o[:, 0], v[:, 0], rtol=1e-4, atol=1e-4)
+    log("flash: the first causal row == v[:, 0] within 1e-4")
+    return {"launches": counts, "rows": rows, "vs_model_attention": vs_model}
+
+
+def _flash_vs_model_attention(qkv, flash_out, do, cfg, G):
+    """Layer 0 through autograd of the port's plain `multihead_attention`
+    (the training forward's own attention, which rounds p to bf16 before
+    the value product) against the flash kernels' o, dq, dk, dv (dk, dv
+    summed over the GQA groups): relative norm of the difference within
+    FLASH_VS_MODEL_TOL."""
+    import torch
+
+    from repro_torch.models.layers import multihead_attention
+
+    q, k, v = (t.clone().requires_grad_() for t in qkv)
+    B, S, H, dh = q.shape
+    KV = k.shape[2]
+    o = multihead_attention(q, k, v, cfg, q_offset=0,
+                            kv_positions=torch.arange(S, device=q.device))
+    back = lambda t: t.reshape(B, H, S, dh).permute(0, 2, 1, 3)
+    o.backward(back(do))
+    fo, fdq, fdk, fdv = flash_out
+    per_kv = lambda t: back(t).reshape(B, S, KV, G, dh).sum(3)
+    rel = {}
+    for name, got, want in (("o", back(fo), o.detach()), ("dq", back(fdq), q.grad),
+                            ("dk", per_kv(fdk.float()), k.grad),
+                            ("dv", per_kv(fdv.float()), v.grad)):
+        d = got.float() - want.float()
+        rel[name] = float(d.norm() / want.float().norm())
+    log(f"flash vs autograd of the model's plain attention, layer 0: relative "
+        f"norm of the difference {json.dumps({k: float(f'{x:.3e}') for k, x in rel.items()})} "
+        f"(<= {FLASH_VS_MODEL_TOL})")
+    assert max(rel.values()) <= FLASH_VS_MODEL_TOL, rel
+    return rel
+
+
+def _flash_entries(flash):
+    """The kernels-line entries of kernels 5-7: headline numbers from the
+    train step's own attention inputs (layer 0), every case listed."""
+    entries = []
+    for name, rows in flash["rows"].items():
+        main = rows[0]
+        src, replaces = KERNELS[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": flash["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "cases": rows})
+    entries[-1]["vs_model_attention"] = flash["vs_model_attention"]
+    return entries
+
+
 def _headline(rows):
     """Per-launch means over a path's replay groups, weighted by launches."""
     n = sum(r["launches"] for r in rows)
@@ -1097,6 +1686,16 @@ def main() -> int:
                 adaptive["cases"])
     ad.update(serve_cases=adaptive["served"], cases=adaptive["cases"])
     kernels.append(ad)
+    # the serves' params, engines and recorded calls go before training
+    del dual, dense, adaptive
+    torch.cuda.empty_cache()
+    log(f"phases 1-7 done at {time.perf_counter() - t0:.1f}s")
+    train, captured = phase_train()
+    log(f"phase 8 done at {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    flash = _flash_entries(phase_flash(captured, _train_cfg()))
+    flash[-1]["train"] = train
+    kernels += flash
     assert all(k["launches"] > 0 for k in kernels), [k["launches"] for k in kernels]
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"total {time.perf_counter() - t0:.1f}s")

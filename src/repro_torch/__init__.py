@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of the LoAS reproduction (`repro` is the JAX reference).
 
 The sub-packages mirror `repro`'s layout (`configs`, `core`, `kernels`,
-`models`, `serve`, `launch`) so each counterpart is found by name.  This
+`models`, `serve`, `train`, `optim`, `data`, `ckpt`, `ft`, `launch`) so each
+counterpart is found by name.  This
 package imports torch and numpy only; every TPU kernel it needs has a
 hand-written Hopper kernel under `kernels/csrc/`, and everything around the
 kernels is plain torch.  Entry points run on the CUDA device unless the

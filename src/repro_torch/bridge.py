@@ -3,7 +3,10 @@
 The reference's params come as a nested dict of numpy arrays (the caller
 does ``jax.tree.map(np.asarray, params)``; this module imports no jax).
 `params_from_reference` turns that tree into the port's layout: the same
-dict, with the stacked ``layers`` axis split into a list of per-layer dicts.
+dict, with the stacked ``layers`` axis split into a list of per-layer dicts;
+`train_state_from_reference` does the same for a whole AdamW train state
+(params, the moments m and v, the step counts and the error-feedback
+buffer), so both packages can start training from one state.
 
 Dtypes that torch and numpy do not share travel by bit pattern:
 bfloat16 (ml_dtypes) -> uint16 -> int16 -> ``view(torch.bfloat16)``, and
@@ -67,3 +70,24 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def train_state_from_reference(state: dict, *, device="cpu") -> dict:
+    """Reference train state (numpy leaves: ``params``, ``opt`` = AdamW's
+    ``m``/``v``/``count``, ``step``, optional ``ef_err``) -> the port's.
+    AdamW's moments mirror the params, so they split by layer as the params
+    do.  (Adafactor's factored moments of stacked leaves have no per-layer
+    counterpart and are not bridged.)"""
+    opt = state["opt"]
+    if set(opt) != {"m", "v", "count"}:
+        raise ValueError(f"only AdamW states are bridged, got {sorted(opt)}")
+    out = {
+        "params": params_from_reference(state["params"], device=device),
+        "opt": {"m": params_from_reference(opt["m"], device=device),
+                "v": params_from_reference(opt["v"], device=device),
+                "count": to_torch(opt["count"], device)},
+        "step": to_torch(state["step"], device),
+    }
+    if "ef_err" in state:
+        out["ef_err"] = params_from_reference(state["ef_err"], device=device)
+    return out

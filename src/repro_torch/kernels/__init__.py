@@ -1,2 +1,3 @@
-"""FTP kernels: the hand-written Hopper kernel, its wrapper and plain
-version, the load-time join plans and the policy front door."""
+"""The hand-written Hopper kernels (``csrc/``), their wrappers and plain
+versions: the FTP kernels (`ftp_spmm`), flash attention (`flash_mha`), the
+load-time join plans and the policy front door (`ops`)."""

@@ -1,5 +1,6 @@
-"""Primitive layers of the transformer (port of `repro.models.layers`, the
-dense-attention and spiking-FFN parts the main path runs).
+"""Primitive layers of the transformer (port of `repro.models.layers`: the
+causal GQA attention with and without a KV cache, the spiking FFN and the
+dense MLPs).
 
 Params are plain dicts of tensors.  Compute runs in ``cfg.compute_dtype``
 (bf16) with reductions and softmax in f32, in the reference's op order.
@@ -115,13 +116,14 @@ def multihead_attention(q, k, v, cfg: ArchConfig, *, q_offset: int,
     return o.reshape(B, Sq, H, dh)
 
 
-def attn_apply(p, x, cfg: ArchConfig, *, positions, cache):
-    """Projections + RoPE + attention over a KV cache.  ``cache`` is one
-    layer's dict(k, v, kv_pos, pos): k/v (B, S_cache, KV, dh) are written IN
-    PLACE at rows ``pos .. pos+S`` (the cohort owns its cache; the
-    reference returns an updated copy instead), ``kv_pos`` is the
-    already-updated slot-position vector and ``pos`` a host int.  The
-    cache-free training forward is a later slice."""
+def attn_apply(p, x, cfg: ArchConfig, *, positions, cache=None):
+    """Projections + RoPE + attention.  ``cache=None`` (the training
+    forward) attends over the S new positions themselves, kv positions
+    ``0..S-1``, and writes nothing: every op is differentiable.  Otherwise
+    ``cache`` is one layer's dict(k, v, kv_pos, pos): k/v (B, S_cache, KV,
+    dh) are written IN PLACE at rows ``pos .. pos+S`` (the cohort owns its
+    cache; the reference returns an updated copy instead), ``kv_pos`` is the
+    already-updated slot-position vector and ``pos`` a host int."""
     if cfg.attn != "causal" or cfg.expand_kv:
         raise NotImplementedError(
             f"attn={cfg.attn!r}/expand_kv archs are a later slice; see ROADMAP.md"
@@ -135,6 +137,10 @@ def attn_apply(p, x, cfg: ArchConfig, *, positions, cache):
     v = (xc @ p["wv"].to(ct)).reshape(B, S, KV, dh)
     q = rope_apply(q, positions, cfg.rope_theta)
     k = rope_apply(k, positions, cfg.rope_theta)
+    if cache is None:
+        o = multihead_attention(q, k, v, cfg, q_offset=0,
+                                kv_positions=torch.arange(S, device=x.device))
+        return (o.reshape(B, S, H * dh) @ p["wo"].to(ct)).to(x.dtype)
     pos = cache["pos"]
     if pos + S > cache["k"].shape[1]:
         raise ValueError(
@@ -153,22 +159,23 @@ def attn_apply(p, x, cfg: ArchConfig, *, positions, cache):
 
 
 # ---------------------------------------------------------------------------
-# MLP: the spiking dual-sparse FFN branch
+# MLP: the spiking dual-sparse FFN and the dense MLPs
 # ---------------------------------------------------------------------------
 
 def mlp_init(gen: torch.Generator, cfg: ArchConfig, d_ff=None) -> dict:
-    """Spiking FFN weights (two GEMMs, no gate), LTH-pruned ONCE here to the
-    plan's block grid when ``spiking_weight_density < 1``; forwards never
-    re-prune."""
+    """FFN weights.  Spiking: two GEMMs, no gate, LTH-pruned ONCE here to
+    the plan's block grid when ``spiking_weight_density < 1`` (forwards
+    never re-prune).  Dense: gate, up and down for swiglu/geglu, up and
+    down otherwise, drawn in that order."""
+    D, F = cfg.d_model, d_ff or cfg.d_ff
     if not cfg.spiking_ffn:
-        raise NotImplementedError(
-            "the dense (non-spiking) MLP is a later slice; the port serves "
-            "the spiking FFN — see ROADMAP.md"
-        )
+        names = ("wg", "wu") if cfg.act in ("swiglu", "geglu") else ("wu",)
+        p = {n: dense_init(gen, (D, F), _dt(cfg)) for n in names}
+        p["wd"] = dense_init(gen, (F, D), _dt(cfg))
+        return p
     from repro_torch.core.snn_layers import prune_by_magnitude
     from repro_torch.kernels.join_plan import pick_plan_blocks
 
-    D, F = cfg.d_model, d_ff or cfg.d_ff
     p = {
         "wu": dense_init(gen, (D, F), _dt(cfg)),
         "wd": dense_init(gen, (F, D), _dt(cfg)),
@@ -208,23 +215,48 @@ def attach_spiking_ffn_plans(params: dict, cfg: ArchConfig) -> dict:
     return dict(params, layers=layers)
 
 
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-x)) op by op in x's dtype: XLA expands the reference's
+    logistic so, and torch.sigmoid rounds a bf16 result differently."""
+    return 1 / (1 + torch.exp(-x))
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu's tanh approximation, op by op in x's dtype."""
+    cdf = 0.5 * (1.0 + torch.tanh(math.sqrt(2 / math.pi)
+                                  * (x + 0.044715 * (x ** 3))))
+    return x * cdf
+
+
 def mlp_apply(p, x, cfg: ArchConfig, spiking_mode: str = "train"):
-    """Spiking dual-sparse FFN under the FTP dataflow.  ``infer`` with
-    attached plans routes both GEMMs through the dual-sparse BSR kernel;
-    ``infer`` without plans runs them against the dense weights, through the
-    dense-weight kernels when the activations are on the card (the
-    reference turns its kernels on when its backend is the TPU); ``train``
-    runs the differentiable float path."""
-    if not cfg.spiking_ffn:
-        raise NotImplementedError(
-            "the dense (non-spiking) MLP is a later slice; see ROADMAP.md"
-        )
+    """The FFN.  Spiking: the dual-sparse spiking FFN under the FTP
+    dataflow; ``infer`` with attached plans routes both GEMMs through the
+    dual-sparse BSR kernel, ``infer`` without plans runs them against the
+    dense weights (through the dense-weight kernels when the activations
+    are on the card: the reference turns its kernels on when its backend
+    is the TPU), ``train`` runs the differentiable float path.  Dense:
+    swiglu / geglu / sq_relu / gelu in the compute dtype, whatever the
+    mode."""
     if spiking_mode not in SPIKING_MODES:
         raise ValueError(f"unknown spiking FFN mode {spiking_mode!r}")
-    from repro_torch.core.snn_layers import SpikingConfig, spiking_ffn_apply
-
     ct = _ct(cfg)
     xc = x.to(ct)
+    if not cfg.spiking_ffn:
+        up = xc @ p["wu"].to(ct)
+        if cfg.act == "swiglu":
+            g = xc @ p["wg"].to(ct)
+            h = g * _sigmoid(g) * up
+        elif cfg.act == "geglu":
+            h = _gelu(xc @ p["wg"].to(ct)) * up
+        elif cfg.act == "sq_relu":
+            h = torch.square(torch.relu(up))
+        elif cfg.act == "gelu":
+            h = _gelu(up)
+        else:
+            raise ValueError(cfg.act)
+        return (h @ p["wd"].to(ct)).to(x.dtype)
+    from repro_torch.core.snn_layers import SpikingConfig, spiking_ffn_apply
+
     scfg = SpikingConfig(T=cfg.spiking_T, weight_density=cfg.spiking_weight_density)
     weights = {"w_in": p["wu"], "w_out": p["wd"]}
     plans = None

@@ -1,8 +1,9 @@
 """Uniform Model interface (port of `repro.models.registry`, the dense
-transformer family only).
+transformer family only; ``axes`` waits for the multi-device slice).
 
     init(seed=0, *, device=None) -> params      (seeded torch.Generator)
-    prepare(params) -> params                   (load-time casts)
+    loss(params, batch) -> scalar loss          (the training forward)
+    prepare(params) -> params                   (load-time casts for serving)
     prefill(params, batch, cache, *, spiking_mode) -> (logits, cache)
     decode(params, tokens, cache, *, spiking_mode) -> (logits, cache)
     init_cache(batch, max_len, *, device=None) -> cache    cache_axes()
@@ -27,6 +28,7 @@ from . import transformer
 class Model:
     cfg: ArchConfig
     init: Callable
+    loss: Callable
     prepare: Callable
     prefill: Callable
     decode: Callable
@@ -53,6 +55,7 @@ def build_model(cfg: ArchConfig) -> Model:
     return Model(
         cfg=cfg,
         init=init,
+        loss=lambda p, b: transformer.loss_fn(p, cfg, b),
         prepare=lambda p: transformer.prepare_params(cfg, p),
         prefill=lambda p, b, c, **kw: transformer.prefill(p, cfg, b, c, **kw),
         decode=lambda p, t, c, **kw: transformer.decode_step(p, cfg, t, c, **kw),

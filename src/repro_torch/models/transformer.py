@@ -1,18 +1,20 @@
 """Decoder-only transformer LM, dense-attention family (port of
-`repro.models.transformer`, the serving half: prefill and decode over a KV
-cache).
+`repro.models.transformer`): the training forward and loss, and serving's
+prefill and decode over a KV cache.
 
 Params are a dict; ``params["layers"]`` is a list of per-layer dicts (the
 reference stacks them on a leading axis and scans; the port walks them in a
-Python loop).  The KV cache keeps the reference's stacked layout —
+Python loop, with `torch.utils.checkpoint` per layer where the reference
+remats its scan body).  The KV cache keeps the reference's stacked layout —
 ``k/v (L, B, S, KV, dh)`` — with ``kv_pos`` (S,) the absolute position held
 by each slot (-1 = empty) and ``pos`` the number of positions written, a
-host int.  A forward writes its new k/v rows into the cache IN PLACE and
-returns the cache dict with the advanced ``kv_pos``/``pos``.
+host int.  A serving forward writes its new k/v rows into the cache IN PLACE
+and returns the cache dict with the advanced ``kv_pos``/``pos``.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 
@@ -47,7 +49,7 @@ def block_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
     }
 
 
-def block_apply(p, x, cfg: ArchConfig, *, positions, cache,
+def block_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
                 spiking_mode: str = "train"):
     """Pre-norm transformer block; returns the new residual stream."""
     h = attn_apply(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
@@ -107,6 +109,64 @@ def _unembed_weight(p, cfg: ArchConfig) -> torch.Tensor:
 def unembed(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """(B, S, D) -> (B, S, V) f32 logits."""
     return x.to(_ct(cfg)).float() @ _unembed_weight(p, cfg)
+
+
+def _stack_forward(layers, x, cfg: ArchConfig, positions):
+    """Walk the layer stack without a cache (the training forward).  With
+    ``cfg.remat`` and autograd recording, each layer is checkpointed (its
+    activations recomputed in the backward), as the reference remats its
+    scan body."""
+    def body(lp, x):
+        return block_apply(lp, x, cfg, positions=positions)
+
+    for lp in layers:
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(body, lp, x, use_reentrant=False)
+        else:
+            x = body(lp, x)
+    return x
+
+
+def forward(p, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """Training/eval forward: tokens (B, S) -> final-normed hidden states
+    (B, S, D) in the compute dtype (the reference also returns the MoE
+    auxiliary loss, which no ported arch has)."""
+    x = embed_tokens(p, cfg, batch["tokens"])
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    x = _stack_forward(p["layers"], x, cfg, positions)
+    return rmsnorm(x, p["final_norm"], cfg.norm_eps)
+
+
+def ce_loss(p, cfg: ArchConfig, x, labels) -> torch.Tensor:
+    """Token-mean cross entropy of the f32 logits of final hidden states;
+    label -1 is masked out.  With ``cfg.loss_chunk`` dividing B * S (and
+    smaller), the logits exist ``loss_chunk`` tokens at a time, each chunk
+    recomputed in the backward (the reference's remat'd map)."""
+    B, S = labels.shape
+    xt = x.reshape(B * S, -1)
+    lt = labels.reshape(B * S).long()
+    mask = (lt >= 0).float()
+    lt = torch.clamp(lt, min=0)
+
+    def ce(xc, lc):
+        logits = unembed(p, cfg, xc[None])[0]  # (c, V) f32
+        lse = torch.logsumexp(logits, dim=-1)
+        return lse - logits.gather(-1, lc[:, None])[:, 0]
+
+    c = cfg.loss_chunk
+    if c and (B * S) % c == 0 and (B * S) > c:
+        run = ((lambda a, b: checkpoint(ce, a, b, use_reentrant=False))
+               if torch.is_grad_enabled() else ce)
+        losses = torch.cat([run(xt[i:i + c], lt[i:i + c])
+                            for i in range(0, B * S, c)])
+    else:
+        losses = ce(xt, lt)
+    return torch.sum(losses * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def loss_fn(p, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    return ce_loss(p, cfg, forward(p, cfg, batch), batch["labels"])
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,

@@ -1,0 +1,145 @@
+"""The port's flash attention (kernels 5-7) against the JAX reference, on the
+CPU: the plain forward (o, lse) and the autograd Function's dq, dk, dv.
+
+On the CPU the wrappers run their plain versions (`kernels/ref.py`); the CUDA
+kernels are held to those same plain versions on the card
+(`tests/test_torch_gpu.py`, `chip_smoke.py`).  The reference runs its Pallas
+kernels in interpret mode, as its own tests do.
+
+Tolerances are the reference tests' own (`tests/test_flash_mha.py`):
+outputs and lse 3e-4, large logits 1e-3, gradients 3e-3, the first causal
+row 1e-4.  The port sums the full score row at once where the reference
+sums tile by tile with an online rescale, so the f32 sums run in another
+order.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_mha import flash_mha as j_flash_mha
+from repro.kernels.flash_mha import flash_mha_fwd as j_flash_fwd
+from repro.kernels.ref import mha_ref as j_mha_ref
+from repro_torch.kernels import flash_mha as t_flash
+from repro_torch.kernels import ref as t_ref
+
+torch.set_num_threads(1)
+
+
+def _qkv(seed, BH, S, dh, skv=None, scale_q=1.0):
+    rng = np.random.default_rng(seed)
+    skv = skv or S
+    mk = lambda s: rng.normal(size=s).astype(np.float32)
+    return mk((BH, S, dh)) * np.float32(scale_q), mk((BH, skv, dh)), mk((BH, skv, dh))
+
+
+def _both(q, k, v, causal, window, bq, bk):
+    """(reference o, lse), (port o, lse) as numpy."""
+    jo, jl = j_flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         causal=causal, window=window, bq=bq, bk=bk,
+                         interpret=True)
+    to, tl = t_flash.flash_mha_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v), causal=causal,
+                                   window=window, bq=bq, bk=bk)
+    return (np.asarray(jo), np.asarray(jl)), (to.numpy(), tl.numpy())
+
+
+FWD_CASES = [
+    # the reference test's shapes x masks
+    *[(BH, S, dh, bq, bk, None, causal, window)
+      for BH, S, dh, bq, bk in [(2, 256, 64, 128, 128), (4, 512, 128, 256, 256),
+                                (1, 128, 32, 128, 64)]
+      for causal, window in [(True, 0), (False, 0), (True, 64)]],
+    (2, 128, 64, 128, 128, 512, False, 0),   # cross attention, kv longer
+    (2, 256, 64, 64, 64, None, True, 64),    # whole kv tiles masked for rows >= 128
+    (1, 256, 32, 64, 64, 64, True, 32),      # rows >= 95 see no key at all
+]
+
+
+@pytest.mark.parametrize("BH,S,dh,bq,bk,skv,causal,window", FWD_CASES)
+def test_flash_fwd_plain_matches_reference(BH, S, dh, bq, bk, skv, causal, window):
+    q, k, v = _qkv(BH * S + dh, BH, S, dh, skv)
+    (jo, jl), (to, tl) = _both(q, k, v, causal, window, bq, bk)
+    np.testing.assert_allclose(to, jo, rtol=3e-4, atol=3e-4)
+    np.testing.assert_allclose(tl, jl, rtol=3e-4, atol=3e-4)
+    want = np.asarray(j_mha_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                causal, window))
+    np.testing.assert_allclose(to, want, rtol=3e-4, atol=3e-4)
+    got = t_ref.mha_ref(torch.from_numpy(q), torch.from_numpy(k),
+                        torch.from_numpy(v), causal, window).numpy()
+    np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-4)
+
+
+def test_flash_fwd_large_logits():
+    q, k, v = _qkv(11, 1, 256, 64, scale_q=30.0)
+    (jo, jl), (to, tl) = _both(q, k, v, True, 0, 128, 128)
+    assert np.isfinite(to).all() and np.isfinite(tl).all()
+    np.testing.assert_allclose(to, jo, rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(tl, jl, rtol=1e-3, atol=1e-3)
+
+
+def test_flash_fwd_first_row_causal():
+    """Row 0 attends only to key 0: o[:, 0] == v[:, 0], lse = its score."""
+    q, k, v = _qkv(13, 1, 128, 32)
+    o, lse = t_flash.flash_mha_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v), causal=True, bq=64, bk=64)
+    np.testing.assert_allclose(o[:, 0].numpy(), v[:, 0], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(lse[:, 0].numpy(),
+                               (q[:, 0] * k[:, 0]).sum(-1) * 32 ** -0.5,
+                               rtol=1e-4, atol=1e-4)
+
+
+GRAD_CASES = [
+    (2, 256, 64, 128, 128, None, True, 0),   # the reference test's case
+    (2, 256, 64, 128, 128, None, False, 0),
+    (2, 256, 64, 64, 64, None, True, 64),
+    (2, 128, 64, 128, 128, 512, False, 0),
+    (1, 128, 32, 64, 64, None, True, 0),
+]
+
+
+@pytest.mark.parametrize("BH,S,dh,bq,bk,skv,causal,window", GRAD_CASES)
+def test_flash_autograd_grads_match_reference(BH, S, dh, bq, bk, skv, causal,
+                                              window):
+    """dq, dk, dv of sum(o ** 2) through the port's autograd Function
+    against jax.grad through the reference's custom_vjp (interpret mode)."""
+    q, k, v = _qkv(7 + S + dh, BH, S, dh, skv)
+
+    def lf(q, k, v):
+        return jnp.sum(j_flash_mha(q, k, v, causal, window, bq, bk, True) ** 2)
+
+    want = jax.grad(lf, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    (t_flash.flash_mha(tq, tk, tv, causal, window, bq, bk) ** 2).sum().backward()
+    for g, w in zip((tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=3e-3, atol=3e-3)
+
+
+def test_plain_backward_equals_autograd_of_plain_attention():
+    """The recompute formulas of the plain backward give autograd's
+    gradients of the plain forward (bf16 inputs, causal window)."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(3, 2, 128, 64))
+    o, lse = t_ref.flash_mha_fwd_plain(q, k, v, True, 32)
+    do = torch.from_numpy(np.random.default_rng(4).normal(
+        size=o.shape).astype(np.float32)).to(torch.bfloat16)
+    got = t_ref.flash_mha_bwd_plain(q, k, v, o, lse, do, True, 32)
+    qs, ks, vs = (t.float().requires_grad_() for t in (q, k, v))
+    (t_ref.mha_ref(qs, ks, vs, True, 32) * do.float()).sum().backward()
+    for g, w, like in zip(got, (qs.grad, ks.grad, vs.grad), (q, k, v)):
+        assert g.dtype == like.dtype
+        np.testing.assert_allclose(g.float().numpy(), w.to(like.dtype).float().numpy(),
+                                   rtol=2e-2, atol=2e-2)
+
+
+def test_cpu_path_launches_no_kernel_and_validates_blocks():
+    t_flash.reset_launch_counts()
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(5, 1, 128, 32))
+    t_flash.flash_mha(q, k, v).sum().backward()
+    assert t_flash.launch_counts() == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                                       "flash_bwd_dkv": 0, "flash_mha": 0}
+    with pytest.raises(ValueError, match="multiples"):
+        t_flash.flash_mha_fwd(q, k, v, bq=96)
+    with pytest.raises(ValueError, match="share"):
+        t_flash.flash_mha_fwd(q, k[:, :, :16], v)

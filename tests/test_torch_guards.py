@@ -71,11 +71,14 @@ def test_entry_points_raise_without_a_card_and_without_device():
     from repro_torch.launch.serve import build_config
     from repro_torch.models.registry import build_model
     from repro_torch.serve import Engine
+    from repro_torch.train import init_train_state
 
     cfg = build_config("llama3_2_1b", smoke=True, spiking=True, weight_density=0.3)
     model = build_model(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model.init(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(model, 0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model.init_cache(1, 8)
     params = model.init(0, device="cpu")
