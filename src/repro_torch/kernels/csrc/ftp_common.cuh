@@ -1,8 +1,9 @@
-// What the FTP kernels (ftp_dense.cu, ftp_bsr.cu) share: the thread layout,
-// the bit-gated accumulate step, the hard-reset LIF epilogue and the
-// dispatch over (rows per thread, accumulator depth) buckets.  Both kernels
-// add in f32 with the same instructions in the same order, which is what
-// makes their full sums equal on block-pruned weights.
+// What the FTP kernels (ftp_bsr.cu and ftp_dense.cu's SIMT instance) share:
+// the thread layout, the bit-gated accumulate step, the hard-reset LIF
+// epilogue and the dispatch over (rows per thread, accumulator depth)
+// buckets.  Both add in f32 with the same instructions in the same order,
+// which is what makes their full sums equal on block-pruned weights.
+// ftp_dense.cu's tensor-core instance uses the LIF epilogue alone.
 
 #pragma once
 

@@ -3,7 +3,9 @@
 
 * `ftp_spmm` / `ftp_spmm_fused_lif`: packed spikes x dense weights, full
   sums or the fused P-LIF (kernels 1 and 2 of the reference, one CUDA
-  kernel in ``csrc/ftp_dense.cu``);
+  source, ``csrc/ftp_dense.cu``, with two instances: ``tc`` on the tensor
+  cores for bf16 weights, ``simt`` for f32 weights or an unaligned N;
+  `dense_instance` picks one from the dtype, N and the alignment alone);
 * `ftp_spmm_bsr`: dual-sparse, against a load-time weight join plan
   (kernel 3, ``csrc/ftp_bsr.cu``); with a timestep-activity map ``tmap`` it
   launches the adaptive instance of the same kernel (kernel 4).
@@ -13,7 +15,9 @@ version only for tensors on the CPU.  There is no fallback: a CUDA input a
 kernel does not take raises.  One integer per kernel counts its launches
 (not plain-version calls), so a run can show that its main path went
 through the kernel: ``LAUNCHES`` (kernel 3), ``ADAPTIVE_LAUNCHES`` (4),
-``SPMM_LAUNCHES`` (1) and ``SPMM_LIF_LAUNCHES`` (2).
+``SPMM_LAUNCHES`` (1) and ``SPMM_LIF_LAUNCHES`` (2); ``DENSE_TC_LAUNCHES``
+and ``DENSE_SIMT_LAUNCHES`` count the launches of kernels 1 and 2 together
+by the instance that ran.
 """
 from __future__ import annotations
 
@@ -34,17 +38,27 @@ LAUNCHES = 0           # kernel 3: ftp_bsr, every timestep plane
 ADAPTIVE_LAUNCHES = 0  # kernel 4: ftp_bsr gated by a timestep-activity map
 SPMM_LAUNCHES = 0      # kernel 1: ftp_dense, full sums
 SPMM_LIF_LAUNCHES = 0  # kernel 2: ftp_dense, fused P-LIF
+DENSE_TC_LAUNCHES = 0    # kernels 1 + 2 through the tensor-core instance
+DENSE_SIMT_LAUNCHES = 0  # kernels 1 + 2 through the SIMT instance
+
+KERNEL_NAMES = ("ftp_bsr", "ftp_bsr_adaptive", "ftp_spmm", "ftp_spmm_fused_lif")
 
 
 def launch_counts() -> dict[str, int]:
-    """{kernel name: launches} of the four kernels."""
+    """{kernel name: launches} of the four kernels (`KERNEL_NAMES`), then
+    the dense kernels' launches by instance (``ftp_dense_tc``,
+    ``ftp_dense_simt``: each launch of kernel 1 or 2 counts in one)."""
     return {"ftp_bsr": LAUNCHES, "ftp_bsr_adaptive": ADAPTIVE_LAUNCHES,
-            "ftp_spmm": SPMM_LAUNCHES, "ftp_spmm_fused_lif": SPMM_LIF_LAUNCHES}
+            "ftp_spmm": SPMM_LAUNCHES, "ftp_spmm_fused_lif": SPMM_LIF_LAUNCHES,
+            "ftp_dense_tc": DENSE_TC_LAUNCHES,
+            "ftp_dense_simt": DENSE_SIMT_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     global LAUNCHES, ADAPTIVE_LAUNCHES, SPMM_LAUNCHES, SPMM_LIF_LAUNCHES
+    global DENSE_TC_LAUNCHES, DENSE_SIMT_LAUNCHES
     LAUNCHES = ADAPTIVE_LAUNCHES = SPMM_LAUNCHES = SPMM_LIF_LAUNCHES = 0
+    DENSE_TC_LAUNCHES = DENSE_SIMT_LAUNCHES = 0
 
 
 # The kernels' row tile: bm = 4 warps x rows per thread.  Small tiles keep
@@ -54,7 +68,7 @@ def reset_launch_counts() -> None:
 _SMALL_BM = 4
 _COLS = 32        # output columns per thread block
 _MAX_BK = 256     # keeps the BSR kernel's shared memory under the 48 KB default
-_MAX_ROW_TILES = 65535  # the grid's y extent
+_MAX_ROW_TILES = 65535  # the grid's row-tile extent (y: simt, z: tc)
 
 
 def _large_bm(T: int) -> int:
@@ -88,6 +102,10 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
             p, i, i, p, i, i, i, i, i, f, f, i, p, p, p,
         ]
         lib.ftp_dense_launch.restype = i
+        lib.ftp_dense_tc_launch.argtypes = [
+            p, i, i, i, p, i, i, i, i, i, i, f, f, i, p, p, p,
+        ]
+        lib.ftp_dense_tc_launch.restype = i
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [i]
     err.restype = ctypes.c_char_p
@@ -119,39 +137,108 @@ def _check_dense(a: torch.Tensor, b: torch.Tensor, T: int):
     _check_T(T)
 
 
-def _dense_launch(a, b, T, v_th, tau, fuse_lif):
+# The tensor-core instance's launch shape (csrc/ftp_dense.cu, namespace tc)
+_TC_BN = 64            # output columns per block
+_TC_BK = 64            # K depth of a ring stage; split boundaries are multiples
+_TC_MAX_SPLITS = 8     # a portable thread-block cluster
+_TC_MIN_BLOCKS = 256   # ~2 blocks per SM of the H100's 132 at the smallest M
+
+
+def dense_instance(dtype: torch.dtype, N: int, aligned: bool) -> str:
+    """The dense kernels' instance for (K, N) weights of ``dtype`` whose
+    base is 16-byte ``aligned``: ``"tc"`` (tensor cores) for bf16 with a
+    16-byte aligned base and rows of a multiple of 16 bytes, else
+    ``"simt"``.  A function of these three alone, never of M or of a
+    failed launch."""
+    if dtype == torch.bfloat16 and aligned and (N * 2) % 16 == 0:
+        return "tc"
+    return "simt"
+
+
+def dense_tc_shape(M: int, K: int, N: int, T: int) -> dict[str, int]:
+    """The tensor-core instance's launch shape.
+
+    ``bn`` (columns per block), ``splits`` (the cluster's K splits, in
+    ascending rank order) and ``k_split`` (each split's depth) depend on
+    (K, N) alone, so every output element is summed in the same order for
+    any M: splits double while ``ceil(N / bn) * splits`` launches fewer than
+    ~2 blocks per SM, up to 8 and to the number of 64-deep K steps.  Only
+    the row tile grows with M: ``rows`` MMA rows (64, or 128 from M = 128
+    on) hold ``bm`` = rows / T' spike rows, T' = T rounded up to a power of
+    two, at least 4."""
+    n_cols = -(-N // _TC_BN)
+    k_steps = -(-K // _TC_BK)
+    splits = 1
+    while (splits < _TC_MAX_SPLITS and n_cols * splits < _TC_MIN_BLOCKS
+           and 2 * splits <= k_steps):
+        splits *= 2
+    per_split = -(-K // splits)
+    k_split = -(-per_split // _TC_BK) * _TC_BK
+    rows = 128 if M >= 128 else 64
+    t_pad = max(4, 1 << (T - 1).bit_length())
+    return {"bn": _TC_BN, "splits": splits, "k_split": k_split, "rows": rows,
+            "bm": rows // t_pad}
+
+
+def _dense_launch(a, b, T, v_th, tau, fuse_lif, instance=None):
     if a.device.type != "cuda":
         raise ValueError(f"no ftp_dense kernel for device {a.device}")
     M, K = a.shape
     N = b.shape[1]
-    bm = pick_bm(M, T)
+    aligned = b.data_ptr() % 16 == 0
+    route = dense_instance(b.dtype, N, aligned)
+    if instance is None:
+        instance = route
+    elif instance == "tc" and route != "tc":
+        raise ValueError(f"the tc instance takes bf16 weights with a 16-byte "
+                         f"aligned base and N * 2 % 16 == 0, got {b.dtype}, N={N}")
+    elif instance not in ("tc", "simt"):
+        raise ValueError(f"no ftp_dense instance {instance!r}")
+    shape = dense_tc_shape(M, K, N, T) if instance == "tc" else None
+    bm = shape["bm"] if shape else pick_bm(M, T)
     if min(M, K, N) < 1 or -(-M // bm) > _MAX_ROW_TILES:
         raise ValueError(f"the kernel takes 1 <= M <= {_MAX_ROW_TILES} row "
-                         f"tiles and K, N >= 1, got {(M, K, N)}")
+                         f"tiles of {bm} and K, N >= 1, got {(M, K, N)}")
     if fuse_lif:
         out = torch.empty((M, N), dtype=torch.int32, device=a.device)
         u = torch.empty((M, N), dtype=torch.float32, device=a.device)
     else:
         out = torch.empty((T, M, N), dtype=torch.float32, device=a.device)
         u = None
-    vec_ok = b.data_ptr() % 16 == 0 and (N * b.element_size()) % 16 == 0
-    rc = _kernel_lib("ftp_dense").ftp_dense_launch(
-        a.data_ptr(), M, K, b.data_ptr(), int(b.dtype == torch.bfloat16), N,
-        int(vec_ok), bm // 4, T, float(v_th), float(tau), int(fuse_lif),
-        out.data_ptr(), None if u is None else u.data_ptr(),
-        torch.cuda.current_stream(a.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    lib = _kernel_lib("ftp_dense")
+    u_ptr = None if u is None else u.data_ptr()
+    if instance == "tc":
+        a_vec = a.data_ptr() % 16 == 0 and K % 4 == 0
+        rc = lib.ftp_dense_tc_launch(
+            a.data_ptr(), M, K, int(a_vec), b.data_ptr(), N, T, shape["rows"],
+            bm, shape["splits"], shape["k_split"], float(v_th), float(tau),
+            int(fuse_lif), out.data_ptr(), u_ptr, stream)
+    else:
+        vec_ok = aligned and (N * b.element_size()) % 16 == 0
+        rc = lib.ftp_dense_launch(
+            a.data_ptr(), M, K, b.data_ptr(), int(b.dtype == torch.bfloat16), N,
+            int(vec_ok), bm // 4, T, float(v_th), float(tau), int(fuse_lif),
+            out.data_ptr(), u_ptr, stream)
     _raise_on(rc, "ftp_dense")
+    global DENSE_TC_LAUNCHES, DENSE_SIMT_LAUNCHES
+    if instance == "tc":
+        DENSE_TC_LAUNCHES += 1
+    else:
+        DENSE_SIMT_LAUNCHES += 1
     return out, u
 
 
-def ftp_spmm(a: torch.Tensor, b: torch.Tensor, T: int) -> torch.Tensor:
+def ftp_spmm(a: torch.Tensor, b: torch.Tensor, T: int, *,
+             instance: str | None = None) -> torch.Tensor:
     """(M, K) int32 packed spikes x (K, N) bf16/f32 dense weights -> (T, M,
-    N) f32 full sums (kernel 1)."""
+    N) f32 full sums (kernel 1).  ``instance`` ("tc" or "simt") overrides
+    `dense_instance`'s choice, to measure one instance against the other;
+    an instance the weights do not fit raises."""
     _check_dense(a, b, T)
     if a.device.type == "cpu":
         return ftp_spmm_plain(a, b, T)
-    out, _ = _dense_launch(a, b, T, DEFAULT_VTH, DEFAULT_TAU, False)
+    out, _ = _dense_launch(a, b, T, DEFAULT_VTH, DEFAULT_TAU, False, instance)
     global SPMM_LAUNCHES
     SPMM_LAUNCHES += 1
     return out
@@ -163,15 +250,17 @@ def ftp_spmm_fused_lif(
     T: int,
     v_th: float = DEFAULT_VTH,
     tau: float = DEFAULT_TAU,
+    *,
+    instance: str | None = None,
 ):
     """(M, K) int32 packed spikes x (K, N) dense weights -> (packed spikes
     (M, N) int32, final U (M, N) f32): kernel 1 with the hard-reset P-LIF
-    fused into its epilogue (kernel 2); the full sums never leave the
-    registers."""
+    fused into its epilogue (kernel 2); the full sums never reach device
+    memory.  ``instance`` as for `ftp_spmm`."""
     _check_dense(a, b, T)
     if a.device.type == "cpu":
         return ftp_spmm_fused_lif_plain(a, b, T, v_th, tau)
-    out = _dense_launch(a, b, T, v_th, tau, True)
+    out = _dense_launch(a, b, T, v_th, tau, True, instance)
     global SPMM_LIF_LAUNCHES
     SPMM_LIF_LAUNCHES += 1
     return out

@@ -127,6 +127,72 @@ def test_dense_wrappers_check_inputs_and_have_no_fallback():
     assert ftp_spmm.launch_counts() == before  # plain calls count nothing
 
 
+# llama3.2-1b's two FFN GEMMs, and ragged shapes (a K below one 64-deep
+# step, K tails inside a split, N off the 64-column tile)
+TC_SHAPES = [(8192, 2048), (2048, 8192), (40, 72), (203, 136), (1000, 264),
+             (320, 384), (100000, 8)]
+
+
+@pytest.mark.parametrize("K,N", TC_SHAPES)
+@pytest.mark.parametrize("T", [1, 3, 4, 16, 32])
+def test_dense_tc_shape_is_independent_of_M(K, N, T):
+    """The tensor-core instance's columns per block, K splits and split
+    depth -- the order in which every output element is summed -- are the
+    same for every M from 1 to 4096; only the row tile grows with M, and it
+    always holds T planes of a power-of-two number of spike rows."""
+    shapes = [ftp_spmm.dense_tc_shape(M, K, N, T) for M in range(1, 4097)]
+    order = {(s["bn"], s["splits"], s["k_split"]) for s in shapes}
+    assert len(order) == 1, order
+    bn, splits, k_split = order.pop()
+    assert bn == 64 and splits in (1, 2, 4, 8)
+    # 64-deep steps covering K, each split the shortest that does
+    assert k_split % 64 == 0 and splits * k_split >= K
+    assert k_split - 64 < -(-K // splits)
+    for s in shapes:
+        assert s["rows"] in (64, 128) and s["bm"] & (s["bm"] - 1) == 0
+        assert T <= s["rows"] // s["bm"] and s["bm"] <= s["rows"] // 4
+    assert {s["rows"] for s in shapes} == {64, 128}
+
+
+def test_dense_tc_shape_fills_the_card_at_decode():
+    """At the smallest M the serve's GEMMs launch >= 256 blocks (~2 per SM
+    of 132): W_out (8192 -> 2048) over 8 splits, W_in (2048 -> 8192) over 2."""
+    for K, N, splits in ((8192, 2048, 8), (2048, 8192, 2)):
+        s = ftp_spmm.dense_tc_shape(1, K, N, 4)
+        assert s["splits"] == splits and s["k_split"] == K // splits
+        assert -(-N // s["bn"]) * s["splits"] >= 256
+
+
+@pytest.mark.parametrize("dtype,N,aligned,want", [
+    (torch.bfloat16, 2048, True, "tc"),
+    (torch.bfloat16, 8, True, "tc"),
+    (torch.bfloat16, 136, True, "tc"),
+    (torch.bfloat16, 130, True, "simt"),   # rows not a multiple of 16 bytes
+    (torch.bfloat16, 2048, False, "simt"),  # an unaligned base
+    (torch.float32, 2048, True, "simt"),
+    (torch.float32, 130, False, "simt"),
+])
+def test_dense_instance_routes_by_dtype_n_and_alignment(dtype, N, aligned, want):
+    assert ftp_spmm.dense_instance(dtype, N, aligned) == want
+
+
+def test_dense_instance_counts_start_at_zero_and_are_named():
+    """launch_counts() keeps the four kernels' names and adds one count per
+    dense instance; all start at 0 and CPU calls (plain versions) move
+    none."""
+    ftp_spmm.reset_launch_counts()
+    counts = ftp_spmm.launch_counts()
+    assert tuple(counts)[:4] == ftp_spmm.KERNEL_NAMES
+    assert counts == dict.fromkeys(
+        ftp_spmm.KERNEL_NAMES + ("ftp_dense_tc", "ftp_dense_simt"), 0)
+    packed, w = _case(5, 100, 72, 4, np.float32)
+    a = words_to_torch(packed)
+    for b in (to_torch(w), to_torch(w).to(torch.bfloat16)):
+        ftp_spmm.ftp_spmm(a, b, 4)
+        ftp_spmm.ftp_spmm_fused_lif(a, b, 4)
+    assert ftp_spmm.launch_counts() == counts
+
+
 @pytest.mark.parametrize("fuse", [True, False])
 @pytest.mark.parametrize("batched", [False, True])
 def test_dispatch_packed_dense_matches_reference(batched, fuse):

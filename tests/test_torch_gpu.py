@@ -12,8 +12,13 @@ Tolerances: full sums within 1e-5 (the kernel and the plain version add the
 same exact products of a {0,1} spike and a weight, in two f32 orders);
 spike words equal except where the LIF input is within 1e-5 of v_th.
 Between kernels that add the same products in the same order (kernel 4 and
-kernel 3 at min_spikes=1, the dense kernel and kernel 3 on block-pruned
-weights, one row alone and in a batch): equal, bit for bit.
+kernel 3 at min_spikes=1, the dense kernel's SIMT instance and kernel 3 on
+block-pruned f32 weights, one row alone and in a batch, two runs): equal,
+bit for bit.  The dense kernel's tensor-core instance (bf16 weights) adds
+in another order than kernel 3, so against kernel 3 it is held to the same
+gate as against its plain version.
+
+Run the dense kernels' tests alone with ``-k dense``.
 """
 import numpy as np
 import pytest
@@ -215,14 +220,24 @@ def test_adaptive_kernel_lossy_equals_full_on_masked_input(fuse):
 # kernels 1 and 2: packed spikes x dense weights
 # ---------------------------------------------------------------------------
 
-def _check_dense(a, w, T, fuse):
+def _instance(w):
+    return "ftp_dense_" + ftp_spmm.dense_instance(w.dtype, w.shape[1],
+                                                   w.data_ptr() % 16 == 0)
+
+
+def _check_dense(a, w, T, fuse, instance=None):
     """Dense kernel through `ops.dispatch` vs its plain version; one launch
-    of kernel 2 (fused) or 1 counted."""
+    of kernel 2 (fused) or 1 counted, and one of the instance the weights
+    route to (``instance``, when given, must be that one)."""
     name = "ftp_spmm_fused_lif" if fuse else "ftp_spmm"
+    inst = _instance(w)
+    if instance is not None:
+        assert inst == f"ftp_dense_{instance}", inst
     before = ftp_spmm.launch_counts()
     got = ops.dispatch(a, w, PACKED_DENSE, T, fuse_lif=fuse)
     torch.cuda.synchronize()
-    assert ftp_spmm.launch_counts() == dict(before, **{name: before[name] + 1})
+    assert ftp_spmm.launch_counts() == dict(
+        before, **{name: before[name] + 1, inst: before[inst] + 1})
     rows = a.reshape(-1, a.shape[-1])
     o = ftp_spmm.ftp_spmm_plain(rows, w, T)
     if fuse:
@@ -243,9 +258,9 @@ def _check_dense(a, w, T, fuse):
 @pytest.mark.parametrize("M", [1, 4, 33, 300])
 def test_dense_kernel_matches_plain(M, T, K, N, dtype, fuse):
     """Kernels 1 and 2 at ragged rows, both row tiles, every accumulator
-    bucket, bf16 and f32 weights, an unaligned K and N (the 2- and 4-byte
-    load path and a masked column tail) and an aligned pair (16-byte
-    loads)."""
+    bucket, bf16 and f32 weights, an unaligned K and N (the SIMT instance's
+    2- and 4-byte load path and a masked column tail) and an aligned pair
+    (16-byte loads; with bf16 weights the tensor-core instance)."""
     dev = _cuda()
     rng = np.random.default_rng(M * 100 + T + K)
     packed, w = _mk(rng, T, M, K, N, density=0.2, w_density=0.5)
@@ -275,25 +290,118 @@ def test_dense_kernel_batched_and_batch_invariant(fuse):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T", [4, 16])
 @pytest.mark.parametrize("M", [4, 300])
-def test_dense_kernel_equals_bsr_on_block_pruned_weights(M, T):
-    """Both kernels add in ascending k, and a pruned weight only adds +0:
-    on block-pruned weights the dense kernel's full sums, spike words and U
-    equal kernel 3's, bit for bit."""
+def test_dense_kernel_equals_bsr_on_block_pruned_weights(M, T, dtype):
+    """f32 weights take the SIMT instance, which adds in ascending k as
+    kernel 3 does (a pruned weight only adds +0): full sums, spike words
+    and U equal kernel 3's, bit for bit.  bf16 weights take the
+    tensor-core instance, which adds the same exact products in another
+    order: held against kernel 3 as against its plain version (full sums
+    within TOL, a spike word differs only within TOL of v_th)."""
     dev = _cuda()
     rng = np.random.default_rng(31 + M + T)
     packed, _ = _mk(rng, T, M, 512, 8, density=0.2)
     w = prune_by_magnitude(torch.from_numpy(rng.normal(size=(512, 384)).astype(
-        np.float32) / 16), 0.3, block=(128, 128)).to(dev, torch.bfloat16)
+        np.float32) / 16), 0.3, block=(128, 128)).to(dev, dtype)
     plan = build_weight_plan(w)
     a = words_to_torch(packed, dev)
     o_dense = ops.dispatch(a, w, PACKED_DENSE, T)
     o_bsr, _ = ops.dispatch(a, plan, PACKED_DUAL, T, n_out=384)
-    assert torch.equal(o_dense, o_bsr)
     c_d, u_d = ops.dispatch(a, w, PACKED_DENSE, T, fuse_lif=True)
     c_b, u_b = ops.dispatch(a, plan, PACKED_DUAL, T, n_out=384, fuse_lif=True)
-    assert torch.equal(c_d, c_b) and torch.equal(u_d, u_b)
+    if dtype == torch.float32:
+        assert _instance(w) == "ftp_dense_simt"
+        assert torch.equal(o_dense, o_bsr)
+        assert torch.equal(c_d, c_b) and torch.equal(u_d, u_b)
+    else:
+        assert _instance(w) == "ftp_dense_tc"
+        _hold(o_dense, None, o_bsr, False)
+        _hold(c_d, u_d, o_bsr, True)
+
+
+# ---------------------------------------------------------------------------
+# kernels 1 and 2: the tensor-core instance (bf16 weights)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fuse", [True, False])
+@pytest.mark.parametrize("K,N", [(40, 72), (203, 136), (1000, 264)])
+@pytest.mark.parametrize("T", [1, 3, 4, 16, 32])
+@pytest.mark.parametrize("M", [1, 4, 300])
+def test_dense_tc_matches_plain(M, T, K, N, fuse):
+    """The tensor-core instance at ragged shapes: K below one 64-deep step
+    (one split), K = 203 over 4 splits (a K tail inside the last split, and
+    word rows that are not 16-byte multiples), K = 1000 over 8 splits of
+    128; N not a multiple of the 64-column tile; T from 1 (3 dead planes of
+    the 4-row minimum) to 32; M at both row tiles."""
+    dev = _cuda()
+    rng = np.random.default_rng(7000 + M * 100 + T + K)
+    packed, w = _mk(rng, T, M, K, N, density=0.2, w_density=0.5)
+    wt = torch.from_numpy(w / 8).to(dev, torch.bfloat16)
+    _check_dense(words_to_torch(packed, dev), wt, T, fuse, instance="tc")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [4, 16])
+def test_dense_tc_deterministic_and_batch_invariant(T):
+    """At 8 K splits (K = 2048, N = 512): two runs equal bit for bit, and a
+    row computed alone (M = 1, the 64-row tile) or among 4 equals the same
+    row of a 300-row call (the 128-row tile), bit for bit."""
+    dev = _cuda()
+    rng = np.random.default_rng(50 + T)
+    packed, w = _mk(rng, T, 300, 2048, 512, density=0.2, w_density=0.5)
+    a = words_to_torch(packed, dev)
+    wt = torch.from_numpy(w / 32).to(dev, torch.bfloat16)
+    assert ftp_spmm.dense_tc_shape(300, 2048, 512, T)["splits"] == 8
+    for fuse in (True, False):
+        runs = [ops.dispatch(a, wt, PACKED_DENSE, T, fuse_lif=fuse)
+                for _ in range(2)]
+        full = runs[0]
+        if fuse:
+            assert torch.equal(runs[0][0], runs[1][0])
+            assert torch.equal(runs[0][1], runs[1][1])
+        else:
+            assert torch.equal(runs[0], runs[1])
+        for lo, hi in ((0, 1), (17, 18), (296, 300)):
+            part = ops.dispatch(a[lo:hi].contiguous(), wt, PACKED_DENSE, T,
+                                fuse_lif=fuse)
+            if fuse:
+                assert torch.equal(part[0], full[0][lo:hi])
+                assert torch.equal(part[1], full[1][lo:hi])
+            else:
+                assert torch.equal(part, full[:, lo:hi])
+
+
+@pytest.mark.gpu
+def test_dense_routing_by_dtype_and_alignment():
+    """f32 weights, an N whose rows are not 16-byte multiples and an
+    unaligned base take the SIMT instance (still held against the plain
+    version); bf16 aligned weights the tensor-core one; asking for the
+    tensor-core instance where it does not fit raises."""
+    dev = _cuda()
+    rng = np.random.default_rng(60)
+    packed, w = _mk(rng, 4, 33, 256, 136, density=0.2, w_density=0.5)
+    a = words_to_torch(packed, dev)
+    w32 = torch.from_numpy(w / 8).to(dev)
+    wbf = w32.to(torch.bfloat16)
+    odd = wbf[:, :130].contiguous()
+    shifted = torch.empty(256 * 136 + 1, dtype=torch.bfloat16, device=dev)
+    unaligned = shifted[1:].view(256, 136)
+    unaligned.copy_(wbf)
+    assert unaligned.data_ptr() % 16 != 0
+    for fuse in (True, False):
+        _check_dense(a, w32, 4, fuse, instance="simt")
+        _check_dense(a, odd, 4, fuse, instance="simt")
+        _check_dense(a, unaligned, 4, fuse, instance="simt")
+        _check_dense(a, wbf, 4, fuse, instance="tc")
+    for w_bad in (w32, odd, unaligned):
+        with pytest.raises(ValueError, match="tc instance"):
+            ftp_spmm.ftp_spmm(a, w_bad, 4, instance="tc")
+    # the SIMT instance on bf16 weights, asked for by name, for measurement
+    got = ftp_spmm.ftp_spmm(a, wbf, 4, instance="simt")
+    _hold(got, None, ftp_spmm.ftp_spmm_plain(a, wbf, 4), False)
 
 
 @pytest.mark.gpu
@@ -327,7 +435,8 @@ def test_spiking_layers_on_cuda_words_launch_the_dense_kernels():
     c = spiking_linear_infer(a, w_in, cfg)
     torch.cuda.synchronize()
     assert ftp_spmm.launch_counts() == dict(
-        before, ftp_spmm_fused_lif=before["ftp_spmm_fused_lif"] + 1)
+        before, ftp_spmm_fused_lif=before["ftp_spmm_fused_lif"] + 1,
+        ftp_dense_simt=before["ftp_dense_simt"] + 1)  # f32 weights
     words_hold(c, ref.ftp_spmm_ref(a, w_in, 4))
 
     before = ftp_spmm.launch_counts()
@@ -336,7 +445,8 @@ def test_spiking_layers_on_cuda_words_launch_the_dense_kernels():
     torch.cuda.synchronize()
     assert ftp_spmm.launch_counts() == dict(
         before, ftp_spmm_fused_lif=before["ftp_spmm_fused_lif"] + 1,
-        ftp_spmm=before["ftp_spmm"] + 1)
+        ftp_spmm=before["ftp_spmm"] + 1,
+        ftp_dense_simt=before["ftp_dense_simt"] + 2)
     h = h.reshape(33, 512)
     words_hold(h, ref.ftp_spmm_ref(a, w_in, 4))
     torch.testing.assert_close(
