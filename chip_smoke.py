@@ -14,34 +14,39 @@ Phases, each asserted; a failed phase ends the run with a non-zero exit:
              the main path's shapes: llama3.2-1b's W_in 2048->8192 (fused
              LIF) and W_out 8192->2048 (full sums), M = 4 (decode) and 512
              (prefill), bf16 weights, block density 0.3; at T = 4, and at
-             T = 16 and 32 for kernels 1-4 (the deeper accumulator buckets).  The dual-sparse BSR
-             kernel (3) also on an all-silent input and a plan with a
-             cnt == 0 column block; the dense-weight kernels (1 full sums,
-             2 fused LIF) on the same weights with their pruned blocks as
-             zeros.  bf16 weights take the dense kernels' tensor-core
-             instance, which adds the same exact products as kernel 3 in
-             another order: it is held against kernel 3 by the same gate as
-             against its plain version; f32 weights take the SIMT instance,
-             which adds in ascending k as kernel 3 does, and must EQUAL it.
-             Full sums must agree within ``TOL``; a spike word may differ
-             only where the LIF input sits within ``TOL`` of v_th.  Times
-             each kernel, its plain version and one PyTorch matmul of the
-             same work (CUDA events, L2 flushed before each); the dense
-             kernels' tensor-core and SIMT instances on the same inputs, at
-             T = 4, 16 and 32.
+             T = 16 and 32 for kernels 1-4 (the deeper planes).  The
+             dual-sparse BSR kernel (3) also on an all-silent input and a
+             plan with a cnt == 0 column block; the dense-weight kernels (1
+             full sums, 2 fused LIF) on the same weights with their pruned
+             blocks as zeros.  bf16 payloads and weights take the kernels'
+             tensor-core instances (`tc`), f32 ones the SIMT instances.  The
+             two instances add the same exact products in other orders, so
+             across instances (dense `tc` vs kernel 3) outputs are held by
+             the same gate as against the plain version; the two SIMT
+             instances add in the same order, so on f32 weights the dense
+             kernel must EQUAL kernel 3.  Full sums must agree within
+             ``TOL``; a spike word may differ only where the LIF input sits
+             within ``TOL`` of v_th.  Times each kernel, its plain version
+             and one PyTorch matmul of the same work (CUDA events, L2
+             flushed before each); both instances of the dense and of the
+             BSR kernels on the same inputs, at T = 4, 16 and 32 (`tc` must
+             beat SIMT at T = 4).
 4. small   — a smoke-size model served on the card and on the CPU, under
              the dual-sparse and the dense-weight policy: the same tokens.
 5. serve   — full-width llama3.2-1b (16 layers, d_model 2048, d_ff 8192,
              vocab 128256) with spiking FFNs at weight density 0.3, random
              weights from a seed, served by the `Engine` under PACKED_DUAL:
              4 requests of 128 prompt tokens and 16 generated tokens.  Kernel
-             3's launch count must be exactly 2 x 16 x forwards (and no other
-             kernel's move); tokens must equal the port's own greedy loop;
+             3's launch count must be exactly 2 x 16 x forwards, all through
+             its tensor-core instance (and no other kernel's move); tokens
+             must equal the port's own greedy loop;
              the served logits of every step must lie within ``LOGIT_TOL`` of
              the same params run on the CPU (plain versions), teacher-forced
              with the served tokens.  Then every kernel call of that serve is
              replayed on its own inputs: held against the plain version and
-             timed against a bound computed from its own activity map.  Three
+             timed against a bound computed from its own activity map, the
+             SIMT instance beside it (`tc` must beat it in every group of
+             calls, by M and GEMM).  Three
              more serves without logit capture give tok/s and TTFT, and one
              under torch.profiler the device's busy time.
 6. dense   — the same params served under ``weight_sparsity='dense'``: no
@@ -58,13 +63,15 @@ Phases, each asserted; a failed phase ends the run with a non-zero exit:
 7. adaptive — kernel 4 (the BSR kernel gated by a timestep-activity map):
              every W_in/W_out call of the dual-sparse serve again through
              `ops.dispatch` under PACKED_DUAL_ADAPTIVE (its launches counted
-             on that path), equal to kernel 3 bit for bit, and under
+             on that path, all through `tc`), equal to kernel 3 bit for bit,
+             and under
              adaptive(min_spikes=2) equal to kernel 3 on the masked input;
              the same on full-width inputs with silent front planes and on
              the reference's adaptive bench shape (T = 16, M = 128, K = 2304,
              N = 512, element density 0.03, 256-wide blocks, 12 of 16 planes
-             silent).  Timed against a bound that counts the live planes
-             (for kernel 3 as for kernel 4: a silent plane needs no work).
+             silent; its f32 payload runs SIMT, and a bf16 copy `tc`).
+             Timed against a bound that counts the live planes (for kernel 3
+             as for kernel 4: a silent plane needs no work).
 
 8. train  — full-width, full-depth llama3.2-1b with spiking FFNs (T = 4,
              weight density 0.3), seed 0, trained 5 steps by
@@ -350,18 +357,34 @@ def _hold(label, c_k, u_k, o_p, fuse):
     return err, flips
 
 
+def _bsr_instance(args):
+    """The BSR kernels' instance one call's payload routes to."""
+    from repro_torch.kernels import ftp_spmm
+
+    p = args[1]
+    return ftp_spmm.bsr_instance(p.dtype, p.shape[1], p.shape[2],
+                                 p.data_ptr() % 16 == 0)
+
+
 def _parity(label, args, bm, fuse, tmap=None):
-    """BSR kernel vs plain version on one call's inputs."""
+    """BSR kernel (the routed instance; on a `tc` payload the SIMT instance
+    too) vs plain version on one call's inputs; returns the larger (max abs
+    error, spike-word flips) of the two."""
     import torch
 
     from repro_torch.kernels import ftp_spmm
 
-    c_k, u_k = ftp_spmm.ftp_spmm_bsr(*args, bm=bm, fuse_lif=fuse, tmap=tmap)
     o_p, _ = ftp_spmm.ftp_spmm_bsr_plain(*args, bm=bm, fuse_lif=False, tmap=tmap)
-    torch.cuda.synchronize()
-    if not fuse:
-        assert not bool(u_k.any()), f"{label}: U must be zero without the LIF"
-    return _hold(label, c_k, u_k, o_p, fuse)
+    worst = (0.0, 0)
+    for inst in ("tc", "simt") if _bsr_instance(args) == "tc" else ("simt",):
+        c_k, u_k = ftp_spmm.ftp_spmm_bsr(*args, bm=bm, fuse_lif=fuse, tmap=tmap,
+                                         instance=inst)
+        torch.cuda.synchronize()
+        if not fuse:
+            assert not bool(u_k.any()), f"{label}: U must be zero without the LIF"
+        err, flips = _hold(f"{label} ({inst})", c_k, u_k, o_p, fuse)
+        worst = (max(worst[0], err), max(worst[1], flips))
+    return worst
 
 
 def _planes(a, Tc, tmap=None):
@@ -378,14 +401,16 @@ def _planes(a, Tc, tmap=None):
 
 
 def _measure(args, bm, fuse, flush, w_dense, reps, tmap=None):
-    """BSR kernel, plain version and library yardstick timed on one call's
-    inputs, with the call's bound."""
+    """BSR kernel (the routed instance, ``ms``; on a `tc` payload the SIMT
+    instance too, ``simt_ms``), plain version and library yardstick timed
+    on one call's inputs, with the call's bound."""
     import torch
 
     from repro_torch.kernels import ftp_spmm
 
     planes = _planes(args[0], args[7], tmap)
     row = {
+        "instance": _bsr_instance(args),
         "ms": _time_ms(lambda: ftp_spmm.ftp_spmm_bsr(*args, bm=bm, fuse_lif=fuse,
                                                      tmap=tmap), reps, flush),
         "plain_ms": _time_ms(
@@ -394,8 +419,21 @@ def _measure(args, bm, fuse, flush, w_dense, reps, tmap=None):
             max(1, reps // 5), flush),
         "library_ms": _time_ms(lambda: torch.matmul(planes, w_dense), reps, flush),
     }
+    if row["instance"] == "tc":
+        row["simt_ms"] = _time_ms(
+            lambda: ftp_spmm.ftp_spmm_bsr(*args, bm=bm, fuse_lif=fuse, tmap=tmap,
+                                          instance="simt"), reps, flush)
     row["bound_ms"], row["bound_by"] = _bound(args, bm, fuse, tmap)
     return row
+
+
+def _assert_tc_faster(row):
+    """A measured row (one call, or a group's per-launch means) that ran the
+    tensor-core instance must beat the SIMT instance on the same inputs."""
+    if row.get("instance") == "tc":
+        assert row["ms"] < row["simt_ms"], (
+            f"{row['case']}: tensor-core instance {row['ms']:.4f} ms not faster "
+            f"than SIMT {row['simt_ms']:.4f} ms")
 
 
 def _dense_instance(w):
@@ -472,8 +510,11 @@ def _check_case(label, a, plan, n_out, fuse, flush=None, tmap=None, Tc=T):
     row = {"case": label, "M": a.shape[0], "T": Tc, "fuse_lif": fuse,
            "max_abs_err": err, "flips": flips}
     if flush is not None:
-        row.update(_measure(args, bm, fuse, flush, _dense_weight(args), 30, tmap))
+        row.update(_measure(args, bm, fuse, flush, _dense_weight(args),
+                            30 if Tc == T else 10, tmap))
     log(f"{label}: max_abs_err {err:.3e}, flips {flips}{_fmt(row)}")
+    if flush is not None and Tc == T:
+        _assert_tc_faster(row)
     return row
 
 
@@ -554,21 +595,24 @@ def phase_kernel():
     for fuse in (True, False):
         _check_case(f"cnt==0 column block fuse_lif={fuse}", _spikes(gen, 4, D),
                     plan_hole, F, fuse)
-    for Tc in (16, 32):  # the deeper accumulator buckets, at full width
+    for Tc in (16, 32):  # the deeper planes, at full width
         for M in (4, 512):
             for label, width, w, plan, fuse in (
                     (f"W_in fused_lif T={Tc} M={M}", D, w_in, plan_in, True),
                     (f"W_out full_sums T={Tc} M={M}", F, w_out, plan_out, False)):
-                dense_rows.append(_deep_case(label, gen, M, width, w, plan,
-                                             fuse, Tc, flush))
+                bsr, dense = _deep_case(label, gen, M, width, w, plan, fuse, Tc,
+                                        flush)
+                rows.append(bsr)
+                dense_rows.append(dense)
     return rows, dense_rows
 
 
 def _deep_case(label, gen, M, width, w, plan, fuse, Tc, flush):
     """Kernels 3, 1/2 and 4 at T = ``Tc`` on one full-width shape, each
     against its plain version; kernel 4 (on an input whose planes 0-1 are
-    silent) also equal to kernel 3.  The dense kernels' two instances timed
-    on the same inputs; returns their row."""
+    silent) also equal to kernel 3.  Both instances of kernel 3 and of the
+    dense kernels timed on the same inputs; returns (kernel 3's row, the
+    dense kernels' row)."""
     import torch
 
     from repro_torch.core.packing import timestep_activity_map
@@ -577,7 +621,7 @@ def _deep_case(label, gen, M, width, w, plan, fuse, Tc, flush):
 
     n_out = w.shape[1]
     a = _spikes(gen, M, width, Tc)
-    _check_case(label, a, plan, n_out, fuse, Tc=Tc)
+    bsr = _check_case(label, a, plan, n_out, fuse, flush, Tc=Tc)
     err, flips = _dense_parity(f"dense {label}", a, w, Tc, fuse)
     s_err, s_flips = _dense_parity(f"dense SIMT {label}", a, w, Tc, fuse, "simt")
     row = {"case": f"dense {label}", "M": M, "T": Tc, "fuse_lif": fuse,
@@ -595,7 +639,7 @@ def _deep_case(label, gen, M, width, w, plan, fuse, Tc, flush):
     want = ops.dispatch(a, plan, PACKED_DUAL, Tc, **kw)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
         f"{label}: kernel 4 != kernel 3 at min_spikes=1"
-    return row
+    return bsr, row
 
 
 def _check_dense_case(label, a, w, plan, fuse, flush):
@@ -627,24 +671,26 @@ def _check_dense_case(label, a, w, plan, fuse, flush):
 
 
 def _check_dense_f32_equals_bsr(label, a, w32, plan32, fuse):
-    """f32 weights route to the SIMT instance, which adds in ascending k as
-    kernel 3 does: on block-pruned weights their outputs are equal, bit for
-    bit."""
+    """f32 weights route to the dense SIMT instance and their plan to kernel
+    3's SIMT instance, which add in the same ascending k order: on
+    block-pruned weights their outputs are equal, bit for bit."""
     import torch
 
     from repro_torch.kernels import ftp_spmm, ops
     from repro_torch.serve.policy import PACKED_DENSE, PACKED_DUAL
 
     assert _dense_instance(w32) == "simt"
-    before = ftp_spmm.launch_counts()["ftp_dense_simt"]
+    before = ftp_spmm.launch_counts()
     got = ops.dispatch(a, w32, PACKED_DENSE, T, fuse_lif=fuse)
-    assert ftp_spmm.launch_counts()["ftp_dense_simt"] == before + 1
     want = ops.dispatch(a, plan32, PACKED_DUAL, T, fuse_lif=fuse,
                         n_out=w32.shape[1])
+    after = ftp_spmm.launch_counts()
+    assert after["ftp_dense_simt"] == before["ftp_dense_simt"] + 1
+    assert after["ftp_bsr_simt"] == before["ftp_bsr_simt"] + 1
     same = (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
             if fuse else torch.equal(got, want[0]))
     assert same, f"dense f32 {label}: SIMT instance != kernel 3"
-    log(f"dense f32 {label}: SIMT instance == kernel 3, bit for bit")
+    log(f"dense f32 {label}: SIMT instance == kernel 3 (SIMT), bit for bit")
 
 
 # ---------------------------------------------------------------------------
@@ -788,19 +834,22 @@ def phase_serve():
     prompts = [rng.integers(0, cfg.vocab, size=(PROMPT,)).astype(np.int32)
                for _ in range(REQUESTS)]
     outs, got, calls, counts, forwards = _serve(
-        engine, prompts, "dual-sparse", ["ftp_spmm_bsr"], {"ftp_bsr": 2})
+        engine, prompts, "dual-sparse", ["ftp_spmm_bsr"],
+        {"ftp_bsr": 2, "ftp_bsr_tc": 2})
     want = generate(model, engine.params,
                     torch.as_tensor(np.stack(prompts), device="cuda").long(),
                     model.init_cache(REQUESTS, PROMPT + GEN, device="cuda"), GEN,
                     spiking_mode="infer").cpu().numpy()
     for i in range(REQUESTS):
         np.testing.assert_array_equal(outs[i], want[i])
-    log(f"counted serve: {forwards} forwards, {counts['ftp_bsr']} kernel launches; "
-        f"tokens identical to the greedy loop; sample {outs[0][:8].tolist()}")
+    log(f"counted serve: {forwards} forwards, {counts['ftp_bsr']} kernel launches, "
+        f"all {counts['ftp_bsr_tc']} through the tensor-core instance; tokens "
+        f"identical to the greedy loop; sample {outs[0][:8].tolist()}")
     cpu_ref = _cpu_reference(model, cfg, params, prompts, outs, got)
     timed, best = _timed(engine, prompts, outs, "dual-sparse")
     prof = _profile(engine, prompts, best["wall_s"])
-    return {"launches": counts["ftp_bsr"], "calls": calls, "cpu_reference": cpu_ref,
+    return {"launches": counts["ftp_bsr"], "counts": counts, "calls": calls,
+            "cpu_reference": cpu_ref,
             "timed": timed, "median": best, "profile": prof,
             "model": model, "params": params, "prompts": prompts, "outs": outs,
             "logits": got, "engine": engine}
@@ -964,9 +1013,10 @@ def _add(groups, label, M, fuse, err, flips, row, active, density):
 
 def _replay(calls):
     """Every BSR kernel call of the counted serve again, on its own inputs:
-    kernel vs plain version, then kernel, plain version and library
-    yardstick timed against the call's bound.  Grouped by (M, fuse_lif):
-    W_in runs with the LIF fused, W_out without."""
+    both instances vs the plain version, then the kernel (`tc`), its SIMT
+    instance, the plain version and the library yardstick timed against the
+    call's bound.  Grouped by (M, fuse_lif): W_in runs with the LIF fused,
+    W_out without; in every group `tc` must beat SIMT per launch."""
     from repro_torch.serve.batching import spike_sparsity
 
     flush = _flush_buffer()
@@ -982,7 +1032,11 @@ def _replay(calls):
         row = _measure(args, bm, fuse, flush, dense[key], 3)
         _add(groups, label, args[0].shape[0], fuse, err, flips, row,
              float((args[5] > 0).float().mean()), 1.0 - spike_sparsity(args[0], T))
-    return _group_rows(groups)
+    rows = _group_rows(groups)
+    for r in rows:
+        assert r.get("instance") == "tc", r["case"]
+        _assert_tc_faster(r)
+    return rows
 
 
 def _replay_dense(calls):
@@ -1095,8 +1149,8 @@ def phase_adaptive(dual):
                 for a, plan, n_out, Tc, v_th, tau, fuse in calls]
 
     outs, counts = _counted("adaptive replay of the serve", path)
-    assert counts == dict(dict.fromkeys(counts, 0),
-                          ftp_bsr_adaptive=len(calls)), counts
+    assert counts == dict(dict.fromkeys(counts, 0), ftp_bsr_adaptive=len(calls),
+                          ftp_bsr_tc=len(calls)), counts
     lossy = ExecutionPolicy(spike_format="packed", weight_sparsity="dual_sparse",
                             temporal=adaptive_t(2), exactness=approximate(8.0))
     n_live, n_lossy_differs = [], 0
@@ -1134,6 +1188,9 @@ def phase_adaptive(dual):
         _add(groups, label, a.shape[0], fuse, err, flips, row,
              float((args[5] > 0).float().mean()), 1.0 - spike_sparsity(a, Tc))
     served = _group_rows(groups)
+    for r in served:
+        assert r.get("instance") == "tc", r["case"]
+        _assert_tc_faster(r)
 
     # synthetic: full width with silent front planes, and the bench shape
     dev = torch.device("cuda")
@@ -1166,24 +1223,29 @@ def phase_adaptive(dual):
 
     w = prune_by_magnitude(torch.from_numpy(rng.normal(size=(Kb, Nb)).astype(
         np.float32)).to(dev), 0.03)
-    plan = build_weight_plan(w, bk=256, bn=256)
     tmap = timestep_activity_map(a, Tb).to(torch.int32)
     assert int(tmap.sum()) == 4
-    bench = _check_case("adaptive bench T=16 M=128 K=2304 N=512", a, plan, Nb,
-                        True, flush, tmap)
-    full = _check_case("full bench T=16 M=128 K=2304 N=512", a, plan, Nb, True,
-                       flush, Tc=Tb)
-    got = ops.dispatch(a, plan, PACKED_DUAL_ADAPTIVE, Tb, n_out=Nb, fuse_lif=True)
-    want = ops.dispatch(a, plan, PACKED_DUAL, Tb, n_out=Nb, fuse_lif=True)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    lo = ops.dispatch(a, plan, lossy, Tb, n_out=Nb, fuse_lif=True)
-    mo = ops.dispatch(mask_low_activity_timesteps(a, Tb, 2), plan, PACKED_DUAL,
-                      Tb, n_out=Nb, fuse_lif=True)
-    assert torch.equal(lo[0], mo[0]) and torch.equal(lo[1], mo[1])
-    log(f"bench shape: adaptive {bench['ms']:.4f} ms vs full {full['ms']:.4f} ms "
-        f"({full['ms'] / bench['ms']:.2f}x), both == on the outputs")
-    return {"launches": counts["ftp_bsr_adaptive"], "served": served,
-            "cases": cases + [bench, full]}
+    # the reference's f32 payload (SIMT), then a bf16 copy (tensor cores)
+    for dtype, tag in ((torch.float32, ""), (torch.bfloat16, " bf16")):
+        plan = build_weight_plan(w.to(dtype), bk=256, bn=256)
+        bench = _check_case(f"adaptive bench{tag} T=16 M=128 K=2304 N=512", a,
+                            plan, Nb, True, flush, tmap)
+        full = _check_case(f"full bench{tag} T=16 M=128 K=2304 N=512", a, plan,
+                           Nb, True, flush, Tc=Tb)
+        got = ops.dispatch(a, plan, PACKED_DUAL_ADAPTIVE, Tb, n_out=Nb,
+                           fuse_lif=True)
+        want = ops.dispatch(a, plan, PACKED_DUAL, Tb, n_out=Nb, fuse_lif=True)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        lo = ops.dispatch(a, plan, lossy, Tb, n_out=Nb, fuse_lif=True)
+        mo = ops.dispatch(mask_low_activity_timesteps(a, Tb, 2), plan,
+                          PACKED_DUAL, Tb, n_out=Nb, fuse_lif=True)
+        assert torch.equal(lo[0], mo[0]) and torch.equal(lo[1], mo[1])
+        log(f"bench shape{tag} ({bench['instance']}): adaptive {bench['ms']:.4f} "
+            f"ms vs full {full['ms']:.4f} ms ({full['ms'] / bench['ms']:.2f}x), "
+            "both == on the outputs")
+        cases += [bench, full]
+    return {"launches": counts["ftp_bsr_adaptive"], "counts": counts,
+            "served": served, "cases": cases}
 
 
 # ---------------------------------------------------------------------------
@@ -1748,6 +1810,22 @@ def _entry(name, launches, rows, extra):
                  "library_ms": mean["library_ms"]})
 
 
+def _instances(name, counts, rows):
+    """The kernels-line fields of a kernel with two instances: the one its
+    path ran (every launch through `tc`), the launches by instance, and the
+    SIMT instance's mean time on the same calls."""
+    family = "bsr" if name.startswith("ftp_bsr") else "dense"
+    n = sum(r["launches"] for r in rows)
+    out = {"instance": "tc",
+           "instance_launches": {"tc": counts[f"ftp_{family}_tc"],
+                                 "simt": counts[f"ftp_{family}_simt"]},
+           "simt_ms": sum(r["simt_ms"] * r["launches"] for r in rows) / n}
+    log(f"{name}: tensor-core instance "
+        f"{sum(r['ms'] * r['launches'] for r in rows) / n:.4f} ms per path "
+        f"launch, SIMT instance {out['simt_ms']:.4f} ms on the same calls")
+    return out
+
+
 def _serve_summary(s):
     med = s["median"]
     return {"tok_s": med["throughput_tok_s"], "ttft_s_p50": med["ttft_s_p50"],
@@ -1779,23 +1857,16 @@ def main() -> int:
     log(f"dense / dual-sparse kernel time per launch at the serve's shapes: "
         f"{json.dumps({k: round(v, 3) for k, v in ratios.items()})}")
     bsr = _entry("ftp_bsr", dual["launches"], served, rows)
-    bsr.update(serve_cases=served, cases=rows,
+    bsr.update(_instances("ftp_bsr", dual["counts"], served), serve_cases=served,
+               cases=rows,
                serve=dict(_serve_summary(dual), cpu_reference=dual["cpu_reference"]))
     kernels = [bsr]
     for name, fuse in (("ftp_spmm", False), ("ftp_spmm_fused_lif", True)):
         mine = [r for r in dense_served if r["fuse_lif"] == fuse]
         entry = _entry(name, dense["counts"][name], mine,
                        [r for r in dense_rows if r["fuse_lif"] == fuse])
-        n = sum(r["launches"] for r in mine)
-        entry.update(
-            instance="tc",
-            instance_launches={"tc": dense["counts"]["ftp_dense_tc"],
-                               "simt": dense["counts"]["ftp_dense_simt"]},
-            simt_ms=sum(r["simt_ms"] * r["launches"] for r in mine) / n,
-            serve_cases=mine,
-            cases=[r for r in dense_rows if r["fuse_lif"] == fuse])
-        log(f"{name}: tensor-core instance {entry['ms']:.4f} ms per serve launch, "
-            f"SIMT instance {entry['simt_ms']:.4f} ms on the same calls")
+        entry.update(_instances(name, dense["counts"], mine), serve_cases=mine,
+                     cases=[r for r in dense_rows if r["fuse_lif"] == fuse])
         kernels.append(entry)
     kernels[-1].update(serve=dict(_serve_summary(dense),
                                   max_logit_diff_vs_dual=dense["max_logit_diff_vs_dual"],
@@ -1803,7 +1874,9 @@ def main() -> int:
                        dense_over_dual=ratios)
     ad = _entry("ftp_bsr_adaptive", adaptive["launches"], adaptive["served"],
                 adaptive["cases"])
-    ad.update(serve_cases=adaptive["served"], cases=adaptive["cases"])
+    ad.update(_instances("ftp_bsr_adaptive", adaptive["counts"],
+                         adaptive["served"]),
+              serve_cases=adaptive["served"], cases=adaptive["cases"])
     kernels.append(ad)
     # the serves' params, engines and recorded calls go before training
     del dual, dense, adaptive

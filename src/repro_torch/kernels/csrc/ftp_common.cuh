@@ -1,9 +1,9 @@
-// What the FTP kernels (ftp_bsr.cu and ftp_dense.cu's SIMT instance) share:
-// the thread layout, the bit-gated accumulate step, the hard-reset LIF
-// epilogue and the dispatch over (rows per thread, accumulator depth)
+// What the FTP kernels' SIMT instances (ftp_bsr.cu's and ftp_dense.cu's)
+// share: the thread layout, the bit-gated accumulate step, the hard-reset
+// LIF epilogue and the dispatch over (rows per thread, accumulator depth)
 // buckets.  Both add in f32 with the same instructions in the same order,
-// which is what makes their full sums equal on block-pruned weights.
-// ftp_dense.cu's tensor-core instance uses the LIF epilogue alone.
+// which is what makes their full sums equal on block-pruned weights.  The
+// tensor-core instances (ftp_tc.cuh) use the LIF epilogue alone.
 
 #pragma once
 

@@ -56,9 +56,8 @@
 // than kernel 3's, so on bf16 weights the two agree within f32 rounding,
 // not bit for bit.  Next steps for speed: wgmma and TMA, a persistent grid.
 
-#include <cooperative_groups.h>
-
 #include "ftp_common.cuh"
+#include "ftp_tc.cuh"
 
 namespace {
 
@@ -172,17 +171,26 @@ struct Launch {
 namespace tc {
 
 namespace cg = cooperative_groups;
+// using-declarations, not a directive: the SIMT instance's kBK (128) must
+// not meet the ring's (64) in the enclosing scope
+using ftp::tc::a_frag;
+using ftp::tc::b_frags;
+using ftp::tc::cp_async16;
+using ftp::tc::cp_async4;
+using ftp::tc::cp_async_commit;
+using ftp::tc::cp_async_wait;
+using ftp::tc::kAPitch;
+using ftp::tc::kBK;
+using ftp::tc::kBN;
+using ftp::tc::kMaxSplits;
+using ftp::tc::kPPitch;
+using ftp::tc::kStages;
+using ftp::tc::kWPitch;
+using ftp::tc::mma_bf16;
+using ftp::tc::rank_sum;
 
-constexpr int kBN = 64;           // output columns per block
-constexpr int kBK = 64;           // K depth of one ring stage
-constexpr int kStages = 4;        // ring depth
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kWPitch = kBN + 8;  // bf16 per weight row: 144 B, ldmatrix conflict-free
-constexpr int kAPitch = kBK + 8;  // words per spike row: 288 B
-constexpr int kPPitch = kBN + 4;  // floats per row of the partial-sum tile
-constexpr int kMaxSplits = 8;     // a portable cluster
-constexpr uint32_t kOneBf16 = 0x3F80u;
 
 __host__ __device__ constexpr int stage_bytes(int mtw) {
   // weight tile + the spike words of up to rows / 4 rows (T >= 4 rows each)
@@ -192,54 +200,6 @@ __host__ __device__ constexpr int smem_bytes(int mtw) {
   return kStages * stage_bytes(mtw) > 64 * mtw * kPPitch * 4
              ? kStages * stage_bytes(mtw)
              : 64 * mtw * kPPitch * 4;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16-byte copy; bytes past src_bytes (0..16) are zero-filled
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Two bf16 {0,1} values in one register: bit `sh` of w0 (low half) and of
-// w1 (high half), or zeros when the row's timestep is past T (live == 0).
-__device__ __forceinline__ uint32_t plane_pair(uint32_t w0, uint32_t w1,
-                                               int sh, uint32_t live) {
-  return (((w0 >> sh) & live) | (((w1 >> sh) & live) << 16)) * kOneBf16;
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // One block: split s = its cluster rank, 64 output columns from col0, the
@@ -345,29 +305,13 @@ __global__ void __launch_bounds__(kThreads) ftp_dense_tc_kernel(
 #pragma unroll
     for (int ks = 0; ks < kBK / 16; ++ks) {
       uint32_t bf[8][2];
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        uint32_t r[4];
-        const int kr = ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4_trans(r, ws + kr * kWPitch + p * 16 + (lane >> 4) * 8);
-        bf[2 * p][0] = r[0];
-        bf[2 * p][1] = r[1];
-        bf[2 * p + 1][0] = r[2];
-        bf[2 * p + 1][1] = r[3];
-      }
+      b_frags<4>(bf, ws, ks, 0, lane);
 #pragma unroll
       for (int i = 0; i < MTW; ++i) {
-        const int32_t* lo = as + m_lo[i] * kAPitch + ks * 16 + c2;
-        const int32_t* hi = as + m_hi[i] * kAPitch + ks * 16 + c2;
-        const int2 lo0 = *reinterpret_cast<const int2*>(lo);
-        const int2 lo8 = *reinterpret_cast<const int2*>(lo + 8);
-        const int2 hi0 = *reinterpret_cast<const int2*>(hi);
-        const int2 hi8 = *reinterpret_cast<const int2*>(hi + 8);
-        const uint32_t af[4] = {
-            plane_pair(lo0.x, lo0.y, sh_lo[i], live_lo[i]),
-            plane_pair(hi0.x, hi0.y, sh_hi[i], live_hi[i]),
-            plane_pair(lo8.x, lo8.y, sh_lo[i], live_lo[i]),
-            plane_pair(hi8.x, hi8.y, sh_hi[i], live_hi[i])};
+        uint32_t af[4];
+        a_frag(af, as + m_lo[i] * kAPitch + ks * 16 + c2,
+               as + m_hi[i] * kAPitch + ks * 16 + c2, sh_lo[i], sh_hi[i],
+               live_lo[i], live_hi[i]);
 #pragma unroll
         for (int j = 0; j < 8; ++j) mma_bf16(acc[i][j], af, bf[j][0], bf[j][1]);
       }
@@ -402,18 +346,7 @@ __global__ void __launch_bounds__(kThreads) ftp_dense_tc_kernel(
     const int gm = m0 + m, gn = col0 + n;
     if (gm >= M || gn >= N) continue;
     float x[32];
-#pragma unroll
-    for (int t = 0; t < 32; ++t) {
-      x[t] = 0.f;
-      if (t < T) {
-        const int at = ((t << bm_shift) + m) * kPPitch + n;
-        float v = parts[0][at];
-#pragma unroll
-        for (int q = 1; q < kMaxSplits; ++q)
-          if (q < S) v = __fadd_rn(v, parts[q][at]);
-        x[t] = v;
-      }
-    }
+    rank_sum(x, parts, S, T, bm_shift, m, n);
     const size_t at = (size_t)gm * N + gn;
     if (FUSE) {
       reinterpret_cast<int32_t*>(out)[at] =

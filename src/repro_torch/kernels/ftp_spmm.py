@@ -8,7 +8,10 @@
   `dense_instance` picks one from the dtype, N and the alignment alone);
 * `ftp_spmm_bsr`: dual-sparse, against a load-time weight join plan
   (kernel 3, ``csrc/ftp_bsr.cu``); with a timestep-activity map ``tmap`` it
-  launches the adaptive instance of the same kernel (kernel 4).
+  launches the adaptive form of the same kernel (kernel 4).  Two
+  instances: ``tc`` on the tensor cores for bf16 payloads, ``simt`` for
+  f32 payloads and small blocks; `bsr_instance` picks one from the dtype,
+  the block shape and the alignment alone.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 version only for tensors on the CPU.  There is no fallback: a CUDA input a
@@ -17,7 +20,8 @@ kernel does not take raises.  One integer per kernel counts its launches
 through the kernel: ``LAUNCHES`` (kernel 3), ``ADAPTIVE_LAUNCHES`` (4),
 ``SPMM_LAUNCHES`` (1) and ``SPMM_LIF_LAUNCHES`` (2); ``DENSE_TC_LAUNCHES``
 and ``DENSE_SIMT_LAUNCHES`` count the launches of kernels 1 and 2 together
-by the instance that ran.
+by the instance that ran, ``BSR_TC_LAUNCHES`` and ``BSR_SIMT_LAUNCHES``
+those of kernels 3 and 4.
 """
 from __future__ import annotations
 
@@ -40,25 +44,31 @@ SPMM_LAUNCHES = 0      # kernel 1: ftp_dense, full sums
 SPMM_LIF_LAUNCHES = 0  # kernel 2: ftp_dense, fused P-LIF
 DENSE_TC_LAUNCHES = 0    # kernels 1 + 2 through the tensor-core instance
 DENSE_SIMT_LAUNCHES = 0  # kernels 1 + 2 through the SIMT instance
+BSR_TC_LAUNCHES = 0      # kernels 3 + 4 through the tensor-core instance
+BSR_SIMT_LAUNCHES = 0    # kernels 3 + 4 through the SIMT instance
 
 KERNEL_NAMES = ("ftp_bsr", "ftp_bsr_adaptive", "ftp_spmm", "ftp_spmm_fused_lif")
 
 
 def launch_counts() -> dict[str, int]:
     """{kernel name: launches} of the four kernels (`KERNEL_NAMES`), then
-    the dense kernels' launches by instance (``ftp_dense_tc``,
-    ``ftp_dense_simt``: each launch of kernel 1 or 2 counts in one)."""
+    the launches by instance: ``ftp_dense_tc`` / ``ftp_dense_simt`` (each
+    launch of kernel 1 or 2 counts in one) and ``ftp_bsr_tc`` /
+    ``ftp_bsr_simt`` (each launch of kernel 3 or 4 counts in one)."""
     return {"ftp_bsr": LAUNCHES, "ftp_bsr_adaptive": ADAPTIVE_LAUNCHES,
             "ftp_spmm": SPMM_LAUNCHES, "ftp_spmm_fused_lif": SPMM_LIF_LAUNCHES,
             "ftp_dense_tc": DENSE_TC_LAUNCHES,
-            "ftp_dense_simt": DENSE_SIMT_LAUNCHES}
+            "ftp_dense_simt": DENSE_SIMT_LAUNCHES,
+            "ftp_bsr_tc": BSR_TC_LAUNCHES, "ftp_bsr_simt": BSR_SIMT_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     global LAUNCHES, ADAPTIVE_LAUNCHES, SPMM_LAUNCHES, SPMM_LIF_LAUNCHES
     global DENSE_TC_LAUNCHES, DENSE_SIMT_LAUNCHES
+    global BSR_TC_LAUNCHES, BSR_SIMT_LAUNCHES
     LAUNCHES = ADAPTIVE_LAUNCHES = SPMM_LAUNCHES = SPMM_LIF_LAUNCHES = 0
     DENSE_TC_LAUNCHES = DENSE_SIMT_LAUNCHES = 0
+    BSR_TC_LAUNCHES = BSR_SIMT_LAUNCHES = 0
 
 
 # The kernels' row tile: bm = 4 warps x rows per thread.  Small tiles keep
@@ -67,7 +77,7 @@ def reset_launch_counts() -> None:
 # leaves room for fewer rows per thread) rows in prefill.
 _SMALL_BM = 4
 _COLS = 32        # output columns per thread block
-_MAX_BK = 256     # keeps the BSR kernel's shared memory under the 48 KB default
+_MAX_BK = 256     # keeps the BSR SIMT instance's shared memory under 48 KB
 _MAX_ROW_TILES = 65535  # the grid's row-tile extent (y: simt, z: tc)
 
 
@@ -97,6 +107,11 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
             p, p, p,
         ]
         lib.ftp_bsr_launch.restype = i
+        lib.ftp_bsr_tc_launch.argtypes = [
+            p, i, i, i, p, i, i, p, p, p, i, i, p, i, p, i, i, i, i, i, i, f,
+            f, i, p, p, p,
+        ]
+        lib.ftp_bsr_tc_launch.restype = i
     else:
         lib.ftp_dense_launch.argtypes = [
             p, i, i, p, i, i, i, i, i, f, f, i, p, p, p,
@@ -303,6 +318,42 @@ def _check(a, payload, kidx, vidx, cnt, act, n_out, bm, T, tmap):
     return M, K, bk, bn, nnb
 
 
+def bsr_instance(dtype: torch.dtype, bk: int, bn: int, aligned: bool) -> str:
+    """The BSR kernels' instance for a (nnzb, bk, bn) payload of ``dtype``
+    whose base is 16-byte ``aligned``: ``"tc"`` (tensor cores) for bf16
+    with a 16-byte aligned base, ``bk % 16 == 0`` and ``bn % 64 == 0``,
+    else ``"simt"``.  A function of these four alone, never of M or of a
+    failed launch."""
+    if (dtype == torch.bfloat16 and aligned and bk % 16 == 0
+            and bn % _TC_BN == 0):
+        return "tc"
+    return "simt"
+
+
+def bsr_tc_shape(nnb: int, bn: int, jmax: int, T: int, bm: int) -> dict[str, int]:
+    """The BSR tensor-core instance's launch shape for a plan of ``nnb``
+    column blocks of ``bn`` columns and join lists of ``jmax`` slots, at
+    ``T`` timesteps and act row tile ``bm``.
+
+    ``bn`` (64 columns per block), ``splits`` (the cluster's ranks S, in
+    ascending order) and ``slots_per_rank`` (rank s takes join slots
+    [s * slots_per_rank, (s + 1) * slots_per_rank) of every column block)
+    depend on the plan alone, so every output element is summed in the
+    same order for any M: S doubles while ``nnb * (bn / 64) * S`` launches
+    fewer than ~2 blocks per SM, up to 8 and to ``jmax``.  ``rows`` (MMA
+    rows per block) = T' * bm, T' = T rounded up to a power of two, at
+    least 4, covers exactly one act row tile; the kernel runs 8 warps at
+    256 rows (T > 16 at bm = 8), else 4."""
+    n_cols = nnb * (bn // _TC_BN)
+    splits = 1
+    while (splits < _TC_MAX_SPLITS and n_cols * splits < _TC_MIN_BLOCKS
+           and 2 * splits <= jmax):
+        splits *= 2
+    t_pad = max(4, 1 << (T - 1).bit_length())
+    return {"bn": _TC_BN, "splits": splits,
+            "slots_per_rank": -(-jmax // splits), "rows": t_pad * bm}
+
+
 def ftp_spmm_bsr(
     a: torch.Tensor,
     payload: torch.Tensor,
@@ -318,6 +369,7 @@ def ftp_spmm_bsr(
     bm: int,
     fuse_lif: bool = True,
     tmap: torch.Tensor | None = None,
+    instance: str | None = None,
 ):
     """Dual-sparse FTP spMspM over a load-time weight join plan.
 
@@ -329,6 +381,10 @@ def ftp_spmm_bsr(
     tmap:    optional (T,) int32 timestep-activity map: planes with
              ``tmap[t] == 0`` add nothing (kernel 4); the LIF still walks
              all T.  None walks every plane (kernel 3).
+
+    instance: "tc" or "simt" overrides `bsr_instance`'s choice, to measure
+             one instance against the other; an instance the payload does
+             not fit raises.
 
     Returns (packed spikes (M, n_out) int32, final U (M, n_out) f32) when
     ``fuse_lif``, else ((T, M, n_out) f32 full sums, zeros (M, n_out))."""
@@ -343,7 +399,17 @@ def ftp_spmm_bsr(
     if bm not in (_SMALL_BM, _large_bm(T)):
         raise ValueError(f"the kernel's row tile at T={T} is {_SMALL_BM} or "
                          f"{_large_bm(T)}, got {bm}")
-    if bn % _COLS or bk > _MAX_BK or payload.data_ptr() % 16:
+    aligned = payload.data_ptr() % 16 == 0
+    route = bsr_instance(payload.dtype, bk, bn, aligned)
+    if instance is None:
+        instance = route
+    elif instance == "tc" and route != "tc":
+        raise ValueError(f"the tc instance takes a bf16 payload with a 16-byte "
+                         f"aligned base, bk % 16 == 0 and bn % {_TC_BN} == 0, "
+                         f"got {payload.dtype}, bk={bk}, bn={bn}")
+    elif instance not in ("tc", "simt"):
+        raise ValueError(f"no ftp_bsr instance {instance!r}")
+    if instance == "simt" and (bn % _COLS or bk > _MAX_BK or not aligned):
         raise ValueError(
             f"the kernel needs bn % {_COLS} == 0, bk <= {_MAX_BK} and a "
             f"16-byte aligned payload (bk={bk}, bn={bn})"
@@ -356,21 +422,36 @@ def ftp_spmm_bsr(
         out = torch.empty((T, M, n_out), dtype=torch.float32, device=a.device)
     u = torch.empty((M, n_out), dtype=torch.float32, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = _kernel_lib("ftp_bsr").ftp_bsr_launch(
-        a.data_ptr(), M, K, payload.data_ptr(),
-        int(payload.dtype == torch.bfloat16), bk, bn,
-        kidx.data_ptr(), vidx.data_ptr(), cnt.data_ptr(), nnb, kidx.shape[1],
-        act.data_ptr(), act.shape[1],
-        None if tmap is None else tmap.data_ptr(), bm // 4, n_out, T,
-        float(v_th), float(tau), int(fuse_lif), out.data_ptr(), u.data_ptr(),
-        stream,
-    )
+    lib = _kernel_lib("ftp_bsr")
+    tmap_ptr = None if tmap is None else tmap.data_ptr()
+    jmax = kidx.shape[1]
+    if instance == "tc":
+        shape = bsr_tc_shape(nnb, bn, jmax, T, bm)
+        a_vec = a.data_ptr() % 16 == 0 and K % 4 == 0
+        rc = lib.ftp_bsr_tc_launch(
+            a.data_ptr(), M, K, int(a_vec), payload.data_ptr(), bk, bn,
+            kidx.data_ptr(), vidx.data_ptr(), cnt.data_ptr(), nnb, jmax,
+            act.data_ptr(), act.shape[1], tmap_ptr, T, shape["rows"], bm,
+            shape["splits"], shape["slots_per_rank"], n_out, float(v_th),
+            float(tau), int(fuse_lif), out.data_ptr(), u.data_ptr(), stream)
+    else:
+        rc = lib.ftp_bsr_launch(
+            a.data_ptr(), M, K, payload.data_ptr(),
+            int(payload.dtype == torch.bfloat16), bk, bn,
+            kidx.data_ptr(), vidx.data_ptr(), cnt.data_ptr(), nnb, jmax,
+            act.data_ptr(), act.shape[1], tmap_ptr, bm // 4, n_out, T,
+            float(v_th), float(tau), int(fuse_lif), out.data_ptr(),
+            u.data_ptr(), stream)
     _raise_on(rc, "ftp_bsr")
-    global LAUNCHES, ADAPTIVE_LAUNCHES
+    global LAUNCHES, ADAPTIVE_LAUNCHES, BSR_TC_LAUNCHES, BSR_SIMT_LAUNCHES
     if tmap is None:
         LAUNCHES += 1
     else:
         ADAPTIVE_LAUNCHES += 1
+    if instance == "tc":
+        BSR_TC_LAUNCHES += 1
+    else:
+        BSR_SIMT_LAUNCHES += 1
     return out, u
 
 

@@ -178,13 +178,14 @@ def test_dense_instance_routes_by_dtype_n_and_alignment(dtype, N, aligned, want)
 
 def test_dense_instance_counts_start_at_zero_and_are_named():
     """launch_counts() keeps the four kernels' names and adds one count per
-    dense instance; all start at 0 and CPU calls (plain versions) move
-    none."""
+    dense and per BSR instance; all start at 0 and CPU calls (plain
+    versions) move none."""
     ftp_spmm.reset_launch_counts()
     counts = ftp_spmm.launch_counts()
     assert tuple(counts)[:4] == ftp_spmm.KERNEL_NAMES
     assert counts == dict.fromkeys(
-        ftp_spmm.KERNEL_NAMES + ("ftp_dense_tc", "ftp_dense_simt"), 0)
+        ftp_spmm.KERNEL_NAMES + ("ftp_dense_tc", "ftp_dense_simt",
+                                 "ftp_bsr_tc", "ftp_bsr_simt"), 0)
     packed, w = _case(5, 100, 72, 4, np.float32)
     a = words_to_torch(packed)
     for b in (to_torch(w), to_torch(w).to(torch.bfloat16)):

@@ -14,11 +14,13 @@ spike words equal except where the LIF input is within 1e-5 of v_th.
 Between kernels that add the same products in the same order (kernel 4 and
 kernel 3 at min_spikes=1, the dense kernel's SIMT instance and kernel 3 on
 block-pruned f32 weights, one row alone and in a batch, two runs): equal,
-bit for bit.  The dense kernel's tensor-core instance (bf16 weights) adds
-in another order than kernel 3, so against kernel 3 it is held to the same
-gate as against its plain version.
+bit for bit.  The tensor-core instances (bf16 weights or payloads) add in
+another order than the SIMT ones, so across instances (the dense `tc`
+instance against kernel 3, either BSR instance against the other) the
+outputs are held to the same gate as against the plain version.
 
-Run the dense kernels' tests alone with ``-k dense``.
+Run the dense kernels' tests alone with ``-k dense``, the BSR tensor-core
+instance's with ``-k bsr_tc``.
 """
 import numpy as np
 import pytest
@@ -72,14 +74,26 @@ def _hold(c, u, o, fuse):
         torch.testing.assert_close(c.reshape(o.shape), o, rtol=TOL, atol=TOL)
 
 
-def _check(a, plan, n_out, T, fuse, policy=PACKED_DUAL):
+def _bsr_instance(plan):
+    p = plan.payload
+    return "ftp_bsr_" + ftp_spmm.bsr_instance(p.dtype, p.shape[1], p.shape[2],
+                                               p.data_ptr() % 16 == 0)
+
+
+def _check(a, plan, n_out, T, fuse, policy=PACKED_DUAL, instance=None):
     """BSR kernel through `ops.dispatch` vs the plain version on the same
-    tensors; one launch of the policy's kernel counted."""
+    tensors; one launch of the policy's kernel counted, and one of the
+    instance the payload routes to (``instance``, when given, must be that
+    one)."""
     name = "ftp_bsr_adaptive" if policy.temporal.enabled else "ftp_bsr"
+    inst = _bsr_instance(plan)
+    if instance is not None:
+        assert inst == f"ftp_bsr_{instance}", inst
     before = ftp_spmm.launch_counts()
     c, u = ops.dispatch(a, plan, policy, T, n_out=n_out, fuse_lif=fuse)
     torch.cuda.synchronize()
-    assert ftp_spmm.launch_counts() == dict(before, **{name: before[name] + 1})
+    assert ftp_spmm.launch_counts() == dict(
+        before, **{name: before[name] + 1, inst: before[inst] + 1})
     rows = a.reshape(-1, a.shape[-1])
     bm = ftp_spmm.pick_bm(rows.shape[0], T)
     tmap = None
@@ -180,7 +194,10 @@ def _front_silent(rng, T, M, K, density=0.2):
 def test_adaptive_kernel_equals_full_at_min_spikes_1(M, T, fuse):
     """Kernel 4 matches its plain version, and equals kernel 3 bit for bit:
     a gated plane has no bit set anywhere, so the adds and their order are
-    kernel 3's."""
+    kernel 3's.  The bf16 128 x 128 plan runs the tensor-core instance,
+    where at T = 4, M = 300 (one plane per m16 row group) and at T >= 16
+    (four planes per group at M <= 33) whole row groups are gated and issue
+    no mma."""
     dev = _cuda()
     rng = np.random.default_rng(1000 + M * 10 + T)
     packed = _front_silent(rng, T, M, 512)
@@ -188,7 +205,7 @@ def test_adaptive_kernel_equals_full_at_min_spikes_1(M, T, fuse):
         np.float32) / 16), 0.3, block=(128, 128))
     plan = build_weight_plan(w.to(dev, torch.bfloat16))
     a = words_to_torch(packed, dev)
-    c_a, u_a = _check(a, plan, 384, T, fuse, PACKED_DUAL_ADAPTIVE)
+    c_a, u_a = _check(a, plan, 384, T, fuse, PACKED_DUAL_ADAPTIVE, "tc")
     c_f, u_f = ops.dispatch(a, plan, PACKED_DUAL, T, n_out=384, fuse_lif=fuse)
     assert torch.equal(c_a, c_f) and torch.equal(u_a, u_f)
 
@@ -214,6 +231,113 @@ def test_adaptive_kernel_lossy_equals_full_on_masked_input(fuse):
     c_l, u_l = _check(a, plan, N, T, fuse, lossy)
     c_m, u_m = ops.dispatch(masked, plan, PACKED_DUAL, T, n_out=N, fuse_lif=fuse)
     assert torch.equal(c_l, c_m) and torch.equal(u_l, u_m)
+
+
+# ---------------------------------------------------------------------------
+# kernels 3 and 4: the tensor-core instance (bf16 payloads)
+# ---------------------------------------------------------------------------
+
+def _bsr_tc_case(rng, T, M):
+    """bf16 words and plan: K = 500 (a K tail inside the last 128-deep
+    block), N = 330 (n_out short of the plan's 384 columns), column block
+    1 pruned whole (cnt == 0), one more block pruned, every 7th row
+    silent."""
+    packed, w = _mk(rng, T, M, 500, 330, density=0.2, w_density=0.5)
+    packed[1::7] = 0
+    w[:, 128:256] = 0
+    w[0:128, 256:] = 0
+    return packed, torch.from_numpy(w / 8).to(torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fuse", [True, False])
+@pytest.mark.parametrize("T", [1, 3, 4, 16, 32])
+@pytest.mark.parametrize("M", [1, 4, 33, 300])
+def test_bsr_tc_matches_plain(M, T, fuse):
+    """Kernel 3's tensor-core instance at ragged shapes: T from 1 (three
+    dead planes of the 4-plane minimum) to 32 (256 MMA rows and 8 warps at
+    M = 300), both act row tiles, a K tail, a column tail, an empty column
+    block and silent rows; kernel 4 on the same inputs too."""
+    dev = _cuda()
+    rng = np.random.default_rng(9000 + M * 100 + T)
+    packed, w = _bsr_tc_case(rng, T, M)
+    plan = build_weight_plan(w.to(dev))
+    assert int(plan.cnt[1]) == 0
+    a = words_to_torch(packed, dev)
+    _check(a, plan, 330, T, fuse, instance="tc")
+    _check(a, plan, 330, T, fuse, PACKED_DUAL_ADAPTIVE, instance="tc")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [4, 16])
+def test_bsr_tc_splits_8_deterministic_and_batch_invariant(T):
+    """A plan with 16 column blocks (as W_out has) reaches 8 ranks: held
+    against the plain version; two runs equal bit for bit; a row computed
+    alone (M = 1, bm = 4) or among 4 equals the same row of a 300-row call
+    (bm = 16 or 8), bit for bit."""
+    dev = _cuda()
+    rng = np.random.default_rng(80 + T)
+    packed, _ = _mk(rng, T, 300, 2048, 8, density=0.2)
+    w = prune_by_magnitude(torch.from_numpy(rng.normal(size=(2048, 2048)).astype(
+        np.float32) / 32), 0.5, block=(128, 128))
+    plan = build_weight_plan(w.to(dev, torch.bfloat16))
+    assert ftp_spmm.bsr_tc_shape(plan.nnb, plan.bn, plan.jmax, T,
+                                 4)["splits"] == 8
+    a = words_to_torch(packed, dev)
+    _check(a, plan, 2048, T, False, instance="tc")
+    for fuse in (True, False):
+        runs = [ops.dispatch(a, plan, PACKED_DUAL, T, n_out=2048,
+                             fuse_lif=fuse) for _ in range(2)]
+        assert torch.equal(runs[0][0], runs[1][0])
+        assert torch.equal(runs[0][1], runs[1][1])
+        full = runs[0]
+        for lo, hi in ((0, 1), (17, 18), (296, 300)):
+            part = ops.dispatch(a[lo:hi].contiguous(), plan, PACKED_DUAL, T,
+                                n_out=2048, fuse_lif=fuse)
+            if fuse:
+                assert torch.equal(part[0], full[0][lo:hi])
+            else:
+                assert torch.equal(part[0], full[0][:, lo:hi])
+            assert torch.equal(part[1], full[1][lo:hi])
+
+
+@pytest.mark.gpu
+def test_bsr_routing_by_dtype_and_blocks():
+    """bf16 128 x 128 payloads take the tensor-core instance; f32 payloads,
+    bn % 64 != 0 and the small blocks of a tiny layer take SIMT (each held
+    against the plain version); asking for the tensor-core instance where
+    it does not fit raises; the SIMT instance on a bf16 payload, asked for
+    by name, holds too."""
+    dev = _cuda()
+    rng = np.random.default_rng(70)
+    packed, w = _mk(rng, 4, 33, 256, 192, density=0.2, w_density=0.5)
+    a = words_to_torch(packed, dev)
+    wt = torch.from_numpy(w / 8).to(dev)
+    cases = [(build_weight_plan(wt.to(torch.bfloat16), bk=128, bn=128), "tc"),
+             (build_weight_plan(wt, bk=128, bn=128), "simt"),
+             (build_weight_plan(wt.to(torch.bfloat16), bk=64, bn=96), "simt")]
+    for plan, inst in cases:
+        for fuse in (True, False):
+            _check(a, plan, 192, 4, fuse, instance=inst)
+    tiny_packed, tiny_w = _mk(rng, 4, 5, 8, 64, density=0.3, w_density=0.5)
+    tiny = build_weight_plan(torch.from_numpy(tiny_w).to(dev, torch.bfloat16))
+    assert tiny.bk == 8
+    _check(words_to_torch(tiny_packed, dev), tiny, 64, 4, True, instance="simt")
+    plan = cases[0][0]
+    bm = ftp_spmm.pick_bm(33, 4)
+    args = (a, plan.payload, plan.kidx, plan.vidx, plan.cnt,
+            ops._activity(a, bm, plan), 192, 4)
+    for bad in (cases[1][0], cases[2][0]):
+        with pytest.raises(ValueError, match="tc instance"):
+            ftp_spmm.ftp_spmm_bsr(a, bad.payload, bad.kidx, bad.vidx, bad.cnt,
+                                  ops._activity(a, bm, bad), 192, 4, bm=bm,
+                                  instance="tc")
+    before = ftp_spmm.launch_counts()["ftp_bsr_simt"]
+    got, _ = ftp_spmm.ftp_spmm_bsr(*args, bm=bm, fuse_lif=False,
+                                   instance="simt")
+    assert ftp_spmm.launch_counts()["ftp_bsr_simt"] == before + 1
+    o, _ = ftp_spmm.ftp_spmm_bsr_plain(*args, bm=bm, fuse_lif=False)
+    _hold(got, None, o, False)
 
 
 # ---------------------------------------------------------------------------
