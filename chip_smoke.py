@@ -90,12 +90,20 @@ Phases, each asserted; a failed phase ends the run with a non-zero exit:
              step's own attention inputs (every layer of phase 8's first
              forward: q (256, 128, 64) bf16, k and v repeated over the GQA
              groups, causal) through `flash_mha` with a seeded do: the
-             counted path; each layer held against the plain versions,
-             layer 0 also against autograd through the model's plain
-             attention.  Then BH = 32, S = 4096 bf16 causal and window 1024,
-             two runs equal bit for bit, and the reference test's f32 cases.
-             Each kernel timed (CUDA events, L2 flushed) against its bound,
-             its plain version and scaled_dot_product_attention.
+             counted path, every launch through the tensor-core instance
+             (`flash_*_tc` = 16, `flash_*_simt` = 0); each layer held
+             against the plain versions, layer 0 also against autograd
+             through the model's plain attention.  Then BH = 32, S = 4096
+             bf16 causal and window 1024 (two runs of the window case equal
+             bit for bit), a padded head dim (dh 80 -> 128, bf16), and the
+             reference test's f32 cases (SIMT).  Every bf16 case runs `tc`,
+             held against the plain versions and against the SIMT instance
+             on the same inputs by the same gates (o and gradients 1e-2,
+             lse 3e-4).  Each kernel timed (CUDA events, L2 flushed) on
+             both instances against its bound, its plain version and
+             scaled_dot_product_attention (forward; backward alone for the
+             dq and dk/dv kernels; both for kernel 7): `tc` must beat SIMT
+             in every bf16 timed case.
 
 Prints a JSON line of per-kernel measurements before the last line (the
 headline numbers are each kernel's mean launch on its path), and as the
@@ -1546,54 +1554,96 @@ def _sdpa_args(q, k, v, causal, window, B):
     return view(q), view(k), view(v), kw
 
 
+def _flash_outputs(q, k, v, do, causal, window, instance=None, fwd=None):
+    """(o, lse, dq, dk, dv) of kernels 5 and 6 on one instance (the routed
+    one by default), each kernel launched once on it (asserted by its
+    instance count).  The backward takes delta from the instance's own o
+    and its lse, or from ``fwd`` = (o, lse) when given (another instance's
+    forward: the same inputs for both backward instances)."""
+    import torch
+
+    from repro_torch.kernels import flash_mha as fm
+
+    inst = instance or fm.flash_instance(q.dtype, q.shape[-1])
+    before = fm.launch_counts()
+    kw = dict(causal=causal, window=window, instance=instance)
+    o, lse = fm.flash_mha_fwd(q, k, v, **kw)
+    o_in, lse_in = fwd if fwd is not None else (o, lse)
+    delta = (o_in.float() * do.float()).sum(-1)
+    dq = fm.flash_mha_bwd_dq(q, k, v, do, lse_in, delta, **kw)
+    dk, dv = fm.flash_mha_bwd_dkv(q, k, v, do, lse_in, delta, **kw)
+    torch.cuda.synchronize()
+    after = fm.launch_counts()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert after[f"{name}_{inst}"] == before[f"{name}_{inst}"] + 1, (name, inst)
+    return (o, lse, dq, dk, dv), delta
+
+
 def _flash_case(label, q, k, v, do, causal, window, tol, grad_tol=None,
                 flush=None, reps=10, B=1):
     """Kernels 5 and 6 (and 7 around them) against their plain versions on
-    one input: o and lse within ``tol``, dq, dk, dv within ``grad_tol``
-    (default ``tol``); timed with their bounds and the library yardstick
-    when ``flush`` is given.  Returns {kernel: row}."""
+    one input, through the instance the dtype routes to: o within ``tol``,
+    lse within ``tol`` for f32 and 3e-4 for bf16, dq, dk, dv within
+    ``grad_tol`` (default ``tol``).  On bf16 inputs (the `tc` instance) the
+    SIMT instance on the same inputs too (its backward fed `tc`'s o and
+    lse), held to `tc` by the same gates.
+    Timed with their bounds and the library yardsticks when ``flush`` is
+    given, bf16 also on SIMT (`tc` must be faster in each).  Returns
+    {kernel: row}."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_mha as fm
     from repro_torch.kernels import ref
 
-    kw = dict(causal=causal, window=window)
-    o, lse = fm.flash_mha_fwd(q, k, v, **kw)
+    inst = fm.flash_instance(q.dtype, q.shape[-1])
+    (o, lse, dq, dk, dv), delta = _flash_outputs(q, k, v, do, causal, window)
     o_p, lse_p = ref.flash_mha_fwd_plain(q, k, v, causal, window)
-    delta = (o.float() * do.float()).sum(-1)
-    dq = fm.flash_mha_bwd_dq(q, k, v, do, lse, delta, **kw)
-    dk, dv = fm.flash_mha_bwd_dkv(q, k, v, do, lse, delta, **kw)
     dq_p = ref.flash_mha_bwd_dq_plain(q, k, v, do, lse, delta, causal, window)
     dk_p, dv_p = ref.flash_mha_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
                                             window)
     torch.cuda.synchronize()
     err = lambda a, b: float((a.float() - b.float()).abs().max())
+    grad_tol = grad_tol or tol
+    lse_tol = tol if q.dtype == torch.float32 else 3e-4  # bf16: f32 sums of exact products
+
+    def hold(got, want, what):
+        for a, b, name, t in zip(got, want, ("o", "lse", "dq", "dk", "dv"),
+                                 (tol, lse_tol, grad_tol, grad_tol, grad_tol)):
+            assert torch.isfinite(a.float()).all(), f"{label}: {what} {name} not finite"
+            assert a.shape == b.shape and a.dtype == b.dtype, (label, what, name)
+            torch.testing.assert_close(a.float(), b.float(), rtol=t, atol=t,
+                                       msg=lambda m: f"{label} {what} {name}: {m}")
+
+    hold((o, lse, dq, dk, dv), (o_p, lse_p, dq_p, dk_p, dv_p), f"{inst} vs plain")
     errs = {"flash_fwd": max(err(o, o_p), err(lse, lse_p)),
             "flash_bwd_dq": err(dq, dq_p),
             "flash_bwd_dkv": max(err(dk, dk_p), err(dv, dv_p))}
-    grad_tol = grad_tol or tol
-    for a, b, what, t in ((o, o_p, "o", tol), (lse, lse_p, "lse", tol),
-                          (dq, dq_p, "dq", grad_tol), (dk, dk_p, "dk", grad_tol),
-                          (dv, dv_p, "dv", grad_tol)):
-        assert torch.isfinite(a.float()).all(), f"{label}: {what} not finite"
-        torch.testing.assert_close(a.float(), b.float(), rtol=t, atol=t,
-                                   msg=lambda m: f"{label} {what}: {m}")
     errs["flash_mha"] = max(errs.values())
     rows = {n: {"case": label, "BH": q.shape[0], "S": q.shape[1],
                 "Skv": k.shape[1], "dh": q.shape[2], "dtype": str(q.dtype),
-                "causal": causal, "window": window, "max_abs_err": e,
-                "tol": tol if n == "flash_fwd" else grad_tol}
+                "causal": causal, "window": window, "instance": inst,
+                "max_abs_err": e, "tol": tol if n == "flash_fwd" else grad_tol}
             for n, e in errs.items()}
+    if inst == "tc":
+        simt, _ = _flash_outputs(q, k, v, do, causal, window, instance="simt",
+                                 fwd=(o, lse))
+        hold((o, lse, dq, dk, dv), simt, "tc vs simt")
+        vs = {"flash_fwd": max(err(o, simt[0]), err(lse, simt[1])),
+              "flash_bwd_dq": err(dq, simt[2]),
+              "flash_bwd_dkv": max(err(dk, simt[3]), err(dv, simt[4]))}
+        vs["flash_mha"] = max(vs.values())
+        for n, e in vs.items():
+            rows[n]["vs_simt_max_abs_err"] = e
     if flush is None:
-        log(f"flash {label}: max_abs_err {json.dumps({n: float(f'{e:.3e}') for n, e in errs.items()})} "
+        log(f"flash {label} ({inst}): max_abs_err {json.dumps({n: float(f'{e:.3e}') for n, e in errs.items()})} "
             f"(tol {tol}, gradients {grad_tol})")
         return rows
-    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    qs, ks, vs_ = (t.clone().requires_grad_() for t in (q, k, v))
 
-    def fwd_bwd():
-        torch.autograd.grad(fm.flash_mha(qs, ks, vs, causal, window),
-                            (qs, ks, vs), do)
+    def fwd_bwd(instance=None):
+        torch.autograd.grad(fm.flash_mha(qs, ks, vs_, causal, window,
+                                         instance=instance), (qs, ks, vs_), do)
 
     def plain_fwd_bwd():
         op, lp = ref.flash_mha_fwd_plain(q, k, v, causal, window)
@@ -1602,43 +1652,63 @@ def _flash_case(label, q, k, v, do, causal, window, tol, grad_tol=None,
     sq, sk, sv, skw = _sdpa_args(*(t.clone().requires_grad_() for t in (q, k, v)),
                                  causal, window, B)
     sdo = do.reshape(sq.shape)
+    s_out = F.scaled_dot_product_attention(sq, sk, sv, **skw)
 
     def sdpa_fwd_bwd():
         torch.autograd.grad(F.scaled_dot_product_attention(sq, sk, sv, **skw),
                             (sq, sk, sv), sdo)
+
+    def sdpa_bwd():  # SDPA's backward alone: dq, dk, dv together
+        torch.autograd.grad(s_out, (sq, sk, sv), sdo, retain_graph=True)
 
     plain_reps = max(1, reps // 5)
     # an autograd forward + backward takes the host ~1 ms to enqueue at the
     # train step's small shape: keep the stream busy ~2 ms so that host
     # time stays out of the events
     busy = 4_000_000
+    kw = dict(causal=causal, window=window)
+
+    def kernels(instance=None):
+        kwi = dict(kw, instance=instance)
+        return {"flash_fwd": lambda: fm.flash_mha_fwd(q, k, v, **kwi),
+                "flash_bwd_dq": lambda: fm.flash_mha_bwd_dq(q, k, v, do, lse,
+                                                            delta, **kwi),
+                "flash_bwd_dkv": lambda: fm.flash_mha_bwd_dkv(q, k, v, do, lse,
+                                                              delta, **kwi),
+                "flash_mha": lambda: fwd_bwd(instance)}
+
     timed = {
-        "flash_fwd": (lambda: fm.flash_mha_fwd(q, k, v, **kw),
-                      lambda: ref.flash_mha_fwd_plain(q, k, v, causal, window),
+        "flash_fwd": (lambda: ref.flash_mha_fwd_plain(q, k, v, causal, window),
                       lambda: F.scaled_dot_product_attention(
                           sq.detach(), sk.detach(), sv.detach(), **skw)),
         "flash_bwd_dq": (
-            lambda: fm.flash_mha_bwd_dq(q, k, v, do, lse, delta, **kw),
             lambda: ref.flash_mha_bwd_dq_plain(q, k, v, do, lse, delta, causal,
-                                               window), None),
+                                               window), sdpa_bwd),
         "flash_bwd_dkv": (
-            lambda: fm.flash_mha_bwd_dkv(q, k, v, do, lse, delta, **kw),
             lambda: ref.flash_mha_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
-                                                window), None),
-        "flash_mha": (fwd_bwd, plain_fwd_bwd, sdpa_fwd_bwd),
+                                                window), sdpa_bwd),
+        "flash_mha": (plain_fwd_bwd, sdpa_fwd_bwd),
     }
+    routed = kernels()
+    on_simt = kernels("simt") if inst == "tc" else {}
     bounds = _flash_bounds(q, k.shape[1], causal, window)
-    for n, (kern, plain, lib) in timed.items():
-        rows[n].update(ms=_time_ms(kern, reps, flush, busy),
+    for n, (plain, lib) in timed.items():
+        rows[n].update(ms=_time_ms(routed[n], reps, flush, busy),
                        plain_ms=_time_ms(plain, plain_reps, flush, busy),
-                       library_ms=_time_ms(lib, reps, flush, busy) if lib else None,
+                       library_ms=_time_ms(lib, reps, flush, busy),
                        bound_ms=bounds[n][0], bound_by=bounds[n][1])
+        if n in on_simt:
+            rows[n]["simt_ms"] = _time_ms(on_simt[n], reps, flush, busy)
+    rows["flash_bwd_dq"]["library"] = rows["flash_bwd_dkv"]["library"] = (
+        "scaled_dot_product_attention backward (dq, dk, dv together)")
     for n, r in rows.items():
-        lib = f"{r['library_ms']:.4f}" if r["library_ms"] is not None else "-"
-        log(f"flash {label} {n}: max_abs_err {r['max_abs_err']:.3e}, kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa {lib} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
-            f"{r['ms'] / r['bound_ms']:.1f}x the bound")
+        simt = f", SIMT {r['simt_ms']:.4f} ms" if "simt_ms" in r else ""
+        log(f"flash {label} {n}: max_abs_err {r['max_abs_err']:.3e}, {inst} "
+            f"{r['ms']:.4f} ms{simt}, plain {r['plain_ms']:.4f} ms, sdpa "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), {r['ms'] / r['bound_ms']:.1f}x the bound")
+    for r in rows.values():
+        _assert_tc_faster(r)
     return rows
 
 
@@ -1682,19 +1752,55 @@ def phase_flash(captured, cfg):
     outs, counts = _counted("flash attention on the train step's attention inputs",
                             path)
     n = len(inputs)
+    # every launch through the tensor-core instance, none through SIMT
     assert counts == dict(dict.fromkeys(counts, 0), flash_fwd=n, flash_bwd_dq=n,
-                          flash_bwd_dkv=n, flash_mha=n), counts
-    worst = 0.0
+                          flash_bwd_dkv=n, flash_mha=n, flash_fwd_tc=n,
+                          flash_bwd_dq_tc=n, flash_bwd_dkv_tc=n), counts
+    # The counted path's gradients against the plain chain (the plain
+    # backward fed the plain forward's o and lse), and each kernel against
+    # its plain version on the inputs it was given: kernel 5's o and lse
+    # against the plain forward, kernel 6's dq, dk, dv against the plain
+    # backward fed the forward kernel's own o (through delta = rowsum(o *
+    # do)) and lse.  The chain holds o to its last bit: each o element that
+    # rounds to the other bf16 neighbour moves a dq row by ulp(o) * do *
+    # scale * mean(k).  |diff| / gate of each is logged.
+    over = lambda a, b, t: float(((a.float() - b.float()).abs()
+                                  / (t * (1 + b.float().abs()))).max())
+    names = ("o", "lse", "dq", "dk", "dv")
+    worst = dict.fromkeys(names, 0.0)
+    chain = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    # the witness: the plain backward fed o from f64 math, rounded once,
+    # against the plain chain (what the plain o's own rounding takes of the
+    # gate); o elements off the plain o, the kernel's and the witness's
+    witness, off = dict(chain), {"kernel": 0, "f64": 0}
     for (q, k, v), (o, dq, dk, dv) in zip(inputs, outs):
         o_p, lse_p = ref.flash_mha_fwd_plain(q, k, v, True, 0)
-        want = (o_p, *ref.flash_mha_bwd_plain(q, k, v, o_p, lse_p, do, True, 0))
-        for a, b in zip((o, dq, dk, dv), want):
+        plain_chain = ref.flash_mha_bwd_plain(q, k, v, o_p, lse_p, do, True, 0)
+        o64 = _o_f64(q, k, v)
+        off["kernel"] += int((o != o_p).sum())
+        off["f64"] += int((o64 != o_p).sum())
+        for name, a, b in zip(witness, ref.flash_mha_bwd_plain(
+                q, k, v, o64, lse_p, do, True, 0), plain_chain):
+            witness[name] = max(witness[name], over(a, b, FLASH_TOL_BF16))
+        _, lse = fm.flash_mha_fwd(q, k, v)  # the backward kernels' lse (uncounted)
+        want = (o_p, lse_p, *ref.flash_mha_bwd_plain(q, k, v, o, lse, do, True, 0))
+        for a, b, name, t in zip((o, lse, dq, dk, dv), want, names,
+                                 (FLASH_TOL_BF16, 3e-4, *[FLASH_TOL_BF16] * 3)):
+            torch.testing.assert_close(a.float(), b.float(), rtol=t, atol=t,
+                                       msg=lambda m: f"flash {name}: {m}")
+            worst[name] = max(worst[name], over(a, b, t))
+        for name, a, b in zip(chain, (dq, dk, dv), plain_chain):
             torch.testing.assert_close(a.float(), b.float(), rtol=FLASH_TOL_BF16,
-                                       atol=FLASH_TOL_BF16)
-            worst = max(worst, float((a.float() - b.float()).abs().max()))
+                                       atol=FLASH_TOL_BF16,
+                                       msg=lambda m: f"flash {name} vs the plain chain: {m}")
+            chain[name] = max(chain[name], over(a, b, FLASH_TOL_BF16))
     log(f"flash on all {n} layers' attention inputs (BH {inputs[0][0].shape[0]}, "
         f"S {S}, dh {cfg.head_dim}, bf16, causal): == plain versions within "
-        f"{FLASH_TOL_BF16} (max abs err {worst:.3e})")
+        f"{FLASH_TOL_BF16}, lse 3e-4; |diff| / gate per kernel "
+        f"{json.dumps({k: round(x, 3) for k, x in worst.items()})}, against the "
+        f"plain chain {json.dumps({k: round(x, 3) for k, x in chain.items()})} "
+        f"(the f64-o witness {json.dumps({k: round(x, 3) for k, x in witness.items()})}); "
+        f"o elements off the plain o: {json.dumps(off)}")
     vs_model = _flash_vs_model_attention(captured[0], outs[0], do, cfg, G)
 
     flush = _flush_buffer()
@@ -1718,9 +1824,13 @@ def phase_flash(captured, cfg):
         o, lse = fm.flash_mha_fwd(q, k, v, window=1024)
         runs.append((o, lse, *fm.flash_mha_bwd(q, k, v, o, lse, g, window=1024)))
     assert all(torch.equal(a, b) for a, b in zip(*runs)), "two runs differ"
-    log("flash: two runs of the S=4096 window case equal bit for bit")
-    # the reference test's cases, f32, at its tolerances (outputs 3e-4,
-    # large logits 1e-3, gradients 3e-3)
+    log("flash: two runs of the S=4096 window case (tc) equal bit for bit")
+    # a head dim padded to its template (80 -> 128), bf16 (tc) and SIMT
+    q, k, v, g = _flash_inputs(gen, 32, 1024, 80, torch.bfloat16)
+    add(_flash_case("BH=32 S=1024 dh=80 (padded to 128) causal", q, k, v, g,
+                    True, 0, FLASH_TOL_BF16))
+    # the reference test's cases, f32 (SIMT), at its tolerances (outputs
+    # 3e-4, large logits 1e-3, gradients 3e-3)
     for label, (BH, Sc, dh, skv, causal, window, scale_q, tol) in {
             "f32 (4,512,128) causal": (4, 512, 128, None, True, 0, 1.0, 3e-4),
             "f32 (4,512,128) none": (4, 512, 128, None, False, 0, 1.0, 3e-4),
@@ -1733,7 +1843,21 @@ def phase_flash(captured, cfg):
     o, _ = fm.flash_mha_fwd(q, k, v, bq=64, bk=64)
     torch.testing.assert_close(o[:, 0], v[:, 0], rtol=1e-4, atol=1e-4)
     log("flash: the first causal row == v[:, 0] within 1e-4")
-    return {"launches": counts, "rows": rows, "vs_model_attention": vs_model}
+    return {"launches": counts, "rows": rows, "vs_model_attention": vs_model,
+            "over_gate": worst, "vs_plain_chain_over_gate": chain,
+            "f64_o_witness_over_gate": witness, "o_off_plain": off}
+
+
+def _o_f64(q, k, v):
+    """The plain forward's o (causal) from f64 scores, softmax and value
+    product, rounded once to q's dtype."""
+    import torch
+
+    s = torch.einsum("bqd,bkd->bqk", q.double(), k.double()) * q.shape[-1] ** -0.5
+    S = q.shape[1]
+    seen = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    p = s.masked_fill(~seen, -1e30).softmax(-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.double()).to(q.dtype)
 
 
 def _flash_vs_model_attention(qkv, flash_out, do, cfg, G):
@@ -1770,19 +1894,29 @@ def _flash_vs_model_attention(qkv, flash_out, do, cfg, G):
 
 def _flash_entries(flash):
     """The kernels-line entries of kernels 5-7: headline numbers from the
-    train step's own attention inputs (layer 0), every case listed."""
+    train step's own attention inputs (layer 0; `tc`, with the SIMT
+    instance's time on the same inputs), every case listed.  Kernel 7's
+    launches by instance are its forward kernel's."""
     entries = []
+    counts = flash["launches"]
     for name, rows in flash["rows"].items():
         main = rows[0]
         src, replaces = KERNELS[name]
+        by = "flash_fwd" if name == "flash_mha" else name
         entries.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": flash["launches"][name],
+            "launches": counts[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"], "cases": rows})
+            "library_ms": main["library_ms"], "instance": main["instance"],
+            "instance_launches": {"tc": counts[f"{by}_tc"],
+                                  "simt": counts[f"{by}_simt"]},
+            "simt_ms": main["simt_ms"], "cases": rows})
     entries[-1]["vs_model_attention"] = flash["vs_model_attention"]
+    entries[-1]["over_gate"] = flash["over_gate"]
+    for key in ("vs_plain_chain_over_gate", "f64_o_witness_over_gate", "o_off_plain"):
+        entries[-1][key] = flash[key]
     return entries
 
 

@@ -1,5 +1,9 @@
-// Flash attention, forward and backward, for Hopper (sm_90a): SIMT f32 with
-// a plain C interface loaded through ctypes.
+// Flash attention, forward and backward, for Hopper (sm_90a), with a plain
+// C interface loaded through ctypes.  Two instances of each kernel: `tc`
+// (bf16 q, k, v, do: mma.sync on the tensor cores) and `simt` (SIMT f32
+// FMA, which f32 inputs take: the reference tests' 3e-4 needs f32
+// products).  The wrapper (kernels/flash_mha.py::flash_instance) picks one
+// from the dtype alone.
 //
 // Replaces: src/repro/kernels/flash_mha.py::_fwd_kernel (entered through
 // flash_mha_fwd: online-softmax attention that saves the row logsumexp),
@@ -9,8 +13,10 @@
 // kernels/flash_mha.py; delta = rowsum(o * do) stays plain torch there, as it
 // stays plain jnp outside the Pallas kernels in the reference.
 //
-// What it computes, per (bh, row), all in f32 from inputs upcast on load:
-//   s = (q . k) * scale, scale = dh^-0.5, applied after the dot;
+// What it computes, per (bh, row), in f32 (SIMT: from inputs upcast on
+// load; tc: bf16 products with f32 accumulation):
+//   s = (q . k) * scale, scale passed in (true_dh^-0.5: the wrapper
+//   zero-pads other dh up to the templates 32, 64, 128), after the dot;
 //   masked s = -1e30 (causal: jk > iq; window: jk <= iq - window, absolute
 //   indices, no offset; none: nothing masked);
 //   forward: m, l, acc by the online softmax over kv tiles, starting from
@@ -18,6 +24,10 @@
 //   lse = m + log(l);
 //   backward: p = exp(s - lse); dp = do . v; ds = p * (dp - delta) * scale;
 //   dq = ds k, dk = ds^T q, dv = p^T do (rounded to the inputs' dtypes).
+// The tc instance carries the forward's p to the value product as three
+// bf16 terms (f32 precision, see flash_fwd_tc_kernel) and rounds the
+// backward's p and ds to bf16 as the A operand of the next product; sums
+// stay f32.
 // The -1e30 sentinel, not -inf, is the reference's: a row whose keys are all
 // masked within a tile gets p = exp(0) = 1 there, and alpha = exp(-1e30 -
 // m_real) = 0 clears that junk when its first visible key arrives, where
@@ -27,9 +37,8 @@
 // bytes are q, k, v, o, lse (and do, dq, dk, dv backward), read or written
 // once: attention at the train step's S = 128 is bytes-bound, at S = 4096 it
 // is bound by 4 S^2 dh BH (forward) and 10 S^2 dh BH (backward) operations
-// over the unmasked tiles, which the bf16 tensor cores would do at 989
-// TFLOP/s.  This first version is SIMT f32 FMA (67 TFLOP/s peak at best):
-// right before fast; mma/wgmma, TMA and warp specialisation are later work.
+// over the unmasked tiles, which the bf16 tensor cores do at 989 TFLOP/s
+// (wgmma; mma.sync reaches a part of that) and SIMT f32 FMA at 67.
 //
 // What the design does: the TPU kernels carried their accumulators across
 // a sequential grid axis in VMEM.  Here one thread block owns one 64-row
@@ -37,24 +46,31 @@
 // block per (bh, q tile) over kv tiles, dk/dv one block per (bh, kv tile)
 // over q tiles.  Nothing is reduced across blocks, so there are no atomics:
 // both backward kernels are deterministic, and each (bh) row of the outputs
-// is independent of the batch.  Tiles live in shared memory as f32, rows
-// padded to dh + 1 floats (conflict-free column reads); 256 threads as
-// 16 x 16, each owning a 4 x 4 block of the 64 x 64 score tile (rows
-// ty + 16 i, columns tx + 16 j) and 4 rows x dh / 16 columns of the output
-// tile; row max and row sums reduce over the 16 lanes of a row group with
-// warp shuffles.  A kv tile in which every (q row, key) pair of the block is
-// masked is skipped: there it adds exactly nothing (p = 0 once a row has a
-// visible key; the junk of a row without one is cleared later).  The one
-// exception keeps the reference's degenerate rows exact: a causal window row
-// with no visible key at all (iq >= Skv + window - 1) averages v over every
-// key, so a q tile holding such a row walks every kv tile.  Ragged S and Skv
-// are masked on the device; the host pads nothing.  dh is a template
-// parameter (32, 64, 128); shared memory is sized for dh = 128 with f32
-// tiles (forward 116 KB, dq 149 KB, dk/dv 165 KB, dynamic).
+// is independent of the batch.  A kv tile in which every (q row, key) pair
+// of the block is masked is skipped: there it adds exactly nothing (p = 0
+// once a row has a visible key; the junk of a row without one is cleared
+// later).  The one exception keeps the reference's degenerate rows exact: a
+// causal window row with no visible key at all (iq >= Skv + window - 1)
+// averages v over every key, so a q tile holding such a row walks every kv
+// tile.  Ragged S and Skv are masked on the device; the host pads nothing
+// but dh.
+//
+// SIMT: tiles live in shared memory as f32, rows padded to dh + 1 floats
+// (conflict-free column reads); 256 threads as 16 x 16, each owning a 4 x 4
+// block of the 64 x 64 score tile (rows ty + 16 i, columns tx + 16 j) and 4
+// rows x dh / 16 columns of the output tile; row max and row sums reduce
+// over the 16 lanes of a row group with warp shuffles; shared memory sized
+// for dh = 128 with f32 tiles (forward 116 KB, dq 149 KB, dk/dv 165 KB).
+// tc: see the section's own note below (bf16 tiles through a cp.async
+// ring: forward 45 / 85 KB at dh 64 / 128, dq 54 / 102 KB, dk/dv 55 / 103 KB).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "ftp_tc.cuh"
 
 namespace {
 
@@ -464,13 +480,634 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// the tensor-core instance (`tc`): bf16 q, k, v, do
+// ---------------------------------------------------------------------------
+// FA2 on mma.sync: 4 warps, each owning 16 rows of the block's 64-row tile
+// (q rows in the forward and dq kernels, kv rows in the dk/dv kernel).
+// Tiles are bf16 in shared memory, rows padded to DH + 8 elements (ldmatrix
+// conflict-free), and the walked operands come through a 2-stage cp.async
+// ring, zero-filled past S or Skv.  Every product is mma.m16n8k16 bf16
+// with f32 accumulation; the masked score, the softmax and the backward's
+// p and ds run on the f32 accumulator fragments (rows g and g + 8 of the
+// warp's 16, g = lane / 4; row max and sum over the 4 lanes of a quad) and
+// are rounded to bf16 only as the A operand of the next product (the m16n8
+// C layout reused as the m16k16 A layout; the forward's p as three bf16
+// terms).  The semantics are the SIMT kernels': the same mask, sentinel,
+// tile skip and epilogues.  What keeps the softmax from bounding the
+// forward: a tile whose every pair is visible and in range (`tile_full`:
+// all but the diagonal and window-edge tiles) skips the per-element mask,
+// and exp is __expf (ex2.approx, ~2 ulp).
+
+namespace tc {
+
+using ftp::tc::cp_async16;
+using ftp::tc::cp_async4;
+using ftp::tc::cp_async_commit;
+using ftp::tc::cp_async_wait;
+using ftp::tc::ldmatrix_x4;
+using ftp::tc::ldmatrix_x4_trans;
+using ftp::tc::mma_bf16;
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 128;  // 4 warps x 16 rows
+constexpr int kChunk = 32;     // backward: score columns per pass
+
+template <int DH>
+struct Geom {
+  static constexpr int kPitch = DH + 8;          // bf16 per tile row
+  static constexpr int kElems = kTile * kPitch;  // bf16 per tile
+  static constexpr int kSteps = DH / 16;         // k16 steps over dh
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Rows [row0, row0 + kTile) of a (rows, DH) bf16 matrix into a padded
+// shared tile, 16 bytes per cp.async; rows past ``rows`` are zero-filled.
+template <int DH>
+__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
+                                                int row0, int rows) {
+  constexpr int kPieces = DH / 8;
+  for (int i = threadIdx.x; i < kTile * kPieces; i += kThreads) {
+    const int r = i / kPieces, c = (i % kPieces) * 8, gr = row0 + r;
+    const bool in = gr < rows;
+    cp_async16(dst + r * Geom<DH>::kPitch + c,
+               src + (size_t)(in ? gr : 0) * DH + c, in ? 16 : 0);
+  }
+}
+
+// A fragment of the 16 tile rows from r0, k16 step at column c0.
+template <int DH>
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const bf16* t, int r0,
+                                       int c0, int lane) {
+  ldmatrix_x4(a, t + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * Geom<DH>::kPitch +
+                     c0 + (lane >> 4) * 8);
+}
+
+// B fragments of two n8 tiles (b[0..1]: n0, b[2..3]: n0 + 8) whose n index
+// is the tile's row (B = tile^T, e.g. k for q k^T), k16 step at column c0.
+template <int DH>
+__device__ __forceinline__ void b_frag_rows(uint32_t (&b)[4], const bf16* t,
+                                            int n0, int c0, int lane) {
+  ldmatrix_x4(b, t + (n0 + (lane & 7) + (lane >> 4) * 8) * Geom<DH>::kPitch + c0 +
+                     ((lane >> 3) & 1) * 8);
+}
+
+// B fragments of two n8 tiles (columns n0 and n0 + 8 of the tile), k16 step
+// over the tile's rows from k0 (B = tile, e.g. v for p v).
+template <int DH>
+__device__ __forceinline__ void b_frag_cols(uint32_t (&b)[4], const bf16* t,
+                                            int k0, int n0, int lane) {
+  ldmatrix_x4_trans(b, t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                               Geom<DH>::kPitch + n0 + (lane >> 4) * 8);
+}
+
+// acc[NT][4] += A (16 x 16 k) times the two n8 tiles of each 16 columns.
+template <int DH, int NP>
+__device__ __forceinline__ void mma_rows(float (&acc)[2 * NP][4],
+                                         const uint32_t (&a)[4], const bf16* t,
+                                         int n0, int c0, int lane) {
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    uint32_t b[4];
+    b_frag_rows<DH>(b, t, n0 + 16 * p, c0, lane);
+    mma_bf16(acc[2 * p], a, b[0], b[1]);
+    mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
+  }
+}
+template <int DH>
+__device__ __forceinline__ void mma_cols(float (&acc)[DH / 8][4],
+                                         const uint32_t (&a)[4], const bf16* t,
+                                         int k0, int lane) {
+#pragma unroll
+  for (int p = 0; p < DH / 16; ++p) {
+    uint32_t b[4];
+    b_frag_cols<DH>(b, t, k0, 16 * p, lane);
+    mma_bf16(acc[2 * p], a, b[0], b[1]);
+    mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
+  }
+}
+
+// The A fragment of the k16 step j of a score-shaped accumulator (its n8
+// tiles 2 j and 2 j + 1), rounded to bf16.
+template <int NT>
+__device__ __forceinline__ void score_frag(uint32_t (&a)[4],
+                                           const float (&s)[NT][4], int j) {
+  a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
+  a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
+  a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
+  a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+}
+
+// What the bf16 rounding of score_frag left out: a[i] = bf16(x - hi(x)),
+// so hi + lo carries x to ~16 bits.
+template <int NT>
+__device__ __forceinline__ void score_frag_lo(uint32_t (&a)[4],
+                                              const float (&s)[NT][4], int j) {
+  float r[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float x = s[2 * j + (i >> 2)][i & 3];
+    r[i] = x - __bfloat162float(__float2bfloat16_rn(x));
+  }
+  a[0] = pack_bf16(r[0], r[1]);
+  a[1] = pack_bf16(r[2], r[3]);
+  a[2] = pack_bf16(r[4], r[5]);
+  a[3] = pack_bf16(r[6], r[7]);
+}
+
+// The k16 step j of a score-shaped accumulator as three bf16 A fragments,
+// a[0] = bf16(x), a[1] = bf16(x - a[0]), a[2] = bf16(x - a[0] - a[1]): their
+// sum carries x to ~24 bits, as f32 does.
+template <int NT>
+__device__ __forceinline__ void score_frag3(uint32_t (&a)[3][4],
+                                            const float (&s)[NT][4], int j) {
+  float r[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r[i] = s[2 * j + (i >> 2)][i & 3];
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      a[t][w] = pack_bf16(r[2 * w], r[2 * w + 1]);
+      const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&a[t][w]);
+      r[2 * w] -= __low2float(h);
+      r[2 * w + 1] -= __high2float(h);
+    }
+}
+
+// acc[DH / 8][4] += (a[0] + a[1] + a[2]) times the tile's rows from k0 (B =
+// tile, e.g. v for p v).  The three products of each n8 tile go into a
+// zeroed accumulator that is added to acc in f32: adding them into the
+// running total inside the mma left over twice as many o elements on the
+// other bf16 neighbour of the f64 result (the train step's inputs).
+template <int DH>
+__device__ __forceinline__ void mma_cols3(float (&acc)[DH / 8][4],
+                                          const uint32_t (&a)[3][4],
+                                          const bf16* t, int k0, int lane) {
+#pragma unroll
+  for (int p = 0; p < DH / 16; ++p) {
+    uint32_t b[4];
+    b_frag_cols<DH>(b, t, k0, 16 * p, lane);
+    float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      mma_bf16(d0, a[i], b[0], b[1]);
+      mma_bf16(d1, a[i], b[2], b[3]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[2 * p][e] += d0[e];
+      acc[2 * p + 1][e] += d1[e];
+    }
+  }
+}
+
+// Whether q rows [q0, q1) hold a degenerate row (causal window, no visible
+// key: p = 1 on every key, so ds is not a softmax gradient and grows with
+// Skv).  Such a tile carries ds as a hi + lo bf16 pair (two products);
+// elsewhere one bf16 ds keeps the gradients within a bf16 step.
+__device__ __forceinline__ bool degenerate_rows(int q1, int Skv, int causal,
+                                                int window) {
+  return causal && window && q1 - 1 >= Skv + window - 1;
+}
+
+// Whether every (q row, key) pair of the full 64 x 64 tile pair is
+// visible and in range: the tile needs no per-element mask.  The same for
+// every thread of a block.
+__device__ __forceinline__ bool tile_full(int q0, int k0, int S, int Skv,
+                                          int causal, int window) {
+  if (q0 + kTile > S || k0 + kTile > Skv) return false;
+  if (!causal) return true;
+  if (k0 + kTile - 1 > q0) return false;
+  return !window || k0 > q0 + kTile - 1 - window;
+}
+
+using Full = std::true_type;
+using Edge = std::false_type;
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i][0] = x[i][1] = x[i][2] = x[i][3] = 0.f;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The rows [r0, r0 + 16) of a warp's f32 accumulator fragments (DH
+// columns), divided by ``div`` per row half, as bf16 rows of ``out`` below
+// ``rows``.
+template <int DH>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[DH / 8][4],
+                                           int r0, int rows, int lane,
+                                           float div0, float div1) {
+  const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + g + 8 * h;
+    if (r >= rows) continue;
+    const float div = h ? div1 : div0;
+    bf16* row = out + (size_t)r * DH + 2 * c;
+#pragma unroll
+    for (int nt = 0; nt < DH / 8; ++nt)
+      *reinterpret_cast<uint32_t*>(row + 8 * nt) =
+          pack_bf16(acc[nt][2 * h] / div, acc[nt][2 * h + 1] / div);
+  }
+}
+
+// forward: one block per (bh, q tile); Q resident in shared memory, K, V
+// tiles through the ring, kFwdChunk keys of a tile per pass (the online
+// softmax steps per pass).  p goes to the value product at f32 precision
+// (score_frag3, mma_cols3): delta = rowsum(o * do) in the backward moves a
+// whole dq row by ulp(o) * do * scale * mean(k) wherever o rounds to the
+// other bf16 neighbour, so o must round from nearly the f32 value, as the
+// plain version's does.  At dh <= 64 capped at 168 registers, 3 blocks an
+// SM; no spills at any dh.
+constexpr int kFwdChunk = 32;
+template <int DH>
+__global__ void __launch_bounds__(kThreads, DH <= 64 ? 3 : 1) flash_fwd_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, int S, int Skv, float scale, int causal,
+    int window, bf16* __restrict__ o, float* __restrict__ lse) {
+  constexpr int E = Geom<DH>::kElems, KS = Geom<DH>::kSteps, NC = kFwdChunk;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(tc_smem);  // stage s: K at 2 s E, V at (2 s + 1) E
+  bf16* qs = ring + 4 * E;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // causal: heavy first
+  const int q1 = min(q0 + kTile, S);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3, r0 = warp * 16;
+  const bf16* kb = k + (size_t)bh * Skv * DH;
+  const bf16* vb = v + (size_t)bh * Skv * DH;
+  const int nkt = (Skv + kTile - 1) / kTile;
+  auto next = [&](int t) {
+    while (t < nkt && !tile_needed(q0, q1, t * kTile,
+                                   min(t * kTile + kTile, Skv), Skv, causal,
+                                   window))
+      ++t;
+    return t;
+  };
+  auto fill = [&](int stage, int t) {
+    load_tile_async<DH>(ring + 2 * stage * E, kb, t * kTile, Skv);
+    load_tile_async<DH>(ring + (2 * stage + 1) * E, vb, t * kTile, Skv);
+  };
+
+  // Q in the first stage's group: the loop's first wait covers it
+  load_tile_async<DH>(qs, q + (size_t)bh * S * DH, q0, S);
+  int kt = next(0);
+  if (kt < nkt) fill(0, kt);
+  cp_async_commit();
+
+  float acc[DH / 8][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  zero(acc);
+  for (int stage = 0; kt < nkt; stage ^= 1) {
+    const int nxt = next(kt + 1);
+    if (nxt < nkt) fill(stage ^ 1, nxt);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* ks_t = ring + 2 * stage * E;
+    const bf16* vs_t = ks_t + E;
+    const int k0 = kt * kTile;
+    const bool full = tile_full(q0, k0, S, Skv, causal, window);
+#pragma unroll 1
+    for (int ch = 0; ch < kTile; ch += NC) {
+      float s[NC / 8][4];
+      zero(s);
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t qa[4];
+        a_frag<DH>(qa, qs, r0, 16 * ks, lane);
+        mma_rows<DH, NC / 16>(s, qa, ks_t, ch, 16 * ks, lane);
+      }
+      float mx[2] = {m[0], m[1]};
+      // the scores scaled, masked on an edge tile (keys past Skv out of the
+      // max); then p = exp(s - m), 0 past Skv
+      auto scores = [&](auto full) {
+#pragma unroll
+        for (int nt = 0; nt < NC / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1, jk = k0 + ch + 8 * nt + 2 * c + (e & 1);
+            if constexpr (decltype(full)::value) {
+              s[nt][e] *= scale;
+              mx[h] = fmaxf(mx[h], s[nt][e]);
+            } else {
+              s[nt][e] = masked_score(s[nt][e], scale, q0 + r0 + g + 8 * h, jk,
+                                      causal, window);
+              if (jk < Skv) mx[h] = fmaxf(mx[h], s[nt][e]);
+            }
+          }
+      };
+      auto probs = [&](auto full, float (&rs)[2]) {
+#pragma unroll
+        for (int nt = 0; nt < NC / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1, jk = k0 + ch + 8 * nt + 2 * c + (e & 1);
+            s[nt][e] = __expf(s[nt][e] - m[h]);
+            if constexpr (!decltype(full)::value)
+              if (jk >= Skv) s[nt][e] = 0.f;
+            rs[h] += s[nt][e];
+          }
+      };
+      if (full) scores(Full{}); else scores(Edge{});
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = quad_max(mx[h]);
+        alpha[h] = __expf(m[h] - mx[h]);
+        m[h] = mx[h];
+      }
+      if (full) probs(Full{}, rs); else probs(Edge{}, rs);
+      // l stays this lane's partial sum (the quad shares m and alpha)
+      l[0] = alpha[0] * l[0] + rs[0];
+      l[1] = alpha[1] * l[1] + rs[1];
+#pragma unroll
+      for (int nt = 0; nt < DH / 8; ++nt) {
+        acc[nt][0] *= alpha[0];
+        acc[nt][1] *= alpha[0];
+        acc[nt][2] *= alpha[1];
+        acc[nt][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int j = 0; j < NC / 16; ++j) {
+        uint32_t a[3][4];
+        score_frag3(a, s, j);
+        mma_cols3<DH>(acc, a, vs_t, ch + 16 * j, lane);
+      }
+    }
+    __syncthreads();  // the stage's readers are done before it is refilled
+    kt = nxt;
+  }
+  cp_async_wait<0>();  // Q was never waited on if no tile was needed
+
+  const float l0 = fmaxf(quad_sum(l[0]), 1e-30f);
+  const float l1 = fmaxf(quad_sum(l[1]), 1e-30f);
+  store_rows<DH>(o + (size_t)bh * S * DH, acc, q0 + r0, S, lane, l0, l1);
+  if (c == 0) {
+    if (q0 + r0 + g < S) lse[(size_t)bh * S + q0 + r0 + g] = m[0] + logf(l0);
+    if (q0 + r0 + g + 8 < S)
+      lse[(size_t)bh * S + q0 + r0 + g + 8] = m[1] + logf(l1);
+  }
+}
+
+// backward dq: one block per (bh, q tile); Q and dO resident, K, V tiles
+// through the ring; kChunk keys per pass keep s and dp to 16 registers each
+template <int DH>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta, int S,
+    int Skv, float scale, int causal, int window, bf16* __restrict__ dq) {
+  constexpr int E = Geom<DH>::kElems, KS = Geom<DH>::kSteps;
+  constexpr int NT = kChunk / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem);
+  bf16* gs = qs + E;    // do
+  bf16* ring = gs + E;  // stage s: K at 2 s E, V at (2 s + 1) E
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int q1 = min(q0 + kTile, S);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3, r0 = warp * 16;
+  const bf16* kb = k + (size_t)bh * Skv * DH;
+  const bf16* vb = v + (size_t)bh * Skv * DH;
+  const int nkt = (Skv + kTile - 1) / kTile;
+  auto next = [&](int t) {
+    while (t < nkt && !tile_needed(q0, q1, t * kTile,
+                                   min(t * kTile + kTile, Skv), Skv, causal,
+                                   window))
+      ++t;
+    return t;
+  };
+  auto fill = [&](int stage, int t) {
+    load_tile_async<DH>(ring + 2 * stage * E, kb, t * kTile, Skv);
+    load_tile_async<DH>(ring + (2 * stage + 1) * E, vb, t * kTile, Skv);
+  };
+
+  load_tile_async<DH>(qs, q + (size_t)bh * S * DH, q0, S);
+  load_tile_async<DH>(gs, dout + (size_t)bh * S * DH, q0, S);
+  int kt = next(0);
+  if (kt < nkt) fill(0, kt);
+  cp_async_commit();
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + r0 + g + 8 * h;
+    lse_r[h] = r < S ? lse[(size_t)bh * S + r] : 0.f;
+    delta_r[h] = r < S ? delta[(size_t)bh * S + r] : 0.f;
+  }
+  const bool split = degenerate_rows(q1, Skv, causal, window);
+  float acc[DH / 8][4];
+  zero(acc);
+  for (int stage = 0; kt < nkt; stage ^= 1) {
+    const int nxt = next(kt + 1);
+    if (nxt < nkt) fill(stage ^ 1, nxt);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* ks_t = ring + 2 * stage * E;
+    const bf16* vs_t = ks_t + E;
+    const bool full = tile_full(q0, kt * kTile, S, Skv, causal, window);
+#pragma unroll
+    for (int ch = 0; ch < kTile; ch += kChunk) {
+      float s[NT][4], dp[NT][4];
+      zero(s);
+      zero(dp);
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t a[4];
+        a_frag<DH>(a, qs, r0, 16 * ks, lane);
+        mma_rows<DH, NT / 2>(s, a, ks_t, ch, 16 * ks, lane);
+        a_frag<DH>(a, gs, r0, 16 * ks, lane);
+        mma_rows<DH, NT / 2>(dp, a, vs_t, ch, 16 * ks, lane);
+      }
+      // ds = p (dp - delta) scale, p = exp(s - lse); masked and 0 past Skv
+      // on an edge tile
+      auto grads = [&](auto full) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1;
+            const int jk = kt * kTile + ch + 8 * nt + 2 * c + (e & 1);
+            float x = s[nt][e] * scale;
+            if constexpr (!decltype(full)::value)
+              x = masked_score(s[nt][e], scale, q0 + r0 + g + 8 * h, jk, causal,
+                               window);
+            const float p = __expf(x - lse_r[h]);
+            s[nt][e] = p * (dp[nt][e] - delta_r[h]) * scale;
+            if constexpr (!decltype(full)::value)
+              if (jk >= Skv) s[nt][e] = 0.f;
+          }
+      };
+      if (full) grads(Full{}); else grads(Edge{});
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        uint32_t a[4];
+        score_frag(a, s, j);
+        mma_cols<DH>(acc, a, ks_t, ch + 16 * j, lane);
+        if (split) {
+          score_frag_lo(a, s, j);
+          mma_cols<DH>(acc, a, ks_t, ch + 16 * j, lane);
+        }
+      }
+    }
+    __syncthreads();
+    kt = nxt;
+  }
+  cp_async_wait<0>();  // Q and dO were never waited on if no tile was needed
+  store_rows<DH>(dq + (size_t)bh * S * DH, acc, q0 + r0, S, lane, 1.f, 1.f);
+}
+
+// backward dk, dv: one block per (bh, kv tile); K and V resident, Q, dO,
+// lse and delta tiles through the ring; the scores are transposed (kv rows
+// x q columns), kChunk q columns per pass (half at dh 128)
+template <int DH>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta, int S,
+    int Skv, float scale, int causal, int window, bf16* __restrict__ dk,
+    bf16* __restrict__ dv) {
+  constexpr int E = Geom<DH>::kElems, KS = Geom<DH>::kSteps;
+  // dh 128 holds 2 x 64 accumulators a thread: half the chunk keeps it
+  // under 255 registers without spills
+  constexpr int CH = DH == 128 ? kChunk / 2 : kChunk, NT = CH / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* ks = reinterpret_cast<bf16*>(tc_smem);
+  bf16* vs = ks + E;
+  bf16* ring = vs + E;  // stage s: Q at 2 s E, dO at (2 s + 1) E
+  float* rows_s = reinterpret_cast<float*>(ring + 4 * E);  // stage s: lse at
+                                                           // 2 s kTile, delta after
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kTile;  // causal: low kv tiles are the heavy ones
+  const int k1 = min(k0 + kTile, Skv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3, r0 = warp * 16;
+  const bf16* qb = q + (size_t)bh * S * DH;
+  const bf16* gb = dout + (size_t)bh * S * DH;
+  const int nqt = (S + kTile - 1) / kTile;
+  auto next = [&](int t) {
+    while (t < nqt && !tile_needed(t * kTile, min(t * kTile + kTile, S), k0, k1,
+                                   Skv, causal, window))
+      ++t;
+    return t;
+  };
+  auto fill = [&](int stage, int t) {
+    load_tile_async<DH>(ring + 2 * stage * E, qb, t * kTile, S);
+    load_tile_async<DH>(ring + (2 * stage + 1) * E, gb, t * kTile, S);
+    const int i = threadIdx.x & (kTile - 1), r = t * kTile + i;
+    const float* src = (threadIdx.x < kTile ? lse : delta) + (size_t)bh * S;
+    cp_async4(rows_s + 2 * stage * kTile + threadIdx.x, src + (r < S ? r : 0),
+              r < S ? 4 : 0);
+  };
+
+  load_tile_async<DH>(ks, k + (size_t)bh * Skv * DH, k0, Skv);
+  load_tile_async<DH>(vs, v + (size_t)bh * Skv * DH, k0, Skv);
+  int qt = next(0);
+  if (qt < nqt) fill(0, qt);
+  cp_async_commit();
+  float acck[DH / 8][4], accv[DH / 8][4];
+  zero(acck);
+  zero(accv);
+  for (int stage = 0; qt < nqt; stage ^= 1) {
+    const int nxt = next(qt + 1);
+    if (nxt < nqt) fill(stage ^ 1, nxt);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* qs_t = ring + 2 * stage * E;
+    const bf16* gs_t = qs_t + E;
+    const float* lse_t = rows_s + 2 * stage * kTile;
+    const float* delta_t = lse_t + kTile;
+    const int q0 = qt * kTile;
+    const bool split = degenerate_rows(min(q0 + kTile, S), Skv, causal, window);
+    const bool full = tile_full(q0, k0, S, Skv, causal, window);
+#pragma unroll
+    for (int ch = 0; ch < kTile; ch += CH) {
+      float st[NT][4], dpt[NT][4];  // s^T, then p^T; dp^T, then ds^T
+      zero(st);
+      zero(dpt);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t a[4];
+        a_frag<DH>(a, ks, r0, 16 * kk, lane);
+        mma_rows<DH, NT / 2>(st, a, qs_t, ch, 16 * kk, lane);
+        a_frag<DH>(a, vs, r0, 16 * kk, lane);
+        mma_rows<DH, NT / 2>(dpt, a, gs_t, ch, 16 * kk, lane);
+      }
+      // p^T and ds^T; masked and 0 past S or Skv on an edge tile
+      auto grads = [&](auto full) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int jk = k0 + r0 + g + 8 * (e >> 1);
+            const int rr = ch + 8 * nt + 2 * c + (e & 1), iq = q0 + rr;
+            float x = st[nt][e] * scale;
+            if constexpr (!decltype(full)::value)
+              x = masked_score(st[nt][e], scale, iq, jk, causal, window);
+            float p = __expf(x - lse_t[rr]);
+            if constexpr (!decltype(full)::value)
+              if (iq >= S || jk >= Skv) p = 0.f;
+            st[nt][e] = p;
+            dpt[nt][e] = p * (dpt[nt][e] - delta_t[rr]) * scale;
+          }
+      };
+      if (full) grads(Full{}); else grads(Edge{});
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        uint32_t a[4];
+        score_frag(a, st, j);
+        mma_cols<DH>(accv, a, gs_t, ch + 16 * j, lane);
+        score_frag(a, dpt, j);
+        mma_cols<DH>(acck, a, qs_t, ch + 16 * j, lane);
+        if (split) {
+          score_frag_lo(a, dpt, j);
+          mma_cols<DH>(acck, a, qs_t, ch + 16 * j, lane);
+        }
+      }
+    }
+    __syncthreads();
+    qt = nxt;
+  }
+  cp_async_wait<0>();  // K and V were never waited on if no tile was needed
+  store_rows<DH>(dk + (size_t)bh * Skv * DH, acck, k0 + r0, Skv, lane, 1.f, 1.f);
+  store_rows<DH>(dv + (size_t)bh * Skv * DH, accv, k0 + r0, Skv, lane, 1.f, 1.f);
+}
+
+}  // namespace tc
+
 constexpr size_t tile_bytes(int dh) { return (size_t)kTile * (dh + 1) * 4; }
 constexpr size_t score_bytes() { return (size_t)kTile * kLdP * 4; }
 
-// Dispatch over (dtype, dh); F<T, DH>::run(args...) launches one instance.
-template <template <typename, int> class F, typename... Args>
-int dispatch(int bf16, int dh, Args... args) {
-  if (bf16) {
+// Dispatch over (instance, dtype, dh): F<T, DH>::run(args...) launches a
+// SIMT instance, G<DH>::run(args...) the tensor-core one (bf16 only).
+template <template <typename, int> class F, template <int> class G,
+          typename... Args>
+int dispatch(int tc, int bf16, int dh, Args... args) {
+  if (tc) {
+    if (!bf16) return (int)cudaErrorInvalidValue;
+    if (dh == 32) return G<32>::run(args...);
+    if (dh == 64) return G<64>::run(args...);
+    if (dh == 128) return G<128>::run(args...);
+  } else if (bf16) {
     if (dh == 32) return F<__nv_bfloat16, 32>::run(args...);
     if (dh == 64) return F<__nv_bfloat16, 64>::run(args...);
     if (dh == 128) return F<__nv_bfloat16, 128>::run(args...);
@@ -546,41 +1183,108 @@ struct BwdDkv {
   }
 };
 
+constexpr size_t tc_tile_bytes(int dh) { return (size_t)kTile * (dh + 8) * 2; }
+
+template <int DH>
+struct FwdTc {
+  static int run(const void* q, const void* k, const void* v, int BH, int S,
+                 int Skv, float scale, int causal, int window, void* o,
+                 void* lse, cudaStream_t s) {
+    const size_t smem = 5 * tc_tile_bytes(DH);  // 2 stages of K and V, Q
+    int rc = start(tc::flash_fwd_tc_kernel<DH>, smem);
+    if (rc) return rc;
+    dim3 grid(BH, (S + kTile - 1) / kTile);
+    tc::flash_fwd_tc_kernel<DH><<<grid, tc::kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), S, Skv, scale, causal, window,
+        static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse));
+    return (int)cudaGetLastError();
+  }
+};
+
+template <int DH>
+struct BwdDqTc {
+  static int run(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta, int BH,
+                 int S, int Skv, float scale, int causal, int window,
+                 void* dq, cudaStream_t s) {
+    const size_t smem = 6 * tc_tile_bytes(DH);  // Q, dO + 2 stages of K, V
+    int rc = start(tc::flash_bwd_dq_tc_kernel<DH>, smem);
+    if (rc) return rc;
+    dim3 grid(BH, (S + kTile - 1) / kTile);
+    tc::flash_bwd_dq_tc_kernel<DH><<<grid, tc::kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<const __nv_bfloat16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta), S,
+        Skv, scale, causal, window, static_cast<__nv_bfloat16*>(dq));
+    return (int)cudaGetLastError();
+  }
+};
+
+template <int DH>
+struct BwdDkvTc {
+  static int run(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta, int BH,
+                 int S, int Skv, float scale, int causal, int window,
+                 void* dk, void* dv, cudaStream_t s) {
+    // K, V + 2 stages of Q, dO, and of lse, delta
+    const size_t smem = 6 * tc_tile_bytes(DH) + 2 * 2 * kTile * 4;
+    int rc = start(tc::flash_bwd_dkv_tc_kernel<DH>, smem);
+    if (rc) return rc;
+    dim3 grid(BH, (Skv + kTile - 1) / kTile);
+    tc::flash_bwd_dkv_tc_kernel<DH><<<grid, tc::kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<const __nv_bfloat16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta), S,
+        Skv, scale, causal, window, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv));
+    return (int)cudaGetLastError();
+  }
+};
+
 }  // namespace
 
 extern "C" {
 
 // q: (BH, S, dh), k, v: (BH, Skv, dh), all contiguous, bf16 (bf16 = 1) or
-// f32 (0); dh in {32, 64, 128}.  o: (BH, S, dh) in q's dtype, lse: (BH, S)
-// f32.  Returns cudaGetLastError() after the launch (or the error that
-// refused it).
+// f32 (0); dh in {32, 64, 128}; tc = 1 launches the tensor-core instance
+// (bf16 only, 16-byte aligned bases), 0 the SIMT one.  o: (BH, S, dh) in
+// q's dtype, lse: (BH, S) f32.  Returns cudaGetLastError() after the launch
+// (or the error that refused it).
 int flash_fwd_launch(const void* q, const void* k, const void* v, int BH,
                      int S, int Skv, int dh, int bf16, float scale,
-                     int causal, int window, void* o, void* lse,
+                     int causal, int window, int tc, void* o, void* lse,
                      void* stream) {
-  return dispatch<Fwd>(bf16, dh, q, k, v, BH, S, Skv, scale, causal, window,
-                       o, lse, static_cast<cudaStream_t>(stream));
+  return dispatch<Fwd, FwdTc>(tc, bf16, dh, q, k, v, BH, S, Skv, scale,
+                              causal, window, o, lse,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // + dout: (BH, S, dh) in q's dtype, lse, delta: (BH, S) f32 -> dq (BH, S, dh).
 int flash_bwd_dq_launch(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
                         int BH, int S, int Skv, int dh, int bf16, float scale,
-                        int causal, int window, void* dq, void* stream) {
-  return dispatch<BwdDq>(bf16, dh, q, k, v, dout, lse, delta, BH, S, Skv,
-                         scale, causal, window, dq,
-                         static_cast<cudaStream_t>(stream));
+                        int causal, int window, int tc, void* dq,
+                        void* stream) {
+  return dispatch<BwdDq, BwdDqTc>(tc, bf16, dh, q, k, v, dout, lse, delta,
+                                  BH, S, Skv, scale, causal, window, dq,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 // Same inputs -> dk, dv (BH, Skv, dh).
 int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse,
                          const void* delta, int BH, int S, int Skv, int dh,
-                         int bf16, float scale, int causal, int window,
+                         int bf16, float scale, int causal, int window, int tc,
                          void* dk, void* dv, void* stream) {
-  return dispatch<BwdDkv>(bf16, dh, q, k, v, dout, lse, delta, BH, S, Skv,
-                          scale, causal, window, dk, dv,
-                          static_cast<cudaStream_t>(stream));
+  return dispatch<BwdDkv, BwdDkvTc>(tc, bf16, dh, q, k, v, dout, lse, delta,
+                                    BH, S, Skv, scale, causal, window, dk, dv,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_mha_error_string(int code) {

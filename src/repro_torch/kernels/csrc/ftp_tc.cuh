@@ -1,8 +1,8 @@
-// What the FTP kernels' tensor-core instances (ftp_dense.cu's and
-// ftp_bsr.cu's `tc`) share: the ring's stage geometry, the cp.async,
-// ldmatrix and mma.sync wrappers, the A fragments built from spike words,
-// the B fragments of a stage's weight tile and the sum of a cluster's
-// partial tiles in ascending rank order.
+// What the tensor-core instances (ftp_dense.cu's, ftp_bsr.cu's and
+// flash_mha.cu's `tc`) share: the FTP ring's stage geometry, the cp.async,
+// ldmatrix and mma.sync wrappers (flash_mha.cu takes only these), the A
+// fragments built from spike words, the B fragments of a stage's weight
+// tile and the sum of a cluster's partial tiles in ascending rank order.
 //
 // The product is the reference's own (_unpack_fold): T {0,1} planes stacked
 // into MMA rows r = t * bm + m against a (k, n) weight tile, bf16 operands
@@ -64,6 +64,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
                                                   const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// Four 8 x 8 b16 matrices, not transposed: lane l gives the address of
+// row l % 8 of matrix l / 8 and receives (row l / 4, columns 2 (l % 4),
+// 2 (l % 4) + 1) of each.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
 }

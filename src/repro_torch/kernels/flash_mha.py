@@ -11,16 +11,24 @@ CUDA kernels and the autograd Function over them (port of
 * `flash_mha`: a `torch.autograd.Function` over both (kernel 7, the
   reference's ``custom_vjp``).
 
-Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
-version (`ref.flash_mha_fwd_plain`, `ref.flash_mha_bwd_dq_plain`,
-`ref.flash_mha_bwd_dkv_plain`) only for
-tensors on the CPU; the reference's ``interpret`` switch is not ported.
-There is no fallback: a CUDA input a kernel does not take raises.  The
+Each kernel has two instances (`flash_instance`): ``tc`` on the tensor
+cores for bf16 inputs, ``simt`` (SIMT f32 FMA) for f32 ones.  Each wrapper
+launches its CUDA kernel for CUDA tensors and runs its plain version
+(`ref.flash_mha_fwd_plain`, `ref.flash_mha_bwd_dq_plain`,
+`ref.flash_mha_bwd_dkv_plain`) only for tensors on the CPU, at the true dh;
+the reference's ``interpret`` switch is not ported.  There is no fallback:
+a CUDA input a kernel does not take raises, and a `tc` build or launch that
+fails raises.  The kernels are built for dh 32, 64 and 128 (`HEAD_DIMS`);
+any other dh up to 128 is zero-padded on the last axis to the next of
+them (`template_dh`) and run with the true ``dh ** -0.5`` scale, and the
+outputs are sliced back (`at_template`; zero columns add exact +0
+products).  The padding is plain torch on the wrapper's path.  The
 reference's block sizes ``bq``/``bk`` are validated as the reference does
 (``bq = min(bq, S)``, ``S % bq == 0``, ``Skv % bk == 0``); the kernels tile by
 64 rows whatever they are, and no output depends on them beyond rounding.
-`launch_counts()` counts kernel launches (not plain-version calls) and the
-Function's backward passes that launched the backward kernels.
+`launch_counts()` counts kernel launches (not plain-version calls), by
+kernel and by instance, and the Function's backward passes that launched
+the backward kernels.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 from .ref import (
@@ -39,21 +48,79 @@ from .ref import (
 DEFAULT_BQ = 256
 DEFAULT_BK = 256
 HEAD_DIMS = (32, 64, 128)  # the kernels' template instances
+INSTANCES = ("tc", "simt")
 
-FWD_LAUNCHES = 0        # kernel 5
-DQ_LAUNCHES = 0         # kernel 6, dq
-DKV_LAUNCHES = 0        # kernel 6, dk and dv
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")  # kernels 5, 6, 6
 AUTOGRAD_BACKWARDS = 0  # kernel 7: backward passes that launched kernel 6
+# launches by kernel and instance: {"flash_fwd_tc": n, ...}
+INSTANCE_LAUNCHES = {f"{k}_{i}": 0 for k in KERNELS for i in INSTANCES}
 
 
 def launch_counts() -> dict[str, int]:
-    return {"flash_fwd": FWD_LAUNCHES, "flash_bwd_dq": DQ_LAUNCHES,
-            "flash_bwd_dkv": DKV_LAUNCHES, "flash_mha": AUTOGRAD_BACKWARDS}
+    """Launches of kernels 5 (``flash_fwd``) and 6 (``flash_bwd_dq``,
+    ``flash_bwd_dkv``), the Function's backward passes (``flash_mha``), and
+    each kernel's launches by instance (``flash_fwd_tc``,
+    ``flash_fwd_simt``, ...)."""
+    totals = {k: sum(INSTANCE_LAUNCHES[f"{k}_{i}"] for i in INSTANCES)
+              for k in KERNELS}
+    return {**totals, "flash_mha": AUTOGRAD_BACKWARDS, **INSTANCE_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    global FWD_LAUNCHES, DQ_LAUNCHES, DKV_LAUNCHES, AUTOGRAD_BACKWARDS
-    FWD_LAUNCHES = DQ_LAUNCHES = DKV_LAUNCHES = AUTOGRAD_BACKWARDS = 0
+    global AUTOGRAD_BACKWARDS
+    AUTOGRAD_BACKWARDS = 0
+    INSTANCE_LAUNCHES.update(dict.fromkeys(INSTANCE_LAUNCHES, 0))
+
+
+def template_dh(dh: int) -> int:
+    """The kernel template a head dim runs at: the least of `HEAD_DIMS`
+    that is >= dh (16 -> 32, 48 -> 64, 80 / 96 / 112 -> 128)."""
+    if not 1 <= dh <= HEAD_DIMS[-1]:
+        raise ValueError(f"the kernels take 1 <= dh <= {HEAD_DIMS[-1]}, got "
+                         f"dh={dh}")
+    return next(t for t in HEAD_DIMS if t >= dh)
+
+
+def flash_instance(dtype: torch.dtype, dh: int) -> str:
+    """The kernels' instance for inputs of ``dtype`` and head dim ``dh``:
+    ``tc`` (tensor cores) for bf16, ``simt`` for f32.  Nothing else
+    decides it."""
+    template_dh(dh)
+    if dtype == torch.bfloat16:
+        return "tc"
+    if dtype == torch.float32:
+        return "simt"
+    raise ValueError(f"the kernels take bf16 or f32, got {dtype}")
+
+
+def _pick(dtype, dh, instance):
+    """The routed instance, or ``instance`` if it fits the dtype (SIMT
+    takes bf16 too, `tc` only bf16)."""
+    route = flash_instance(dtype, dh)
+    if instance is None:
+        return route
+    if instance not in INSTANCES:
+        raise ValueError(f"no flash instance {instance!r}")
+    if instance == "tc" and route != "tc":
+        raise ValueError(f"the tc instance does not take {dtype}")
+    return instance
+
+
+def at_template(fn, *tensors, **kw):
+    """``fn(*tensors, scale=dh ** -0.5, **kw)`` with every (BH, rows, dh)
+    tensor zero-padded on its last axis to `template_dh` (lse and delta
+    pass as they are), and each (·, ·, template) output sliced back to dh.
+    The kernel path runs through this; so do the CPU tests, with the plain
+    versions as ``fn``."""
+    dh = tensors[0].shape[-1]
+    to = template_dh(dh)
+
+    def pad(t):
+        return F.pad(t, (0, to - dh)) if t.ndim == 3 and to != dh else t
+
+    out = fn(*map(pad, tensors), scale=float(dh ** -0.5), **kw)
+    cut = lambda t: t[..., :dh].contiguous() if t.ndim == 3 and to != dh else t
+    return tuple(map(cut, out)) if isinstance(out, tuple) else cut(out)
 
 
 @functools.cache
@@ -61,7 +128,8 @@ def _lib() -> ctypes.CDLL:
     """The kernel library (built at first use) with its C signatures set."""
     lib = _build.load("flash_mha")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    geom = [i, i, i, i, i, f, i, i]  # BH, S, Skv, dh, bf16, scale, causal, window
+    # BH, S, Skv, dh, bf16, scale, causal, window, tc
+    geom = [i, i, i, i, i, f, i, i, i]
     lib.flash_fwd_launch.argtypes = [p, p, p, *geom, p, p, p]
     lib.flash_bwd_dq_launch.argtypes = [p, p, p, p, p, p, *geom, p, p]
     lib.flash_bwd_dkv_launch.argtypes = [p, p, p, p, p, p, *geom, p, p, p]
@@ -99,107 +167,148 @@ def _check(q, k, v, bq: int, bk: int, *extra) -> tuple[int, int, int, int]:
     return BH, S, Skv, dh
 
 
-def _check_kernel(q, k, v, dh: int, *extra) -> None:
+def _check_kernel(q, k, v, *extra) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention kernel for device {q.device}")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the kernels take bf16 or f32, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("q, k, v must share one dtype")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"the kernels take dh in {HEAD_DIMS}, got {dh}")
     for t in (q, k, v, *extra):
         if not t.is_contiguous():
             raise ValueError("the kernels take contiguous tensors")
 
 
-def _geometry(q, BH, S, Skv, dh, causal, window):
-    return (BH, S, Skv, dh, int(q.dtype == torch.bfloat16), float(dh ** -0.5),
-            int(bool(causal)), int(window))
+def _aligned(t):
+    """``t``, or a copy of it if its base is not 16-byte aligned (the `tc`
+    instance copies rows 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def flash_mha_fwd(q, k, v, *, causal=True, window=0, bq=DEFAULT_BQ,
-                  bk=DEFAULT_BK):
-    """q (BH, S, dh), k, v (BH, Skv, dh) -> (o (BH, S, dh) in q's dtype,
-    lse (BH, S) f32) (kernel 5)."""
-    BH, S, Skv, dh = _check(q, k, v, bq, bk)
-    if q.device.type == "cpu":
-        return flash_mha_fwd_plain(q, k, v, causal, window)
-    _check_kernel(q, k, v, dh)
+def _geometry(q, S, Skv, scale, causal, window, instance):
+    BH, _, dh = q.shape
+    return (BH, S, Skv, dh, int(q.dtype == torch.bfloat16), scale,
+            int(bool(causal)), int(window), int(instance == "tc"))
+
+
+def _count(name, instance):
+    INSTANCE_LAUNCHES[f"{name}_{instance}"] += 1
+
+
+def _fwd_launch(q, k, v, *, scale, causal, window, instance):
+    """Kernel 5 at a template dh."""
+    q, k, v = map(_aligned, (q, k, v))
+    BH, S, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((BH, S), dtype=torch.float32, device=q.device)
     rc = _lib().flash_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        *_geometry(q, BH, S, Skv, dh, causal, window), o.data_ptr(),
-        lse.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, "flash_fwd")
-    global FWD_LAUNCHES
-    FWD_LAUNCHES += 1
+        *_geometry(q, S, k.shape[1], scale, causal, window, instance),
+        o.data_ptr(), lse.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, f"flash_fwd ({instance})")
+    _count("flash_fwd", instance)
     return o, lse
 
 
-def _check_bwd(q, k, v, do, lse, delta, bq, bk):
+def flash_mha_fwd(q, k, v, *, causal=True, window=0, bq=DEFAULT_BQ,
+                  bk=DEFAULT_BK, instance=None):
+    """q (BH, S, dh), k, v (BH, Skv, dh) -> (o (BH, S, dh) in q's dtype,
+    lse (BH, S) f32) (kernel 5).  ``instance`` ("tc" or "simt") overrides
+    `flash_instance`'s choice, to measure one instance against the other;
+    an instance the dtype does not fit raises."""
+    BH, S, Skv, dh = _check(q, k, v, bq, bk)
+    if q.device.type == "cpu":
+        if instance is not None:
+            _pick(q.dtype, dh, instance)
+        return flash_mha_fwd_plain(q, k, v, causal, window)
+    _check_kernel(q, k, v)
+    inst = _pick(q.dtype, dh, instance)
+    return at_template(_fwd_launch, q, k, v, causal=causal, window=window,
+                       instance=inst)
+
+
+def _check_bwd(q, k, v, do, lse, delta, bq, bk, instance):
+    """The backward's checks; returns the instance to launch (None on the
+    CPU)."""
     BH, S, Skv, dh = _check(q, k, v, bq, bk, do, lse, delta)
     if do.shape != q.shape or lse.shape != (BH, S) or delta.shape != (BH, S):
         raise ValueError("do must be (BH, S, dh), lse and delta (BH, S)")
-    if q.device.type != "cpu":
-        _check_kernel(q, k, v, dh, do, lse, delta)
-        if (do.dtype != q.dtype or lse.dtype != torch.float32
-                or delta.dtype != torch.float32):
-            raise ValueError("do must be in q's dtype, lse and delta f32")
-    return BH, S, Skv, dh
+    if q.device.type == "cpu":
+        if instance is not None:
+            _pick(q.dtype, dh, instance)
+        return None
+    _check_kernel(q, k, v, do, lse, delta)
+    if (do.dtype != q.dtype or lse.dtype != torch.float32
+            or delta.dtype != torch.float32):
+        raise ValueError("do must be in q's dtype, lse and delta f32")
+    return _pick(q.dtype, dh, instance)
 
 
-def _bwd_args(q, k, v, do, lse, delta, BH, S, Skv, dh, causal, window):
+def _bwd_args(q, k, v, do, lse, delta, scale, causal, window, instance):
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(),
-            *_geometry(q, BH, S, Skv, dh, causal, window))
+            *_geometry(q, q.shape[1], k.shape[1], scale, causal, window,
+                       instance))
 
 
-def flash_mha_bwd_dq(q, k, v, do, lse, delta, *, causal=True, window=0,
-                     bq=DEFAULT_BQ, bk=DEFAULT_BK):
-    """dq (BH, S, dh) in q's dtype from the forward's lse and delta =
-    rowsum(o * do) (kernel 6, the dq kernel)."""
-    BH, S, Skv, dh = _check_bwd(q, k, v, do, lse, delta, bq, bk)
-    if q.device.type == "cpu":
-        return flash_mha_bwd_dq_plain(q, k, v, do, lse, delta, causal, window)
+def _dq_launch(q, k, v, do, lse, delta, *, scale, causal, window, instance):
+    """Kernel 6's dq kernel at a template dh."""
+    q, k, v, do = map(_aligned, (q, k, v, do))  # alive through the launch
     dq = torch.empty_like(q)
     rc = _lib().flash_bwd_dq_launch(
-        *_bwd_args(q, k, v, do, lse, delta, BH, S, Skv, dh, causal, window),
+        *_bwd_args(q, k, v, do, lse, delta, scale, causal, window, instance),
         dq.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, "flash_bwd_dq")
-    global DQ_LAUNCHES
-    DQ_LAUNCHES += 1
+    _raise_on(rc, f"flash_bwd_dq ({instance})")
+    _count("flash_bwd_dq", instance)
     return dq
 
 
-def flash_mha_bwd_dkv(q, k, v, do, lse, delta, *, causal=True, window=0,
-                      bq=DEFAULT_BQ, bk=DEFAULT_BK):
-    """(dk, dv) (BH, Skv, dh) in k's and v's dtypes (kernel 6, the dk/dv
-    kernel)."""
-    BH, S, Skv, dh = _check_bwd(q, k, v, do, lse, delta, bq, bk)
-    if q.device.type == "cpu":
-        return flash_mha_bwd_dkv_plain(q, k, v, do, lse, delta, causal, window)
+def _dkv_launch(q, k, v, do, lse, delta, *, scale, causal, window, instance):
+    """Kernel 6's dk/dv kernel at a template dh."""
+    q, k, v, do = map(_aligned, (q, k, v, do))  # alive through the launch
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     rc = _lib().flash_bwd_dkv_launch(
-        *_bwd_args(q, k, v, do, lse, delta, BH, S, Skv, dh, causal, window),
+        *_bwd_args(q, k, v, do, lse, delta, scale, causal, window, instance),
         dk.data_ptr(), dv.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, "flash_bwd_dkv")
-    global DKV_LAUNCHES
-    DKV_LAUNCHES += 1
+    _raise_on(rc, f"flash_bwd_dkv ({instance})")
+    _count("flash_bwd_dkv", instance)
     return dk, dv
 
 
+def flash_mha_bwd_dq(q, k, v, do, lse, delta, *, causal=True, window=0,
+                     bq=DEFAULT_BQ, bk=DEFAULT_BK, instance=None):
+    """dq (BH, S, dh) in q's dtype from the forward's lse and delta =
+    rowsum(o * do) (kernel 6, the dq kernel); ``instance`` as for
+    `flash_mha_fwd`."""
+    inst = _check_bwd(q, k, v, do, lse, delta, bq, bk, instance)
+    if inst is None:
+        return flash_mha_bwd_dq_plain(q, k, v, do, lse, delta, causal, window)
+    return at_template(_dq_launch, q, k, v, do, lse, delta, causal=causal,
+                       window=window, instance=inst)
+
+
+def flash_mha_bwd_dkv(q, k, v, do, lse, delta, *, causal=True, window=0,
+                      bq=DEFAULT_BQ, bk=DEFAULT_BK, instance=None):
+    """(dk, dv) (BH, Skv, dh) in k's and v's dtypes (kernel 6, the dk/dv
+    kernel); ``instance`` as for `flash_mha_fwd`."""
+    inst = _check_bwd(q, k, v, do, lse, delta, bq, bk, instance)
+    if inst is None:
+        return flash_mha_bwd_dkv_plain(q, k, v, do, lse, delta, causal, window)
+    return at_template(_dkv_launch, q, k, v, do, lse, delta, causal=causal,
+                       window=window, instance=inst)
+
+
 def flash_mha_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
-                  bq=DEFAULT_BQ, bk=DEFAULT_BK):
+                  bq=DEFAULT_BQ, bk=DEFAULT_BK, instance=None):
     """Gradients of ``sum(o * do)`` from the forward's o and lse -> (dq, dk,
     dv) in the inputs' dtypes (kernel 6: delta in plain torch, then the dq
-    kernel and the dk/dv kernel)."""
+    kernel and the dk/dv kernel); ``instance`` as for `flash_mha_fwd`."""
     if o.shape != q.shape or o.device != q.device:
         raise ValueError("o must be (BH, S, dh) beside q")
     delta = (o.float() * do.float()).sum(-1)
-    kw = dict(causal=causal, window=window, bq=bq, bk=bk)
+    kw = dict(causal=causal, window=window, bq=bq, bk=bk, instance=instance)
     dq = flash_mha_bwd_dq(q, k, v, do, lse, delta, **kw)
     dk, dv = flash_mha_bwd_dkv(q, k, v, do, lse, delta, **kw)
     return dq, dk, dv
@@ -210,11 +319,11 @@ class FlashMHA(torch.autograd.Function):
     saves q, k, v, o, lse; the non-tensor arguments get no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, bq, bk):
-        o, lse = flash_mha_fwd(q, k, v, causal=causal, window=window, bq=bq,
-                               bk=bk)
+    def forward(ctx, q, k, v, causal, window, bq, bk, instance):
+        ctx.opts = dict(causal=causal, window=window, bq=bq, bk=bk,
+                        instance=instance)
+        o, lse = flash_mha_fwd(q, k, v, **ctx.opts)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.opts = dict(causal=causal, window=window, bq=bq, bk=bk)
         return o
 
     @staticmethod
@@ -224,10 +333,12 @@ class FlashMHA(torch.autograd.Function):
         if do.is_cuda:
             global AUTOGRAD_BACKWARDS
             AUTOGRAD_BACKWARDS += 1
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
-def flash_mha(q, k, v, causal=True, window=0, bq=DEFAULT_BQ, bk=DEFAULT_BK):
+def flash_mha(q, k, v, causal=True, window=0, bq=DEFAULT_BQ, bk=DEFAULT_BK,
+              *, instance=None):
     """Differentiable flash attention: (BH, S, dh) q and (BH, Skv, dh) k, v
-    -> o (BH, S, dh) (kernel 7 over kernels 5 and 6)."""
-    return FlashMHA.apply(q, k, v, causal, window, bq, bk)
+    -> o (BH, S, dh) (kernel 7 over kernels 5 and 6); ``instance`` as for
+    `flash_mha_fwd`, for both passes."""
+    return FlashMHA.apply(q, k, v, causal, window, bq, bk, instance)

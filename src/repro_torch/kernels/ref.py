@@ -57,9 +57,10 @@ def _attn_mask(S: int, Skv: int, causal: bool, window: int, device) -> torch.Ten
     return m
 
 
-def _masked_scores(q, k, causal: bool, window: int) -> torch.Tensor:
-    """(BH, S, Skv) f32 scores, scaled after the dot, masked with -1e30."""
-    scale = q.shape[-1] ** -0.5
+def _masked_scores(q, k, causal: bool, window: int, scale=None) -> torch.Tensor:
+    """(BH, S, Skv) f32 scores, scaled after the dot (by ``dh ** -0.5``
+    unless ``scale`` is given), masked with -1e30."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     m = _attn_mask(q.shape[1], k.shape[1], causal, window, q.device)
     return s.masked_fill(~m[None], NEG_INF)
@@ -71,34 +72,37 @@ def mha_ref(q, k, v, causal=True, window=0):
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
 
 
-def flash_mha_fwd_plain(q, k, v, causal=True, window=0):
+def flash_mha_fwd_plain(q, k, v, causal=True, window=0, scale=None):
     """Plain version of kernel 5: (o (BH, S, dh) in q's dtype, lse (BH, S)
-    f32), lse the logsumexp of the masked, scaled f32 scores."""
-    s = _masked_scores(q, k, causal, window)
+    f32), lse the logsumexp of the masked, scaled f32 scores (``scale``
+    defaults to ``dh ** -0.5``)."""
+    s = _masked_scores(q, k, causal, window, scale)
     o = torch.einsum("bqk,bkd->bqd", torch.softmax(s, dim=-1), v.float())
     return o.to(q.dtype), torch.logsumexp(s, dim=-1)
 
 
-def _bwd_common(q, k, v, do, lse, delta, causal, window):
+def _bwd_common(q, k, v, do, lse, delta, causal, window, scale):
     """(p, ds, do as f32) of the backward's recompute: p = exp(s - lse),
     ds = p * (dp - delta) * scale."""
-    scale = q.shape[-1] ** -0.5
-    p = torch.exp(_masked_scores(q, k, causal, window) - lse[..., None])
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    p = torch.exp(_masked_scores(q, k, causal, window, scale) - lse[..., None])
     g = do.float()
     dp = torch.einsum("bqd,bkd->bqk", g, v.float())
     return p, p * (dp - delta[..., None]) * scale, g
 
 
-def flash_mha_bwd_dq_plain(q, k, v, do, lse, delta, causal=True, window=0):
+def flash_mha_bwd_dq_plain(q, k, v, do, lse, delta, causal=True, window=0,
+                           scale=None):
     """Plain version of kernel 6's dq kernel: dq = ds k, in q's dtype."""
-    _, ds, _ = _bwd_common(q, k, v, do, lse, delta, causal, window)
+    _, ds, _ = _bwd_common(q, k, v, do, lse, delta, causal, window, scale)
     return torch.einsum("bqk,bkd->bqd", ds, k.float()).to(q.dtype)
 
 
-def flash_mha_bwd_dkv_plain(q, k, v, do, lse, delta, causal=True, window=0):
+def flash_mha_bwd_dkv_plain(q, k, v, do, lse, delta, causal=True, window=0,
+                            scale=None):
     """Plain version of kernel 6's dk/dv kernel: dk = ds^T q, dv = p^T do,
     in k's and v's dtypes."""
-    p, ds, g = _bwd_common(q, k, v, do, lse, delta, causal, window)
+    p, ds, g = _bwd_common(q, k, v, do, lse, delta, causal, window, scale)
     dk = torch.einsum("bqk,bqd->bkd", ds, q.float())
     dv = torch.einsum("bqk,bqd->bkd", p, g)
     return dk.to(k.dtype), dv.to(v.dtype)

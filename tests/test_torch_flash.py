@@ -133,13 +133,100 @@ def test_plain_backward_equals_autograd_of_plain_attention():
                                    rtol=2e-2, atol=2e-2)
 
 
+COUNT_NAMES = {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_mha",
+               *(f"{k}_{i}" for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                 for i in ("tc", "simt"))}
+
+
 def test_cpu_path_launches_no_kernel_and_validates_blocks():
+    """Every count, the per-instance ones too, starts at 0 after a reset and
+    CPU calls (f32 and bf16, a padded dh too) move none."""
     t_flash.reset_launch_counts()
+    assert t_flash.launch_counts() == dict.fromkeys(COUNT_NAMES, 0)
     q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(5, 1, 128, 32))
     t_flash.flash_mha(q, k, v).sum().backward()
-    assert t_flash.launch_counts() == {"flash_fwd": 0, "flash_bwd_dq": 0,
-                                       "flash_bwd_dkv": 0, "flash_mha": 0}
+    qb, kb, vb = (torch.from_numpy(a).to(torch.bfloat16).requires_grad_()
+                  for a in _qkv(6, 1, 128, 48))
+    t_flash.flash_mha(qb, kb, vb).float().sum().backward()
+    assert t_flash.launch_counts() == dict.fromkeys(COUNT_NAMES, 0)
     with pytest.raises(ValueError, match="multiples"):
         t_flash.flash_mha_fwd(q, k, v, bq=96)
     with pytest.raises(ValueError, match="share"):
         t_flash.flash_mha_fwd(q, k[:, :, :16], v)
+
+
+# ---------------------------------------------------------------------------
+# instance routing and the head-dim padding (the CUDA kernels' templates)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dh", range(1, 129))
+def test_flash_instance_and_template_dh(dh):
+    """bf16 routes to the tensor-core instance and f32 to SIMT at every dh
+    the kernels take; dh is padded to the next template."""
+    assert t_flash.template_dh(dh) == (32 if dh <= 32 else 64 if dh <= 64 else 128)
+    assert t_flash.flash_instance(torch.bfloat16, dh) == "tc"
+    assert t_flash.flash_instance(torch.float32, dh) == "simt"
+
+
+@pytest.mark.parametrize("dh", [0, 129, 192, 256])
+def test_flash_refuses_dh_outside_the_templates(dh):
+    with pytest.raises(ValueError, match=f"dh={dh}"):
+        t_flash.template_dh(dh)
+    with pytest.raises(ValueError, match=f"dh={dh}"):
+        t_flash.flash_instance(torch.bfloat16, dh)
+    x = torch.zeros(1, 64, dh)
+    with pytest.raises(ValueError, match=f"dh={dh}"):
+        t_flash.at_template(t_ref.flash_mha_fwd_plain, x, x, x)
+
+
+def test_flash_instance_override_must_fit_the_dtype():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(8, 1, 64, 32))
+    with pytest.raises(ValueError, match="does not take"):
+        t_flash.flash_mha_fwd(q, k, v, instance="tc")
+    with pytest.raises(ValueError, match="no flash instance"):
+        t_flash.flash_mha_fwd(q, k, v, instance="wgmma")
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        t_flash.flash_instance(torch.float16, 64)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    o, _ = t_flash.flash_mha_fwd(qb, kb, vb, instance="simt")
+    torch.testing.assert_close(o, t_ref.flash_mha_fwd_plain(qb, kb, vb)[0])
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 32)])
+@pytest.mark.parametrize("dh", [16, 48, 80, 112])
+def test_flash_padded_template_path_matches_reference(dh, causal, window):
+    """The kernels' padding path (zero-pad dh to the template, run at the
+    template with the true dh ** -0.5, slice back) with the plain versions
+    in the kernels' place, against the reference's Pallas kernels at the
+    true dh (interpret mode): o and lse within 3e-4, dq, dk, dv (from the
+    same do) within 3e-3, the reference tests' tolerances; and against the
+    plain versions at the true dh within 1e-5 (the zero columns add exact
+    +0 products; the f32 sums run in another blocking)."""
+    q, k, v = _qkv(dh + window + causal, 2, 128, dh)
+    do = np.random.default_rng(dh).normal(size=q.shape).astype(np.float32)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    kw = dict(causal=causal, window=window)
+    to, tl = t_flash.at_template(t_ref.flash_mha_fwd_plain, tq, tk, tv, **kw)
+    delta = (to * tdo).sum(-1)
+    tdq = t_flash.at_template(t_ref.flash_mha_bwd_dq_plain, tq, tk, tv, tdo,
+                              tl, delta, **kw)
+    tdk, tdv = t_flash.at_template(t_ref.flash_mha_bwd_dkv_plain, tq, tk, tv,
+                                   tdo, tl, delta, **kw)
+    assert to.shape == tdq.shape == q.shape and tdk.shape == tdv.shape == k.shape
+
+    jo, jl = j_flash_fwd(*map(jnp.asarray, (q, k, v)), bq=64, bk=64,
+                         interpret=True, **kw)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=3e-4, atol=3e-4)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=3e-4, atol=3e-4)
+    _, vjp = jax.vjp(lambda a, b, c: j_flash_mha(a, b, c, causal, window, 64,
+                                                 64, True),
+                     *map(jnp.asarray, (q, k, v)))
+    for got, want in zip((tdq, tdk, tdv), vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-3,
+                                   atol=3e-3)
+
+    po, pl = t_ref.flash_mha_fwd_plain(tq, tk, tv, **kw)
+    pdq = t_ref.flash_mha_bwd_dq_plain(tq, tk, tv, tdo, pl, delta, **kw)
+    pdk, pdv = t_ref.flash_mha_bwd_dkv_plain(tq, tk, tv, tdo, pl, delta, **kw)
+    for got, want in zip((to, tl, tdq, tdk, tdv), (po, pl, pdq, pdk, pdv)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

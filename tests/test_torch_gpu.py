@@ -20,7 +20,8 @@ instance against kernel 3, either BSR instance against the other) the
 outputs are held to the same gate as against the plain version.
 
 Run the dense kernels' tests alone with ``-k dense``, the BSR tensor-core
-instance's with ``-k bsr_tc``.
+instance's with ``-k bsr_tc``, the flash kernels' (5-7, both instances)
+with ``-k flash``.
 """
 import numpy as np
 import pytest
@@ -604,40 +605,78 @@ def _flash_tol(dtype, large=False):
     return 1e-2, 1e-2
 
 
-def _flash_hold(q, k, v, do, causal, window, large=False):
+def _flash_hold(q, k, v, do, causal, window, large=False, instance=None):
     """Kernels 5 and 6 through the autograd Function vs the plain versions:
-    one launch of each kernel counted."""
+    one launch of each kernel counted, on the routed instance (bf16: `tc`,
+    f32: SIMT) or on ``instance``."""
     from repro_torch.kernels import flash_mha as fm
 
+    inst = instance or fm.flash_instance(q.dtype, q.shape[-1])
     before = fm.launch_counts()
     qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
-    o = fm.flash_mha(qs, ks, vs, causal, window)
+    o = fm.flash_mha(qs, ks, vs, causal, window, instance=instance)
     o.backward(do)
     torch.cuda.synchronize()
-    assert fm.launch_counts() == {n: c + 1 for n, c in before.items()}
+    moved = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_mha",
+             f"flash_fwd_{inst}", f"flash_bwd_dq_{inst}", f"flash_bwd_dkv_{inst}")
+    assert fm.launch_counts() == {n: c + (n in moved) for n, c in before.items()}
     o_p, lse_p = ref.flash_mha_fwd_plain(q, k, v, causal, window)
-    _, lse = fm.flash_mha_fwd(q, k, v, causal=causal, window=window)
+    _, lse = fm.flash_mha_fwd(q, k, v, causal=causal, window=window,
+                              instance=instance)
     rtol, atol = _flash_tol(q.dtype, large)
-    assert o.dtype == q.dtype and torch.isfinite(o.float()).all()
+    assert o.dtype == q.dtype and o.shape == q.shape
+    assert torch.isfinite(o.float()).all()
     torch.testing.assert_close(o.float(), o_p.float(), rtol=rtol, atol=atol)
     torch.testing.assert_close(lse, lse_p, rtol=1e-3 if large else 3e-4,
                                atol=1e-3 if large else 3e-4)
     grads = ref.flash_mha_bwd_plain(q, k, v, o_p, lse_p, do, causal, window)
     g_tol = 3e-3 if q.dtype == torch.float32 else 1e-2
     for got, want in zip((qs.grad, ks.grad, vs.grad), grads):
-        assert got.dtype == want.dtype
+        assert got.dtype == want.dtype and got.shape == want.shape
         torch.testing.assert_close(got.float(), want.float(), rtol=g_tol,
                                    atol=g_tol)
     return o, lse, (qs.grad, ks.grad, vs.grad)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dtype,instance", [(torch.float32, "simt"),
+                                            (torch.bfloat16, "tc"),
+                                            (torch.bfloat16, "simt")])
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 80, 112, 128])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 64)])
-def test_flash_kernels_match_plain(causal, window, dh, dtype):
+def test_flash_kernels_match_plain(causal, window, dh, dtype, instance):
+    """Both instances at every template dh and at padded ones (16 -> 32,
+    48 -> 64, 80 and 112 -> 128)."""
     _cuda()
-    _flash_hold(*_flash_inputs(dh + window, 3, 256, dh, dtype), causal, window)
+    _flash_hold(*_flash_inputs(dh + window, 3, 256, dh, dtype), causal, window,
+                instance=instance)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [32, 64, 80, 128])
+@pytest.mark.parametrize("S,skv,causal,window", [
+    (256, 256, True, 0), (200, 200, True, 50), (128, 512, False, 0),
+    (256, 64, True, 32)])
+def test_flash_tc_matches_simt_on_bf16(S, skv, causal, window, dh):
+    """The two instances on the same bf16 inputs: o, dq, dk, dv within one
+    bf16 step (1e-2; `tc` rounds the backward's p and ds to bf16 for its
+    products, SIMT keeps them f32), lse within 3e-4.  Both backward instances take `tc`'s
+    o and lse (the same inputs)."""
+    from repro_torch.kernels import flash_mha as fm
+
+    _cuda()
+    q, k, v, do = _flash_inputs(S + skv + dh, 2, S, dh, torch.bfloat16, skv=skv)
+    kw = dict(causal=causal, window=window)
+    o, lse = fm.flash_mha_fwd(q, k, v, instance="tc", **kw)
+    out = {}
+    for inst in ("tc", "simt"):
+        out[inst] = (*fm.flash_mha_fwd(q, k, v, instance=inst, **kw),
+                     *fm.flash_mha_bwd(q, k, v, o, lse, do, instance=inst, **kw))
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(out["tc"], out["simt"])):
+        tol = 3e-4 if i == 1 else 1e-2
+        assert a.dtype == b.dtype and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu
@@ -649,6 +688,7 @@ def test_flash_kernels_match_plain(causal, window, dh, dtype):
     (256, 64, True, 32),    # rows >= 95 see no key (the reference's junk average)
 ])
 def test_flash_kernels_cross_ragged_and_degenerate(S, skv, causal, window, dtype):
+    """bf16 runs the tensor-core instance, f32 SIMT (counted)."""
     _cuda()
     _flash_hold(*_flash_inputs(S + skv, 2, S, 64, dtype, skv=skv), causal,
                 window)
@@ -665,20 +705,25 @@ def test_flash_kernels_large_logits_and_first_row():
 
 
 @pytest.mark.gpu
-def test_flash_kernels_deterministic_and_rows_batch_invariant():
+@pytest.mark.parametrize("instance", ["tc", "simt"])
+def test_flash_kernels_deterministic_and_rows_batch_invariant(instance):
     """No atomics: two runs equal bit for bit, and a slice of the BH rows
-    launched alone equals those rows of the full launch."""
+    launched alone equals those rows of the full launch (bf16 inputs, on
+    each instance)."""
     from repro_torch.kernels import flash_mha as fm
 
     _cuda()
     q, k, v, do = _flash_inputs(17, 6, 384, 64, torch.bfloat16)
-    kw = dict(window=128, bq=128, bk=128)
+    kw = dict(window=128, bq=128, bk=128, instance=instance)
 
     def both(q, k, v, do):
         o, lse = fm.flash_mha_fwd(q, k, v, **kw)
         return (o, lse, *fm.flash_mha_bwd(q, k, v, o, lse, do, **kw))
 
+    fm.reset_launch_counts()
     runs = [both(q, k, v, do) for _ in range(2)]
+    assert fm.launch_counts()[f"flash_fwd_{instance}"] == 2
+    assert fm.launch_counts()[f"flash_bwd_dkv_{instance}"] == 2
     for a, b in zip(*runs):
         assert torch.equal(a, b)
     part = both(*(t[2:4].contiguous() for t in (q, k, v, do)))
@@ -687,16 +732,47 @@ def test_flash_kernels_deterministic_and_rows_batch_invariant():
 
 
 @pytest.mark.gpu
-def test_flash_kernels_refuse_what_they_do_not_take():
+def test_flash_tc_copies_an_unaligned_base():
+    """bf16 views whose base is 2 bytes off a 16-byte boundary (the `tc`
+    instance copies rows 16 bytes at a time) give the aligned inputs'
+    outputs, bit for bit."""
     from repro_torch.kernels import flash_mha as fm
 
     _cuda()
-    q, k, v, _ = _flash_inputs(1, 1, 128, 48, torch.float32)
+    q, k, v, do = _flash_inputs(19, 2, 128, 64, torch.bfloat16)
+
+    def shifted(t):
+        view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+        view = view.view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        return view
+
+    qs, ks, vs, dos = map(shifted, (q, k, v, do))
+    o, lse = fm.flash_mha_fwd(q, k, v)
+    o2, lse2 = fm.flash_mha_fwd(qs, ks, vs)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    for a, b in zip(fm.flash_mha_bwd(q, k, v, o, lse, do),
+                    fm.flash_mha_bwd(qs, ks, vs, o, lse, dos)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_flash_kernels_refuse_what_they_do_not_take():
+    """dh 192 (above the largest template, 128) and f16 are refused; asking
+    for the tensor-core instance on f32 inputs is refused."""
+    from repro_torch.kernels import flash_mha as fm
+
+    _cuda()
+    q, k, v, _ = _flash_inputs(1, 1, 128, 192, torch.float32)
     with pytest.raises(ValueError, match="dh"):
         fm.flash_mha_fwd(q, k, v)
     q, k, v, _ = _flash_inputs(1, 1, 128, 64, torch.float16)
     with pytest.raises(ValueError, match="bf16 or f32"):
         fm.flash_mha_fwd(q, k, v)
+    q, k, v, _ = _flash_inputs(1, 1, 128, 64, torch.float32)
+    with pytest.raises(ValueError, match="does not take"):
+        fm.flash_mha_fwd(q, k, v, instance="tc")
 
 
 # ---------------------------------------------------------------------------
