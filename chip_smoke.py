@@ -105,6 +105,24 @@ Phases, each asserted; a failed phase ends the run with a non-zero exit:
              dq and dk/dv kernels; both for kernel 7): `tc` must beat SIMT
              in every bf16 timed case.
 
+10. serve features — run after phase 7, on phase 5's params and prompts:
+             (a) the pipelined executor (depth 2) serves phase 5's requests
+             under the dual-sparse and the dense-weight policy: tokens and
+             every captured logit vector equal to phases 5 and 6 bit for
+             bit, all 512 launches of each route through `tc`; (b) a
+             pipelined serve whose decode and encode stages (the decode
+             dispatch, its token and logit copies to pinned memory, the
+             spike encode) run under ``torch.cuda.set_sync_debug_mode
+             ("error")``: no host wait there; (c) sync and pipelined served
+             in turns, ``TIMED_SERVES`` each (tok/s, TTFT, ``stage_s``), and
+             one profiled serve of each (idle share of the unprofiled wall):
+             logged, not gated; (d) a staggered two-wave schedule (merges,
+             retires) through paged engines (``paged(16)``, max_len 144):
+             tokens and logits equal to the dense layout's bit for bit with 0
+             page moves and every page back in the pool; with the radix
+             prefix index the schedule again: every prompt a prefix hit, no
+             prefill, the same tokens; paged + pipelined the same tokens.
+
 Prints a JSON line of per-kernel measurements before the last line (the
 headline numbers are each kernel's mean launch on its path), and as the
 last line ``{"ok": true, "device": {...}}``.
@@ -897,7 +915,7 @@ def phase_serve_dense(dual):
         f"{vs_dual['tokens_compared']} tokens differ (each at a near tie)")
     timed, best = _timed(engine, dual["prompts"], outs, "dense-weight")
     prof = _profile(engine, dual["prompts"], best["wall_s"])
-    return {"counts": counts, "calls": calls,
+    return {"counts": counts, "calls": calls, "outs": outs, "logits": got,
             "max_logit_diff_vs_dual": vs_dual["max_logit_diff"],
             "vs_dual": vs_dual, "timed": timed, "median": best, "profile": prof}
 
@@ -1892,6 +1910,302 @@ def _flash_vs_model_attention(qkv, flash_out, do, cfg, G):
     return rel
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the serve features (pipelined executor, paged cache, prefix reuse)
+# ---------------------------------------------------------------------------
+
+# Phase 10d's staggered schedule at max_len 144 (9 pages of 16 a row): wave
+# 1 at step 0, wave 2 at step 4, when wave 1's cohort has reached position
+# 124 (prefill 120 + 4 decodes), so the waves merge; the different budgets
+# retire rows at different steps.
+PAGE = 16
+WAVES = ((0, 120, (12, 20)), (4, 124, (8, 16)))
+
+
+def _feature_serve(engine, prompts, label, expect):
+    """One counted serve with logits captured: (tokens, (B, GEN, V) logits,
+    launch counts); every expected kernel launched ``expect[k]`` x layers
+    x forwards times and no other kernel."""
+    import numpy as np
+
+    engine.metrics.reset()
+    engine.logit_traces = {}
+    engine.capture_logits = True
+    outs, counts = _counted(f"{label} serve",
+                            lambda: engine.generate_batch(prompts, GEN))
+    s = engine.summary()
+    forwards = s["prefill_batches"] + s["decode_batches"]
+    want = {k: v * engine.cfg.n_layers * forwards for k, v in expect.items()}
+    assert counts == {k: want.get(k, 0) for k in counts}, (counts, forwards)
+    traces = engine.logit_traces
+    got = np.stack([np.stack(traces[r]) for r in sorted(traces)])
+    assert got.shape == (REQUESTS, GEN, engine.cfg.vocab)
+    return outs, got, counts
+
+
+def _bitwise(label, outs, got, want_outs, want_logits):
+    import numpy as np
+
+    for a, b in zip(outs, want_outs):
+        np.testing.assert_array_equal(a, b, err_msg=label)
+    assert np.array_equal(got, want_logits), (
+        f"{label}: logits differ from the sync serve's at "
+        f"{int((got != want_logits).sum())} of {got.size} elements")
+
+
+def _check_no_host_sync(engine, prompts):
+    """A pipelined serve with the decode and encode stages of every step run
+    under torch.cuda.set_sync_debug_mode("error"): a host wait there (a
+    device read, a pageable host-to-device copy, a stream or device
+    synchronize) raises.  The drain stage, which waits by design, runs
+    outside it.  Returns the number of checked decode dispatches."""
+    import torch
+
+    from repro_torch.serve import executor as ex_mod
+
+    ex = engine.executor
+    checked = {"decode": 0, "encode": 0}
+
+    def strict(fn, name):
+        def run(*a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                checked[name] += 1
+        return run
+
+    engine.metrics.reset()
+    launch = ex_mod.PendingStep.__dict__["launch"]
+    ex._dispatch_decode = strict(ex._dispatch_decode, "decode")
+    ex.encode = strict(ex.encode, "encode")
+    ex_mod.PendingStep.launch = staticmethod(
+        strict(ex_mod.PendingStep.launch, "decode"))
+    try:
+        engine.capture_logits = True
+        engine.generate_batch(prompts, GEN)
+        torch.cuda.synchronize()
+    finally:
+        del ex._dispatch_decode, ex.encode
+        ex_mod.PendingStep.launch = launch
+    assert checked["decode"] == 2 * engine.metrics.n_decode_batches > 0, checked
+    assert checked["encode"] == engine.metrics.n_decode_batches, checked
+    # the mode is a prototype that "does not yet detect all synchronizing
+    # operations": it must at least see the waits the executor avoids
+    for what, wait in (("a pageable host-to-device copy",
+                        lambda: torch.tensor([1, 2], device="cuda")),
+                       ("a device-to-host read",
+                        lambda: torch.ones(2, device="cuda").cpu())):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            wait()
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError(f"sync debug mode did not see {what}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return engine.metrics.n_decode_batches
+
+
+def _staggered(engine, prompts, gens):
+    """Phase 10d's schedule through ``engine``; returns each request's
+    tokens in submission order."""
+    import numpy as np
+
+    tickets, step, i = [], 0, 0
+    arrivals = [w[0] for w in WAVES for _ in w[2]]
+    while not (engine.idle and i == len(prompts)):
+        while i < len(prompts) and arrivals[i] <= step:
+            tickets.append(engine.submit(prompts[i], gens[i]))
+            i += 1
+        engine.step()
+        step += 1
+    return [np.asarray(engine.results[t.rid].generated, np.int32)
+            for t in tickets]
+
+
+def _paged_phase(dual, sync_engine):
+    """10d: paged serves of a staggered schedule at full width against the
+    dense-layout sync engine of phase 5 (max_len 144 = 9 pages of 16)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import Engine, ExecutionPolicy, paged
+
+    model, params, cfg = dual["model"], dual["params"], dual["model"].cfg
+    assert PROMPT + GEN == 9 * PAGE and sync_engine.max_len == 9 * PAGE
+    rng = np.random.default_rng(SEED + 10)
+    prompts = [rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32)
+               for _, n, gens in WAVES for _ in gens]
+    gens = [g for _, _, wave in WAVES for g in wave]
+
+    def run(engine, label):
+        engine.metrics.reset()
+        engine.logit_traces = {}
+        outs, counts = _counted(f"paged phase {label}",
+                                lambda: _staggered(engine, prompts, gens))
+        return outs, counts, engine.drain_logit_traces()
+
+    sync_engine.capture_logits = True
+    want, _, want_logits = run(sync_engine, "dense-layout sync")
+    assert sync_engine.metrics.n_merges >= 1
+
+    def paged_engine(**kw):
+        pol = ExecutionPolicy.for_arch(cfg, paging=paged(PAGE),
+                                       execution=kw.pop("execution", "sync"))
+        return Engine(model, params, max_len=9 * PAGE, max_slots=REQUESTS,
+                      policy=pol, **kw)
+
+    # A: no prefix index (capture on), so no page is ever copied
+    a = paged_engine(capture_logits=True, prefix_cache=False)
+    got, counts_a, logits = run(a, "paged")
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x, y, err_msg="paged vs dense")
+    for tx, ty in zip(logits, want_logits):
+        assert all(np.array_equal(u, v) for u, v in zip(tx, ty)), (
+            "paged logits differ from the dense layout's")
+    ma = a.metrics
+    assert ma.n_page_moves == 0 and ma.n_merges >= 1, (ma.n_page_moves,
+                                                       ma.n_merges)
+    assert counts_a["ftp_bsr_tc"] == counts_a["ftp_bsr"] > 0, counts_a
+    pool = a.store.summary()
+    assert pool["seq_pages_free"] == pool["seq_pages_total"], pool
+    del a
+    # B: the prefix index on.  The same schedule again: every prompt is a
+    # hit, admitted at the step and batch shape of its cold prefill, so
+    # every decode sees the shapes of the cold run and the tokens must equal
+    # it bit for bit (the projections' GEMMs need not be batch-invariant)
+    b = paged_engine()
+    got_b, counts_b, _ = run(b, "paged + prefix index")
+    for x, y in zip(got_b, want):
+        np.testing.assert_array_equal(x, y, err_msg="paged+index vs dense")
+    prefills = b.metrics.n_prefill_batches
+    again, counts_hits, _ = run(b, "prefix-hit resubmission")
+    m = b.metrics
+    assert m.n_prefill_batches == 0 and m.n_prefix_hits == len(prompts), (
+        m.n_prefill_batches, m.n_prefix_hits)
+    assert m.n_prefix_tokens_reused == sum(len(p) for p in prompts)
+    for x, y in zip(again, want):
+        np.testing.assert_array_equal(x, y, err_msg="prefix hit vs cold")
+    index = b.prefix_index.summary()
+    moves_b = m.n_page_moves
+    del b
+    # C: paged + pipelined (+ the index)
+    c = paged_engine(execution="pipelined")
+    got_c, counts_c, _ = run(c, "paged + pipelined")
+    for x, y in zip(got_c, want):
+        np.testing.assert_array_equal(x, y, err_msg="paged+pipelined vs dense")
+    del c
+    torch.cuda.empty_cache()
+    out = {"requests": len(prompts), "merges": ma.n_merges,
+           "page_moves_no_index": ma.n_page_moves,
+           "page_moves_with_index": moves_b, "prefix_hits": len(prompts),
+           "prefills_before_hits": prefills,
+           "prefix_index": index,
+           "launches": {"paged": counts_a, "paged_index": counts_b,
+                        "prefix_hits": counts_hits, "paged_pipelined": counts_c}}
+    log(f"10d paged (page_size {PAGE}, max_len {9 * PAGE}): {len(prompts)} "
+        f"staggered requests in two waves, {ma.n_merges} merge(s): tokens and "
+        f"logits equal to the dense layout's bit for bit, 0 page moves, every "
+        f"page back in the pool; with the prefix index the schedule again: "
+        f"{len(prompts)} of {len(prompts)} prefix hits, no prefill (the cold "
+        f"run had {prefills}), the same tokens ({moves_b} page copies: "
+        f"copy-on-write of the tail pages); paged + pipelined the same tokens")
+    return out
+
+
+def _alternate(engines, prompts):
+    """TIMED_SERVES serves of each engine in turns, no logit capture; per
+    label the summaries and the median-throughput one."""
+    runs = {label: [] for label in engines}
+    for _ in range(TIMED_SERVES):
+        for label, engine in engines.items():
+            engine.capture_logits = False
+            engine.metrics.reset()
+            engine.generate_batch(prompts, GEN)
+            runs[label].append(engine.summary())
+    out = {}
+    for label, timed in runs.items():
+        tok_s = [t["throughput_tok_s"] for t in timed]
+        best = timed[tok_s.index(statistics.median_low(tok_s))]
+        out[label] = {"timed": timed, "median": best}
+        log(f"10c {label}: tok/s {[round(x, 1) for x in tok_s]}, TTFT p50 ms "
+            f"{[round(t['ttft_s_p50'] * 1e3, 1) for t in timed]}, decode stage "
+            f"ms per step {[round(t['stage_s']['decode'] * 1e3 / (GEN - 1), 2) for t in timed]}; "
+            f"median run {best['wall_s']:.3f}s wall, stages "
+            f"{json.dumps(best['stage_s'])}")
+    return out
+
+
+def phase_features(dual, dense):
+    """Phase 10 on phase 5's params and prompts: the pipelined executor
+    against the sync serves of phases 5 and 6, the host-wait check, sync
+    and pipelined timed in turns, and the paged cache with prefix reuse."""
+    import torch
+
+    from repro_torch.serve import Engine, ExecutionPolicy
+
+    model, params, prompts = dual["model"], dual["params"], dual["prompts"]
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    res = {}
+    # 10a: pipelined, both weight routes, bitwise against phases 5 and 6
+    pipes = {}
+    for route, expect, ref in (
+            ("dual-sparse", {"ftp_bsr": 2, "ftp_bsr_tc": 2}, dual),
+            ("dense-weight", {"ftp_spmm": 1, "ftp_spmm_fused_lif": 1,
+                              "ftp_dense_tc": 2}, dense)):
+        pol = ExecutionPolicy.for_arch(
+            cfg, execution="pipelined",
+            weight_sparsity="dense" if route == "dense-weight" else None)
+        engine = Engine(model, params, max_len=PROMPT + GEN, max_slots=REQUESTS,
+                        policy=pol, pipeline_depth=2)
+        engine.generate_batch([prompts[0][:8]], 2)  # warm-up
+        outs, got, counts = _feature_serve(engine, prompts,
+                                           f"10a pipelined {route}", expect)
+        _bitwise(f"pipelined {route}", outs, got, ref["outs"], ref["logits"])
+        n = sum(counts[k] for k in expect if not k.endswith("_tc"))
+        tc = counts["ftp_bsr_tc" if route == "dual-sparse" else "ftp_dense_tc"]
+        assert n == tc == 512, counts
+        log(f"10a pipelined {route} (depth 2): tokens and all {REQUESTS} x {GEN} "
+            f"logit vectors equal to the sync serve's bit for bit; {n} kernel "
+            f"launches, all {tc} through the tensor-core instance")
+        res[f"pipelined_{route}"] = {"launches": counts}
+        pipes[route] = engine
+    del pipes["dense-weight"]
+    torch.cuda.empty_cache()
+    pipe = pipes.pop("dual-sparse")
+    # 10b: no host wait in the decode and encode stages
+    n = _check_no_host_sync(pipe, prompts)
+    log(f"10b no host sync: {n} pipelined decode dispatches (+ their token and "
+        f"logit copies) and {n} encodes ran under set_sync_debug_mode('error'), "
+        f"which raised on a pageable host-to-device copy and on a device-to-"
+        f"host read (its controls)")
+    res["no_host_sync_decodes"] = n
+    # 10c: sync and pipelined in turns, then one profiled serve of each
+    sync = dual["engine"]
+    timed = _alternate({"sync": sync, "pipelined": pipe}, prompts)
+    for label, engine in (("sync", sync), ("pipelined", pipe)):
+        timed[label]["profile"] = _profile(engine, prompts,
+                                           timed[label]["median"]["wall_s"])
+    res["timing"] = {k: {"tok_s": v["median"]["throughput_tok_s"],
+                         "ttft_s_p50": v["median"]["ttft_s_p50"],
+                         "wall_s": v["median"]["wall_s"],
+                         "stage_s": v["median"]["stage_s"],
+                         "tok_s_runs": [t["throughput_tok_s"] for t in v["timed"]],
+                         "profile": v["profile"]}
+                     for k, v in timed.items()}
+    del pipe
+    torch.cuda.empty_cache()
+    # 10d: paged, staggered, prefix hits
+    res["paged"] = _paged_phase(dual, sync)
+    log(f"phase 10 in {time.perf_counter() - t0:.1f}s: "
+        f"{json.dumps(res, default=str)}")
+    return res
+
+
 def _flash_entries(flash):
     """The kernels-line entries of kernels 5-7: headline numbers from the
     train step's own attention inputs (layer 0; `tc`, with the SIMT
@@ -1980,6 +2294,7 @@ def main() -> int:
     dense = phase_serve_dense(dual)
     dense_served = _replay_dense(dense["calls"])
     adaptive = phase_adaptive(dual)
+    phase_features(dual, dense)
     import torch
 
     ratios = {}

@@ -9,12 +9,17 @@ kernels' plain torch versions.  Params are drawn with a torch generator
 on the device (seed 0).  `generate` is the single-shot greedy loop
 the engine is held token-identical against.
 
-Policy flags: ``--weight-sparsity dense`` serves the spiking FFNs through
-the dense-weight kernels instead of the dual-sparse one; ``--temporal
-adaptive --min-spikes N`` adds the temporal axis (N > 1 drops real spikes
-and needs ``--exactness approximate --tol X``: the launcher then serves a
-bitwise reference engine too and reports the measured logit drift against
-the bound).
+Policy flags: ``--spike-format float`` serves a spiking arch's FFNs on
+the float path (FLOAT_DENSE); ``--weight-sparsity dense`` serves them
+through the dense-weight kernels instead of the dual-sparse one;
+``--temporal adaptive --min-spikes N`` adds the temporal axis (N > 1 drops
+real spikes and needs ``--exactness approximate --tol X``: the launcher
+then serves a bitwise reference engine too and reports the measured logit
+drift against the bound); ``--execution pipelined --pipeline-depth D``
+keeps the sampled tokens on the device behind a window of D steps;
+``--paging paged --page-size N`` stores the KV cache in N-position pages
+with radix prefix reuse (max_len is rounded up to a multiple of N).
+``--batch-align`` pads prefill batches to a multiple of it.
 """
 from __future__ import annotations
 
@@ -69,6 +74,12 @@ def main(argv=None) -> int:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--max-slots", type=int, default=0,
                     help="engine slot budget (0 = one slot per request)")
+    ap.add_argument("--batch-align", type=int, default=1,
+                    help="pad prefill batches to a multiple of this")
+    ap.add_argument("--spike-format", choices=("float", "packed"),
+                    default=None,
+                    help="policy.spike_format (default: packed for spiking "
+                         "archs, float otherwise)")
     ap.add_argument("--weight-sparsity", choices=("dense", "dual_sparse"),
                     default=None,
                     help="policy.weight_sparsity (default: dual_sparse for "
@@ -80,6 +91,27 @@ def main(argv=None) -> int:
     ap.add_argument("--tol", type=float, default=0.05,
                     help="max logit drift allowed under --exactness "
                          "approximate")
+    ap.add_argument("--execution", choices=("sync", "pipelined"),
+                    default="sync",
+                    help="policy.execution: sync = every decode step "
+                         "host-syncs its sampled tokens; pipelined = the "
+                         "staged executor keeps tokens on device between "
+                         "steps, defers host materialization behind an "
+                         "in-flight window (--pipeline-depth) and overlaps "
+                         "the packed-spike encode with the next decode")
+    ap.add_argument("--pipeline-depth", type=int, default=2,
+                    help="in-flight decode window under --execution "
+                         "pipelined (>= 1; 1 degenerates to sync cadence)")
+    ap.add_argument("--paging", choices=("none", "paged"), default="none",
+                    help="policy.paging: paged = cache state lives in "
+                         "fixed pages owned by a CacheStore (cohort "
+                         "merge/retire are page-table edits) with a radix "
+                         "prefix index serving repeated prompts without a "
+                         "prefill; none = per-cohort dense caches")
+    ap.add_argument("--page-size", type=int, default=8,
+                    help="cache positions per page under --paging paged "
+                         "(multiple of 8; max_len is rounded up to a "
+                         "multiple of it)")
     ap.add_argument("--temporal", choices=("full", "adaptive"),
                     default="full",
                     help="policy.temporal: adaptive = score each timestep "
@@ -100,32 +132,44 @@ def main(argv=None) -> int:
     from repro_torch.serve import (
         Engine,
         ExecutionPolicy,
+        Paging,
         Temporal,
         adaptive_t,
         approximate,
         bitwise,
         check_parity,
+        paged,
     )
 
     cfg = build_config(args.arch, smoke=args.smoke, spiking=args.spiking,
                        weight_density=args.weight_density)
     device = resolve_device(args.device)
     policy = ExecutionPolicy.for_arch(
-        cfg, weight_sparsity=args.weight_sparsity,
+        cfg, spike_format=args.spike_format,
+        weight_sparsity=args.weight_sparsity,
         exactness=(approximate(args.tol) if args.exactness == "approximate"
                    else bitwise()),
+        execution=args.execution,
+        paging=(paged(args.page_size) if args.paging == "paged" else Paging()),
         temporal=(adaptive_t(args.min_spikes) if args.temporal == "adaptive"
                   else Temporal()),
     )
     print(f"policy: {policy.describe()}  device: {device}")
+    max_len = args.prompt_len + args.gen
+    if policy.paging.enabled:
+        # whole pages per row; the spare positions are masked, never read
+        ps = policy.paging.page_size
+        max_len = -(-max_len // ps) * ps
     model = build_model(cfg)
     params = model.init(0, device=device)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, size=(args.prompt_len,)).astype(np.int32)
                for _ in range(args.batch)]
-    engine = Engine(model, params, max_len=args.prompt_len + args.gen,
-                    max_slots=args.max_slots or args.batch, policy=policy,
-                    capture_logits=not policy.token_identical, device=device)
+    engine = Engine(model, params, max_len=max_len,
+                    max_slots=args.max_slots or args.batch,
+                    batch_align=args.batch_align, policy=policy,
+                    capture_logits=not policy.token_identical,
+                    pipeline_depth=args.pipeline_depth, device=device)
     before = ftp_spmm.launch_counts()
     outs = engine.generate_batch(prompts, args.gen)
     s = engine.summary()
@@ -137,9 +181,10 @@ def main(argv=None) -> int:
         # timestep skipping alone
         ref_policy = dataclasses.replace(policy, exactness=bitwise(),
                                          temporal=Temporal())
-        ref = Engine(model, params, max_len=args.prompt_len + args.gen,
+        ref = Engine(model, params, max_len=max_len,
                      max_slots=args.max_slots or args.batch,
-                     policy=ref_policy, capture_logits=True, device=device)
+                     batch_align=args.batch_align, policy=ref_policy,
+                     capture_logits=True, device=device)
         ref_outs = ref.generate_batch(prompts, args.gen)
         rep = check_parity(policy, ref_outs, outs,
                            ref_logits=ref.drain_logit_traces(),

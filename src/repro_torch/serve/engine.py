@@ -1,15 +1,27 @@
-"""Continuous-batching serving engine (port of `repro.serve.engine`: dense
-KV cache, sync executor, one device).
+"""Continuous-batching serving engine (port of `repro.serve.engine`: one
+device; sync or pipelined execution; dense or paged cache storage with
+radix prefix reuse).
 
-Each `step()` runs the staged executor (`serve/executor.py`):
+Each `step()` runs the staged executor (`serve/executor.py`) the policy's
+``execution`` axis selects:
 
     admit -> prefill -> merge -> decode -> sample -> encode -> retire
 
 1. waiting requests are admitted in same-length groups; each group runs
-   one batched prefill and emits its first token;
+   one batched prefill and emits its first token (prefix hits skip the
+   prefill: their first token and cache pages come from the radix index);
 2. cohorts at the same sequence position merge (continuous batching);
 3. every cohort advances one greedy decode step;
 4. finished requests retire and free their slots for the next step.
+
+Under ``execution='sync'`` every stage completes on the host in order.
+``execution='pipelined'`` keeps the sampled tokens on the device between
+decode steps and lands them on the host behind an in-flight window of
+``pipeline_depth`` steps; tokens and logits are those of sync, bit for bit.
+`step()` still dispatches one decode per cohort, but tokens reach
+`RequestState.generated` up to ``pipeline_depth - 1`` steps later;
+`run()`/`generate_batch` drain fully, and external steppers that read
+``generated`` mid-flight call `flush()` first.
 
 The `ExecutionPolicy` picks the spiking FFN's execution:
 ``spike_format='packed'`` runs the model with ``spiking_mode='infer'`` and
@@ -24,12 +36,17 @@ timestep planes the policy's scorer marks skippable
 still walk every plane: the temporal axis reaches the kernels only
 through `kernels.ops.dispatch`.
 
+``paging='paged'`` stores every cohort's KV rows in the pages of one
+`serve.paging.CacheStore`: merge and retire become page-table edits, and a
+`RadixPrefixIndex` (on by default where its contract holds) serves a
+repeated prompt from the pages its first prefill wrote.
+
 The engine runs on the CUDA device unless ``device`` names another one; it
 raises when there is no card and no device was named.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -38,9 +55,18 @@ from repro_torch import resolve_device
 from repro_torch.core.lif import direct_encode
 from repro_torch.core.packing import pack_spikes, timestep_popcount
 
-from .batching import DenseCacheOps, PackedSpikeCache, spike_sparsity
-from .executor import SyncExecutor
+from .batching import DenseCacheOps, PackedSpikeCache, spike_sparsity, upload
+from .executor import make_executor
 from .metrics import EngineMetrics, RequestMetrics
+from .paging import (
+    CacheStore,
+    PagedCache,
+    PagedCacheOps,
+    PagedSpikeCache,
+    PageLayout,
+    RadixPrefixIndex,
+    SpikeSlotPool,
+)
 from .policy import ExecutionPolicy
 from .scheduler import AdmissionTicket, RequestState, Scheduler
 
@@ -49,16 +75,20 @@ from .scheduler import AdmissionTicket, RequestState, Scheduler
 class Cohort:
     """In-flight requests sharing one batched cache: the first
     ``len(slots)`` rows are live requests, ``n_dummy`` alignment rows follow
-    and are dropped at the first membership change.  ``next_tokens`` is the
-    device argmax of the last prefill/decode (all rows), None after a
-    membership change."""
+    and are dropped at the first membership change.  ``cache`` is a dict of
+    tensors, or a `PagedCache` under paging.  ``next_tokens`` is the device
+    argmax of the last prefill/decode (all rows), None after a membership
+    change.  ``pending`` is the pipelined executor's in-flight window:
+    decode steps dispatched but not yet landed on the host (always empty
+    under sync)."""
 
     slots: list[RequestState]
-    cache: dict
+    cache: object
     length: int                 # tokens written per row (prompt + generated)
     n_dummy: int = 0
     spikes: PackedSpikeCache | None = None
     next_tokens: torch.Tensor | None = None
+    pending: list = field(default_factory=list)
 
 
 def _to_device(tree, device):
@@ -82,6 +112,10 @@ class Engine:
         eos_id: int | None = None,
         policy: ExecutionPolicy | None = None,
         capture_logits: bool = False,
+        logit_trace_window: int | None = None,
+        pipeline_depth: int = 2,
+        page_pool_rows: int | None = None,   # paging='paged': pool capacity
+        prefix_cache: bool | None = None,    # paging='paged': radix index
         device=None,
     ):
         cfg = model.cfg
@@ -96,11 +130,64 @@ class Engine:
         self.eos_id = eos_id
         self.batch_align = batch_align
         self.capture_logits = capture_logits
+        if logit_trace_window is not None and logit_trace_window < 1:
+            raise ValueError(
+                f"logit_trace_window must be >= 1 (got {logit_trace_window});"
+                " use None for unbounded capture"
+            )
+        # keeps each request's most recent W rows (bounded telemetry on long
+        # serves; parity checks need the unbounded default)
+        self.logit_trace_window = logit_trace_window
         self.logit_traces: dict[int, list[np.ndarray]] = {}
         self.metrics = EngineMetrics()
-        self.cache_ops = DenseCacheOps(model.cache_axes())
+        # every ported arch decodes its rows independently; the pipelined
+        # executor clamps its window to 1 where they are coupled (MoE)
+        self.row_independent = cfg.n_experts == 0
+        self._axes = model.cache_axes()
+        # -- cache backend (ExecutionPolicy.paging) --------------------------
+        self.paged = self.policy.paging.enabled
+        self.store = None
+        self.prefix_index = None
+        self._spike_pool = None
+        if self.paged:
+            template = model.init_cache(1, max_len, device=self.device)
+            self._page_layout = PageLayout(template, self._axes,
+                                           self.policy.paging.page_size)
+            n_rows = (page_pool_rows if page_pool_rows is not None
+                      else 2 * max_slots + 4)
+            self.store = CacheStore(self._page_layout, n_rows,
+                                    device=self.device, metrics=self.metrics)
+            self.cache_ops = PagedCacheOps(self.store)
+            # prefix reuse needs deterministic tokens (the entry caches the
+            # first greedy token), independent rows and no logit capture (a
+            # hit emits its first token with no logits row)
+            auto_prefix = (self.policy.token_identical and self.row_independent
+                           and not capture_logits)
+            if prefix_cache is True and not auto_prefix:
+                raise ValueError(
+                    "prefix_cache=True needs a bitwise policy with "
+                    "independent rows and capture_logits off: the hit path "
+                    "re-emits a cached greedy first token and skips its "
+                    "prefill (no logits to capture)"
+                )
+            want_prefix = auto_prefix if prefix_cache is None else prefix_cache
+            if want_prefix:
+                self.prefix_index = RadixPrefixIndex(self.store)
+            if policy.spike_format == "packed":
+                self._spike_pool = SpikeSlotPool(cfg.d_model, n_rows,
+                                                 device=self.device)
+            self._paged_prefill = self._page_layout.make_prefill(
+                model, max_len, self.device)
+            self._paged_decode = self._page_layout.make_decode(model)
+        else:
+            if prefix_cache:
+                raise ValueError(
+                    "prefix_cache=True requires policy.paging='paged'"
+                )
+            self.cache_ops = DenseCacheOps(self._axes)
         self.scheduler = Scheduler(
             max_slots=max_slots, max_queue=max_queue, max_len=max_len,
+            prefix_index=self.prefix_index,
         )
         self.cohorts: list[Cohort] = []
         self.results: dict[int, RequestState] = {}
@@ -114,7 +201,7 @@ class Engine:
 
             params = attach_spiking_ffn_plans(params, cfg)
         self.params = model.prepare(params)
-        self.executor = SyncExecutor(self)
+        self.executor = make_executor(self, self.policy, depth=pipeline_depth)
 
     # -- request API --------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int) -> AdmissionTicket:
@@ -139,6 +226,11 @@ class Engine:
             return {"active": 0, "queued": 0, "cohorts": 0}
         return self.executor.step()
 
+    def flush(self) -> None:
+        """Land every in-flight pipelined step (no-op under sync): after
+        this, `RequestState.generated` reflects all dispatched decodes."""
+        self.executor.drain()
+
     def run(self) -> dict[int, np.ndarray]:
         """Drive steps until drained; returns {rid: generated tokens}."""
         while not self.idle:
@@ -156,15 +248,19 @@ class Engine:
 
     # -- executor services --------------------------------------------------
     @torch.no_grad()
-    def _slot_spikes(self, cohort: Cohort) -> torch.Tensor:
-        """Packed direct-encoded spike words of each slot's newest token
-        (int32, left on the device: nothing here waits for it)."""
-        toks = torch.tensor([st.generated[-1] for st in cohort.slots],
-                            dtype=torch.int64, device=self.device)
-        x = self.params["embed"][toks].float()
+    def _encode_pack(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        """Packed direct-encoded spike words of device tokens (int32, left
+        on the device: nothing here waits for it)."""
+        x = params["embed"][tokens.long()].float()
         words = pack_spikes(direct_encode(x, self.cfg.spiking_T))
         self.record_timestep_skips(words)
         return words
+
+    def _slot_spikes(self, cohort: Cohort) -> torch.Tensor:
+        """`_encode_pack` of each slot's newest host token."""
+        toks = upload([st.generated[-1] for st in cohort.slots], torch.long,
+                      self.device)
+        return self._encode_pack(self.params, toks)
 
     def record_timestep_skips(self, words: torch.Tensor) -> None:
         """Count the timestep planes of one packed batch that the policy's
@@ -178,31 +274,110 @@ class Engine:
             self.metrics.timesteps_skipped
             + (counts < temporal.min_spikes).sum(dtype=torch.int64))
 
-    def new_spike_cache(self) -> PackedSpikeCache:
+    def new_spike_cache(self):
+        """Per-cohort packed-spike store matching the cache backend."""
+        if self._spike_pool is not None:
+            return PagedSpikeCache(self.cfg.spiking_T, self.cfg.d_model,
+                                   self._spike_pool)
         return PackedSpikeCache(self.cfg.spiking_T, self.cfg.d_model,
                                 device=self.device)
 
-    def _live_cache(self, cohort: Cohort) -> dict:
+    def _live_cache(self, cohort: Cohort):
         if cohort.n_dummy == 0:
             return cohort.cache
         cohort.n_dummy = 0
         return self.cache_ops.take(cohort.cache, list(range(len(cohort.slots))))
 
+    # -- model dispatch (cache-backend aware) -------------------------------
     @torch.no_grad()
     def dispatch_prefill(self, tokens: np.ndarray):
-        """One batched prefill over host tokens (B, P) into a fresh cache;
-        returns (device logits, cache)."""
-        cache = self.model.init_cache(tokens.shape[0], self.max_len,
-                                      device=self.device)
-        batch = {"tokens": torch.as_tensor(tokens, device=self.device).long()}
-        return self.model.prefill(self.params, batch, cache,
-                                  spiking_mode=self.spiking_mode)
+        """One batched prefill over host tokens (B, P); returns (device
+        logits, cohort cache): a fresh dict of tensors, or a `PagedCache`
+        whose freshly allocated pages the prefill wrote in full."""
+        tokens_dev = upload(tokens, torch.long, self.device)
+        if not self.paged:
+            cache = self.model.init_cache(tokens.shape[0], self.max_len,
+                                          device=self.device)
+            return self.model.prefill(self.params, {"tokens": tokens_dev},
+                                      cache, spiking_mode=self.spiking_mode)
+        seq_t, state_t = self.store.alloc_rows(tokens.shape[0])
+        cache = PagedCache(self.store, seq_t, state_t, {})
+        logits, cache.locals = self._paged_prefill(
+            self.params, tokens_dev, self.store.pools, *cache.tables_dev(),
+            self.spiking_mode)
+        return logits, cache
 
     @torch.no_grad()
-    def dispatch_decode(self, tokens: torch.Tensor, cache: dict):
-        """One decode step for a cohort; returns (device logits, cache)."""
-        return self.model.decode(self.params, tokens.long(), cache,
-                                 spiking_mode=self.spiking_mode)
+    def dispatch_decode(self, tokens: torch.Tensor, cache):
+        """One decode step for a cohort; returns (device logits, cache).
+        Under paging the step gathers the cohort's pages into a dense view,
+        runs the model on it and writes back the pages it touched."""
+        if not self.paged:
+            return self.model.decode(self.params, tokens.long(), cache,
+                                     spiking_mode=self.spiking_mode)
+        logits, cache.locals = self._paged_decode(
+            self.params, tokens.long(), self.store.pools, *cache.tables_dev(),
+            cache.locals, self.spiking_mode)
+        return logits, cache
+
+    # -- prefix reuse -------------------------------------------------------
+    def publish_prefix(self, cohort: Cohort) -> None:
+        """Publish each just-prefilled row's full prompt into the radix
+        index (before any decode writes the row's tail page: the index
+        snapshots that page plus the state page and position locals)."""
+        if self.prefix_index is None:
+            return
+        cache = cohort.cache
+        for i, st in enumerate(cohort.slots):
+            if st.request.prompt_len != cohort.length:
+                continue  # bucket-padded row: its cache holds pad tokens
+            self.prefix_index.publish(
+                st.request.prompt, cache.seq_table[i],
+                int(cache.state_table[i]), cache.locals, st.generated[0],
+            )
+
+    def admit_prefix_hits(self, group: list) -> None:
+        """Admit one same-length prefix-hit group [(Request, PrefixEntry)]
+        as a cohort with the shared pages materialized: no prefill runs;
+        each request's first token is the entry's cached greedy token.  The
+        scheduler's submit-time pins are held through the admit and
+        released in the ``finally``."""
+        try:
+            self._admit_prefix_hits_pinned(group)
+        finally:
+            self.scheduler.release_hit_pins(group)
+
+    def _admit_prefix_hits_pinned(self, group: list) -> None:
+        P = group[0][0].prompt_len
+        rows = [self.prefix_index.admit(entry) for _, entry in group]
+        seq_t = np.stack([r for r, _ in rows])
+        state_t = np.concatenate([s for _, s in rows])
+        n_dummy = (-len(group)) % max(1, self.batch_align)
+        if n_dummy:
+            dseq, dstate = self.store.alloc_rows_zeroed(n_dummy)
+            seq_t = np.concatenate([seq_t, dseq], axis=0)
+            state_t = np.concatenate([state_t, dstate], axis=0)
+            self.metrics.n_padded_rows += n_dummy
+        cache = PagedCache(self.store, seq_t, state_t, dict(group[0][1].locals))
+        slots = [RequestState(req) for req, _ in group]
+        for st, (_, entry) in zip(slots, group):
+            st.emit(int(entry.first_token), self.eos_id)
+        cohort = self.new_cohort(slots=slots, cache=cache, length=P,
+                                 n_dummy=n_dummy)
+        if self.spiking_packed:
+            cohort.spikes = self.new_spike_cache()
+            cohort.spikes.append(self._slot_spikes(cohort))
+        self.cohorts.append(cohort)
+        self.metrics.n_prefix_hits += len(group)
+        self.metrics.n_prefix_tokens_reused += P * len(group)
+
+    def release_cohort(self, cohort: Cohort) -> None:
+        """Return a fully retired cohort's storage to the pools (dense
+        cohorts are freed with their tensors)."""
+        if self.paged:
+            cohort.cache.release()
+            if cohort.spikes is not None:
+                cohort.spikes.take([])
 
     def drain_logit_traces(self) -> list[list[np.ndarray]]:
         """Per-request logit traces in rid order, clearing the store (pass
@@ -213,13 +388,23 @@ class Engine:
 
     def _capture(self, slots: list[RequestState], logits) -> None:
         """Record each live slot's last-position logits (the vector whose
-        argmax is the token emitted this step)."""
+        argmax is the token emitted this step): a device tensor, or host
+        values the pipelined executor landed."""
         if not self.capture_logits:
             return
-        rows = logits[: len(slots), -1].float().cpu().numpy()
+        rows = logits[: len(slots), -1]
+        rows = (rows.float().cpu().numpy() if isinstance(rows, torch.Tensor)
+                else np.asarray(rows, np.float32))
+        w = self.logit_trace_window
         for st, row in zip(slots, rows):
-            if not st.done:
-                self.logit_traces.setdefault(st.rid, []).append(row)
+            if st.done:
+                # a finished slot riding in a cohort (a pipelined decode
+                # past EOS): one trace row per EMITTED token, as under sync
+                continue
+            trace = self.logit_traces.setdefault(st.rid, [])
+            trace.append(row)
+            if w is not None and len(trace) > w:
+                del trace[: len(trace) - w]
 
     def _finish(self, st: RequestState) -> None:
         self.results[st.rid] = st
@@ -241,7 +426,13 @@ class Engine:
         s["policy"] = self.policy.describe()
         s["exactness"] = self.policy.exactness.mode
         s["execution"] = self.policy.execution
+        s["pipeline_depth"] = getattr(self.executor, "depth", None)
         s["token_identical"] = self.policy.token_identical
+        s["paging"] = self.policy.paging.describe()
+        if self.paged:
+            s["page_pool"] = self.store.summary()
+            if self.prefix_index is not None:
+                s["prefix_index"] = self.prefix_index.summary()
         if self.spiking_packed:
             words = self._last_spike_words
             s["spike_sparsity"] = (float("nan") if words is None

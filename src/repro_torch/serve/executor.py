@@ -1,20 +1,51 @@
-"""The engine's step, in stages (port of `repro.serve.executor`'s
-`SyncExecutor`, without the streaming, speculation and prefix-hit stages):
+"""The engine's step, in stages (port of `repro.serve.executor`, one device;
+the streaming, speculation and mesh stages are later slices):
 
     admit -> prefill -> merge -> decode -> sample -> encode -> retire
 
-Every stage completes on the host before the next begins (the reference
-semantics): the sample stage copies each cohort's greedy tokens to the
-host, so it is also where the step waits for the device.
+Two executors share the stage vocabulary, selected by
+``ExecutionPolicy.execution``:
+
+* `SyncExecutor` (``'sync'``): every stage completes on the host before the
+  next begins; the sample stage copies each cohort's greedy tokens to the
+  host, so it is also where every step waits for the device.
+* `PipelinedExecutor` (``'pipelined'``): the greedy argmax of decode step
+  *t* stays on the device and feeds the decode of step *t+1*; each step's
+  tokens (and captured logits) go to pinned host memory by a non-blocking
+  copy behind a CUDA event, and the host waits on that step's event alone,
+  up to ``depth - 1`` steps later (`Engine(pipeline_depth=...)`).  Token
+  *counts* are known on the host without a wait (each decode emits one
+  token per slot), so budget exhaustion never needs the values; EOS is
+  discovered up to ``depth - 1`` steps late and the decodes past it are
+  discarded by `RequestState.emit` (rows are independent, and the
+  admission bound ``prompt + max_new <= max_len`` keeps their writes
+  inside the cache).  The packed-spike encode of the newest tokens is
+  dispatched from the device argmax right after the decode
+  (`PackedSpikeCache.update_async`).
+
+Pipelining reorders host work only: every device computation gets the same
+inputs in the same shapes as under sync (the device argmax IS the token the
+sync path round-trips through the host), so tokens and captured logits are
+equal bit for bit.  The decode and encode stages of a pipelined step make
+no host wait: no device-to-host read and no pageable host-to-device copy
+(`batching.upload`); `chip_smoke.py` holds them to that with
+``torch.cuda.set_sync_debug_mode("error")``.
+
+Every stage is timed into `EngineMetrics.stage_s`: under sync the per-step
+host wait shows in ``sample_sync``; under pipelined the decode stage is
+dispatch only and ``sample_sync`` is the deferred drain.
 """
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from .batching import bucket_key, pad_batch
+from repro_torch.ft.straggler import StepTimer
+
+from .batching import bucket_key, pad_batch, upload
 from .scheduler import Request, RequestState
 
 
@@ -42,9 +73,45 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
 
+@dataclass
+class PendingStep:
+    """One decode step whose sampled tokens are still in flight.
+
+    ``tokens``: (B,) int32 argmax (all cohort rows, dummies included);
+    ``logits``: (n_live, vocab) f32 last-position logits, kept only when the
+    engine captures traces.  On a CUDA device both are pinned host copies
+    that land when ``ready`` has been reached; on the CPU they are the
+    values themselves and ``ready`` is None."""
+
+    tokens: torch.Tensor
+    logits: torch.Tensor | None = None
+    ready: torch.cuda.Event | None = None
+
+    @classmethod
+    def launch(cls, tokens: torch.Tensor,
+               logits: torch.Tensor | None) -> "PendingStep":
+        """Start the copies of one step's device results to the host."""
+        if tokens.device.type != "cuda":
+            return cls(tokens, logits)
+        host_tokens = tokens.to("cpu", non_blocking=True)
+        host_logits = (None if logits is None
+                       else logits.to("cpu", non_blocking=True))
+        ready = torch.cuda.Event()
+        ready.record()
+        return cls(host_tokens, host_logits, ready)
+
+    def land(self) -> tuple[np.ndarray, np.ndarray | None]:
+        """Wait for this step's copies alone; (tokens, logits) on the host."""
+        if self.ready is not None:
+            self.ready.synchronize()
+        return (self.tokens.numpy(),
+                None if self.logits is None else self.logits.numpy())
+
+
 class SyncExecutor:
     """Reference staged executor.  Holds no request state: cohorts,
-    scheduler, metrics and the dispatch callables live on the engine."""
+    scheduler, metrics and the dispatch callables live on the engine; the
+    executor owns the order and the stage boundaries."""
 
     def __init__(self, engine):
         self.engine = engine
@@ -53,17 +120,24 @@ class SyncExecutor:
         return _StageClock(self.engine.metrics, stage)
 
     def step(self) -> dict:
-        """One engine iteration: admit+prefill, merge, decode/sample/encode
-        per cohort, retire."""
+        """One engine iteration: admit (prefix hits, then prefills), merge,
+        decode/sample/encode per cohort, retire."""
         e = self.engine
         t0 = time.perf_counter()
         e.metrics.sample_queue_depth(e.scheduler.queue_depth)
         with self._clock("admit"):
+            # prefix hits first: prefill-free admissions that use free
+            # slots at page-table cost before any prefill batch
+            hit_groups = (e.scheduler.schedule_prefix_hits()
+                          if e.prefix_index is not None else [])
             groups = e.scheduler.schedule()
+        for group in hit_groups:
+            with self._clock("admit_hits"):
+                e.admit_prefix_hits(group)
         for group in groups:
             self.prefill(group)
         with self._clock("merge"):
-            self.merge()
+            self.merge()  # flushes merging cohorts (pipelined)
         with self._clock("retire"):
             self.retire()  # requests finished at prefill never enter decode
         for cohort in e.cohorts:
@@ -79,7 +153,7 @@ class SyncExecutor:
 
     def prefill(self, group: list[Request]) -> None:
         """Batched prefill of one same-bucket group; emits each request's
-        first token and opens a cohort."""
+        first token (a host event: TTFT) and opens a cohort."""
         e = self.engine
         with self._clock("prefill"):
             P = bucket_key(
@@ -101,16 +175,19 @@ class SyncExecutor:
             cohort = e.new_cohort(
                 slots=slots, cache=cache, length=P, n_dummy=n_dummy
             )
-            cohort.next_tokens = first_dev
+            cohort.next_tokens = first_dev  # device feedback for the decode
             if e.spiking_packed:
                 cohort.spikes = e.new_spike_cache()
                 cohort.spikes.append(e._slot_spikes(cohort))
             e.cohorts.append(cohort)
+            # publish prompts into the radix index NOW, before any decode
+            # writes the rows' tail pages (no-op without a prefix index)
+            e.publish_prefix(cohort)
 
     def merge(self) -> None:
         """Merge cohorts at the same sequence position: caches concat along
-        their batch axes, alignment rows are dropped so live rows stay a
-        prefix."""
+        their batch axes (or their page tables), alignment rows are dropped
+        so live rows stay a prefix."""
         e = self.engine
         if len(e.cohorts) < 2:
             return
@@ -122,6 +199,8 @@ class SyncExecutor:
             if len(group) == 1:
                 merged.append(group[0])
                 continue
+            for c in group:
+                self.flush(c)  # host state authoritative before re-batching
             cache = e.cache_ops.concat([e._live_cache(c) for c in group])
             slots = [s for c in group for s in c.slots]
             cohort = e.new_cohort(slots=slots, cache=cache, length=length)
@@ -155,8 +234,7 @@ class SyncExecutor:
         else:  # membership changed since the last step: host-built tokens
             last = [st.generated[-1] for st in cohort.slots]
             last += [0] * cohort.n_dummy
-            tokens = torch.tensor(last, dtype=torch.int32,
-                                  device=e.device)[:, None]
+            tokens = upload(last, torch.int32, e.device)[:, None]
         logits, cohort.cache = e.dispatch_decode(tokens, cohort.cache)
         e.metrics.n_decode_batches += 1
         e.metrics.n_decode_rows += len(cohort.slots)
@@ -178,6 +256,11 @@ class SyncExecutor:
         e = self.engine
         kept = []
         for cohort in e.cohorts:
+            if cohort.pending:
+                # pipelined cohorts flush before any membership change, so
+                # a cohort with in-flight steps has no known-done slot
+                kept.append(cohort)
+                continue
             done = [st for st in cohort.slots if st.done]
             if not done:
                 kept.append(cohort)
@@ -187,6 +270,7 @@ class SyncExecutor:
             e.scheduler.release(len(done))
             alive_idx = [i for i, st in enumerate(cohort.slots) if not st.done]
             if not alive_idx:
+                e.release_cohort(cohort)  # paged: pages back to the pool
                 continue
             cohort.cache = e.cache_ops.take(cohort.cache, alive_idx)
             cohort.slots = [cohort.slots[i] for i in alive_idx]
@@ -194,6 +278,155 @@ class SyncExecutor:
             cohort.next_tokens = None  # membership changed: host rebuilds
             if e.spiking_packed:
                 cohort.spikes.take(alive_idx)
+            self.rebalance(cohort)
             kept.append(cohort)
         e.cohorts = kept
 
+    def rebalance(self, cohort) -> None:
+        """Load-skew hook: re-packs mesh cohorts in the reference; one
+        device has no data axis to balance, so it does nothing here."""
+
+    # -- pipelining hooks (no-ops here) -------------------------------------
+    def flush(self, cohort) -> None:
+        """Materialize any deferred device state (none in sync mode)."""
+
+    def drain(self) -> None:
+        """Drain in-flight steps across cohorts (none in sync mode)."""
+
+
+class PipelinedExecutor(SyncExecutor):
+    """In-flight-window executor: decode dispatch never waits on the host.
+
+    ``depth`` is the in-flight window: up to ``depth - 1`` decode steps may
+    have un-landed tokens at any time; each step's drain lands the oldest
+    pending step while the newer ones run on the device."""
+
+    def __init__(self, engine, depth: int = 2,
+                 straggler_threshold: float = 3.0):
+        super().__init__(engine)
+        if depth < 1:
+            raise ValueError(f"pipeline depth must be >= 1, got {depth}")
+        if not engine.row_independent:
+            # row-coupled decode (MoE capacity routing): a done-but-unlanded
+            # slot riding through a decode would change the other rows
+            # against sync, which retires it first.  Window 1 lands each
+            # step before the next dispatches.
+            depth = 1
+        self.depth = depth
+        # straggler fold (ft/straggler.py): the per-step decode-stage time
+        # from EngineMetrics.stage_s feeds the running-median detector; a
+        # detection flushes and re-packs every cohort at the end of the step
+        self.step_timer = StepTimer(
+            window=32, threshold=straggler_threshold,
+            on_straggler=self._on_straggler,
+        )
+        self._force_repack = False
+
+    def _on_straggler(self, event: dict) -> None:
+        self.engine.metrics.n_straggler_events += 1
+        self._force_repack = True
+
+    def step(self) -> dict:
+        e = self.engine
+        decode_before = e.metrics.stage_s.get("decode", 0.0)
+        out = super().step()
+        decode_delta = e.metrics.stage_s.get("decode", 0.0) - decode_before
+        if decode_delta > 0.0:  # only steps that decoded
+            self.step_timer.observe(decode_delta)
+        if self._force_repack:
+            self._force_repack = False
+            self.repack()
+        return out
+
+    def repack(self) -> None:
+        """Straggler response: flush every cohort and re-pack it through the
+        rebalance path (row placement only, so tokens are untouched; on one
+        device the re-pack drops alignment rows and nothing else)."""
+        e = self.engine
+        for cohort in e.cohorts:
+            self.flush(cohort)
+            cohort.cache = e._live_cache(cohort)
+            cohort.next_tokens = None
+            self.rebalance(cohort)
+
+    def decode_cohort(self, cohort) -> None:
+        """decode (dispatch only) -> encode (from the device tokens) ->
+        drain (land the steps beyond the in-flight window)."""
+        e = self.engine
+        if not self._count_alive(cohort):
+            # every slot's budget is (or may be) spent once the in-flight
+            # steps land: land them and let retire run
+            with self._clock("sample_sync"):
+                self.flush(cohort)
+            return
+        with self._clock("decode"):
+            logits = self._dispatch_decode(cohort)
+            cohort.pending.append(PendingStep.launch(
+                cohort.next_tokens,
+                (logits[: len(cohort.slots), -1].float()
+                 if e.capture_logits else None),
+            ))
+        with self._clock("encode"):
+            self.encode(cohort)
+        with self._clock("sample_sync"):
+            self._drain_cohort(cohort)
+
+    def _count_alive(self, cohort) -> bool:
+        """Host-only liveness: could any slot still accept a token after
+        every in-flight step lands?  Uses token COUNTS (one token per slot
+        per step), never values, so it costs no wait.  EOS can only end a
+        request earlier: this is an upper bound, and a decode past an
+        un-landed EOS is discarded work, never corruption."""
+        window = len(cohort.pending)
+        return any(
+            not st.done
+            and len(st.generated) + window < st.request.max_new_tokens
+            for st in cohort.slots
+        )
+
+    def encode(self, cohort) -> None:
+        """Packed-spike encode of the newest tokens straight from the device
+        argmax, staged without a wait (`update_async`)."""
+        e = self.engine
+        if not e.spiking_packed:
+            return
+        toks = cohort.next_tokens[: len(cohort.slots)]
+        cohort.spikes.update_async(e._encode_pack(e.params, toks))
+
+    def _drain_cohort(self, cohort) -> None:
+        """Land pending steps beyond the in-flight window; the wait on the
+        oldest step's event overlaps the decodes still on the device."""
+        while len(cohort.pending) >= self.depth:
+            if self._materialize(cohort):
+                # a slot finished: flush so retire sees host-true state
+                self.flush(cohort)
+
+    def _materialize(self, cohort) -> bool:
+        """Land the oldest pending step on the host: emit tokens, capture
+        logits.  Returns True when a slot finished (EOS or budget)."""
+        e = self.engine
+        toks, logits = cohort.pending.pop(0).land()
+        if logits is not None:
+            e._capture(cohort.slots, logits[:, None])
+        for st, tok in zip(cohort.slots, toks):
+            st.emit(int(tok), e.eos_id)
+        return any(st.done for st in cohort.slots)
+
+    def flush(self, cohort) -> None:
+        """Land ALL in-flight steps (forced before merge and retire, and
+        when the cohort's budget is spent)."""
+        while cohort.pending:
+            self._materialize(cohort)
+        if self.engine.spiking_packed and cohort.spikes is not None:
+            self.engine._last_spike_words = cohort.spikes.words
+
+    def drain(self) -> None:
+        for cohort in self.engine.cohorts:
+            self.flush(cohort)
+
+
+def make_executor(engine, policy, *, depth: int = 2) -> SyncExecutor:
+    """Build the executor the policy's ``execution`` axis names."""
+    if policy.execution == "pipelined":
+        return PipelinedExecutor(engine, depth=depth)
+    return SyncExecutor(engine)

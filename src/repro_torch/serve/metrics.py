@@ -1,9 +1,10 @@
 """Per-request and engine-level serving metrics (port of
-`repro.serve.metrics`, the counters the sync dense path moves).
+`repro.serve.metrics`, the counters of the single-device serve features).
 
 Times are host wall clock (`time.perf_counter`).  The sync executor waits
-for each step's sampled tokens on the host, so on a GPU every stage time
-covers the device work it launched.
+for each step's sampled tokens on the host, so on a GPU its stage times
+cover the device work they launched; under the pipelined executor the
+decode stage is dispatch only, and the wait moves to ``sample_sync``.
 """
 from __future__ import annotations
 
@@ -37,10 +38,21 @@ class EngineMetrics:
     n_decode_rows: int = 0        # sum of cohort batch sizes over decode calls
     n_merges: int = 0
     n_padded_rows: int = 0        # dummy rows added for batch alignment
+    n_rebalances: int = 0         # mesh cohorts re-packed (none on one device)
+    # paging='paged' counters.  n_page_moves counts page-granular COPIES
+    # (prefix publish snapshots + copy-on-write at the divergence page);
+    # cohort merge and retire are page-table edits and must add 0.
+    n_page_moves: int = 0
+    n_prefix_hits: int = 0        # requests admitted from the radix index
+    n_prefix_tokens_reused: int = 0   # prompt tokens whose prefill was skipped
+    n_straggler_events: int = 0   # StepTimer detections fed from stage_s
     max_queue_depth: int = 0
     wall_s: float = 0.0
     # per-stage wall time: admit / prefill / merge / decode / sample_sync /
-    # encode / retire (sync: the per-step host wait lands in sample_sync)
+    # encode / retire (+ admit_hits with a prefix index).  Sync: the
+    # per-step host wait lands in sample_sync.  Pipelined: decode is
+    # dispatch only and sample_sync is the deferred drain, which overlaps
+    # the decode steps still on the device.
     stage_s: dict[str, float] = field(default_factory=dict)
     # temporal='adaptive': timestep planes of encoded spike batches scoring
     # below the policy's min_spikes, counted at the encode boundary.  It
@@ -92,6 +104,11 @@ class EngineMetrics:
             "mean_decode_batch": self.mean_decode_batch,
             "cohort_merges": self.n_merges,
             "padded_rows": self.n_padded_rows,
+            "rebalances": self.n_rebalances,
+            "page_moves": self.n_page_moves,
+            "prefix_hits": self.n_prefix_hits,
+            "prefix_tokens_reused": self.n_prefix_tokens_reused,
+            "straggler_events": self.n_straggler_events,
             "max_queue_depth": self.max_queue_depth,
             "stage_s": {k: self.stage_s[k] for k in sorted(self.stage_s)},
             "timesteps_skipped": int(self.timesteps_skipped),

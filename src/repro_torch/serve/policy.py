@@ -3,11 +3,12 @@
 
 Ported axes: ``spike_format`` (float | packed), ``weight_sparsity``
 (dense | dual_sparse), ``exactness`` (bitwise, or approximate(tol) as far as
-lossy temporal skipping needs it), ``execution`` (sync) and ``temporal``
+lossy temporal skipping needs it), ``execution`` (sync | pipelined),
+``paging`` (none | paged(page_size)) and ``temporal``
 (full | adaptive(min_spikes)).  The reference's other axes and values
-(placement/mesh and the psum-TP approximation it enables, pipelined
-execution, paging, speculation) are later slices of the port: asking for
-one raises `NotImplementedError`.
+(placement/mesh and the psum-TP approximation it enables, speculation) are
+later slices of the port: asking for one raises `NotImplementedError`, and
+the policy has no ``speculation`` field yet.
 
 Also here, as in the reference: `check_parity`, `max_logit_drift` and
 `drift_report`, the assertion and the measurement of a policy's exactness
@@ -23,6 +24,8 @@ SPIKE_FORMATS = ("float", "packed")
 WEIGHT_SPARSITIES = ("dense", "dual_sparse")
 EXACTNESS_MODES = ("bitwise", "approximate")
 TEMPORAL_MODES = ("full", "adaptive")
+EXECUTION_MODES = ("sync", "pipelined")
+PAGING_MODES = ("none", "paged")
 
 _LATER = "not ported yet; see the port's queue in ROADMAP.md"
 
@@ -124,6 +127,46 @@ def adaptive_t(min_spikes: int = 1) -> Temporal:
     return Temporal("adaptive", min_spikes)
 
 
+@dataclass(frozen=True)
+class Paging:
+    """How cohort caches are stored: ``"none"`` (dense per-cohort caches,
+    merged and gathered by whole-cache concat/take) or ``"paged"`` (KV state
+    lives in fixed pages owned by a `serve.paging.CacheStore`; cohorts hold
+    page tables, so merge and retire are page-table edits and shared prompt
+    prefixes are ref-counted pages instead of re-prefilled rows).
+
+    ``page_size`` is the sequence-positions-per-page granule; it must be a
+    positive multiple of 8 (the reference's alignment rule) and must divide
+    the cache sequence extent the engine serves (checked at engine
+    construction, where the extent is known)."""
+
+    mode: str = "none"
+    page_size: int = 8
+
+    def __post_init__(self):
+        if self.mode not in PAGING_MODES:
+            raise ValueError(f"paging mode {self.mode!r} not in {PAGING_MODES}")
+        if self.page_size < 8 or self.page_size % 8:
+            raise ValueError(
+                "paging.page_size must be a positive multiple of 8, got "
+                f"{self.page_size}"
+            )
+
+    @property
+    def enabled(self) -> bool:
+        return self.mode == "paged"
+
+    def describe(self) -> str:
+        if self.mode == "none":
+            return "none"
+        return f"paged(page_size={self.page_size})"
+
+
+def paged(page_size: int = 8) -> Paging:
+    """Paged cache storage (see `serve.paging`)."""
+    return Paging("paged", page_size)
+
+
 # ---------------------------------------------------------------------------
 # the policy
 # ---------------------------------------------------------------------------
@@ -138,11 +181,14 @@ class ExecutionPolicy:
     weight_sparsity: str = "dense"
     exactness: Exactness = field(default_factory=bitwise)
     execution: str = "sync"
+    paging: Paging = field(default_factory=Paging)
     temporal: Temporal = field(default_factory=Temporal)
 
     def __post_init__(self):
-        if self.execution != "sync":
-            raise NotImplementedError(f"execution={self.execution!r} is {_LATER}")
+        if self.execution not in EXECUTION_MODES:
+            raise ValueError(
+                f"execution {self.execution!r} not in {EXECUTION_MODES}"
+            )
         if self.spike_format not in SPIKE_FORMATS:
             raise ValueError(
                 f"spike_format {self.spike_format!r} not in {SPIKE_FORMATS}"
@@ -192,6 +238,7 @@ class ExecutionPolicy:
         return (f"spike_format={self.spike_format!r}, "
                 f"weight_sparsity={self.weight_sparsity!r}, exactness={ex}, "
                 f"execution={self.execution!r}, "
+                f"paging={self.paging.describe()}, "
                 f"temporal={self.temporal.describe()}")
 
     def validate_for(self, cfg) -> "ExecutionPolicy":
@@ -216,10 +263,13 @@ class ExecutionPolicy:
     def for_arch(cls, cfg, *, spike_format: str | None = None,
                  weight_sparsity: str | None = None,
                  exactness: Exactness | None = None,
+                 execution: str | None = None,
+                 paging: Paging | None = None,
                  temporal: Temporal | None = None) -> "ExecutionPolicy":
         """Arch-aware constructor, ``None`` = the natural default: packed
         spikes for spiking archs, dual-sparse when the weights are pruned,
-        bitwise, full temporal walk."""
+        bitwise, sync execution, dense (non-paged) cache storage, full
+        temporal walk."""
         if spike_format is None:
             spike_format = "packed" if cfg.spiking_ffn else "float"
         if weight_sparsity is None:
@@ -232,6 +282,8 @@ class ExecutionPolicy:
             spike_format=spike_format,
             weight_sparsity=weight_sparsity,
             exactness=exactness if exactness is not None else bitwise(),
+            execution=execution if execution is not None else "sync",
+            paging=paging if paging is not None else Paging(),
             temporal=temporal if temporal is not None else Temporal(),
         ).validate_for(cfg)
 

@@ -1,5 +1,6 @@
 """Request lifecycle + continuous-batching scheduler (port of
-`repro.serve.scheduler`, without the prefix-hit, streaming and drain lanes).
+`repro.serve.scheduler`, with the prefix-hit lane; the streaming and drain
+lanes are later slices).
 
 * Admission control: a bounded waiting queue; `submit` rejects when the
   queue is full or the request can never fit (``prompt + max_new >
@@ -8,6 +9,11 @@
   bucket (exact length by default); the bucket of the oldest waiting
   request goes first, so long prompts are never starved.
 * Slots: a request holds one slot from admission until it finishes.
+* Prefix hits: with a `RadixPrefixIndex` attached, `submit` looks the
+  prompt up; exact full-prompt hits wait in their own lane and are admitted
+  into cohorts with the shared pages instead of a prefill.  The matched
+  entry stays pinned from submit until the engine's admit completes
+  (`release_hit_pins`), so eviction can never invalidate a queued hit.
 """
 from __future__ import annotations
 
@@ -74,6 +80,8 @@ class AdmissionTicket:
 
     request: Request | None
     outcome: str = "queued"        # queued | admitted | rejected
+    prefix_hit: bool = False       # matched a published prefix at submit
+    reused_tokens: int = 0         # prompt tokens whose prefill is skipped
     reason: str | None = None
 
     @property
@@ -94,14 +102,16 @@ class Scheduler:
     """FIFO waiting queue with bucketed prefill-batch selection."""
 
     def __init__(self, *, max_slots: int, max_queue: int, max_len: int,
-                 bucket_align: int = 1):
+                 bucket_align: int = 1, prefix_index=None):
         if max_slots < 1:
             raise ValueError("max_slots must be >= 1")
         self.max_slots = max_slots
         self.max_queue = max_queue
         self.max_len = max_len
         self.bucket_align = bucket_align
+        self.prefix_index = prefix_index
         self.waiting: deque[Request] = deque()
+        self.hit_waiting: deque[tuple[Request, object]] = deque()
         self.active_slots = 0
         self._ids = itertools.count()
         self._tickets: dict[int, AdmissionTicket] = {}
@@ -121,17 +131,30 @@ class Scheduler:
                 f"request needs {need} cache slots > engine max_len "
                 f"{self.max_len}"
             )
-        if len(self.waiting) >= self.max_queue:
+        if len(self.waiting) + len(self.hit_waiting) >= self.max_queue:
             raise self._reject(f"queue full ({self.max_queue} waiting)")
         req = Request(next(self._ids), prompt, max_new_tokens)
         ticket = AdmissionTicket(request=req)
-        self.waiting.append(req)
+        entry = (self.prefix_index.lookup(prompt)
+                 if self.prefix_index is not None else None)
+        if entry is not None:
+            entry.pins += 1
+            ticket.prefix_hit = True
+            ticket.reused_tokens = entry.prompt_len
+            self.hit_waiting.append((req, entry))
+        else:
+            self.waiting.append(req)
         self._tickets[req.rid] = ticket
         return ticket
 
+    def _mark_admitted(self, rid: int) -> None:
+        t = self._tickets.pop(rid, None)
+        if t is not None:
+            t.outcome = "admitted"
+
     @property
     def queue_depth(self) -> int:
-        return len(self.waiting)
+        return len(self.waiting) + len(self.hit_waiting)
 
     @property
     def free_slots(self) -> int:
@@ -156,10 +179,46 @@ class Scheduler:
         self.waiting = kept
         self.active_slots += len(group)
         for req in group:
-            t = self._tickets.pop(req.rid, None)
-            if t is not None:
-                t.outcome = "admitted"
+            self._mark_admitted(req.rid)
         return group
+
+    def next_prefix_hits(self) -> list[tuple[Request, object]]:
+        """Pop the next prefix-hit admission group: hits whose prompts have
+        the same length (they join one cohort at sequence position
+        ``prompt_len``), FIFO order led by the oldest hit, capped by free
+        slots.  Entries stay pinned until the engine calls
+        `release_hit_pins` after its admit."""
+        if not self.hit_waiting or self.free_slots <= 0:
+            return []
+        lead_len = self.hit_waiting[0][0].prompt_len
+        group: list[tuple[Request, object]] = []
+        kept: deque = deque()
+        budget = self.free_slots
+        for req, entry in self.hit_waiting:
+            if len(group) < budget and req.prompt_len == lead_len:
+                group.append((req, entry))
+            else:
+                kept.append((req, entry))
+        self.hit_waiting = kept
+        self.active_slots += len(group)
+        for req, _ in group:
+            self._mark_admitted(req.rid)
+        return group
+
+    def release_hit_pins(self, group: list[tuple[Request, object]]) -> None:
+        """Release the submit-time pins of one selected hit group (called by
+        the engine after, or on failure of, its admit)."""
+        for _, entry in group:
+            entry.pins -= 1
+
+    def schedule_prefix_hits(self) -> list[list[tuple[Request, object]]]:
+        """All prefix-hit groups runnable this step."""
+        groups = []
+        while True:
+            g = self.next_prefix_hits()
+            if not g:
+                return groups
+            groups.append(g)
 
     def schedule(self) -> list[list[Request]]:
         """All prefill groups runnable this step (distinct buckets until

@@ -824,3 +824,162 @@ def test_train_step_on_card_matches_cpu(spiking):
     for (path, w), s0 in zip(tree_paths(card["params"]), start):
         if spiking and path.endswith(("mlp/wu", "mlp/wd")):
             assert not bool(w.cpu()[s0 == 0].any()), path
+
+
+# ---------------------------------------------------------------------------
+# serve features on the card: pipelined executor, paged cache, prefix reuse
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def serve_model():
+    """The smoke llama3.2-1b with dual-sparse spiking FFNs, params drawn on
+    the card (the engine's kernels: 3, through its plans)."""
+    from repro_torch.launch.serve import build_config
+    from repro_torch.models.registry import build_model
+
+    dev = _cuda()
+    cfg = build_config("llama3_2_1b", smoke=True, spiking=True,
+                       weight_density=0.3)
+    model = build_model(cfg)
+    return cfg, model, model.init(0, device=dev)
+
+
+def _serve_prompts(vocab, lens, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=(n,)).astype(np.int32) for n in lens]
+
+
+def _engine(serve_model, **kw):
+    from repro_torch.serve import Engine
+
+    cfg, model, params = serve_model
+    pol = ExecutionPolicy.for_arch(cfg, execution=kw.pop("execution", "sync"),
+                                   paging=kw.pop("paging", None))
+    return Engine(model, params, policy=pol, **kw)
+
+
+def _same_logits(a, b):
+    assert len(a) == len(b)
+    for ta, tb in zip(a, b):
+        assert len(ta) == len(tb)
+        assert all(np.array_equal(x, y) for x, y in zip(ta, tb))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_serve_pipelined_equals_sync_bitwise(serve_model, depth):
+    """Pipelining reorders host work only: the same tokens and captured
+    logits as the sync executor, bit for bit, through kernel 3."""
+    prompts = _serve_prompts(serve_model[0].vocab, [8, 8, 8], seed=depth)
+    kw = dict(max_len=16, max_slots=3, capture_logits=True)
+    sync = _engine(serve_model, **kw)
+    want = sync.generate_batch(prompts, 6)
+    pipe = _engine(serve_model, execution="pipelined", pipeline_depth=depth,
+                   **kw)
+    before = ftp_spmm.launch_counts()["ftp_bsr"]
+    got = pipe.generate_batch(prompts, 6)
+    assert ftp_spmm.launch_counts()["ftp_bsr"] > before
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b, a)
+    _same_logits(sync.drain_logit_traces(), pipe.drain_logit_traces())
+
+
+def _staggered_serve(engine, prompts, gens, arrivals):
+    tickets, i, step = [], 0, 0
+    while not (engine.idle and i == len(prompts)):
+        while i < len(prompts) and arrivals[i] <= step:
+            tickets.append(engine.submit(prompts[i], gens[i]))
+            i += 1
+        engine.step()
+        step += 1
+    return [np.asarray(engine.results[t.rid].generated) for t in tickets]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("execution", ["sync", "pipelined"])
+def test_serve_paged_equals_dense_bitwise(serve_model, execution):
+    """Merges and retires under paging move no page, and the gathered views
+    give the dense layout's tokens and logits bit for bit."""
+    from repro_torch.serve import paged
+
+    prompts = _serve_prompts(serve_model[0].vocab, [8, 8, 9, 10])
+    gens, arrivals = [6, 4, 5, 4], [0, 0, 1, 2]
+    kw = dict(max_len=32, max_slots=8, capture_logits=True,
+              execution=execution)
+    dense = _engine(serve_model, **kw)
+    want = _staggered_serve(dense, prompts, gens, arrivals)
+    pe = _engine(serve_model, paging=paged(8), prefix_cache=False, **kw)
+    got = _staggered_serve(pe, prompts, gens, arrivals)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b, a)
+    _same_logits(dense.drain_logit_traces(), pe.drain_logit_traces())
+    assert pe.metrics.n_merges > 0 and pe.metrics.n_page_moves == 0
+    s = pe.store.summary()
+    assert s["seq_pages_free"] == s["seq_pages_total"]
+
+
+@pytest.mark.gpu
+def test_serve_prefix_hits_token_identical(serve_model):
+    """Repeated prompts are admitted from the radix index (no prefill) and
+    give the cold serve's tokens."""
+    from repro_torch.serve import paged
+
+    prompts = _serve_prompts(serve_model[0].vocab, [8, 12])
+    pe = _engine(serve_model, paging=paged(8), max_len=32, max_slots=8)
+    cold = pe.generate_batch(prompts, 5)
+    prefills = pe.metrics.n_prefill_batches
+    tickets = [pe.submit(p, 5) for p in prompts]
+    assert all(t.prefix_hit for t in tickets)
+    out = pe.run()
+    assert pe.metrics.n_prefill_batches == prefills
+    assert pe.metrics.n_prefix_hits == 2 and pe.metrics.n_page_moves > 0
+    for t, c in zip(tickets, cold):
+        np.testing.assert_array_equal(out[t.rid], c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paging", [None, 8])
+def test_serve_pipelined_decode_makes_no_host_sync(serve_model, paging):
+    """The decode and encode stages of a pipelined step (the decode
+    dispatch, its token and logit copies, the spike encode) run under
+    set_sync_debug_mode('error'): any host wait there raises."""
+    from repro_torch.serve import executor as ex_mod
+    from repro_torch.serve import paged
+
+    engine = _engine(serve_model, execution="pipelined", max_len=24,
+                     max_slots=4, capture_logits=True,
+                     paging=paged(paging) if paging else None)
+    engine.generate_batch(_serve_prompts(serve_model[0].vocab, [8], seed=9), 3)
+    ex, seen = engine.executor, []
+
+    def strict(fn):
+        def run(*a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                seen.append(fn.__name__)
+        return run
+
+    launch = ex_mod.PendingStep.__dict__["launch"]
+    ex._dispatch_decode, ex.encode = strict(ex._dispatch_decode), strict(ex.encode)
+    ex_mod.PendingStep.launch = staticmethod(strict(ex_mod.PendingStep.launch))
+    try:
+        engine.metrics.reset()
+        engine.generate_batch(_serve_prompts(serve_model[0].vocab, [8] * 3), 8)
+        torch.cuda.synchronize()
+    finally:
+        del ex._dispatch_decode, ex.encode
+        ex_mod.PendingStep.launch = launch
+    n = engine.metrics.n_decode_batches
+    assert n == 7 and len(seen) == 3 * n
+    # controls: the mode (a prototype) sees the waits the executor avoids
+    for wait in (lambda: torch.tensor([1, 2], device="cuda"),
+                 lambda: torch.ones(2, device="cuda").cpu()):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with pytest.raises(RuntimeError, match="synchroniz"):
+                wait()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")

@@ -377,14 +377,15 @@ def test_attention_query_chunks_match_reference():
 
 
 def test_policy_refuses_unported_axes_and_bad_combinations(slice_models):
-    """Later-slice axes raise NotImplementedError pointing at the queue;
-    arch-dependent misuse raises ValueError, as in the reference."""
+    """Pipelined execution constructs (ported); later-slice axes raise
+    NotImplementedError pointing at the queue; arch-dependent misuse raises
+    ValueError, as in the reference."""
     from repro_torch.serve import approximate
 
     _, (tcfg, _, _) = slice_models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ExecutionPolicy(spike_format="packed", weight_sparsity="dual_sparse",
-                        execution="pipelined")
+    pol = ExecutionPolicy(spike_format="packed", weight_sparsity="dual_sparse",
+                          execution="pipelined")
+    assert pol.execution == "pipelined" and pol.token_identical
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         # approximate without lossy temporal skipping needs a model axis
         ExecutionPolicy(spike_format="packed", exactness=approximate(0.1))
