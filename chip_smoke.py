@@ -123,12 +123,44 @@ Phases, each asserted; a failed phase ends the run with a non-zero exit:
              prefix index the schedule again: every prompt a prefix hit, no
              prefill, the same tokens; paged + pipelined the same tokens.
 
+11. decode windows — run after phase 10, on phase 5's params and prompts:
+             (a) row invariance: every product of one decode step (the q, k,
+             v and o projections, the two attention einsums, the unembed;
+             the softmax and the means as well) and the FFN's kernel 1-3
+             calls, on the S = 1 step's own inputs, placed inside an S = 5
+             window (B = 4, k = 4) and inside the 128-token prefill, and at
+             the stream's shapes (B = 1, its 120-token prefill): differing
+             elements and the largest difference per product, logged; the
+             kernels must give 0.  All-zero columns make the gates below
+             bit for bit, otherwise logits within ``WINDOW_LOGIT_TOL`` and
+             tokens equal but at near ties; the form is printed.  (b) a
+             float-draft k = 4 speculative serve of phase 5's requests
+             (max_len 160) under {sync, pipelined} x {dense, paged(16)},
+             gated against the non-speculative serve at the same max_len;
+             proposed == accepted + rejected; after a round of perturbed
+             proposals (each shifted by one token: an adversarially wrong
+             draft) the rewound pos and kv_pos equal a cohort that never
+             speculated.  (c) packed drafts: density 0.2 (kernel 3 on the
+             draft's own plans; served again with its proposals perturbed,
+             rejections asserted and tokens unchanged) and min_spikes 2
+             (kernel 4 the draft's gate); every launch of draft and verify
+             held against its plain version, a sample of each group
+             timed.  (d) spec vs non-spec in turns (tok/s, TTFT,
+             acceptance, ``stage_s``), one profiled serve each, and the
+             propose, verify dispatch and rewind under
+             ``set_sync_debug_mode("error")`` (a read inside the propose
+             must raise).  (e) a 120-frame moving-blob stream ingested
+             frame by frame against its frame tokens as one prompt, under
+             {sync, pipelined} x {dense, paged(16)} x {full, adaptive}:
+             gated as above, frame-to-first-token p50 and p99 printed.
+
 Prints a JSON line of per-kernel measurements before the last line (the
 headline numbers are each kernel's mean launch on its path), and as the
 last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -1037,25 +1069,27 @@ def _add(groups, label, M, fuse, err, flips, row, active, density):
     g["spike_density"] += density
 
 
-def _replay(calls):
-    """Every BSR kernel call of the counted serve again, on its own inputs:
-    both instances vs the plain version, then the kernel (`tc`), its SIMT
-    instance, the plain version and the library yardstick timed against the
-    call's bound.  Grouped by (M, fuse_lif): W_in runs with the LIF fused,
-    W_out without; in every group `tc` must beat SIMT per launch."""
+def _replay(calls, prefix="serve"):
+    """Every BSR kernel call of a counted serve again, on its own inputs
+    (with its timestep gate, for kernel 4's calls): both instances vs the
+    plain version, then the kernel (`tc`), its SIMT instance, the plain
+    version and the library yardstick timed against the call's bound.
+    Grouped by (M, fuse_lif): W_in runs with the LIF fused, W_out without;
+    in every group `tc` must beat SIMT per launch."""
     from repro_torch.serve.batching import spike_sparsity
 
     flush = _flush_buffer()
     dense, groups = {}, {}
     for n, (_, args, kw) in enumerate(calls):
         args = args[:8]
-        bm, fuse = kw["bm"], kw["fuse_lif"]
-        label = f"serve {'W_in fused_lif' if fuse else 'W_out full_sums'} M={args[0].shape[0]}"
-        err, flips = _parity(f"{label} call {n}", args, bm, fuse)
+        bm, fuse, tmap = kw["bm"], kw["fuse_lif"], kw.get("tmap")
+        label = (f"{prefix} {'W_in fused_lif' if fuse else 'W_out full_sums'} "
+                 f"M={args[0].shape[0]}")
+        err, flips = _parity(f"{label} call {n}", args, bm, fuse, tmap)
         key = args[1].data_ptr()
         if key not in dense:
             dense[key] = _dense_weight(args)
-        row = _measure(args, bm, fuse, flush, dense[key], 3)
+        row = _measure(args, bm, fuse, flush, dense[key], 3, tmap)
         _add(groups, label, args[0].shape[0], fuse, err, flips, row,
              float((args[5] > 0).float().mean()), 1.0 - spike_sparsity(args[0], T))
     rows = _group_rows(groups)
@@ -2206,6 +2240,842 @@ def phase_features(dual, dense):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 11: decode windows (row invariance, speculative decoding, streams)
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+# 128 prompt + 16 generated + the k positions a verify window may pass a
+# row's budget by, rounded up to whole pages of PAGE
+SPEC_MAX_LEN = 160
+# A row's logits computed inside a wider window against the row alone, where
+# the library's products are not row-invariant: the FTP gate's scale, well
+# inside the LOGIT_TOL the served logits meet against the CPU.
+WINDOW_LOGIT_TOL = 1e-2
+STREAM_FRAMES, STREAM_WINDOW_US, SENSOR = 120, 1000, 16
+# the library products and reductions of one forward, in call order per
+# layer, and the FTP kernels of its FFN
+PROJECTIONS = ("q projection", "k projection", "v projection", "o projection")
+KERNEL_ROWS = ("kernel 3 ftp_bsr", "kernel 2 ftp_spmm_fused_lif",
+               "kernel 1 ftp_spmm")
+
+
+def _log_ops(fn):
+    """Run ``fn`` with every matmul, einsum, softmax and mean it calls
+    logged in order (torch function mode: the model code is untouched),
+    each `layers.row_blocks` call logged as one op (not the blocks inside
+    it), and every BSR kernel call recorded; returns (result, ops, calls)."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    from repro_torch.models import layers, transformer
+
+    names = {torch.Tensor.__matmul__: "matmul", torch.Tensor.matmul: "matmul",
+             torch.matmul: "matmul",
+             torch.einsum: "einsum", torch.softmax: "softmax",
+             torch.Tensor.softmax: "softmax", torch.Tensor.mean: "mean"}
+    ops, inside = [], [0]
+
+    class Mode(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func in names and not inside[0]:
+                ops.append((names[func], func, args, kwargs))
+            return func(*args, **kwargs)
+
+    blocks = layers.row_blocks
+
+    def logged(*args):
+        ops.append(("rows", blocks, args, {}))
+        inside[0] += 1
+        try:
+            return blocks(*args)
+        finally:
+            inside[0] -= 1
+
+    calls, restore = _record(["ftp_spmm_bsr"])
+    layers.row_blocks = transformer.row_blocks = logged
+    try:
+        with torch.no_grad(), Mode():
+            out = fn()
+    finally:
+        layers.row_blocks = transformer.row_blocks = blocks
+        restore()
+    torch.cuda.synchronize()
+    return out, ops, calls
+
+
+def _label_ops(ops, params, n_layers):
+    """Name each logged op of the model's forward: row-blocked ops by their
+    function and weight (each layer's q, k, v and o projections, the
+    rmsnorms' row mean, the unembed), einsums by their equation, means by
+    their axis (the FFN's rate decode over T).  Ops of other code (a plain
+    kernel version on the CPU) get None."""
+    import torch
+
+    from repro_torch.models import layers
+
+    weights = {id(params["unembed"]): "unembed"}
+    for lp in params["layers"]:
+        for w, name in zip(("wq", "wk", "wv", "wo"), PROJECTIONS):
+            weights[id(lp["attn"][w])] = name
+    einsums = {"bqkgd,bskd->bkgqs": "scores einsum",
+               "bkgqs,bskd->bqkgd": "values einsum"}
+    labels = []
+    for kind, _, args, kwargs in ops:
+        if kind == "rows":
+            labels.append("rmsnorm mean" if args[0] is layers._mean_square
+                          else weights.get(id(args[2]))
+                          if args[0] is torch.matmul else None)
+        elif kind == "einsum":
+            labels.append(einsums.get(args[0]))
+        elif kind == "softmax":
+            labels.append("softmax")
+        elif kind == "mean":
+            dim = args[1] if len(args) > 1 else kwargs.get("dim")
+            labels.append({0: "rate_decode mean"}.get(dim))
+        else:
+            labels.append(None)
+    n = sum(lb in PROJECTIONS for lb in labels)
+    assert n == 4 * n_layers and labels.count("unembed") == 1, labels
+    assert labels.count("rmsnorm mean") == 2 * n_layers + 1, labels
+    return labels
+
+
+# the ops whose operand is (B * S, D) rows: the row-blocked ones, operand 1
+ROW_OPS = PROJECTIONS + ("unembed", "rmsnorm mean")
+
+
+def _put_row(label, big, one, B, S, Bo):
+    """``big``'s operands (B batch rows of S positions) with the ``Bo``
+    batch rows of an S = 1 dispatch written at sequence index 0 of its
+    first ``Bo`` batch rows (and its k/v, for the einsums)."""
+    a = list(big)
+    if label in ROW_OPS:
+        x = a[1].clone()
+        x.view(B, S, -1)[:Bo, 0] = one[1].view(Bo, 1, -1)[:, 0]
+        a[1] = x
+    elif label in ("scores einsum", "values einsum"):
+        x, kv = a[1].clone(), a[2].clone()
+        if label == "scores einsum":      # q (B, S, KV, G, dh)
+            x[:Bo, 0] = one[1][:, 0]
+        else:                             # p (B, KV, G, S, Skv)
+            x[:Bo, ..., 0, :] = one[1][..., 0, :]
+        kv[:Bo] = one[2]
+        a[1], a[2] = x, kv
+    elif label == "softmax":              # scores (B, KV, G, S, Skv)
+        x = a[0].clone()
+        x[:Bo, ..., 0, :] = one[0][..., 0, :]
+        a[0] = x
+    else:                                 # rate decode: (T, B * S, D)
+        x = a[0].clone()
+        Tn = x.shape[0]
+        x.view(Tn, B, S, -1)[:, :Bo, 0] = one[0].view(Tn, Bo, 1, -1)[:, :, 0]
+        a[0] = x
+    return a
+
+
+def _pick_row(label, out, B, S, Bo):
+    """The first ``Bo`` batch rows at sequence index 0 of an op's output."""
+    if label in ROW_OPS or label == "rate_decode mean":
+        return out.reshape(B, S, -1)[:Bo, 0]
+    if label in ("scores einsum", "softmax"):
+        return out[:Bo, ..., 0, :]
+    return out[:Bo, 0]                    # values einsum
+
+
+def _count(rows, got, want):
+    """Accumulate (elements, differing elements, max |difference|)."""
+    d = got.float() - want.float() if got.is_floating_point() else None
+    differ = got != want
+    r = rows.setdefault("n", [0, 0, 0.0])
+    r[0] += differ.numel()
+    r[1] += int(differ.sum())
+    if d is not None:
+        r[2] = max(r[2], float(d.abs().max()))
+    elif bool(differ.any()):
+        r[2] = float("inf")
+
+
+def _first_blocks(labels):
+    """Indices of the ops to compare: every op, but of an attention call's
+    query blocks only the first (a prefill runs several, a decode one)."""
+    keep, seen = [], set()
+    for i, label in enumerate(labels):
+        if label == "q projection":
+            seen = set()
+        if label in ("scores einsum", "softmax", "values einsum"):
+            if label in seen:
+                continue
+            seen.add(label)
+        keep.append(i)
+    return keep
+
+
+def _plain(label, func, args, kw, S):
+    """The library's own call for a logged op of the serving path: a
+    row-blocked op on its whole operand, an attention op on its ``S`` real
+    query rows alone (without the serving path's query block)."""
+    a = list(args)
+    if label in ROW_OPS:
+        return a[0](*a[1:])
+    if label == "scores einsum":
+        a[1] = a[1][:, :S]
+    elif label == "values einsum":
+        a[1] = a[1][..., :S, :]
+    elif label == "softmax":
+        a[0] = a[0][..., :S, :]
+    return func(*a, **kw)
+
+
+def _compare(res, col, labels, ops_1, calls_1, ops_c, calls_c, params, cfg,
+             B, S, Bo):
+    """Every op and FFN kernel call of one capture (B batch rows, S
+    positions) against the S = 1 capture of its first ``Bo`` batch rows,
+    on the S = 1 capture's inputs: the serving path's calls (column
+    ``col``), and the library's own calls of the same products
+    (``library col``; the attention ops over the real rows of the first
+    query block, at most Q_BLOCK of a prefill)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import Q_BLOCK
+    from repro_torch.serve.policy import PACKED_DENSE, PACKED_DUAL
+
+    labels_c = _label_ops(ops_c, params, cfg.n_layers)
+    keep_1, keep_c = _first_blocks(labels), _first_blocks(labels_c)
+    assert [labels[i] for i in keep_1] == [labels_c[i] for i in keep_c]
+    for i, j in zip(keep_1, keep_c):
+        label, one, big = labels[i], ops_1[i], ops_c[j]
+        if label is None:
+            continue
+        _, func, a1, kw = one
+        # rows per batch row of this op (a prefill unembeds its last
+        # position alone: M = B there)
+        So = big[2][1].shape[0] // B if label in ROW_OPS else S
+        ab = _put_row(label, big[2], a1, B, So, Bo)
+        want = _pick_row(label, func(*a1, **kw), Bo, 1, Bo)
+        got = _pick_row(label, func(*ab, **kw), B, So, Bo)
+        _count(res.setdefault(label, {}).setdefault(col, {}), got, want)
+        want = _pick_row(label, _plain(label, func, a1, kw, 1), Bo, 1, Bo)
+        got = _pick_row(label, _plain(label, func, ab, kw, min(S, Q_BLOCK)),
+                        B, So, Bo)
+        _count(res[label].setdefault(f"library {col}", {}), got, want)
+    # the FFN's kernels on the same words: W_in then W_out, per layer
+    assert len(calls_c) == len(calls_1) == 2 * cfg.n_layers
+    for n, (c1, cb) in enumerate(zip(calls_1, calls_c)):
+        mlp = params["layers"][n // 2]["mlp"]
+        fuse = n % 2 == 0
+        a1 = c1[1][0]
+        ab = cb[1][0].clone()
+        ab.view(B, S, -1)[:Bo, 0] = a1
+        routes = [(KERNEL_ROWS[0], lambda a: ops.dispatch(
+            a, mlp["plan_in" if fuse else "plan_out"], PACKED_DUAL,
+            cfg.spiking_T, fuse_lif=fuse,
+            n_out=(cfg.d_ff if fuse else cfg.d_model)))]
+        routes.append((KERNEL_ROWS[1] if fuse else KERNEL_ROWS[2],
+                       lambda a: ops.dispatch(
+                           a, mlp["wu" if fuse else "wd"], PACKED_DENSE,
+                           cfg.spiking_T, fuse_lif=fuse)))
+        for label, run in routes:
+            # fused: (words, U); W_out: the full sums (kernel 3 also
+            # returns a zero U)
+            o1, ob = run(a1), run(ab)
+            o1 = o1 if isinstance(o1, tuple) else (o1,)
+            ob = ob if isinstance(ob, tuple) else (ob,)
+            for x1, xb in zip(o1, ob) if fuse else [(o1[0], ob[0])]:
+                if x1.ndim == 3:              # (T, M, N) full sums
+                    got = xb.view(xb.shape[0], B, S, -1)[:, :Bo, 0]
+                else:                         # (M, N) words or U
+                    got = xb.view(B, S, -1)[:Bo, 0]
+                _count(res.setdefault(label, {}).setdefault(col, {}),
+                       got, x1)
+
+
+def _invariance(engine, prompt, window, batch_columns=True):
+    """Row invariance of one forward's products at full width: the rows of
+    an S = 1 decode (its own captured inputs) against the same rows placed
+    inside a prefill of ``prompt``, inside every decode window S = 2 ..
+    ``window.shape[1]`` (a speculative round verifies k + 1 positions, or
+    fewer where a row's budget ends), and (``batch_columns``) a row alone
+    or in a batch of 2 .. B - 1 rows against the same row in the batch of B
+    (rows retire at different steps with and without speculation).  For each
+    product, the count of differing elements and the largest absolute
+    difference; the FTP kernels (3 through the plans, 2 and 1 through the
+    dense bf16 weights on the same words) must give 0."""
+    import torch
+
+    model, params, cfg = engine.model, engine.params, engine.cfg
+    dev = engine.device
+    B, P = prompt.shape
+    toks = torch.as_tensor(prompt, device=dev).long()
+    win = torch.as_tensor(window, device=dev).long()
+    cache = model.init_cache(B, engine.max_len, device=dev)
+    (_, cache), ops_p, calls_p = _log_ops(lambda: model.prefill(
+        params, {"tokens": toks}, cache, spiking_mode="infer"))
+
+    def decode(rows, S):
+        c = {k: (v[:, :rows].clone() if k in ("k", "v")
+                 else v.clone() if isinstance(v, torch.Tensor) else v)
+             for k, v in cache.items()}
+        _, o, cl = _log_ops(lambda: model.decode(
+            params, win[:rows, :S], c, spiking_mode="infer"))
+        return o, cl
+
+    ops_1, calls_1 = decode(B, 1)
+    labels = _label_ops(ops_1, params, cfg.n_layers)
+    res = {}
+    _compare(res, "prefill", labels, ops_1, calls_1, ops_p, calls_p, params,
+             cfg, B, P, B)
+    for S in range(2, win.shape[1] + 1):
+        ops_w, calls_w = decode(B, S)
+        _compare(res, f"window S={S}", labels, ops_1, calls_1, ops_w,
+                 calls_w, params, cfg, B, S, B)
+    if batch_columns:
+        for rows in range(1, B):
+            ops_r, calls_r = decode(rows, 1)
+            _compare(res, f"batch {rows} in {B}", _label_ops(
+                ops_r, params, cfg.n_layers), ops_r, calls_r, ops_1, calls_1,
+                params, cfg, B, 1, rows)
+    torch.cuda.synchronize()
+    out = {label: {col: dict(zip(("elements", "differ", "max_abs"), v["n"]))
+                   for col, v in cols.items()} for label, cols in res.items()}
+    for label, cols in out.items():
+        for kind, picked in (("serving", [c for c in cols
+                                          if not c.startswith("library")]),
+                             ("library", [c for c in cols
+                                          if c.startswith("library")])):
+            if picked:
+                log(f"  {label:28s} {kind}: " + "; ".join(
+                    f"{col.removeprefix('library ')}: {cols[col]['differ']}/"
+                    f"{cols[col]['elements']} max {cols[col]['max_abs']:.2e}"
+                    for col in picked))
+    for label in KERNEL_ROWS:
+        for col, c in out[label].items():
+            assert c["differ"] == 0, (label, col, c)
+    return out
+
+
+def _form(inv, prefix):
+    """The gate form the columns of the invariance measurement starting
+    with ``prefix`` allow."""
+    zero = all(c["differ"] == 0 for cols in inv.values()
+               for col, c in cols.items() if col.startswith(prefix))
+    return "bitwise" if zero else "tolerance"
+
+
+def _drift(outs, logits, want_outs, want_logits):
+    """Max |logit difference| up to and including each request's first
+    differing token (the contexts differ after it), and those first
+    differing tokens with the reference's top-two margin there."""
+    import numpy as np
+
+    toks, ref = np.stack(outs), np.stack(want_outs)
+    assert toks.shape == ref.shape and logits.shape == want_logits.shape
+    differ = toks != ref
+    first = np.where(differ.any(1), differ.argmax(1), toks.shape[1] - 1)
+    steps = np.arange(toks.shape[1])[None, :] <= first[:, None]
+    drift = float(np.abs(logits - want_logits)[steps].max())
+    top2 = np.sort(want_logits, axis=-1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]
+    flips = [{"request": int(i), "step": int(first[i]),
+              "margin": float(margin[i, first[i]])}
+             for i in np.nonzero(differ.any(1))[0]]
+    return drift, flips
+
+
+def _plain_path_control(dual, prompts, float_draft):
+    """11a's control: the float-draft speculative serve against the
+    non-speculative one with the serving path's row and query blocks
+    taken out (every product a plain library call).  Logged, not gated:
+    what the blocks buy."""
+    import torch
+
+    from repro_torch.models import layers, transformer
+    from repro_torch.serve import Engine, ExecutionPolicy
+
+    model, params, cfg = dual["model"], dual["params"], dual["model"].cfg
+    saved = layers.row_blocks, layers.Q_BLOCK
+
+    def direct(fn, x, *args):
+        return fn(x, *args)
+
+    layers.row_blocks = transformer.row_blocks = direct
+    layers.Q_BLOCK = None
+    try:
+        base = Engine(model, params, max_len=SPEC_MAX_LEN, max_slots=REQUESTS,
+                      policy=ExecutionPolicy.for_arch(cfg))
+        want, want_logits, _, _ = _traced_serve(base, prompts,
+                                                "11a control plain")
+        del base
+        spec = _spec_engine(model, params, cfg, float_draft)
+        outs, got, _, _ = _traced_serve(spec, prompts, "11a control spec")
+        del spec
+    finally:
+        layers.row_blocks = transformer.row_blocks = saved[0]
+        layers.Q_BLOCK = saved[1]
+        torch.cuda.empty_cache()
+    drift, flips = _drift(outs, got, want, want_logits)
+    log(f"11a control, the plain library ops: the speculative serve's max "
+        f"|logit drift| {drift:.3e} from the non-speculative one, "
+        f"{len(flips)} token flips {flips}")
+    return {"drift": drift, "flips": flips}
+
+
+def _gate(label, form, outs, logits, want_outs, want_logits):
+    """A windowed serve (speculative verify, or a stream's frame-by-frame
+    ingest) against the single-position serve of the same call.  ``bitwise``
+    (every product of the window row-invariant): tokens and every logit
+    vector equal.  ``tolerance``: logits within WINDOW_LOGIT_TOL up to and
+    including each request's first differing token (the contexts differ
+    after it), and that token only at a near tie: the single-position
+    serve's top two logits within 2 x the measured drift (each of the two
+    can move by it).  Returns the drift and the flips with their margins."""
+    import numpy as np
+
+    drift, flips = _drift(outs, logits, want_outs, want_logits)
+    if form == "bitwise":
+        assert not flips, f"{label}: {flips}"
+        assert np.array_equal(logits, want_logits), (
+            f"{label}: {int((logits != want_logits).sum())} logits differ")
+    else:
+        assert drift <= WINDOW_LOGIT_TOL, f"{label}: drift {drift:.3e}"
+        for f in flips:
+            assert f["margin"] <= 2 * drift, f"{label}: flip away from a tie {f}"
+    log(f"{label}: gate {form}: max |logit drift| {drift:.3e}, "
+        f"{len(flips)} near-tie flips {flips}")
+    return {"form": form, "drift": drift, "flips": flips}
+
+
+def _traced_serve(engine, prompts, label, gen=GEN):
+    """A counted serve with logits captured: (tokens, (B, gen, V) logits,
+    launch counts, recorded BSR calls)."""
+    import numpy as np
+
+    engine.metrics.reset()
+    engine.logit_traces = {}
+    engine.capture_logits = True
+    calls, restore = _record(["ftp_spmm_bsr"])
+    try:
+        outs, counts = _counted(f"{label} serve",
+                                lambda: engine.generate_batch(prompts, gen))
+    finally:
+        restore()
+    traces = engine.drain_logit_traces()
+    got = np.stack([np.stack(t) for t in traces])
+    assert got.shape == (len(prompts), gen, engine.cfg.vocab), got.shape
+    return outs, got, counts, calls
+
+
+def _spec_engine(model, params, cfg, draft_policy, **kw):
+    from repro_torch.serve import Engine, ExecutionPolicy, draft
+
+    spec = draft(draft_policy, SPEC_K,
+                 draft_weight_density=kw.pop("draft_weight_density", None))
+    pol = ExecutionPolicy.for_arch(cfg, speculation=spec,
+                                   execution=kw.pop("execution", "sync"),
+                                   paging=kw.pop("paging", None))
+    return Engine(model, params, max_len=SPEC_MAX_LEN, max_slots=REQUESTS,
+                  policy=pol, **kw)
+
+
+def _split_calls(engine, calls):
+    """Split recorded BSR calls into the target's and the draft's: a draft
+    call joins against the draft's own plans, or carries its timestep gate
+    (the target's FFNs walk every plane)."""
+    target = {p.payload.data_ptr() for lp in engine.params["layers"]
+              for p in (lp["mlp"]["plan_in"], lp["mlp"]["plan_out"])}
+
+    def is_target(c):
+        return c[1][1].data_ptr() in target and c[2].get("tmap") is None
+
+    return ([c for c in calls if is_target(c)],
+            [c for c in calls if not is_target(c)])
+
+
+def _parity_all(calls, label):
+    """Every recorded BSR call against its plain version (both instances),
+    within the FTP gate; returns (max abs error, spike-word flips)."""
+    worst = (0.0, 0)
+    for n, (_, args, kw) in enumerate(calls):
+        err, flips = _parity(f"{label} call {n}", args[:8], kw["bm"],
+                             kw["fuse_lif"], kw.get("tmap"))
+        worst = (max(worst[0], err), worst[1] + flips)
+    return worst
+
+
+def _sample(calls, per_group=16):
+    """At most ``per_group`` calls of each (M, fuse_lif) group, for timing."""
+    seen, out = {}, []
+    for c in calls:
+        key = (c[1][0].shape[0], c[2]["fuse_lif"])
+        seen[key] = seen.get(key, 0) + 1
+        if seen[key] <= per_group:
+            out.append(c)
+    return out
+
+
+def _perturb_proposals(engine):
+    """Make the engine's draft adversarially wrong: in round r, proposals
+    from position r % k on are shifted by one token (on the device, no
+    read), so every live row accepts exactly r % k of them.  Every emitted
+    token is still the target's argmax.  Returns the undo."""
+    import torch
+
+    propose, vocab, rounds = engine.dispatch_propose, engine.cfg.vocab, [0]
+
+    def perturbed(chunk, cache, k):
+        toks, cache = propose(chunk, cache, k)
+        j = rounds[0] % k
+        rounds[0] += 1
+        toks = torch.cat([toks[:, :j], torch.remainder(toks[:, j:] + 1, vocab)],
+                         dim=1)
+        return toks, cache
+
+    engine.dispatch_propose = perturbed
+    return lambda: delattr(engine, "dispatch_propose")
+
+
+def _rewind_exact(model, params, cfg, draft_policy, prompts, **kw):
+    """After a speculative round that rejected proposals (the draft's
+    proposals perturbed), the cohort's position locals equal, bit for bit,
+    those of a cohort that never speculated at the same length."""
+    import torch
+
+    from repro_torch.serve import Engine, ExecutionPolicy
+
+    spec = _spec_engine(model, params, cfg, draft_policy, **kw)
+    _perturb_proposals(spec)
+    for p in prompts:
+        spec.submit(p, GEN)
+    spec.step()  # the prefill and one round, every proposal rejected
+    assert spec.metrics.n_tokens_rejected > 0, spec.summary()
+    cohort = spec.cohorts[0]
+    ref = Engine(model, params, max_len=SPEC_MAX_LEN, max_slots=REQUESTS,
+                 policy=ExecutionPolicy.for_arch(cfg))
+    for p in prompts:
+        ref.submit(p, GEN)
+    ref.step()
+    while ref.cohorts[0].length < cohort.length:
+        ref.step()
+    rc = ref.cohorts[0]
+    assert rc.length == cohort.length
+    assert cohort.cache["pos"] == rc.cache["pos"] == cohort.length
+    assert torch.equal(cohort.cache["kv_pos"], rc.cache["kv_pos"])
+    out = {"length": cohort.length,
+           "rounds": spec.metrics.n_speculative_rounds,
+           "rejected": spec.metrics.n_tokens_rejected}
+    log(f"11b rewind: after {out['rounds']} round(s) with perturbed "
+        f"proposals ({out['rejected']} rejected) the cohort's pos and kv_pos "
+        f"at length {out['length']} equal a cohort that never speculated, "
+        "bit for bit")
+    return out
+
+
+def _spec_summary(s):
+    return {k: s[k] for k in ("speculative_rounds", "draft_batches",
+                              "draft_prefills", "tokens_proposed",
+                              "tokens_accepted", "tokens_rejected",
+                              "acceptance_rate", "decode_batches",
+                              "prefill_batches")}
+
+
+def _check_round_no_host_sync(engine, prompts):
+    """A speculative serve with `dispatch_propose`, the verify
+    `dispatch_decode` and `rewind_cache` run under
+    set_sync_debug_mode("error"): none waits for the device (the round's
+    host read is its sample_sync copy).  Control: a device read inside the
+    propose raises."""
+    import torch
+
+    seen = {}
+
+    def strict(name, fn, read=False):
+        def run(*a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(*a, **kw)
+                if read:
+                    out[0].cpu()
+                return out
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                seen[name] = seen.get(name, 0) + 1
+        return run
+
+    names = ("dispatch_propose", "dispatch_decode", "rewind_cache")
+    engine.capture_logits = False
+    for name in names:
+        setattr(engine, name, strict(name, getattr(engine, name)))
+    try:
+        engine.metrics.reset()
+        engine.generate_batch(prompts, GEN)
+        torch.cuda.synchronize()
+        assert all(seen.get(n, 0) > 0 for n in names), seen
+        engine.dispatch_propose = strict(
+            "control", type(engine).dispatch_propose.__get__(engine), read=True)
+        try:
+            engine.generate_batch(prompts[:1], 4)
+        except RuntimeError as e:
+            assert "synchroniz" in str(e), e
+        else:
+            raise AssertionError("a device read inside the propose did not raise")
+    finally:
+        for name in names:
+            delattr(engine, name)
+        torch.cuda.set_sync_debug_mode("default")
+        engine.cohorts, engine.scheduler.active_slots = [], 0
+    log(f"11d no host sync: {seen['dispatch_propose']} proposes, "
+        f"{seen['dispatch_decode']} verify/decode dispatches and "
+        f"{seen['rewind_cache']} rewinds ran under set_sync_debug_mode('error');"
+        " a device read inside the propose raised (the control)")
+    return {k: v for k, v in seen.items() if k != "control"}
+
+
+def _stream_prompt(cfg):
+    """The stream's events, window by window, and its frame tokens (from a
+    session run on the host alone: encoding is deterministic)."""
+    from repro_torch.data.events import moving_blob_events, split_into_windows
+    from repro_torch.serve import EventStream, StreamSession
+
+    events = moving_blob_events(STREAM_FRAMES, height=SENSOR, width=SENSOR,
+                                window_us=STREAM_WINDOW_US, seed=SEED)
+    chunks = split_into_windows(events, STREAM_FRAMES, STREAM_WINDOW_US)
+    stream = EventStream(STREAM_WINDOW_US)
+    session = StreamSession(stream, height=SENSOR, width=SENSOR,
+                            T=cfg.spiking_T, vocab=cfg.vocab)
+    for c in chunks:
+        stream.push(c)
+        session.poll()
+    stream.close()
+    session.poll()
+    prompt = session.prompt_tokens()
+    assert prompt.shape == (STREAM_FRAMES,)
+    return chunks, prompt
+
+
+def _drive_stream(engine, chunks, cfg):
+    """One session fed one window per `engine.step()`, closed, drained;
+    returns (tokens, session)."""
+    from repro_torch.serve import EventStream, StreamSession
+
+    stream = EventStream(STREAM_WINDOW_US)
+    session = StreamSession(stream, height=SENSOR, width=SENSOR,
+                            T=cfg.spiking_T, vocab=cfg.vocab)
+    ticket = engine.submit_stream(session, GEN)
+    for c in chunks:
+        stream.push(c)
+        engine.step()
+    stream.close()
+    return engine.run()[ticket.rid], session
+
+
+def _stream_phase(dual, form, chunks, prompt):
+    """11e: the stream frame by frame against its frame tokens as one
+    prompt, under {sync, pipelined} x {dense, paged} x {full, adaptive}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import Engine, ExecutionPolicy, adaptive_t, paged
+
+    model, params, cfg = dual["model"], dual["params"], dual["model"].cfg
+    max_len = 9 * PAGE
+    assert STREAM_FRAMES + GEN <= max_len
+    mono = Engine(model, params, max_len=max_len, max_slots=1,
+                  policy=ExecutionPolicy.for_arch(cfg))
+    want, want_logits, _, _ = _traced_serve(mono, [prompt], "11e monolithic")
+    del mono
+    cells = {}
+    for execution in ("sync", "pipelined"):
+        for paging in (None, paged(PAGE)):
+            for temporal in (None, adaptive_t()):
+                label = (f"11e stream {execution} "
+                         f"{'paged' if paging else 'dense'} "
+                         f"{'adaptive' if temporal else 'full'}")
+                engine = Engine(model, params, max_len=max_len, max_slots=1,
+                                capture_logits=True,
+                                policy=ExecutionPolicy.for_arch(
+                                    cfg, execution=execution, paging=paging,
+                                    temporal=temporal))
+                (got, session), counts = _counted(
+                    label, lambda: _drive_stream(engine, chunks, cfg))
+                np.testing.assert_array_equal(session.prompt_tokens(), prompt)
+                logits = np.stack(engine.drain_logit_traces()[0])[None]
+                res = _gate(label, form, [got], logits, want, want_logits)
+                s = engine.summary()
+                assert s["stream_windows"] == STREAM_FRAMES, s["stream_windows"]
+                assert counts["ftp_bsr_tc"] == counts["ftp_bsr"] > 0, counts
+                if temporal is not None:
+                    assert s["timesteps_skipped"] >= 0
+                res.update(ftt_p50_s=s["frame_to_first_token_s_p50"],
+                           ftt_p99_s=s["frame_to_first_token_s_p99"],
+                           launches=counts["ftp_bsr"],
+                           ingest_s=s["stage_s"].get("ingest"))
+                log(f"{label}: frame-to-first-token p50 "
+                    f"{res['ftt_p50_s'] * 1e3:.1f} ms, p99 "
+                    f"{res['ftt_p99_s'] * 1e3:.1f} ms over {STREAM_FRAMES} "
+                    f"frames; {counts['ftp_bsr']} kernel 3 launches")
+                cells[label] = res
+                del engine
+                torch.cuda.empty_cache()
+    return cells
+
+
+def phase_windows(dual):
+    """Phase 11 on phase 5's params and prompts: row invariance of the
+    window path (a), speculative serves against the non-speculative serve
+    (b), packed drafts (c), timing and host waits (d), streams (e)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import Engine, ExecutionPolicy, adaptive_t, approximate, paged
+
+    model, params, prompts = dual["model"], dual["params"], dual["prompts"]
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    res = {}
+    # 11a: row invariance, B = 4, k = 4, a 128-token prefill; and at the
+    # stream's shapes (B = 1, a prefill of its 120 frame tokens)
+    log(f"11a row invariance, B={REQUESTS}, S=1 vs S={SPEC_K + 1} window vs "
+        f"a {PROMPT}-token prefill (same rows, same inputs):")
+    inv = _invariance(dual["engine"], np.stack(prompts),
+                      np.stack(dual["outs"])[:, : SPEC_K + 1])
+    chunks, sprompt = _stream_prompt(cfg)
+    log(f"11a row invariance at the stream's shapes, B=1, S=1 vs a "
+        f"{STREAM_FRAMES}-token prefill:")
+    inv_stream = _invariance(dual["engine"], sprompt[None], sprompt[None, :1],
+                             batch_columns=False)
+    # speculation: every window width and batch size its rounds run; a
+    # stream: its prefill against one frame at a time
+    forms = {"window": ("bitwise" if _form(inv, "window") == _form(inv, "batch")
+                        == "bitwise" else "tolerance"),
+             "stream": _form(inv_stream, "prefill")}
+    log(f"11a gate forms: {forms}")
+    res["invariance"] = {"spec": inv, "stream": inv_stream, "forms": forms}
+    float_draft = ExecutionPolicy.for_arch(cfg, spike_format="float",
+                                           weight_sparsity="dense")
+    res["plain_path_control"] = _plain_path_control(dual, prompts, float_draft)
+    # 11b: the non-speculative serve at the speculative geometry, then the
+    # float draft under {sync, pipelined} x {dense, paged}
+    base = Engine(model, params, max_len=SPEC_MAX_LEN, max_slots=REQUESTS,
+                  policy=ExecutionPolicy.for_arch(cfg))
+    want, want_logits, _, _ = _traced_serve(base, prompts, "11b baseline")
+    geo = float(np.abs(want_logits - dual["logits"]).max())
+    same = all(np.array_equal(a, b) for a, b in zip(want, dual["outs"]))
+    log(f"11b baseline (max_len {SPEC_MAX_LEN}) vs phase 5 (max_len "
+        f"{PROMPT + GEN}): tokens equal {same}, max |logit diff| {geo:.3e}")
+    res["baseline_vs_phase5"] = {"tokens_equal": same, "max_logit_diff": geo}
+    spec_calls = None
+    res["spec"] = {}
+    for execution in ("sync", "pipelined"):
+        for paging in (None, paged(PAGE)):
+            label = f"11b spec {execution} {'paged' if paging else 'dense'}"
+            engine = _spec_engine(model, params, cfg, float_draft,
+                                  execution=execution, paging=paging)
+            outs, got, counts, calls = _traced_serve(engine, prompts, label)
+            gate = _gate(label, forms["window"], outs, got, want, want_logits)
+            s = engine.summary()
+            assert s["speculative_rounds"] > 0, s
+            assert s["tokens_proposed"] == s["tokens_accepted"] + s["tokens_rejected"]
+            forwards = s["prefill_batches"] + s["decode_batches"]
+            assert counts["ftp_bsr"] == counts["ftp_bsr_tc"] == \
+                2 * cfg.n_layers * forwards, (counts, forwards)
+            res["spec"][label] = dict(gate, **_spec_summary(s),
+                                      launches=counts["ftp_bsr"])
+            log(f"{label}: {json.dumps(_spec_summary(s))}; kernel 3 launches "
+                f"{counts['ftp_bsr']} (2 x {cfg.n_layers} x {forwards} target "
+                f"forwards; the float draft launches none)")
+            if spec_calls is None:
+                spec_calls = calls
+            del engine
+            torch.cuda.empty_cache()
+    res["rewind"] = _rewind_exact(model, params, cfg, float_draft, prompts)
+    # 11c: packed drafts, every launch of draft and verify replayed.  The
+    # density-0.2 draft serves again with its proposals perturbed, so its
+    # rounds reject (at these random weights the FFNs do not move the
+    # argmax: a same-weights draft proposes the target's tokens)
+    res["packed"] = {}
+    for label, d_pol, kw in (
+            ("11c draft density 0.2", ExecutionPolicy.for_arch(cfg),
+             {"draft_weight_density": 0.2}),
+            ("11c draft min_spikes 2",
+             ExecutionPolicy.for_arch(cfg, temporal=adaptive_t(2),
+                                      exactness=approximate(LOGIT_TOL)), {})):
+        engine = _spec_engine(model, params, cfg, d_pol, **kw)
+        outs, got, counts, calls = _traced_serve(engine, prompts, label)
+        gate = _gate(label, forms["window"], outs, got, want, want_logits)
+        s = engine.summary()
+        target, drafted = _split_calls(engine, calls)
+        assert counts["ftp_bsr_simt"] == 0 and drafted, counts
+        if kw:
+            assert counts["ftp_bsr"] == len(calls) and not counts["ftp_bsr_adaptive"]
+        else:
+            assert counts["ftp_bsr_adaptive"] == len(drafted) > 0, counts
+            assert counts["ftp_bsr"] == len(target), counts
+        log(f"{label}: {json.dumps(_spec_summary(s))}; launches {counts}: "
+            f"{len(target)} target (prefill + verify windows), {len(drafted)} "
+            f"draft")
+        perturbed = None
+        if kw:
+            undo = _perturb_proposals(engine)
+            p_label = f"{label} perturbed"
+            p_outs, p_got, p_counts, p_calls = _traced_serve(engine, prompts,
+                                                             p_label)
+            undo()
+            p_gate = _gate(p_label, forms["window"], p_outs, p_got, want,
+                           want_logits)
+            ps = engine.summary()
+            assert ps["tokens_rejected"] > 0, ps
+            assert p_counts["ftp_bsr"] == len(p_calls), p_counts
+            log(f"{p_label}: {json.dumps(_spec_summary(ps))}; launches "
+                f"{p_counts}")
+            p_target, p_drafted = _split_calls(engine, p_calls)
+            target, drafted = target + p_target, drafted + p_drafted
+            perturbed = dict(p_gate, **_spec_summary(ps),
+                             launches=p_counts["ftp_bsr"])
+        err, flips = _parity_all(target + drafted, label)
+        log(f"{label}: all {len(calls)} launches replayed against the plain "
+            f"version (both instances): max |kernel - plain| {err:.3e}, "
+            f"{flips} spike words flipped at the threshold")
+        rows = (_replay(_sample(target), prefix=f"{label} target")
+                + _replay(_sample(drafted), prefix=f"{label} draft"))
+        res["packed"][label] = dict(gate, **_spec_summary(s), launches=counts,
+                                    target_launches=len(target),
+                                    draft_launches=len(drafted),
+                                    max_abs_err=err, flips=flips, rows=rows,
+                                    perturbed=perturbed)
+        del engine, calls, target, drafted
+        torch.cuda.empty_cache()
+    # the float-draft serve's kernel calls (its prefill and verify windows,
+    # M = B (k + 1)): held against the plain version, a sample timed
+    err, flips = _parity_all(spec_calls, "11b verify")
+    res["verify_rows"] = _replay(_sample(spec_calls), prefix="11b verify")
+    res["verify_parity"] = {"launches": len(spec_calls), "max_abs_err": err,
+                            "flips": flips}
+    del spec_calls
+    # 11d: spec vs non-spec in turns, one profiled serve each, host waits
+    spec = _spec_engine(model, params, cfg, float_draft)
+    timed = _alternate({"non-spec": base, "spec": spec}, prompts)
+    res["timing"] = {}
+    for label, engine in (("non-spec", base), ("spec", spec)):
+        med = timed[label]["median"]
+        prof = _profile(engine, prompts, med["wall_s"])
+        res["timing"][label] = {
+            "tok_s": med["throughput_tok_s"], "ttft_s_p50": med["ttft_s_p50"],
+            "wall_s": med["wall_s"], "stage_s": med["stage_s"],
+            "acceptance_rate": med["acceptance_rate"],
+            "tok_s_runs": [t["throughput_tok_s"] for t in timed[label]["timed"]],
+            "profile": prof}
+    log(f"11d spec / non-spec tok/s: "
+        f"{res['timing']['spec']['tok_s'] / res['timing']['non-spec']['tok_s']:.3f}"
+        f" (acceptance {res['timing']['spec']['acceptance_rate']:.3f})")
+    res["no_host_sync"] = _check_round_no_host_sync(spec, prompts)
+    del spec, base
+    torch.cuda.empty_cache()
+    # 11e: streams
+    res["stream"] = _stream_phase(dual, forms["stream"], chunks, sprompt)
+    log(f"phase 11 in {time.perf_counter() - t0:.1f}s")
+    return res
+
+
 def _flash_entries(flash):
     """The kernels-line entries of kernels 5-7: headline numbers from the
     train step's own attention inputs (layer 0; `tc`, with the SIMT
@@ -2295,6 +3165,7 @@ def main() -> int:
     dense_served = _replay_dense(dense["calls"])
     adaptive = phase_adaptive(dual)
     phase_features(dual, dense)
+    windows = phase_windows(dual)
     import torch
 
     ratios = {}
@@ -2308,7 +3179,8 @@ def main() -> int:
     bsr = _entry("ftp_bsr", dual["launches"], served, rows)
     bsr.update(_instances("ftp_bsr", dual["counts"], served), serve_cases=served,
                cases=rows,
-               serve=dict(_serve_summary(dual), cpu_reference=dual["cpu_reference"]))
+               serve=dict(_serve_summary(dual), cpu_reference=dual["cpu_reference"]),
+               windows=windows)
     kernels = [bsr]
     for name, fuse in (("ftp_spmm", False), ("ftp_spmm_fused_lif", True)):
         mine = [r for r in dense_served if r["fuse_lif"] == fuse]
@@ -2325,10 +3197,13 @@ def main() -> int:
                 adaptive["cases"])
     ad.update(_instances("ftp_bsr_adaptive", adaptive["counts"],
                          adaptive["served"]),
-              serve_cases=adaptive["served"], cases=adaptive["cases"])
+              serve_cases=adaptive["served"], cases=adaptive["cases"],
+              draft=windows["packed"]["11c draft min_spikes 2"])
     kernels.append(ad)
-    # the serves' params, engines and recorded calls go before training
-    del dual, dense, adaptive
+    # the serves' params, engines and recorded calls go before training (an
+    # engine and its executor refer to each other: collect the cycles)
+    del dual, dense, adaptive, windows
+    gc.collect()
     torch.cuda.empty_cache()
     log(f"phases 1-7 done at {time.perf_counter() - t0:.1f}s")
     train, captured = phase_train()

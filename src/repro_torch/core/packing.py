@@ -67,6 +67,54 @@ def block_activity_map(packed: torch.Tensor, bm: int, bk: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Event windows: the sensor-side producer of packed words.  One fixed-duration
+# window of (x, y, polarity, t_us) events becomes one (H*W,) packed word
+# vector, T timestep planes binned uniformly over the window; an empty window
+# encodes to all-zero words, which the adaptive temporal axis skips.
+# ---------------------------------------------------------------------------
+
+def encode_event_window(
+    events,
+    height: int,
+    width: int,
+    T: int,
+    window_us: int,
+    t0: int = 0,
+) -> torch.Tensor:
+    """Encode one window of sensor events into packed spike words.
+
+    ``events`` is an (N, 4) int array or tensor of ``(x, y, polarity,
+    t_us)`` rows (N may be 0).  Events with ``t_us`` in ``[t0, t0 +
+    window_us)`` bin into T uniform planes, ``tau = (t_us - t0) * T //
+    window_us``; a pixel fires at plane tau if ANY event (either polarity)
+    lands in that bin.  Events outside the window or the sensor are
+    ignored.  Returns ``(height * width,)`` int32 words in row-major pixel
+    order (``y * width + x``), bit t = plane t, on the events' device."""
+    if T > MAX_T:
+        raise ValueError(f"T={T} exceeds MAX_T={MAX_T}")
+    if T <= 0 or height <= 0 or width <= 0:
+        raise ValueError(
+            f"height/width/T must be positive, got {(height, width, T)}"
+        )
+    if window_us <= 0:
+        raise ValueError(f"window_us must be positive, got {window_us}")
+    ev = torch.as_tensor(events, dtype=torch.int64).reshape(-1, 4)
+    x, y, t = ev[:, 0], ev[:, 1], ev[:, 3]
+    rel = t - int(t0)
+    valid = ((rel >= 0) & (rel < window_us) & (x >= 0) & (x < width)
+             & (y >= 0) & (y < height))
+    # clip AFTER masking: an out-of-range row scatters a 0 into a safe slot,
+    # and the max keeps every 1 another row put there
+    tau = torch.clamp(rel * T // window_us, 0, T - 1)
+    idx = torch.clamp(y * width + x, 0, height * width - 1)
+    plane = torch.zeros((T * height * width,), dtype=torch.int64,
+                        device=ev.device)
+    plane.scatter_reduce_(0, tau * (height * width) + idx,
+                          valid.to(torch.int64), reduce="amax")
+    return pack_spikes(plane.reshape(T, height * width))
+
+
+# ---------------------------------------------------------------------------
 # Timestep (bit-plane) activity: the temporal third of the join.  A plane
 # whose bit is clear in every word contributes exactly zero to every sum,
 # so skipping its work is bitwise (the LIF still walks all T).  Scoring is

@@ -193,19 +193,23 @@ def _ffn_dense(pm, w_in, w_out, cfg: SpikingConfig):
     return packed_h, ftp_spmspm(packed_h, w_out, cfg.T)
 
 
-def _ffn_dual_sparse(pm, plan_in, plan_out, w_in, w_out, cfg: SpikingConfig):
+def _ffn_dual_sparse(pm, plan_in, plan_out, w_in, w_out, cfg: SpikingConfig,
+                     policy=None):
     """Both FFN GEMMs through the dual-sparse BSR kernel: fused P-LIF on the
-    hidden layer (packed words out), full sums on the output layer.
-    Returns (packed hidden words (M, F), full sums (T, M, D))."""
+    hidden layer (packed words out), full sums on the output layer, under
+    ``policy`` (default PACKED_DUAL; an adaptive temporal axis gates the
+    planes in the kernel).  Returns (packed hidden words (M, F), full sums
+    (T, M, D))."""
     from repro_torch.kernels import ops
     from repro_torch.serve.policy import PACKED_DUAL
 
+    policy = PACKED_DUAL if policy is None else policy
     packed_h, _ = ops.dispatch(
-        pm, plan_in, PACKED_DUAL, cfg.T,
+        pm, plan_in, policy, cfg.T,
         fuse_lif=True, v_th=cfg.v_th, tau=cfg.tau, n_out=w_in.shape[1],
     )
     o, _ = ops.dispatch(
-        packed_h, plan_out, PACKED_DUAL, cfg.T,
+        packed_h, plan_out, policy, cfg.T,
         fuse_lif=False, n_out=w_out.shape[1],
     )
     return packed_h, o
@@ -217,15 +221,16 @@ def spiking_ffn_apply(
     cfg: SpikingConfig,
     mode: str = "train",
     plans: tuple | None = None,
+    policy=None,
 ) -> torch.Tensor:
     """x: (..., d_model) analog activations -> (..., d_model).
 
     direct-encode(x) -> spikes --W_in--> LIF -> spikes --W_out--> full sums
     -> rate decode.  In ``infer`` mode a (plan_in, plan_out) pair (argument
     or attached by `attach_join_plans`) runs both GEMMs through the
-    dual-sparse BSR kernel; without plans they run against the dense
-    weights: the dense-weight kernels on the card, the plain FTP path on the
-    CPU."""
+    dual-sparse BSR kernel (under ``policy``, default PACKED_DUAL); without
+    plans they run against the dense weights: the dense-weight kernels on
+    the card, the plain FTP path on the CPU."""
     w_in, w_out = params["w_in"], params["w_out"]
     if plans is None:
         plans = (params.get("plan_in"), params.get("plan_out"))
@@ -243,7 +248,8 @@ def spiking_ffn_apply(
     elif mode == "infer":
         packed_in = pack_spikes(spikes_in)
         if plan_in is not None:
-            _, o = _ffn_dual_sparse(packed_in, plan_in, plan_out, w_in, w_out, cfg)
+            _, o = _ffn_dual_sparse(packed_in, plan_in, plan_out, w_in, w_out,
+                                    cfg, policy)
         else:
             _, o = _ffn_dense(packed_in, w_in, w_out, cfg)
     else:

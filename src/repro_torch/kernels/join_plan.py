@@ -78,7 +78,6 @@ class WeightJoinPlan:
         return self.nnb * self.bn
 
 
-
 def build_block_csr(b: torch.Tensor, bk: int, bn: int):
     """Compress (K, N) weights into block-CSR: gathered non-zero (bk, bn)
     blocks (on ``b``'s device) + a host (nkb, nnb) -> payload-index map (-1
@@ -133,3 +132,18 @@ def build_weight_plan(
         cnt=torch.from_numpy(cnt).to(dev),
         bmap=torch.from_numpy(nz).to(dev),
     )
+
+
+def prune_to_density(w: torch.Tensor, density: float) -> torch.Tensor:
+    """Re-prune one (K, N) FFN weight to a lower block density: the
+    speculative draft's weights (`ExecutionPolicy.speculation`'s
+    ``draft_weight_density``).  The same block-magnitude rule and
+    `pick_plan_blocks` geometry as `mlp_init`'s load-time prune (the
+    reference's block count, a floor of ``nblocks * density``), so the
+    draft's plan is built by the ordinary `build_weight_plan`."""
+    from repro_torch.core.snn_layers import prune_by_magnitude
+
+    K, N = w.shape
+    bk, bn = pick_plan_blocks(K, N)
+    block = (bk, bn) if (K % bk == 0 and N % bn == 0) else None
+    return prune_by_magnitude(w, density, block=block)

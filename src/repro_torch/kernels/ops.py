@@ -16,6 +16,7 @@
   on the device too, and the adaptive instance of the kernel skips the
   planes it gates.
 
+`dispatch_decode_window` is the speculative verify's (B, S, K) entry.
 Per-call plan building (dual_sparse policy with raw weights) and the mesh
 entries are later slices and raise.  ``ftp_spmm.launch_counts()`` counts
 each kernel's launches: the port's counterpart of the reference's
@@ -190,3 +191,25 @@ def dispatch(
         return fn(a, weights_or_plan, T, v_th, tau)
     fn = _spmm_batched if batched else _spmm
     return fn(a, weights_or_plan, T)
+
+
+def dispatch_decode_window(a, weights_or_plan, policy, T: int, **kwargs):
+    """Decode-window entry for the speculative verify: ``a`` is a packed
+    (B, S, K) operand, S = k + 1 positions of one round per batch row.  The
+    window folds into B * S rows of `dispatch` (the weight side streams once
+    per round), and every kernel under it is row-parallel, so each
+    position's output equals its own (B, 1) dispatch bit for bit.  Under
+    ``temporal='adaptive'`` the plane score is pooled over the folded window
+    (a plane skips only when silent at every position of every row)."""
+    if getattr(a, "ndim", None) != 3:
+        raise ValueError(
+            "dispatch_decode_window takes a packed (B, S, K) window, got "
+            f"shape {getattr(a, 'shape', None)} — use dispatch() for "
+            "unbatched or float operands"
+        )
+    if policy.spike_format != "packed":
+        raise ValueError(
+            "decode windows are packed-spike shaped; policy has "
+            f"spike_format={policy.spike_format!r}"
+        )
+    return dispatch(a, weights_or_plan, policy, T, **kwargs)

@@ -20,6 +20,16 @@ keeps the sampled tokens on the device behind a window of D steps;
 ``--paging paged --page-size N`` stores the KV cache in N-position pages
 with radix prefix reuse (max_len is rounded up to a multiple of N).
 ``--batch-align`` pads prefill batches to a multiple of it.
+
+Speculative decoding: ``--speculation draft --k K`` has a cheaper draft
+policy over the same weights propose K tokens a round (the packed target's
+own policy, unless ``--draft-weight-density D`` prunes its FFNs harder or
+``--draft-min-spikes N`` gates its timestep planes); the target verifies
+all K + 1 positions in one decode.  ``--stream`` serves event streams
+instead of token prompts: each request is a `StreamSession` fed one
+synthetic sensor window (``--window-us``) per engine step, admitted on its
+first complete window and closed explicitly or by ``--idle-timeout``
+microseconds of event-time silence; ``--prompt-len`` then counts windows.
 """
 from __future__ import annotations
 
@@ -58,6 +68,83 @@ def build_config(arch: str, *, smoke: bool, spiking: bool,
         cfg = dataclasses.replace(cfg, spiking_ffn=True,
                                   spiking_weight_density=weight_density)
     return cfg
+
+
+def build_policy(args, cfg):
+    """The `ExecutionPolicy` the flags name."""
+    from repro_torch.serve import (
+        ExecutionPolicy,
+        Paging,
+        Temporal,
+        adaptive_t,
+        approximate,
+        bitwise,
+        draft,
+        paged,
+    )
+
+    speculation = None
+    if args.speculation == "draft":
+        # the draft: the target's arch under its own (sync, unpaged) policy,
+        # cheaper by harder-pruned weights and/or a lossy timestep gate; a
+        # lossy draft only lowers acceptance, the emitted tokens are the
+        # target's
+        d_policy = ExecutionPolicy.for_arch(
+            cfg,
+            temporal=(adaptive_t(args.draft_min_spikes)
+                      if args.draft_min_spikes else Temporal()),
+            exactness=(approximate(args.tol) if args.draft_min_spikes > 1
+                       else bitwise()),
+        )
+        speculation = draft(
+            d_policy, args.k,
+            draft_weight_density=args.draft_weight_density or None)
+    return ExecutionPolicy.for_arch(
+        cfg, spike_format=args.spike_format,
+        weight_sparsity=args.weight_sparsity,
+        exactness=(approximate(args.tol) if args.exactness == "approximate"
+                   else bitwise()),
+        execution=args.execution,
+        paging=(paged(args.page_size) if args.paging == "paged" else Paging()),
+        temporal=(adaptive_t(args.min_spikes) if args.temporal == "adaptive"
+                  else Temporal()),
+        speculation=speculation,
+    )
+
+
+def serve_streams(engine, cfg, args):
+    """Feed ``--batch`` synthetic sensor streams through the engine, one
+    event window per `engine.step()`; returns (outputs, sessions)."""
+    from repro_torch.data.events import moving_blob_events, split_into_windows
+    from repro_torch.serve import EventStream, StreamSession
+
+    n_win = args.prompt_len
+    sessions, tickets, feeds = [], [], []
+    for i in range(args.batch):
+        # every other stream goes dark for one window: the gap still makes a
+        # frame (all-silent words), whose planes --temporal adaptive skips
+        silent = (n_win // 2,) if i % 2 and n_win > 1 else ()
+        events = moving_blob_events(n_win, height=16, width=16,
+                                    window_us=args.window_us, seed=i,
+                                    silent=silent)
+        stream = EventStream(args.window_us,
+                             idle_timeout_us=args.idle_timeout or None)
+        session = StreamSession(stream, height=16, width=16,
+                                T=cfg.spiking_T, vocab=cfg.vocab)
+        tickets.append(engine.submit_stream(session, args.gen))
+        sessions.append(session)
+        feeds.append(split_into_windows(events, n_win, args.window_us))
+    for w in range(n_win):
+        for session, chunks in zip(sessions, feeds):
+            session.stream.push(chunks[w])
+        engine.step()
+    for session in sessions:
+        if args.idle_timeout:
+            session.stream.tick(n_win * args.window_us + args.idle_timeout)
+        else:
+            session.stream.close()
+    out = engine.run()
+    return [out[t.rid] for t in tickets], sessions
 
 
 def main(argv=None) -> int:
@@ -121,6 +208,36 @@ def main(argv=None) -> int:
                     help="minimum total spikes for a timestep plane under "
                          "--temporal adaptive; 1 skips only all-silent "
                          "planes (bitwise), >1 needs --exactness approximate")
+    ap.add_argument("--speculation", choices=("none", "draft"),
+                    default="none",
+                    help="policy.speculation: draft = a cheaper draft policy "
+                         "over the same weights proposes --k tokens a round "
+                         "in one chained dispatch; the target verifies all "
+                         "k+1 positions in one decode and emits the longest "
+                         "matching prefix plus its own bonus token")
+    ap.add_argument("--k", type=int, default=4,
+                    help="proposal length per round under --speculation "
+                         "draft")
+    ap.add_argument("--draft-weight-density", type=float, default=0.0,
+                    help="prune the draft's FFN weights to this density "
+                         "(<= --weight-density; 0 = the target's weights)")
+    ap.add_argument("--draft-min-spikes", type=int, default=0,
+                    help="run the draft with temporal='adaptive' at this "
+                         "min-spikes threshold (0 = full temporal walk; >1 "
+                         "makes the DRAFT lossy, which only lowers "
+                         "acceptance)")
+    ap.add_argument("--stream", action="store_true",
+                    help="serve event streams instead of token prompts: "
+                         "each request is a StreamSession fed one synthetic "
+                         "sensor window per engine step; --prompt-len counts "
+                         "windows (one frame token each)")
+    ap.add_argument("--window-us", type=int, default=1000,
+                    help="event-time width of one stream window under "
+                         "--stream")
+    ap.add_argument("--idle-timeout", type=int, default=0,
+                    help="under --stream: event-time microseconds of silence "
+                         "after which tick() closes a stream (0 = close it "
+                         "once every window is pushed)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain versions)")
@@ -129,33 +246,18 @@ def main(argv=None) -> int:
     from repro_torch import resolve_device
     from repro_torch.kernels import ftp_spmm
     from repro_torch.models.registry import build_model
-    from repro_torch.serve import (
-        Engine,
-        ExecutionPolicy,
-        Paging,
-        Temporal,
-        adaptive_t,
-        approximate,
-        bitwise,
-        check_parity,
-        paged,
-    )
+    from repro_torch.serve import Engine, Temporal, bitwise, check_parity
 
     cfg = build_config(args.arch, smoke=args.smoke, spiking=args.spiking,
                        weight_density=args.weight_density)
     device = resolve_device(args.device)
-    policy = ExecutionPolicy.for_arch(
-        cfg, spike_format=args.spike_format,
-        weight_sparsity=args.weight_sparsity,
-        exactness=(approximate(args.tol) if args.exactness == "approximate"
-                   else bitwise()),
-        execution=args.execution,
-        paging=(paged(args.page_size) if args.paging == "paged" else Paging()),
-        temporal=(adaptive_t(args.min_spikes) if args.temporal == "adaptive"
-                  else Temporal()),
-    )
+    policy = build_policy(args, cfg)
     print(f"policy: {policy.describe()}  device: {device}")
     max_len = args.prompt_len + args.gen
+    if policy.speculation.enabled:
+        # a verify window may pass a row's budget by up to k positions
+        # (rolled back); the scheduler reserves that slack
+        max_len += policy.speculation.k
     if policy.paging.enabled:
         # whole pages per row; the spare positions are masked, never read
         ps = policy.paging.page_size
@@ -171,7 +273,12 @@ def main(argv=None) -> int:
                     capture_logits=not policy.token_identical,
                     pipeline_depth=args.pipeline_depth, device=device)
     before = ftp_spmm.launch_counts()
-    outs = engine.generate_batch(prompts, args.gen)
+    if args.stream:
+        outs, sessions = serve_streams(engine, cfg, args)
+        # the frame-token prompts, for the drift reference below
+        prompts = [sess.prompt_tokens() for sess in sessions]
+    else:
+        outs = engine.generate_batch(prompts, args.gen)
     s = engine.summary()
     s["kernel_launches"] = {k: n - before[k]
                             for k, n in ftp_spmm.launch_counts().items()}
@@ -198,6 +305,16 @@ def main(argv=None) -> int:
     if policy.temporal.enabled:
         print(f"temporal: {policy.temporal.describe()} — "
               f"{s['timesteps_skipped']} timestep planes skipped")
+    if policy.speculation.enabled:
+        print(f"speculation: {policy.speculation.describe()} — "
+              f"{s['speculative_rounds']} rounds, "
+              f"{s['tokens_accepted']}/{s['tokens_proposed']} proposals "
+              f"accepted ({s['acceptance_rate']:.0%})")
+    if args.stream:
+        print(f"streamed {s['stream_sessions']} sessions / "
+              f"{s['stream_windows']} frames — frame->first-token "
+              f"p50 {s['frame_to_first_token_s_p50'] * 1e3:.1f}ms / "
+              f"p99 {s['frame_to_first_token_s_p99'] * 1e3:.1f}ms")
     print(f"served {s['n_requests']} requests / {s['total_tokens']} tokens "
           f"in {s['wall_s']:.2f}s ({s['throughput_tok_s']:.1f} tok/s, "
           f"ttft_p50 {s['ttft_s_p50'] * 1e3:.0f}ms, "

@@ -19,6 +19,14 @@ import torch
 from repro_torch.configs.base import ArchConfig
 
 SPIKING_MODES = ("train", "infer")
+# Rows per call of the serving forward's row-blocked ops (`row_blocks`): a
+# decode step (B rows), a speculative verify window (B (k + 1) rows) and a
+# stream's frame all fit one block.
+ROW_BLOCK = 64
+# Query positions per attention call of the serving forward
+# (`multihead_attention(q_block=...)`): a decode step and a verify window
+# fit one block, a prefill takes several.
+Q_BLOCK = 32
 
 
 def _dt(cfg: ArchConfig) -> torch.dtype:
@@ -39,10 +47,39 @@ def dense_init(gen: torch.Generator, shape, dtype, fan_in=None) -> torch.Tensor:
 # norms and RoPE
 # ---------------------------------------------------------------------------
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """RMS norm scaled by ``1 + scale`` (scales are zero-initialised)."""
+def row_blocks(fn, x: torch.Tensor, *args) -> torch.Tensor:
+    """``fn(rows, *args)`` over blocks of ``ROW_BLOCK`` rows of the 2-D
+    ``x`` (the last block zero-padded), as one result for x's rows.  Every
+    call of ``fn`` sees one shape, so the library runs one algorithm and a
+    row's values do not depend on how many rows share the dispatch (a
+    decode step, a speculative verify window, a prefill): the property
+    speculation and stream ingestion rest on.  On the card the rmsnorm's
+    row mean, the f32 unembed and the projections go through it (PERF.md
+    has the measurement)."""
+    n = x.shape[0]
+    pad = (-n) % ROW_BLOCK
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    out = [fn(x[i:i + ROW_BLOCK], *args) for i in range(0, n + pad, ROW_BLOCK)]
+    return (out[0] if len(out) == 1 else torch.cat(out))[:n]
+
+
+def _mean_square(x: torch.Tensor) -> torch.Tensor:
+    return (x * x).mean(-1, keepdim=True)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5, *,
+            row_invariant: bool = False) -> torch.Tensor:
+    """RMS norm scaled by ``1 + scale`` (scales are zero-initialised).
+    ``row_invariant`` (the serving forward) takes the row mean in
+    `row_blocks`; the values are the same function of each row."""
     x32 = x.float()
-    var = (x32 * x32).mean(-1, keepdim=True)
+    if row_invariant:
+        D = x.shape[-1]
+        var = row_blocks(_mean_square, x32.reshape(-1, D)).reshape(
+            tuple(x.shape[:-1]) + (1,))
+    else:
+        var = _mean_square(x32)
     return (x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
 
 
@@ -80,7 +117,7 @@ def _attn_mask(iq, jk) -> torch.Tensor:
 
 
 def multihead_attention(q, k, v, cfg: ArchConfig, *, q_offset: int,
-                        kv_positions: torch.Tensor):
+                        kv_positions: torch.Tensor, q_block: int | None = None):
     """q: (B, Sq, H, dh); k, v: (B, Skv, KV, dh) -> (B, Sq, H, dh); the
     queries sit at positions ``q_offset ..``, the kv slots at
     ``kv_positions`` (Skv,).
@@ -89,7 +126,10 @@ def multihead_attention(q, k, v, cfg: ArchConfig, *, q_offset: int,
     dtype before the value contraction — the reference's form, not a fused
     attention kernel.  Queries run in chunks of ``cfg.attn_chunk`` when it
     divides Sq, which bounds the live (cq, Skv) score tile; every query row
-    computes the same values either way."""
+    computes the same values either way.  ``q_block`` (the serving forward)
+    runs the queries in blocks of exactly that many positions, the last one
+    zero-padded: every product then has one shape, and a query row's values
+    do not depend on Sq (the library picks its algorithm by shape)."""
     B, Sq, H, dh = q.shape
     G = H // k.shape[2]
     KV = k.shape[2]
@@ -106,6 +146,16 @@ def multihead_attention(q, k, v, cfg: ArchConfig, *, q_offset: int,
         o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), vf)
         return o.to(q.dtype)
 
+    if q_block:
+        n = -(-Sq // q_block) * q_block
+        if n > Sq:
+            qg = torch.cat([qg, qg.new_zeros((B, n - Sq) + tuple(qg.shape[2:]))],
+                           dim=1)
+        iq = q_offset + torch.arange(n, device=q.device)
+        o = [chunk_attn(qg[:, c:c + q_block], iq[c:c + q_block])
+             for c in range(0, n, q_block)]
+        o = (o[0] if len(o) == 1 else torch.cat(o, dim=1))[:, :Sq]
+        return o.reshape(B, Sq, H, dh)
     iq = q_offset + torch.arange(Sq, device=q.device)
     cq = cfg.attn_chunk
     if cq and Sq > cq and Sq % cq == 0:
@@ -131,16 +181,21 @@ def attn_apply(p, x, cfg: ArchConfig, *, positions, cache=None):
     B, S, D = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
     ct = _ct(cfg)
-    xc = x.to(ct)
-    q = (xc @ p["wq"].to(ct)).reshape(B, S, H, dh)
-    k = (xc @ p["wk"].to(ct)).reshape(B, S, KV, dh)
-    v = (xc @ p["wv"].to(ct)).reshape(B, S, KV, dh)
+    # every projection is a contiguous 2-D (B*S, D) product; a serving
+    # forward (with a cache) runs it over fixed row blocks, so a position's
+    # values do not depend on B and S (`row_blocks`)
+    xc = x.to(ct).reshape(B * S, D)
+    proj = _row_invariant_matmul if cache is not None else torch.matmul
+    q = proj(xc, p["wq"].to(ct)).reshape(B, S, H, dh)
+    k = proj(xc, p["wk"].to(ct)).reshape(B, S, KV, dh)
+    v = proj(xc, p["wv"].to(ct)).reshape(B, S, KV, dh)
     q = rope_apply(q, positions, cfg.rope_theta)
     k = rope_apply(k, positions, cfg.rope_theta)
     if cache is None:
         o = multihead_attention(q, k, v, cfg, q_offset=0,
                                 kv_positions=torch.arange(S, device=x.device))
-        return (o.reshape(B, S, H * dh) @ p["wo"].to(ct)).to(x.dtype)
+        out = o.reshape(B * S, H * dh) @ p["wo"].to(ct)
+        return out.reshape(B, S, D).to(x.dtype)
     pos = cache["pos"]
     if pos + S > cache["k"].shape[1]:
         raise ValueError(
@@ -152,10 +207,14 @@ def attn_apply(p, x, cfg: ArchConfig, *, positions, cache=None):
     cache["v"][:, pos:pos + S] = v.to(cache["v"].dtype)
     o = multihead_attention(
         q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), cfg,
-        q_offset=pos, kv_positions=cache["kv_pos"],
+        q_offset=pos, kv_positions=cache["kv_pos"], q_block=Q_BLOCK,
     )
-    out = o.reshape(B, S, H * dh) @ p["wo"].to(ct)
-    return out.to(x.dtype)
+    out = proj(o.reshape(B * S, H * dh), p["wo"].to(ct))
+    return out.reshape(B, S, D).to(x.dtype)
+
+
+def _row_invariant_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return row_blocks(torch.matmul, x, w)
 
 
 # ---------------------------------------------------------------------------
@@ -215,6 +274,26 @@ def attach_spiking_ffn_plans(params: dict, cfg: ArchConfig) -> dict:
     return dict(params, layers=layers)
 
 
+def derive_draft_params(params: dict, cfg: ArchConfig, density: float) -> dict:
+    """Second param tree for speculative drafts: every spiking-FFN weight
+    pair re-pruned to ``density`` (below the target's
+    ``cfg.spiking_weight_density``), every other leaf SHARED with the
+    target tree (the same tensors).  Returns a plan-free tree; the caller
+    attaches the draft's own plans with `attach_spiking_ffn_plans`."""
+    if not cfg.spiking_ffn:
+        raise ValueError("draft weight pruning needs a spiking-FFN arch")
+    from repro_torch.kernels.join_plan import prune_to_density
+
+    def prune(mlp):
+        out = {k: v for k, v in mlp.items() if k not in ("plan_in", "plan_out")}
+        out["wu"] = prune_to_density(mlp["wu"], density)
+        out["wd"] = prune_to_density(mlp["wd"], density)
+        return out
+
+    layers = [dict(lp, mlp=prune(lp["mlp"])) for lp in params["layers"]]
+    return dict(params, layers=layers)
+
+
 def _sigmoid(x: torch.Tensor) -> torch.Tensor:
     """1 / (1 + exp(-x)) op by op in x's dtype: XLA expands the reference's
     logistic so, and torch.sigmoid rounds a bf16 result differently."""
@@ -234,7 +313,10 @@ def mlp_apply(p, x, cfg: ArchConfig, spiking_mode: str = "train"):
     dual-sparse BSR kernel, ``infer`` without plans runs them against the
     dense weights (through the dense-weight kernels when the activations
     are on the card: the reference turns its kernels on when its backend
-    is the TPU), ``train`` runs the differentiable float path.  Dense:
+    is the TPU), ``train`` runs the differentiable float path.  A plan
+    route whose tree carries an ``ffn_policy`` (a speculative draft with an
+    adaptive temporal axis, `Engine._configure_draft`) runs both GEMMs
+    under that policy, so its timestep gate reaches the kernel.  Dense:
     swiglu / geglu / sq_relu / gelu in the compute dtype, whatever the
     mode."""
     if spiking_mode not in SPIKING_MODES:
@@ -264,5 +346,6 @@ def mlp_apply(p, x, cfg: ArchConfig, spiking_mode: str = "train"):
         plans = (p["plan_in"], p["plan_out"])  # the kernel reads only these
     else:  # the float and dense paths contract the compute-dtype values
         weights = {k: w.to(ct) for k, w in weights.items()}
-    y = spiking_ffn_apply(weights, xc, scfg, mode=spiking_mode, plans=plans)
+    y = spiking_ffn_apply(weights, xc, scfg, mode=spiking_mode, plans=plans,
+                          policy=p.get("ffn_policy"))
     return y.to(x.dtype)

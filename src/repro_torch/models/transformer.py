@@ -27,6 +27,7 @@ from .layers import (
     mlp_apply,
     mlp_init,
     rmsnorm,
+    row_blocks,
 )
 
 
@@ -51,12 +52,17 @@ def block_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
 
 def block_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
                 spiking_mode: str = "train"):
-    """Pre-norm transformer block; returns the new residual stream."""
-    h = attn_apply(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
-                   positions=positions, cache=cache)
+    """Pre-norm transformer block; returns the new residual stream.  A
+    serving forward (with a cache) takes its norms' row means row-invariant
+    (`layers.row_blocks`)."""
+    serving = cache is not None
+    h = attn_apply(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps,
+                                      row_invariant=serving),
+                   cfg, positions=positions, cache=cache)
     x = x + h
-    h2 = mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg,
-                   spiking_mode=spiking_mode)
+    h2 = mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps,
+                                     row_invariant=serving),
+                   cfg, spiking_mode=spiking_mode)
     return x + h2
 
 
@@ -107,8 +113,12 @@ def _unembed_weight(p, cfg: ArchConfig) -> torch.Tensor:
 
 
 def unembed(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    """(B, S, D) -> (B, S, V) f32 logits."""
-    return x.to(_ct(cfg)).float() @ _unembed_weight(p, cfg)
+    """(B, S, D) -> (B, S, V) f32 logits of the serving forward: the
+    product over fixed blocks of rows (`layers.row_blocks`), so a row's
+    logits do not depend on how many rows share the dispatch."""
+    B, S, D = x.shape
+    xf = x.to(_ct(cfg)).float().reshape(B * S, D)
+    return row_blocks(torch.matmul, xf, _unembed_weight(p, cfg)).reshape(B, S, -1)
 
 
 def _stack_forward(layers, x, cfg: ArchConfig, positions):
@@ -150,7 +160,7 @@ def ce_loss(p, cfg: ArchConfig, x, labels) -> torch.Tensor:
     lt = torch.clamp(lt, min=0)
 
     def ce(xc, lc):
-        logits = unembed(p, cfg, xc[None])[0]  # (c, V) f32
+        logits = xc.to(_ct(cfg)).float() @ _unembed_weight(p, cfg)  # (c, V)
         lse = torch.logsumexp(logits, dim=-1)
         return lse - logits.gather(-1, lc[:, None])[:, 0]
 
@@ -219,7 +229,7 @@ def prefill(p, cfg: ArchConfig, batch: dict, cache, *,
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     x, new_cache = _stack_forward_cached(p["layers"], x, cfg, positions,
                                          cache, spiking_mode)
-    x = rmsnorm(x, p["final_norm"], cfg.norm_eps)
+    x = rmsnorm(x, p["final_norm"], cfg.norm_eps, row_invariant=True)
     return unembed(p, cfg, x[:, -1:]), new_cache
 
 
@@ -233,5 +243,5 @@ def decode_step(p, cfg: ArchConfig, tokens, cache, *,
     positions = (cache["pos"] + torch.arange(S, device=x.device))[None].expand(B, S)
     x, new_cache = _stack_forward_cached(p["layers"], x, cfg, positions,
                                          cache, spiking_mode)
-    x = rmsnorm(x, p["final_norm"], cfg.norm_eps)
+    x = rmsnorm(x, p["final_norm"], cfg.norm_eps, row_invariant=True)
     return unembed(p, cfg, x), new_cache

@@ -1,5 +1,6 @@
 """Serving: continuous-batching engine, scheduler, step executors, paged
-cache storage and execution policy (port of `repro.serve`, one device)."""
+cache storage, speculative decoding, event-stream prompts and execution
+policy (port of `repro.serve`, one device)."""
 from .batching import (
     CacheOps,
     DenseCacheOps,
@@ -20,6 +21,7 @@ from .paging import (
     PrefixEntry,
     RadixPrefixIndex,
     SpikeSlotPool,
+    propose_chain,
 )
 from .policy import (
     FLOAT_DENSE,
@@ -30,11 +32,14 @@ from .policy import (
     ExecutionPolicy,
     Paging,
     ParityError,
+    Speculation,
     Temporal,
+    acceptance_lengths,
     adaptive_t,
     approximate,
     bitwise,
     check_parity,
+    draft,
     drift_report,
     max_logit_drift,
     paged,
@@ -46,16 +51,19 @@ from .scheduler import (
     RequestState,
     Scheduler,
 )
+from .streaming import Backpressure, EventStream, Frame, StreamSession
 
 __all__ = [
-    "AdmissionError", "AdmissionTicket", "CacheOps", "CacheStore", "Cohort",
-    "DenseCacheOps", "Engine", "EngineMetrics", "Exactness",
-    "ExecutionPolicy", "FLOAT_DENSE", "PACKED_DENSE", "PACKED_DUAL",
-    "PACKED_DUAL_ADAPTIVE", "PackedSpikeCache", "PageLayout",
-    "PagePoolExhausted", "PagedCache", "PagedCacheOps", "PagedSpikeCache",
-    "Paging", "ParityError", "PendingStep", "PipelinedExecutor",
-    "PrefixEntry", "RadixPrefixIndex", "Request", "RequestMetrics",
-    "RequestState", "Scheduler", "SpikeSlotPool", "SyncExecutor", "Temporal",
-    "adaptive_t", "approximate", "bitwise", "bucket_key", "check_parity",
-    "drift_report", "make_executor", "max_logit_drift", "pad_batch", "paged",
+    "AdmissionError", "AdmissionTicket", "Backpressure", "CacheOps",
+    "CacheStore", "Cohort", "DenseCacheOps", "Engine", "EngineMetrics",
+    "EventStream", "Exactness", "ExecutionPolicy", "FLOAT_DENSE", "Frame",
+    "PACKED_DENSE", "PACKED_DUAL", "PACKED_DUAL_ADAPTIVE", "PackedSpikeCache",
+    "PageLayout", "PagePoolExhausted", "PagedCache", "PagedCacheOps",
+    "PagedSpikeCache", "Paging", "ParityError", "PendingStep",
+    "PipelinedExecutor", "PrefixEntry", "RadixPrefixIndex", "Request",
+    "RequestMetrics", "RequestState", "Scheduler", "Speculation",
+    "SpikeSlotPool", "StreamSession", "SyncExecutor", "Temporal",
+    "acceptance_lengths", "adaptive_t", "approximate", "bitwise",
+    "bucket_key", "check_parity", "draft", "drift_report", "make_executor",
+    "max_logit_drift", "pad_batch", "paged", "propose_chain",
 ]

@@ -1,6 +1,6 @@
 """Continuous-batching serving engine (port of `repro.serve.engine`: one
 device; sync or pipelined execution; dense or paged cache storage with
-radix prefix reuse).
+radix prefix reuse; speculative decoding; event-stream prompts).
 
 Each `step()` runs the staged executor (`serve/executor.py`) the policy's
 ``execution`` axis selects:
@@ -41,6 +41,18 @@ through `kernels.ops.dispatch`.
 `RadixPrefixIndex` (on by default where its contract holds) serves a
 repeated prompt from the pages its first prefill wrote.
 
+``speculation=draft(policy, k)`` gives each cohort a draft cache of its own
+(a second page-table column under paging): a round proposes k tokens with
+the draft in one chained dispatch (`dispatch_propose`), the target
+verifies all k + 1 positions in one decode, and rejected positions roll
+back by `rewind_cache`, host arithmetic on the position plus a device-side
+reset of ``kv_pos``.
+
+Prompts need not be complete at submit time: `submit_stream` queues a
+`serve.streaming.StreamSession` whose frames are ingested one decode-shaped
+chunk at a time as they arrive; generation starts once the stream closes,
+with the tokens of the same frames submitted as one prompt.
+
 The engine runs on the CUDA device unless ``device`` names another one; it
 raises when there is no card and no device was named.
 """
@@ -66,6 +78,7 @@ from .paging import (
     PageLayout,
     RadixPrefixIndex,
     SpikeSlotPool,
+    propose_chain,
 )
 from .policy import ExecutionPolicy
 from .scheduler import AdmissionTicket, RequestState, Scheduler
@@ -80,7 +93,17 @@ class Cohort:
     argmax of the last prefill/decode (all rows), None after a membership
     change.  ``pending`` is the pipelined executor's in-flight window:
     decode steps dispatched but not yet landed on the host (always empty
-    under sync)."""
+    under sync).
+
+    ``stream`` marks an INGESTING cohort: its prompt is still arriving as
+    event frames, so it neither merges nor decodes, and ``pending`` holds
+    the one un-emitted step of its last ingested frame (the first generated
+    token once the stream closes).  ``draft_cache`` is the speculative
+    draft's cache of the cohort's rows, built at its first round from
+    host-known history and dropped whenever keeping it would take more than
+    a row edit; ``draft_behind = 1`` marks it one position short of the
+    target's (a fully accepted round never fed the draft its last
+    proposal)."""
 
     slots: list[RequestState]
     cache: object
@@ -89,6 +112,9 @@ class Cohort:
     spikes: PackedSpikeCache | None = None
     next_tokens: torch.Tensor | None = None
     pending: list = field(default_factory=list)
+    stream: object | None = None
+    draft_cache: object | None = None
+    draft_behind: int = 0
 
 
 def _to_device(tree, device):
@@ -144,6 +170,25 @@ class Engine:
         # executor clamps its window to 1 where they are coupled (MoE)
         self.row_independent = cfg.n_experts == 0
         self._axes = model.cache_axes()
+        # -- speculative decoding (ExecutionPolicy.speculation) --------------
+        # a rejected write rolls back by rewinding the position locals:
+        # stale slots stay masked by their kv_pos until overwritten.  That
+        # needs caches whose only carry is sequence slots + positions.
+        self.speculative = self.policy.speculation.enabled
+        if self.speculative:
+            stateful = [ax for ax in self._axes.values()
+                        if "batch" in ax and "cache_seq" not in ax]
+            if stateful:
+                raise ValueError(
+                    f"{cfg.name} carries non-rewindable per-row cache state "
+                    f"(leaf axes {stateful[0]}); speculative rollback cannot "
+                    "undo a recurrent update — use speculation='none'"
+                )
+            if not any(ax == () for ax in self._axes.values()):
+                raise ValueError(
+                    f"{cfg.name}'s cache has no scalar position local to "
+                    "rewind; speculation needs one"
+                )
         # -- cache backend (ExecutionPolicy.paging) --------------------------
         self.paged = self.policy.paging.enabled
         self.store = None
@@ -154,7 +199,8 @@ class Engine:
             self._page_layout = PageLayout(template, self._axes,
                                            self.policy.paging.page_size)
             n_rows = (page_pool_rows if page_pool_rows is not None
-                      else 2 * max_slots + 4)
+                      else (2 * max_slots + 4)
+                      * (2 if self.speculative else 1))
             self.store = CacheStore(self._page_layout, n_rows,
                                     device=self.device, metrics=self.metrics)
             self.cache_ops = PagedCacheOps(self.store)
@@ -188,6 +234,8 @@ class Engine:
         self.scheduler = Scheduler(
             max_slots=max_slots, max_queue=max_queue, max_len=max_len,
             prefix_index=self.prefix_index,
+            speculation_slack=(self.policy.speculation.k
+                               if self.speculative else 0),
         )
         self.cohorts: list[Cohort] = []
         self.results: dict[int, RequestState] = {}
@@ -195,19 +243,74 @@ class Engine:
         self.spiking_dual_sparse = policy.weight_sparsity == "dual_sparse"
         self.spiking_mode = "infer" if self.spiking_packed else "train"
         self._last_spike_words: torch.Tensor | None = None
-        params = _to_device(params, self.device)
+        base = _to_device(params, self.device)
+        params = base
         if self.spiking_dual_sparse:
             from repro_torch.models.layers import attach_spiking_ffn_plans
 
             params = attach_spiking_ffn_plans(params, cfg)
         self.params = model.prepare(params)
+        if self.speculative:
+            self._configure_draft(base)
         self.executor = make_executor(self, self.policy, depth=pipeline_depth)
+
+    def _configure_draft(self, base: dict) -> None:
+        """The draft policy's params next to the target's: the same tensors
+        everywhere but the FFNs, which carry what the draft's policy runs.
+        A float draft runs the float surrogate path (``spiking_mode
+        'train'``, plans unused); a packed dual-sparse draft runs kernel 3
+        on its plans (its own, pruned to ``draft_weight_density``, or the
+        target's); a packed dense-weight draft runs kernels 1-2 without
+        plans.  An adaptive temporal axis on a plan route rides in each FFN
+        as ``ffn_policy``, so kernel 4 gates the draft's planes."""
+        from repro_torch.models.layers import (
+            attach_spiking_ffn_plans,
+            derive_draft_params,
+        )
+
+        spec = self.policy.speculation
+        d = spec.draft
+        if spec.draft_weight_density is not None:
+            tree = derive_draft_params(base, self.cfg, spec.draft_weight_density)
+            mlps = [lp["mlp"] for lp in
+                    attach_spiking_ffn_plans(tree, self.cfg)["layers"]]
+        elif d.weight_sparsity == "dual_sparse" and not self.spiking_dual_sparse:
+            mlps = [lp["mlp"] for lp in
+                    attach_spiking_ffn_plans(base, self.cfg)["layers"]]
+        else:
+            mlps = [lp["mlp"] for lp in self.params["layers"]]
+        if d.weight_sparsity != "dual_sparse":
+            mlps = [{k: v for k, v in m.items()
+                     if k not in ("plan_in", "plan_out")} for m in mlps]
+        elif d.temporal.enabled:
+            mlps = [dict(m, ffn_policy=d) for m in mlps]
+        self.draft_params = self.model.prepare(dict(self.params, layers=[
+            dict(lp, mlp=m) for lp, m in zip(self.params["layers"], mlps)]))
+        self.draft_mode = "infer" if d.spike_format == "packed" else "train"
 
     # -- request API --------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int) -> AdmissionTicket:
         """Queue one request; raises `AdmissionError` when it cannot be
         accepted."""
         return self.scheduler.submit(prompt, max_new_tokens)
+
+    def submit_stream(self, session, max_new_tokens: int) -> AdmissionTicket:
+        """Queue a `serve.streaming.StreamSession`: a request whose prompt
+        arrives as event frames.  It is admitted into a cohort of its own
+        once its first window completes; later frames are ingested as they
+        land, and generation starts when the stream closes.  Binds the
+        session's frame budget to this engine (``max_len -
+        max_new_tokens``), so an over-long stream surfaces as
+        `streaming.Backpressure`, not a cache overflow."""
+        if self.spiking_packed and session.T != self.cfg.spiking_T:
+            raise ValueError(
+                f"stream session T={session.T} != engine spiking_T="
+                f"{self.cfg.spiking_T}; frame words must score against the "
+                "policy's temporal axis"
+            )
+        ticket = self.scheduler.submit_stream(session, max_new_tokens)
+        session.max_frames = self.max_len - max_new_tokens
+        return ticket
 
     @property
     def n_active(self) -> int:
@@ -245,6 +348,21 @@ class Engine:
         tickets = [self.submit(p, max_new_tokens) for p in prompts]
         out = self.run()
         return [out[t.rid] for t in tickets]
+
+    def drain(self, *, step_budget: int | None = None):
+        """The reference's preemption drain and handoff: not ported yet."""
+        raise NotImplementedError(
+            "Engine.drain (preemption drain and handoff) is not ported yet; "
+            "it is item 9e of the port's queue in ROADMAP.md"
+        )
+
+    @classmethod
+    def resume(cls, model, params, handoff, **engine_kwargs):
+        """The reference's resume from a handoff: not ported yet."""
+        raise NotImplementedError(
+            "Engine.resume (a successor from a handoff) is not ported yet; "
+            "it is item 9e of the port's queue in ROADMAP.md"
+        )
 
     # -- executor services --------------------------------------------------
     @torch.no_grad()
@@ -285,8 +403,12 @@ class Engine:
     def _live_cache(self, cohort: Cohort):
         if cohort.n_dummy == 0:
             return cohort.cache
+        idx = list(range(len(cohort.slots)))
         cohort.n_dummy = 0
-        return self.cache_ops.take(cohort.cache, list(range(len(cohort.slots))))
+        if cohort.draft_cache is not None:
+            # the draft cache holds the target's rows, dummies included
+            cohort.draft_cache = self.cache_ops.take(cohort.draft_cache, idx)
+        return self.cache_ops.take(cohort.cache, idx)
 
     # -- model dispatch (cache-backend aware) -------------------------------
     @torch.no_grad()
@@ -319,6 +441,79 @@ class Engine:
             self.params, tokens.long(), self.store.pools, *cache.tables_dev(),
             cache.locals, self.spiking_mode)
         return logits, cache
+
+    # -- speculative dispatch (ExecutionPolicy.speculation) ------------------
+    @torch.no_grad()
+    def dispatch_propose(self, chunk: torch.Tensor, draft_cache, k: int):
+        """Draft-propose ``k`` tokens per row; returns ((B, k) device draft
+        tokens, draft cache).  ``chunk`` is the (B, 1) pending token, or
+        (B, 2) [last verified, pending] when the draft cache is one behind.
+        The ``catchup - 1`` feed positions and the k chained greedy steps
+        keep their argmax feedback on the device: nothing here reads it."""
+        if not self.paged:
+            return propose_chain(self.model, self.draft_params, chunk,
+                                 draft_cache, k, self.draft_mode)
+        fn = self._page_layout.make_propose(self.model, k, chunk.shape[1])
+        toks, draft_cache.locals = fn(
+            self.draft_params, chunk, self.store.pools,
+            *draft_cache.tables_dev(), draft_cache.locals, self.draft_mode)
+        return toks, draft_cache
+
+    @torch.no_grad()
+    def dispatch_draft_prefill(self, tokens: np.ndarray):
+        """A draft cache from a prefill of host-known history (B, L) under
+        the draft's params and mode; the prefill's logits are not used."""
+        self.metrics.n_draft_prefills += 1
+        tokens_dev = upload(tokens, torch.long, self.device)
+        if not self.paged:
+            cache = self.model.init_cache(tokens.shape[0], self.max_len,
+                                          device=self.device)
+            _, cache = self.model.prefill(
+                self.draft_params, {"tokens": tokens_dev}, cache,
+                spiking_mode=self.draft_mode)
+            return cache
+        seq_t, state_t = self.store.alloc_rows(tokens.shape[0])
+        cache = PagedCache(self.store, seq_t, state_t, {})
+        _, cache.locals = self._paged_prefill(
+            self.draft_params, tokens_dev, self.store.pools,
+            *cache.tables_dev(), self.draft_mode)
+        return cache
+
+    def rewind_cache(self, cache, steps: int):
+        """Roll a cache's positions back by ``steps``: the rejected writes
+        of a speculative round.  The host-int position goes back, and every
+        ``kv_pos`` slot at or past it returns to -1 (empty) on the device
+        (no read); the stale k/v there stay masked until a real write.  The
+        locals then equal those of a cohort that never speculated, so
+        cohorts with different acceptance histories still merge.  Rewound
+        pages need no decref: the row's page set is unchanged."""
+        if steps <= 0:
+            return cache
+        if self.paged:
+            cache.locals = self._rewound(cache.locals, steps)
+            return cache
+        return self._rewound(cache, steps)
+
+    def _rewound(self, leaves: dict, steps: int) -> dict:
+        pos_key = next(k for k, ax in self._axes.items() if ax == ())
+        new_pos = leaves[pos_key] - steps
+        out = {}
+        for key, leaf in leaves.items():
+            if key == pos_key:
+                out[key] = new_pos
+            elif self._axes[key] == (None,):
+                out[key] = leaf.masked_fill(leaf >= new_pos, -1)
+            else:
+                out[key] = leaf
+        return out
+
+    def release_draft(self, cohort: Cohort) -> None:
+        """Drop a cohort's draft cache (paged rows decref'd): always safe,
+        it rebuilds from host-known history at the next round."""
+        if cohort.draft_cache is not None and self.paged:
+            cohort.draft_cache.release()
+        cohort.draft_cache = None
+        cohort.draft_behind = 0
 
     # -- prefix reuse -------------------------------------------------------
     def publish_prefix(self, cohort: Cohort) -> None:
@@ -374,6 +569,7 @@ class Engine:
     def release_cohort(self, cohort: Cohort) -> None:
         """Return a fully retired cohort's storage to the pools (dense
         cohorts are freed with their tensors)."""
+        self.release_draft(cohort)
         if self.paged:
             cohort.cache.release()
             if cohort.spikes is not None:
@@ -443,4 +639,5 @@ class Engine:
             )
             s["dual_sparse"] = self.spiking_dual_sparse
         s["temporal"] = self.policy.temporal.describe()
+        s["speculation"] = self.policy.speculation.describe()
         return s

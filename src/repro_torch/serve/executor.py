@@ -1,7 +1,7 @@
 """The engine's step, in stages (port of `repro.serve.executor`, one device;
-the streaming, speculation and mesh stages are later slices):
+the mesh's load-skew rebalancing is ROADMAP item 12):
 
-    admit -> prefill -> merge -> decode -> sample -> encode -> retire
+    admit -> prefill -> ingest -> merge -> decode -> sample -> encode -> retire
 
 Two executors share the stage vocabulary, selected by
 ``ExecutionPolicy.execution``:
@@ -31,6 +31,20 @@ no host wait: no device-to-host read and no pageable host-to-device copy
 (`batching.upload`); `chip_smoke.py` holds them to that with
 ``torch.cuda.set_sync_debug_mode("error")``.
 
+Speculative rounds (``ExecutionPolicy.speculation``) replace a cohort's
+decode: the draft proposes k tokens in one chained dispatch (stage
+``propose``), the target decodes the (B, k + 1) window [pending, drafts]
+(``decode``), and ``sample_sync`` lands the target's argmax and the drafts
+in one copy, accepts the longest matching prefix on the host and rewinds
+the rejected positions.  Rounds are synchronous under either executor
+(flush first, then emit): only verified tokens reach `RequestState`.
+
+Stream cohorts (``Engine.submit_stream``) ingest each newly complete frame
+as one (B, 1) decode-shaped dispatch (stage ``ingest``), keeping its
+argmax on the device as the go-live candidate; a flush never lands it.
+When the stream closes, the last frame's argmax is the first generated
+token, as the last position of a prefill over the same frame tokens.
+
 Every stage is timed into `EngineMetrics.stage_s`: under sync the per-step
 host wait shows in ``sample_sync``; under pipelined the decode stage is
 dispatch only and ``sample_sync`` is the deferred drain.
@@ -46,6 +60,7 @@ import torch
 from repro_torch.ft.straggler import StepTimer
 
 from .batching import bucket_key, pad_batch, upload
+from .policy import acceptance_lengths
 from .scheduler import Request, RequestState
 
 
@@ -81,7 +96,8 @@ class PendingStep:
     ``logits``: (n_live, vocab) f32 last-position logits, kept only when the
     engine captures traces.  On a CUDA device both are pinned host copies
     that land when ``ready`` has been reached; on the CPU they are the
-    values themselves and ``ready`` is None."""
+    values themselves and ``ready`` is None.  A stream cohort's go-live
+    candidate is a step built directly from device values (no copy)."""
 
     tokens: torch.Tensor
     logits: torch.Tensor | None = None
@@ -131,16 +147,23 @@ class SyncExecutor:
             hit_groups = (e.scheduler.schedule_prefix_hits()
                           if e.prefix_index is not None else [])
             groups = e.scheduler.schedule()
+            streams = e.scheduler.schedule_streams()
         for group in hit_groups:
             with self._clock("admit_hits"):
                 e.admit_prefix_hits(group)
         for group in groups:
             self.prefill(group)
+        for session, req in streams:
+            self.admit_stream(session, req)
+        with self._clock("ingest"):
+            self.ingest()  # stream frames -> decode-shaped chunks
         with self._clock("merge"):
             self.merge()  # flushes merging cohorts (pipelined)
         with self._clock("retire"):
             self.retire()  # requests finished at prefill never enter decode
         for cohort in e.cohorts:
+            if cohort.stream is not None:
+                continue  # ingesting: generation starts at go-live
             self.decode_cohort(cohort)
         with self._clock("retire"):
             self.retire()
@@ -184,17 +207,97 @@ class SyncExecutor:
             # writes the rows' tail pages (no-op without a prefix index)
             e.publish_prefix(cohort)
 
+    # -- streaming stages (serve/streaming.py) ------------------------------
+    def admit_stream(self, session, req: Request) -> None:
+        """Admit a stream session into a cohort of its own: a prefill over
+        its first frame's token alone, emitting nothing.  The argmax rides
+        in ``cohort.pending`` as the go-live candidate."""
+        e = self.engine
+        with self._clock("prefill"):
+            f0 = session.frames[0]
+            req.prompt = np.asarray([f0.token], np.int32)
+            tokens, n_dummy = pad_batch(np.asarray([[f0.token]], np.int32),
+                                        e.batch_align)
+            e.metrics.n_padded_rows += n_dummy
+            logits, cache = e.dispatch_prefill(tokens)
+            e.metrics.n_prefill_batches += 1
+            cohort = e.new_cohort(slots=[RequestState(req)], cache=cache,
+                                  length=1, n_dummy=n_dummy, stream=session)
+            cohort.pending.append(self._candidate(logits))
+            e.record_timestep_skips(upload(f0.words[None], torch.int32,
+                                           e.device))
+            e.metrics.n_stream_sessions += 1
+            e.metrics.n_stream_windows += 1
+            e.cohorts.append(cohort)
+
+    def _candidate(self, logits) -> PendingStep:
+        """The go-live candidate of an ingest dispatch, left on the device."""
+        return PendingStep(
+            _greedy(logits),
+            logits[:1, -1].float() if self.engine.capture_logits else None)
+
+    def ingest(self) -> None:
+        """Each newly complete frame of every ingesting cohort appends as one
+        (B, 1) decode-shaped dispatch: position p holds what a prefill over
+        the same frame tokens holds there.  Once the stream has closed and
+        every frame is in, the cohort goes live."""
+        e = self.engine
+        for cohort in e.cohorts:
+            session = cohort.stream
+            if session is None:
+                continue
+            session.poll()
+            frames = session.frames
+            while cohort.length < len(frames):
+                f = frames[cohort.length]
+                row = [f.token] + [0] * cohort.n_dummy
+                tokens = upload(row, torch.int32, e.device)[:, None]
+                logits, cohort.cache = e.dispatch_decode(tokens, cohort.cache)
+                cohort.length += 1
+                cohort.pending = [self._candidate(logits)]
+                e.record_timestep_skips(upload(f.words[None], torch.int32,
+                                               e.device))
+                e.metrics.n_stream_windows += 1
+            cohort.slots[0].request.prompt = session.prompt_tokens()
+            if session.delivered:
+                self._go_live(cohort)
+
+    def _go_live(self, cohort) -> None:
+        """The stream closed and every frame is in: emit the first
+        generated token (the last ingested frame's argmax) and hand the
+        cohort to the decode lifecycle."""
+        e = self.engine
+        session, st = cohort.stream, cohort.slots[0]
+        p = cohort.pending.pop()
+        cohort.pending = []
+        if p.logits is not None:
+            e._capture(cohort.slots, p.logits.cpu().numpy()[:, None])
+        st.emit(int(p.tokens[0].item()), e.eos_id)
+        cohort.next_tokens = p.tokens  # device feedback for the next decode
+        cohort.stream = None
+        if e.spiking_packed:
+            cohort.spikes = e.new_spike_cache()
+            cohort.spikes.append(e._slot_spikes(cohort))
+        # frame-to-first-token: each frame waited from its completion on
+        for f in session.frames:
+            e.metrics.stream_frame_latency_s.append(
+                st.first_token_time - f.t_wall)
+
     def merge(self) -> None:
         """Merge cohorts at the same sequence position: caches concat along
         their batch axes (or their page tables), alignment rows are dropped
-        so live rows stay a prefix."""
+        so live rows stay a prefix.  Ingesting stream cohorts never merge:
+        their length is still moving."""
         e = self.engine
         if len(e.cohorts) < 2:
             return
         by_len: dict[int, list] = {}
-        for c in e.cohorts:
-            by_len.setdefault(c.length, []).append(c)
         merged = []
+        for c in e.cohorts:
+            if c.stream is not None:
+                merged.append(c)
+                continue
+            by_len.setdefault(c.length, []).append(c)
         for length, group in by_len.items():
             if len(group) == 1:
                 merged.append(group[0])
@@ -208,13 +311,27 @@ class SyncExecutor:
                 cohort.spikes = group[0].spikes
                 for c in group[1:]:
                     cohort.spikes.merge(c.spikes)
+            if e.speculative:
+                # draft caches ride the merge only when every member has
+                # one at the same catch-up offset; otherwise they rebuild
+                if (all(c.draft_cache is not None for c in group)
+                        and len({c.draft_behind for c in group}) == 1):
+                    cohort.draft_cache = e.cache_ops.concat(
+                        [c.draft_cache for c in group])
+                    cohort.draft_behind = group[0].draft_behind
+                else:
+                    for c in group:
+                        e.release_draft(c)
             merged.append(cohort)
             e.metrics.n_merges += len(group) - 1
         e.cohorts = merged
 
     def decode_cohort(self, cohort) -> None:
-        """decode -> sample -> encode for one cohort."""
+        """decode -> sample -> encode for one cohort (or a speculative
+        round in its place)."""
         e = self.engine
+        if self._maybe_speculative(cohort):
+            return
         with self._clock("decode"):
             logits = self._dispatch_decode(cohort)
         with self._clock("sample_sync"):
@@ -241,6 +358,138 @@ class SyncExecutor:
         cohort.next_tokens = _greedy(logits)
         cohort.length += 1
         return logits
+
+    # -- speculative decoding (ExecutionPolicy.speculation) ------------------
+    def _spec_k(self, cohort) -> int:
+        """This round's proposal length: the policy's k, bounded by the
+        furthest live row's remaining budget (the verify always lands one
+        bonus token, hence the - 1) and by the cache extent (the verify
+        window writes k + 1 positions)."""
+        e = self.engine
+        budgets = [st.request.max_new_tokens - len(st.generated)
+                   for st in cohort.slots if not st.done]
+        if not budgets:
+            return 0
+        k = min(e.policy.speculation.k, max(budgets) - 1,
+                e.max_len - 1 - cohort.length)
+        return max(k, 0)
+
+    def _maybe_speculative(self, cohort) -> bool:
+        """Run a propose/verify round instead of a decode when the policy
+        speculates and the cohort can use a window.  A plain decode leaves
+        the draft cache behind, so falling back releases it."""
+        e = self.engine
+        if not e.speculative or cohort.stream is not None:
+            return False
+        k = self._spec_k(cohort)
+        if k < 1:
+            e.release_draft(cohort)
+            return False
+        self.speculative_round(cohort, k)
+        return True
+
+    def _ensure_draft(self, cohort) -> None:
+        """(Re)build the draft cache with one draft prefill of each row's
+        prompt + ``generated[:-1]`` (everything already fed to the target;
+        the pending last token is what the propose feeds).  Done and dummy
+        rows get zero rows: their proposals are never emitted."""
+        e = self.engine
+        if cohort.draft_cache is not None:
+            return
+        B = len(cohort.slots) + cohort.n_dummy
+        L = cohort.length
+        tokens = np.zeros((B, L), np.int32)
+        for i, st in enumerate(cohort.slots):
+            gen = st.generated[:-1] if st.generated else []
+            gen = gen[-L:] if len(gen) > L else gen
+            Pb = max(0, L - len(gen))
+            prompt = np.asarray(st.request.prompt, np.int32)[:Pb]
+            tokens[i, : len(prompt)] = prompt
+            tokens[i, Pb: Pb + len(gen)] = gen
+        cohort.draft_cache = e.dispatch_draft_prefill(tokens)
+        cohort.draft_behind = 0
+
+    def _draft_chunk(self, cohort, pending: torch.Tensor) -> torch.Tensor:
+        """(B, catchup) tokens of the propose: the pending token, preceded by
+        the previous emitted token when a fully accepted round left the
+        draft one position behind."""
+        if cohort.draft_behind == 0:
+            return pending[:, None]
+        prev = [st.generated[-2] if len(st.generated) >= 2 else 0
+                for st in cohort.slots]
+        prev += [0] * cohort.n_dummy
+        prev_dev = upload(prev, torch.int32, self.engine.device)
+        return torch.stack([prev_dev, pending], dim=1)
+
+    def speculative_round(self, cohort, k: int) -> None:
+        """One round: the draft proposes ``k`` tokens in one chained dispatch
+        (`Engine.dispatch_propose`), the target verifies all ``k + 1``
+        positions in one decode, and each row emits its longest matching
+        prefix plus the target's bonus token.  Every emitted token is a
+        target argmax.  Rows share their position locals, so the cohort
+        advances by the smallest acceptance over live rows; the rest rolls
+        back by `Engine.rewind_cache`.  The round's only host read is one
+        copy of the target argmax and the drafts, in ``sample_sync``."""
+        e = self.engine
+        self.flush(cohort)  # host state authoritative (no-op in sync)
+        with self._clock("propose"):
+            self._ensure_draft(cohort)
+            if cohort.next_tokens is not None:
+                pending = cohort.next_tokens
+            else:  # membership changed since the last step
+                last = [st.generated[-1] for st in cohort.slots]
+                last += [0] * cohort.n_dummy
+                pending = upload(last, torch.int32, e.device)
+            chunk = self._draft_chunk(cohort, pending)
+            draft_dev, cohort.draft_cache = e.dispatch_propose(
+                chunk, cohort.draft_cache, k)
+            e.metrics.n_draft_batches += 1
+        with self._clock("decode"):
+            verify = torch.cat([pending[:, None], draft_dev], dim=1)
+            logits, cohort.cache = e.dispatch_decode(verify, cohort.cache)
+            e.metrics.n_decode_batches += 1
+            e.metrics.n_decode_rows += len(cohort.slots)
+            tgt_dev = torch.argmax(logits, dim=-1).to(torch.int32)  # (B, k+1)
+            landing = PendingStep.launch(
+                torch.cat([tgt_dev, draft_dev], dim=1),
+                logits[: len(cohort.slots)].float()
+                if e.capture_logits else None)
+        with self._clock("sample_sync"):
+            both, lg = landing.land()
+            tgt, drafts = both[:, : k + 1], both[:, k + 1:]
+            acc = acceptance_lengths(drafts, tgt)
+            live = [i for i, st in enumerate(cohort.slots) if not st.done]
+            A = int(min((int(acc[i]) for i in live), default=k))
+            n_live = len(live)
+            e.metrics.n_speculative_rounds += 1
+            e.metrics.n_tokens_proposed += k * n_live
+            e.metrics.n_tokens_accepted += A * n_live
+            e.metrics.n_tokens_rejected += (k - A) * n_live
+            if lg is not None:
+                # one capture + emit per landed position, token-major: one
+                # trace row per emitted token, as a step at a time
+                for j in range(A + 1):
+                    e._capture(cohort.slots, lg[:, j: j + 1])
+                    for i, st in enumerate(cohort.slots):
+                        st.emit(int(tgt[i, j]), e.eos_id)
+            else:
+                for i, st in enumerate(cohort.slots):
+                    st.emit_many(tgt[i, : A + 1], e.eos_id)
+            cohort.cache = e.rewind_cache(cohort.cache, k - A)
+            if A < k:
+                # the draft consumed rejected tokens past the acceptance
+                # point: back to one short of the target (the bonus token is
+                # pending, fed nowhere yet)
+                cohort.draft_cache = e.rewind_cache(cohort.draft_cache,
+                                                    k - A - 1)
+                cohort.draft_behind = 0
+            else:
+                # full acceptance: the draft never fed its own last proposal
+                cohort.draft_behind = 1
+            cohort.length += A + 1
+            cohort.next_tokens = tgt_dev[:, A].contiguous()
+        with self._clock("encode"):
+            self.encode(cohort)
 
     def encode(self, cohort) -> None:
         """Per-step packed-spike re-encode of each slot's newest token."""
@@ -273,6 +522,10 @@ class SyncExecutor:
                 e.release_cohort(cohort)  # paged: pages back to the pool
                 continue
             cohort.cache = e.cache_ops.take(cohort.cache, alive_idx)
+            if cohort.draft_cache is not None:
+                # the draft holds the target's rows: the survivors follow
+                cohort.draft_cache = e.cache_ops.take(cohort.draft_cache,
+                                                      alive_idx)
             cohort.slots = [cohort.slots[i] for i in alive_idx]
             cohort.n_dummy = 0
             cohort.next_tokens = None  # membership changed: host rebuilds
@@ -344,6 +597,8 @@ class PipelinedExecutor(SyncExecutor):
         device the re-pack drops alignment rows and nothing else)."""
         e = self.engine
         for cohort in e.cohorts:
+            if cohort.stream is not None:
+                continue  # ingesting: re-packed at go-live
             self.flush(cohort)
             cohort.cache = e._live_cache(cohort)
             cohort.next_tokens = None
@@ -359,6 +614,8 @@ class PipelinedExecutor(SyncExecutor):
             with self._clock("sample_sync"):
                 self.flush(cohort)
             return
+        if self._maybe_speculative(cohort):
+            return  # rounds are synchronous: nothing enters the window
         with self._clock("decode"):
             logits = self._dispatch_decode(cohort)
             cohort.pending.append(PendingStep.launch(
@@ -414,7 +671,11 @@ class PipelinedExecutor(SyncExecutor):
 
     def flush(self, cohort) -> None:
         """Land ALL in-flight steps (forced before merge and retire, and
-        when the cohort's budget is spent)."""
+        when the cohort's budget is spent).  An ingesting stream cohort's
+        ``pending`` holds its go-live candidate, not an emitted step: only
+        `_go_live` lands it."""
+        if cohort.stream is not None:
+            return
         while cohort.pending:
             self._materialize(cohort)
         if self.engine.spiking_packed and cohort.spikes is not None:

@@ -1,5 +1,6 @@
 """Per-request and engine-level serving metrics (port of
-`repro.serve.metrics`, the counters of the single-device serve features).
+`repro.serve.metrics`, the counters of the single-device serve features:
+pipelining, paging, speculation and event streams).
 
 Times are host wall clock (`time.perf_counter`).  The sync executor waits
 for each step's sampled tokens on the host, so on a GPU its stage times
@@ -46,6 +47,21 @@ class EngineMetrics:
     n_prefix_hits: int = 0        # requests admitted from the radix index
     n_prefix_tokens_reused: int = 0   # prompt tokens whose prefill was skipped
     n_straggler_events: int = 0   # StepTimer detections fed from stage_s
+    # event streams (serve/streaming.py): sessions admitted through the
+    # scheduler's stream lane, frames ingested, and each frame's wait from
+    # its window's completion to the session's first generated token
+    n_stream_sessions: int = 0
+    n_stream_windows: int = 0
+    stream_frame_latency_s: list = field(default_factory=list)
+    # speculation=draft(...): per live row a round proposes k tokens, the
+    # longest matching prefix is accepted and the rest rejected (proposed
+    # == accepted + rejected); the bonus target token is neither
+    n_speculative_rounds: int = 0
+    n_draft_batches: int = 0      # fused k-step propose dispatches
+    n_draft_prefills: int = 0     # draft-cache (re)builds
+    n_tokens_proposed: int = 0
+    n_tokens_accepted: int = 0
+    n_tokens_rejected: int = 0
     max_queue_depth: int = 0
     wall_s: float = 0.0
     # per-stage wall time: admit / prefill / merge / decode / sample_sync /
@@ -109,6 +125,23 @@ class EngineMetrics:
             "prefix_hits": self.n_prefix_hits,
             "prefix_tokens_reused": self.n_prefix_tokens_reused,
             "straggler_events": self.n_straggler_events,
+            "speculative_rounds": self.n_speculative_rounds,
+            "draft_batches": self.n_draft_batches,
+            "draft_prefills": self.n_draft_prefills,
+            "tokens_proposed": self.n_tokens_proposed,
+            "tokens_accepted": self.n_tokens_accepted,
+            "tokens_rejected": self.n_tokens_rejected,
+            "acceptance_rate": (
+                self.n_tokens_accepted / max(1, self.n_tokens_proposed)
+            ),
+            "stream_sessions": self.n_stream_sessions,
+            "stream_windows": self.n_stream_windows,
+            "frame_to_first_token_s_p50": _percentile(
+                sorted(self.stream_frame_latency_s), 0.50
+            ),
+            "frame_to_first_token_s_p99": _percentile(
+                sorted(self.stream_frame_latency_s), 0.99
+            ),
             "max_queue_depth": self.max_queue_depth,
             "stage_s": {k: self.stage_s[k] for k in sorted(self.stage_s)},
             "timesteps_skipped": int(self.timesteps_skipped),

@@ -1,6 +1,5 @@
 """Paged cache storage + radix prefix reuse for the serving engine (port of
-`repro.serve.paging`, one device: no sharded pools, no speculative
-propose).
+`repro.serve.paging`, one device: no sharded pools).
 
 The dense serving layout (``paging='none'``) gives every cohort its own
 cache, so continuous batching pays whole-cache copies at every membership
@@ -208,6 +207,24 @@ class PageLayout:
 
         return fn
 
+    def make_propose(self, model, k: int, catchup: int):
+        """(params, chunk, pools, seq_dev, state_dev, locals, spiking_mode)
+        -> (draft tokens (B, k), locals): the fused draft propose over a
+        draft cache's pages.  One gather, ``catchup - 1`` feed positions +
+        k chained greedy steps (`propose_chain`), one scatter of every page
+        those ``k + catchup - 1`` positions wrote."""
+
+        def fn(params, chunk, pools, seq_dev, state_dev, locals_, spiking_mode):
+            cache = self.gather(pools, seq_dev, state_dev, locals_)
+            pos = locals_[self.pos_key] if self.pos_key is not None else 0
+            toks, cache = propose_chain(model, params, chunk, cache, k,
+                                        spiking_mode)
+            self.scatter_step(pools, cache, seq_dev, state_dev, pos,
+                              span=k + catchup - 1)
+            return toks, self.locals_of(cache)
+
+        return fn
+
     def make_decode(self, model):
         """(params, tokens, pools, seq_dev, state_dev, locals, spiking_mode)
         -> (logits, locals).  Tokens may be (B, 1) or a wider (B, S)
@@ -223,6 +240,27 @@ class PageLayout:
             return logits, self.locals_of(cache)
 
         return fn
+
+
+def propose_chain(model, params, chunk: torch.Tensor, cache, k: int,
+                  spiking_mode: str):
+    """The draft's fused propose on one cache (dense, or a gathered paged
+    view): decode the ``catchup - 1`` leading positions of the (B, catchup)
+    ``chunk``, then k chained greedy steps from its last token, each step's
+    argmax fed to the next on the device.  Returns ((B, k) int32 draft
+    tokens, cache); reads nothing back to the host."""
+    catchup = chunk.shape[1]
+    if catchup > 1:
+        _, cache = model.decode(params, chunk[:, : catchup - 1].long(), cache,
+                                spiking_mode=spiking_mode)
+    tok = chunk[:, catchup - 1]
+    out = []
+    for _ in range(k):
+        logits, cache = model.decode(params, tok[:, None].long(), cache,
+                                     spiking_mode=spiking_mode)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        out.append(tok)
+    return torch.stack(out, dim=1), cache
 
 
 # ---------------------------------------------------------------------------

@@ -4,15 +4,17 @@
 Ported axes: ``spike_format`` (float | packed), ``weight_sparsity``
 (dense | dual_sparse), ``exactness`` (bitwise, or approximate(tol) as far as
 lossy temporal skipping needs it), ``execution`` (sync | pipelined),
-``paging`` (none | paged(page_size)) and ``temporal``
-(full | adaptive(min_spikes)).  The reference's other axes and values
-(placement/mesh and the psum-TP approximation it enables, speculation) are
-later slices of the port: asking for one raises `NotImplementedError`, and
-the policy has no ``speculation`` field yet.
+``paging`` (none | paged(page_size)), ``temporal``
+(full | adaptive(min_spikes)) and ``speculation`` (none | draft(policy, k):
+a cheaper draft policy over the same weights proposes k tokens a round, the
+target verifies all k + 1 positions in one decode).  The reference's
+placement axis (the mesh, and the psum-TP approximation it enables) is a
+later slice of the port: asking for it raises `NotImplementedError`.
 
-Also here, as in the reference: `check_parity`, `max_logit_drift` and
-`drift_report`, the assertion and the measurement of a policy's exactness
-contract between a reference run and a policy run.
+Also here, as in the reference: `acceptance_lengths` (the speculative
+round's longest verified prefix), and `check_parity`, `max_logit_drift`
+and `drift_report`, the assertion and the measurement of a policy's
+exactness contract between a reference run and a policy run.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ EXACTNESS_MODES = ("bitwise", "approximate")
 TEMPORAL_MODES = ("full", "adaptive")
 EXECUTION_MODES = ("sync", "pipelined")
 PAGING_MODES = ("none", "paged")
+SPECULATION_MODES = ("none", "draft")
 
 _LATER = "not ported yet; see the port's queue in ROADMAP.md"
 
@@ -167,6 +170,96 @@ def paged(page_size: int = 8) -> Paging:
     return Paging("paged", page_size)
 
 
+@dataclass(frozen=True)
+class Speculation:
+    """Speculative decoding: a cheap draft `ExecutionPolicy` proposes ``k``
+    tokens per slot, the target verifies all ``k + 1`` positions in ONE
+    batched decode, and the longest verified-token prefix advances.  The
+    draft is the same weights under a cheaper policy (the float path, a
+    harder-pruned dual-sparse plan, a lossy temporal gate); every emitted
+    token is a target argmax, so the draft decides only how many land per
+    round.
+
+    ``draft_weight_density``: prune the draft's FFN weights further than the
+    target (its own `WeightJoinPlan`s, built once at load).  Requires a
+    dual-sparse draft."""
+
+    mode: str = "none"
+    draft: "ExecutionPolicy | None" = None
+    k: int = 0
+    draft_weight_density: float | None = None
+
+    def __post_init__(self):
+        if self.mode not in SPECULATION_MODES:
+            raise ValueError(
+                f"speculation mode {self.mode!r} not in {SPECULATION_MODES}"
+            )
+        if self.mode == "none":
+            if self.draft is not None or self.k or self.draft_weight_density:
+                raise ValueError(
+                    "speculation='none' takes no draft policy / k / "
+                    "draft_weight_density — use speculation=draft(policy, k)"
+                )
+            return
+        if not isinstance(self.draft, ExecutionPolicy):
+            raise ValueError(
+                "speculation='draft' needs a full draft ExecutionPolicy, "
+                f"got {self.draft!r}"
+            )
+        if self.k < 1:
+            raise ValueError(
+                f"speculation needs a proposal length k >= 1, got {self.k}"
+            )
+        if self.draft.speculation.enabled:
+            raise ValueError("draft policies cannot themselves speculate")
+        if self.draft.execution != "sync":
+            raise ValueError(
+                "the draft proposes k chained steps fused in one dispatch; "
+                "its execution axis must be 'sync' (got "
+                f"{self.draft.execution!r})"
+            )
+        if self.draft.paging.enabled:
+            raise ValueError(
+                "draft cache paging is owned by the ENGINE (the draft state "
+                "rides the target CacheStore as a second page-table column); "
+                "leave the draft policy's paging axis at 'none'"
+            )
+        if self.draft_weight_density is not None:
+            if not 0.0 < self.draft_weight_density <= 1.0:
+                raise ValueError(
+                    "draft_weight_density must be in (0, 1], got "
+                    f"{self.draft_weight_density}"
+                )
+            if self.draft.weight_sparsity != "dual_sparse":
+                raise ValueError(
+                    "draft_weight_density prunes the draft's join plan; it "
+                    "requires a dual-sparse draft policy (got "
+                    f"weight_sparsity={self.draft.weight_sparsity!r})"
+                )
+
+    @property
+    def enabled(self) -> bool:
+        return self.mode == "draft"
+
+    def describe(self) -> str:
+        if self.mode == "none":
+            return "none"
+        d = self.draft
+        dd = (f", draft_weight_density={self.draft_weight_density}"
+              if self.draft_weight_density is not None else "")
+        return (f"draft(k={self.k}, spike_format={d.spike_format!r}, "
+                f"weight_sparsity={d.weight_sparsity!r}, "
+                f"temporal={d.temporal.describe()}{dd})")
+
+
+def draft(policy: "ExecutionPolicy", k: int = 4, *,
+          draft_weight_density: float | None = None) -> Speculation:
+    """Speculative decoding with ``policy`` as the draft proposing ``k``
+    tokens per round."""
+    return Speculation("draft", policy, k,
+                       draft_weight_density=draft_weight_density)
+
+
 # ---------------------------------------------------------------------------
 # the policy
 # ---------------------------------------------------------------------------
@@ -183,6 +276,7 @@ class ExecutionPolicy:
     execution: str = "sync"
     paging: Paging = field(default_factory=Paging)
     temporal: Temporal = field(default_factory=Temporal)
+    speculation: Speculation = field(default_factory=Speculation)
 
     def __post_init__(self):
         if self.execution not in EXECUTION_MODES:
@@ -225,6 +319,15 @@ class ExecutionPolicy:
                 "relaxes cross-shard reductions on a model axis, and the "
                 f"mesh placement is {_LATER}"
             )
+        if self.speculation.enabled and not self.token_identical:
+            # the verified stream is the target's own greedy stream: an
+            # approximate target has nothing to verify against (the DRAFT
+            # may be as lossy as it likes)
+            raise ValueError(
+                "speculation requires a bitwise target policy: the verified "
+                "stream is defined as the target's own greedy stream, which "
+                "exactness='approximate' explicitly relaxes"
+            )
 
     @property
     def token_identical(self) -> bool:
@@ -239,7 +342,8 @@ class ExecutionPolicy:
                 f"weight_sparsity={self.weight_sparsity!r}, exactness={ex}, "
                 f"execution={self.execution!r}, "
                 f"paging={self.paging.describe()}, "
-                f"temporal={self.temporal.describe()}")
+                f"temporal={self.temporal.describe()}, "
+                f"speculation={self.speculation.describe()}")
 
     def validate_for(self, cfg) -> "ExecutionPolicy":
         """Arch-dependent checks (an `ArchConfig`); returns self."""
@@ -257,6 +361,32 @@ class ExecutionPolicy:
                     f"{cfg.spiking_weight_density} (unpruned); prune at init "
                     "(spiking_weight_density < 1) or use weight_sparsity='dense'"
                 )
+        if self.speculation.enabled:
+            spec = self.speculation
+            # same arch and T by construction: one engine, one param tree
+            spec.draft.validate_for(cfg)
+            if getattr(cfg, "n_experts", 0):
+                raise ValueError(
+                    "speculation needs row-independent decode (acceptance "
+                    f"rolls individual rows back), but {cfg.name} routes "
+                    f"across {cfg.n_experts} experts — capacity routing "
+                    "couples batch rows"
+                )
+            if getattr(cfg, "attn", "causal") != "causal":
+                raise ValueError(
+                    "speculative rollback rewinds the cache position and "
+                    "relies on absolute-position masking to hide stale "
+                    f"slots; {cfg.name} uses attn={cfg.attn!r} (a windowed/"
+                    "ring cache wraps, so rejected writes may have evicted "
+                    "live history)"
+                )
+            if (spec.draft_weight_density is not None
+                    and spec.draft_weight_density > cfg.spiking_weight_density):
+                raise ValueError(
+                    "draft_weight_density must prune AT LEAST as hard as "
+                    f"the target ({spec.draft_weight_density} > "
+                    f"cfg.spiking_weight_density={cfg.spiking_weight_density})"
+                )
         return self
 
     @classmethod
@@ -265,11 +395,12 @@ class ExecutionPolicy:
                  exactness: Exactness | None = None,
                  execution: str | None = None,
                  paging: Paging | None = None,
-                 temporal: Temporal | None = None) -> "ExecutionPolicy":
+                 temporal: Temporal | None = None,
+                 speculation: Speculation | None = None) -> "ExecutionPolicy":
         """Arch-aware constructor, ``None`` = the natural default: packed
         spikes for spiking archs, dual-sparse when the weights are pruned,
         bitwise, sync execution, dense (non-paged) cache storage, full
-        temporal walk."""
+        temporal walk, no speculation."""
         if spike_format is None:
             spike_format = "packed" if cfg.spiking_ffn else "float"
         if weight_sparsity is None:
@@ -285,6 +416,8 @@ class ExecutionPolicy:
             execution=execution if execution is not None else "sync",
             paging=paging if paging is not None else Paging(),
             temporal=temporal if temporal is not None else Temporal(),
+            speculation=(speculation if speculation is not None
+                         else Speculation()),
         ).validate_for(cfg)
 
 
@@ -297,6 +430,35 @@ PACKED_DUAL = ExecutionPolicy(spike_format="packed", weight_sparsity="dual_spars
 PACKED_DUAL_ADAPTIVE = ExecutionPolicy(spike_format="packed",
                                        weight_sparsity="dual_sparse",
                                        temporal=adaptive_t())
+
+
+# ---------------------------------------------------------------------------
+# speculative acceptance (longest verified-token prefix)
+# ---------------------------------------------------------------------------
+
+def acceptance_lengths(draft_tokens, target_tokens) -> np.ndarray:
+    """Per-row longest accepted prefix of a speculative round.
+
+    ``draft_tokens``: (B, k) proposals; ``target_tokens``: (B, >= k) greedy
+    argmax of the target's verify logits (column j is the target's choice
+    given the stream up through draft position j - 1).  Row i accepts
+    ``max a such that draft[i, :a] == target[i, :a]``, so ``0 <= a <= k``;
+    an all-reject round still lands the bonus token ``target[i, 0]``, and
+    ``k = 0`` is plain decoding."""
+    d = np.asarray(draft_tokens)
+    if d.ndim != 2:
+        raise ValueError(f"draft_tokens must be (B, k), got shape {d.shape}")
+    t = np.asarray(target_tokens)[:, : d.shape[1]]
+    if t.shape != d.shape:
+        raise ValueError(
+            f"target must cover every proposed position: draft {d.shape} "
+            f"vs target {np.asarray(target_tokens).shape}"
+        )
+    if d.shape[1] == 0:
+        return np.zeros(d.shape[0], dtype=np.int64)
+    mismatch = d != t
+    first = np.where(mismatch.any(axis=1), mismatch.argmax(axis=1), d.shape[1])
+    return first.astype(np.int64)
 
 
 # ---------------------------------------------------------------------------

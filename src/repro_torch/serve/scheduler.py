@@ -1,10 +1,11 @@
 """Request lifecycle + continuous-batching scheduler (port of
-`repro.serve.scheduler`, with the prefix-hit lane; the streaming and drain
-lanes are later slices).
+`repro.serve.scheduler`, with the prefix-hit and stream lanes; the drain
+lane, which closes admission for a handoff, is ROADMAP item 9e).
 
 * Admission control: a bounded waiting queue; `submit` rejects when the
-  queue is full or the request can never fit (``prompt + max_new >
-  max_len``).
+  queue is full or the request can never fit (``prompt + max_new +
+  speculation_slack > max_len``: a speculative round writes up to k + 1
+  positions before acceptance is known).
 * Prefill scheduling: FIFO, grouped into prefill batches by prompt-length
   bucket (exact length by default); the bucket of the oldest waiting
   request goes first, so long prompts are never starved.
@@ -14,6 +15,9 @@ lanes are later slices).
   into cohorts with the shared pages instead of a prefill.  The matched
   entry stays pinned from submit until the engine's admit completes
   (`release_hit_pins`), so eviction can never invalidate a queued hit.
+* Streams: `submit_stream` queues a `StreamSession` whose prompt has not
+  arrived yet; `schedule_streams` admits it, one session per cohort, once
+  its first event window is complete.
 """
 from __future__ import annotations
 
@@ -71,6 +75,18 @@ class RequestState:
         elif len(self.generated) >= self.request.max_new_tokens:
             self.finish_reason, self.finish_time = "length", now
 
+    def emit_many(self, tokens, eos_id: int | None) -> int:
+        """Emit a verified speculative prefix; returns how many tokens were
+        recorded.  Stops at the first finish (EOS or budget): positions past
+        it were computed against a stream the request never emitted."""
+        n = 0
+        for t in tokens:
+            if self.done:
+                break
+            self.emit(int(t), eos_id)
+            n += 1
+        return n
+
 
 @dataclass
 class AdmissionTicket:
@@ -102,16 +118,23 @@ class Scheduler:
     """FIFO waiting queue with bucketed prefill-batch selection."""
 
     def __init__(self, *, max_slots: int, max_queue: int, max_len: int,
-                 bucket_align: int = 1, prefix_index=None):
+                 bucket_align: int = 1, prefix_index=None,
+                 speculation_slack: int = 0):
         if max_slots < 1:
             raise ValueError("max_slots must be >= 1")
+        if speculation_slack < 0:
+            raise ValueError("speculation_slack must be >= 0")
         self.max_slots = max_slots
         self.max_queue = max_queue
         self.max_len = max_len
+        # cache headroom reserved per request under a speculative policy (=
+        # k): every round can run its full k + 1 verify window
+        self.speculation_slack = speculation_slack
         self.bucket_align = bucket_align
         self.prefix_index = prefix_index
         self.waiting: deque[Request] = deque()
         self.hit_waiting: deque[tuple[Request, object]] = deque()
+        self.stream_waiting: deque[tuple[object, Request]] = deque()
         self.active_slots = 0
         self._ids = itertools.count()
         self._tickets: dict[int, AdmissionTicket] = {}
@@ -125,11 +148,14 @@ class Scheduler:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.shape[0] < 1 or max_new_tokens < 1:
             raise self._reject("empty prompt or non-positive max_new_tokens")
-        need = bucket_key(prompt.shape[0], self.bucket_align) + max_new_tokens
+        need = (bucket_key(prompt.shape[0], self.bucket_align)
+                + max_new_tokens + self.speculation_slack)
         if need > self.max_len:
             raise self._reject(
-                f"request needs {need} cache slots > engine max_len "
-                f"{self.max_len}"
+                f"request needs {need} cache slots"
+                + (f" (incl. speculation_slack={self.speculation_slack})"
+                   if self.speculation_slack else "")
+                + f" > engine max_len {self.max_len}"
             )
         if len(self.waiting) + len(self.hit_waiting) >= self.max_queue:
             raise self._reject(f"queue full ({self.max_queue} waiting)")
@@ -152,9 +178,65 @@ class Scheduler:
         if t is not None:
             t.outcome = "admitted"
 
+    # -- streaming lane -----------------------------------------------------
+    def submit_stream(self, session, max_new_tokens: int) -> AdmissionTicket:
+        """Queue a `StreamSession` whose prompt has not arrived yet.  It
+        waits in its own lane until its first event window is complete
+        (`schedule_streams`), then gets a cohort of its own; the request's
+        prompt starts empty and fills with frame tokens as they land."""
+        if max_new_tokens < 1:
+            raise self._reject("non-positive max_new_tokens")
+        if max_new_tokens + 1 > self.max_len:
+            raise self._reject(
+                f"stream needs at least 1 frame + {max_new_tokens} generated"
+                f" > engine max_len {self.max_len}"
+            )
+        if self.queue_depth >= self.max_queue:
+            raise self._reject(f"queue full ({self.max_queue} waiting)")
+        req = Request(next(self._ids), np.zeros((0,), np.int32), max_new_tokens)
+        ticket = AdmissionTicket(request=req)
+        self.stream_waiting.append((session, req))
+        self._tickets[req.rid] = ticket
+        return ticket
+
+    def schedule_streams(self) -> list[tuple[object, Request]]:
+        """Pop the sessions whose first window has landed, capped by free
+        slots (one session per cohort).  A session that closed without a
+        frame gets a terminal ``rejected`` ticket."""
+        if not self.stream_waiting:
+            return []
+        from .streaming import Backpressure
+
+        admitted: list[tuple[object, Request]] = []
+        kept: deque[tuple[object, Request]] = deque()
+        for session, req in self.stream_waiting:
+            try:
+                session.poll()
+            except Backpressure:
+                pass  # the frames materialized so far stand
+            if not session.frames:
+                if session.delivered:
+                    t = self._tickets.pop(req.rid, None)
+                    if t is not None:
+                        t.outcome = "rejected"
+                        t.reason = "stream closed with no frames"
+                    self.n_rejected += 1
+                else:
+                    kept.append((session, req))
+                continue
+            if self.free_slots > 0:
+                self.active_slots += 1
+                self._mark_admitted(req.rid)
+                admitted.append((session, req))
+            else:
+                kept.append((session, req))
+        self.stream_waiting = kept
+        return admitted
+
     @property
     def queue_depth(self) -> int:
-        return len(self.waiting) + len(self.hit_waiting)
+        return (len(self.waiting) + len(self.hit_waiting)
+                + len(self.stream_waiting))
 
     @property
     def free_slots(self) -> int:

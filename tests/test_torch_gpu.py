@@ -983,3 +983,157 @@ def test_serve_pipelined_decode_makes_no_host_sync(serve_model, paging):
                 wait()
         finally:
             torch.cuda.set_sync_debug_mode("default")
+
+
+# ---------------------------------------------------------------------------
+# decode windows on the card: speculative decoding and event streams
+# ---------------------------------------------------------------------------
+
+# Logits of a row computed inside a wider window against the same row alone:
+# the FTP kernels give it bit for bit; cuBLAS may pick another algorithm for
+# another M.  The FTP gate's scale.
+WINDOW_LOGIT_TOL = 1e-2
+
+
+def _window_gate(want_toks, want_logits, got_toks, got_logits):
+    """Held: logits within WINDOW_LOGIT_TOL of the single-position serve's
+    (up to and including each request's first differing token: the contexts
+    differ after it), and a token may differ only where the single-position
+    serve's top two logits lie within 2 x the measured drift (each of the
+    two can move by the drift).  A drift of 0 makes this bit for bit.
+    Returns (drift, flips)."""
+    drift, flips = 0.0, 0
+    for wt, gt, wl, gl in zip(want_toks, got_toks, want_logits, got_logits):
+        wt, gt = np.asarray(wt), np.asarray(gt)
+        assert wt.shape == gt.shape and len(wl) == len(gl) == len(wt)
+        diff = np.nonzero(wt != gt)[0]
+        last = int(diff[0]) if diff.size else len(wt) - 1
+        for j in range(last + 1):
+            drift = max(drift, float(np.abs(np.asarray(gl[j])
+                                            - np.asarray(wl[j])).max()))
+        if diff.size:
+            top2 = np.sort(np.asarray(wl[last]))[-2:]
+            flips += 1
+            assert top2[1] - top2[0] <= 2 * drift, (last, top2, drift)
+    assert drift <= WINDOW_LOGIT_TOL, drift
+    return drift, flips
+
+
+def _spec_engine(serve_model, **kw):
+    from repro_torch.serve import Engine, draft
+
+    cfg, model, params = serve_model
+    fd = ExecutionPolicy.for_arch(cfg, spike_format="float",
+                                  weight_sparsity="dense")
+    pol = ExecutionPolicy.for_arch(cfg, speculation=draft(fd, k=4), **kw)
+    return Engine(model, params, policy=pol, capture_logits=True, max_len=32,
+                  max_slots=4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("execution", ["sync", "pipelined"])
+def test_serve_speculative_on_card(serve_model, execution):
+    """A float-draft k = 4 speculative serve through kernel 3 on the card:
+    every proposal adjudicated once, and the tokens and logits of the
+    non-speculative serve within the window gate."""
+    prompts = _serve_prompts(serve_model[0].vocab, [8, 8, 8, 8], seed=21)
+    base = _engine(serve_model, max_len=32, max_slots=4, capture_logits=True)
+    want = base.generate_batch(prompts, 12)
+    spec = _spec_engine(serve_model, execution=execution)
+    before = ftp_spmm.launch_counts()["ftp_bsr"]
+    got = spec.generate_batch(prompts, 12)
+    assert ftp_spmm.launch_counts()["ftp_bsr"] > before
+    _window_gate(want, base.drain_logit_traces(), got,
+                 spec.drain_logit_traces())
+    s = spec.summary()
+    assert s["speculative_rounds"] > 0
+    assert s["tokens_proposed"] == s["tokens_accepted"] + s["tokens_rejected"]
+
+
+@pytest.mark.gpu
+def test_serve_speculative_round_makes_no_host_sync(serve_model):
+    """The propose, the verify decode and the rewinds of a round run under
+    set_sync_debug_mode('error'); the round's one host read is its
+    sample_sync copy.  A read inside the propose raises (the control)."""
+    spec = _spec_engine(serve_model)
+    spec.capture_logits = False
+    prompts = _serve_prompts(serve_model[0].vocab, [8] * 4, seed=22)
+    spec.generate_batch(prompts[:1], 6)
+    seen = []
+
+    def strict(fn, read=False):
+        def run(*a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(*a, **kw)
+                if read:
+                    out[0].cpu()
+                return out
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                seen.append(fn.__name__)
+        return run
+
+    names = ("dispatch_propose", "dispatch_decode", "rewind_cache")
+    for name in names:
+        setattr(spec, name, strict(getattr(spec, name)))
+    try:
+        spec.generate_batch(prompts, 12)
+        torch.cuda.synchronize()
+        assert {n for n in names} <= set(seen)
+        spec.dispatch_propose = strict(type(spec).dispatch_propose.__get__(spec),
+                                       read=True)
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            spec.generate_batch(prompts[:1], 6)
+    finally:
+        for name in names:
+            delattr(spec, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paging", [None, 8])
+def test_serve_stream_on_card(serve_model, paging):
+    """A stream ingested frame by frame on the card against the same frame
+    tokens submitted as one prompt, within the window gate (the prompt's
+    prefill against one position at a time)."""
+    from repro_torch.data.events import moving_blob_events, split_into_windows
+    from repro_torch.serve import EventStream, StreamSession, paged
+
+    cfg = serve_model[0]
+    kw = dict(max_len=32, max_slots=4, capture_logits=True,
+              paging=paged(paging) if paging else None)
+    engine = _engine(serve_model, **kw)
+    events = moving_blob_events(16, height=8, width=8, seed=3, silent=(5,))
+    stream = EventStream(1000)
+    session = StreamSession(stream, height=8, width=8, T=cfg.spiking_T,
+                            vocab=cfg.vocab)
+    ticket = engine.submit_stream(session, 8)
+    for chunk in split_into_windows(events, 16, 1000):
+        stream.push(chunk)
+        engine.step()
+    stream.close()
+    got = engine.run()[ticket.rid]
+    mono = _engine(serve_model, **kw)
+    want = mono.generate_batch([session.prompt_tokens()], 8)[0]
+    _window_gate([want], mono.drain_logit_traces(), [got],
+                 engine.drain_logit_traces())
+    assert engine.metrics.n_stream_windows == 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["mean_square", "matmul"])
+def test_row_blocks_row_invariant_on_card(op):
+    """`layers.row_blocks` at the serving forward's widths on the card: a
+    row's rmsnorm mean or f32 unembed logits do not depend on how many rows
+    share the call (the plain ops do not hold this on the card)."""
+    from repro_torch.models.layers import ROW_BLOCK, _mean_square, row_blocks
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(2 * ROW_BLOCK + 3, 2048, generator=g, device=dev)
+    args = ((torch.randn(2048, 8192, generator=g, device=dev),)
+            if op == "matmul" else ())
+    fn = torch.matmul if op == "matmul" else _mean_square
+    full = row_blocks(fn, x, *args)
+    for n in (1, 4, 20, ROW_BLOCK, ROW_BLOCK + 1):
+        assert torch.equal(row_blocks(fn, x[:n], *args), full[:n]), n
