@@ -154,6 +154,40 @@ Phases, each asserted; a failed phase ends the run with a non-zero exit:
              {sync, pipelined} x {dense, paged(16)} x {full, adaptive}:
              gated as above, frame-to-first-token p50 and p99 printed.
 
+Phase 9 also runs the flash kernels at dh 192 and 256 (the SIMT instance,
+which bf16 takes above dh 128): bf16 at BH 8 x S 4096, causal and window
+1024, timed against SDPA and the bound, two runs equal; f32 (4, 512)
+causal; dh 160 padded to 192.
+
+12. the slice's path, after phase 9:
+             (a) gemma-2b at its published width and depth (18 layers,
+             d_model 2048, 8 heads, MQA, head_dim 256, d_ff 16384, vocab
+             256000, tied embeddings) with spiking FFNs at density 0.3
+             under PACKED_DUAL, random weights from a seed: 8 requests of
+             128 prompt tokens, 16 generated (two of the first wave stop at
+             4 and 6), 4 slots.  The undisturbed serve: kernel 3 launched 2
+             x 18 x forwards, all `tc`, every call held against its plain
+             version, a sample timed; four requests, one of each admission
+             wave, held against the CPU (teacher-forced, LOGIT_TOL); the
+             serving attention of a lone request timed with and without
+             its batch block (gemma-2b and llama3.2-1b widths).  Then
+             under {sync, pipelined} x
+             {dense, paged(16)}: the notice after 6 steps
+             (`PreemptionHandler.trigger`), `drain(step_budget=2)` with
+             requests waiting, in flight and finished, the handoff saved to
+             a temporary directory, loaded, resumed; the resume ledger holds
+             every in-flight request; tokens and every captured logit vector
+             equal to the undisturbed serve's bit for bit.  (b) qwen3-14b
+             at its published width (d_model 5120, 40 heads, kv 8, d_ff
+             17408, vocab 151936, qk-norm, untied head), depth cut to 2
+             layers: a PACKED_DUAL serve of 4 x 128 + 16 (kernel 3 on the
+             17408-wide plans, every call held, a sample timed), card vs
+             CPU, and a speculative (float draft, k 4) and a 120-frame
+             streamed serve equal to the single-position serve bit for bit.
+             (c) gemma-2b, qwen3-14b and nemotron-4-340b at smoke size,
+             float / packed / dual, served on the card and the CPU: the
+             same tokens, logits within LOGIT_TOL.
+
 Prints a JSON line of per-kernel measurements before the last line (the
 headline numbers are each kernel's mean launch on its path), and as the
 last line ``{"ok": true, "device": {...}}``.
@@ -982,40 +1016,52 @@ def _dense_vs_dual(outs, got, dual_outs, dual_logits):
 def _cpu_reference(model, cfg, params, prompts, outs, got):
     """The same params through the port on the CPU (the kernels' plain
     versions, CPU GEMMs), teacher-forced with the served tokens: its prefill
-    and decode logits against the card's.  Tokens may disagree only where
-    the reference's top two logits lie within 2 x LOGIT_TOL."""
+    and decode logits against the card's (``got``: each request's (gen, V)
+    logits; requests may have generated different lengths, each is compared
+    over its own).  Tokens may disagree only where the reference's top two
+    logits lie within 2 x LOGIT_TOL."""
     import numpy as np
     import torch
 
     from repro_torch.serve import Engine, ExecutionPolicy
 
     t0 = time.perf_counter()
-    ref = Engine(model, params, max_len=PROMPT + GEN, max_slots=REQUESTS,
+    outs = [np.asarray(o) for o in outs]
+    gens = [len(o) for o in outs]
+    n, gen = len(prompts), max(gens)
+    ref = Engine(model, params, max_len=PROMPT + gen, max_slots=n,
                  policy=ExecutionPolicy.for_arch(cfg), device="cpu")
-    cache = model.init_cache(REQUESTS, PROMPT + GEN, device="cpu")
-    forced = torch.as_tensor(np.stack(outs)).long()
+    cache = model.init_cache(n, PROMPT + gen, device="cpu")
+    forced = torch.zeros((n, gen), dtype=torch.long)
+    for b, o in enumerate(outs):
+        forced[b, :len(o)] = torch.as_tensor(o).long()
     with torch.no_grad():
         logits, cache = model.prefill(
             ref.params, {"tokens": torch.as_tensor(np.stack(prompts)).long()},
             cache, spiking_mode="infer")
         steps = [logits[:, -1]]
-        for k in range(GEN - 1):
+        for k in range(gen - 1):
             logits, cache = model.decode(ref.params, forced[:, k:k + 1], cache,
                                          spiking_mode="infer")
             steps.append(logits[:, -1])
-    want = torch.stack(steps, dim=1).numpy()                 # (B, GEN, V)
-    drift = np.abs(got - want)
+    want_all = torch.stack(steps, dim=1).numpy()             # (B, GEN, V)
+    want = np.concatenate([want_all[b, :g] for b, g in enumerate(gens)])
+    drift = np.abs(np.concatenate([np.asarray(got[b])[:g]
+                                   for b, g in enumerate(gens)]) - want)
+    first = np.cumsum([0] + gens[:-1])                       # prefill rows
     top2 = np.sort(want, axis=-1)[..., -2:]
     close = (top2[..., 1] - top2[..., 0]) <= 2 * LOGIT_TOL
-    differ = want.argmax(-1) != np.stack(outs)
-    out = {"max_abs_drift": float(drift.max()),
-           "max_abs_drift_prefill": float(drift[:, 0].max()),
+    differ = want.argmax(-1) != np.concatenate(outs)
+    out = {"requests": n, "tokens_per_request": gens,
+           "max_abs_drift": float(drift.max()),
+           "max_abs_drift_prefill": float(drift[first].max()),
            "mean_abs_drift": float(drift.mean()),
            "logit_std": float(want.std()),
            "tokens_compared": int(differ.size),
            "tokens_disagree": int(differ.sum()),
            "seconds": time.perf_counter() - t0}
-    log(f"card vs CPU reference (teacher-forced, {REQUESTS} x {GEN} steps): max "
+    log(f"card vs CPU reference (teacher-forced, {n} requests of {gens} "
+        f"steps): max "
         f"|logit drift| {out['max_abs_drift']:.3e} (prefill "
         f"{out['max_abs_drift_prefill']:.3e}, mean {out['mean_abs_drift']:.3e}, "
         f"logit std {out['logit_std']:.3f}); {out['tokens_disagree']} of "
@@ -1895,9 +1941,60 @@ def phase_flash(captured, cfg):
     o, _ = fm.flash_mha_fwd(q, k, v, bq=64, bk=64)
     torch.testing.assert_close(o[:, 0], v[:, 0], rtol=1e-4, atol=1e-4)
     log("flash: the first causal row == v[:, 0] within 1e-4")
+    wide_rows, wide_counts = _flash_wide(gen, flush)
+    for name, r in wide_rows.items():
+        rows[name] += r
     return {"launches": counts, "rows": rows, "vs_model_attention": vs_model,
             "over_gate": worst, "vs_plain_chain_over_gate": chain,
-            "f64_o_witness_over_gate": witness, "o_off_plain": off}
+            "f64_o_witness_over_gate": witness, "o_off_plain": off,
+            "wide_launches": wide_counts}
+
+
+def _flash_wide(gen, flush):
+    """The head dims above 128 (nemotron's 192, gemma's 256; the SIMT
+    instance, which bf16 takes there too): bf16 at BH 8 x S 4096, causal
+    and window 1024, held against the plain versions (1e-2, lse 3e-4) and
+    timed against SDPA and the bound; two runs of each window case equal
+    bit for bit; f32 at the reference test's (4, 512) causal case (3e-4,
+    gradients 3e-3), and dh 160 padded to 192.  Returns ({kernel: rows},
+    the launches of these cases by kernel and instance)."""
+    import torch
+
+    from repro_torch.kernels import flash_mha as fm
+
+    rows = {name: [] for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                                  "flash_mha")}
+
+    def cases():
+        for dh in (192, 256):
+            assert fm.flash_instance(torch.bfloat16, dh) == "simt"
+            for label, window in ((f"BH=8 S=4096 dh={dh} causal", 0),
+                                  (f"BH=8 S=4096 dh={dh} window=1024", 1024)):
+                q, k, v, g = _flash_inputs(gen, 8, 4096, dh, torch.bfloat16)
+                for name, r in _flash_case(label, q, k, v, g, True, window,
+                                           FLASH_TOL_BF16, flush=flush, reps=3,
+                                           B=1).items():
+                    rows[name].append(r)
+            runs = []
+            for _ in range(2):
+                o, lse = fm.flash_mha_fwd(q, k, v, window=1024)
+                runs.append((o, lse, *fm.flash_mha_bwd(q, k, v, o, lse, g,
+                                                       window=1024)))
+            assert all(torch.equal(a, b) for a, b in zip(*runs)), dh
+            log(f"flash dh {dh}: two runs of the S=4096 window case equal bit "
+                "for bit")
+            q, k, v, g = _flash_inputs(gen, 4, 512, dh, torch.float32)
+            for name, r in _flash_case(f"f32 (4,512,{dh}) causal", q, k, v, g,
+                                       True, 0, 3e-4, grad_tol=3e-3).items():
+                rows[name].append(r)
+        q, k, v, g = _flash_inputs(gen, 8, 1024, 160, torch.bfloat16)
+        for name, r in _flash_case("BH=8 S=1024 dh=160 (padded to 192) causal",
+                                   q, k, v, g, True, 0, FLASH_TOL_BF16).items():
+            rows[name].append(r)
+
+    _, counts = _counted("flash at head dims 160-256", cases)
+    assert counts["flash_fwd_simt"] > 0 and counts["flash_fwd_tc"] == 0, counts
+    return rows, counts
 
 
 def _o_f64(q, k, v):
@@ -2356,16 +2453,18 @@ def _put_row(label, big, one, B, S, Bo):
         x.view(B, S, -1)[:Bo, 0] = one[1].view(Bo, 1, -1)[:, 0]
         a[1] = x
     elif label in ("scores einsum", "values einsum"):
+        # the attention operands' batch is padded to B_BLOCK rows: the
+        # S = 1 dispatch's first Bo are its real ones
         x, kv = a[1].clone(), a[2].clone()
         if label == "scores einsum":      # q (B, S, KV, G, dh)
-            x[:Bo, 0] = one[1][:, 0]
+            x[:Bo, 0] = one[1][:Bo, 0]
         else:                             # p (B, KV, G, S, Skv)
-            x[:Bo, ..., 0, :] = one[1][..., 0, :]
-        kv[:Bo] = one[2]
+            x[:Bo, ..., 0, :] = one[1][:Bo, ..., 0, :]
+        kv[:Bo] = one[2][:Bo]
         a[1], a[2] = x, kv
     elif label == "softmax":              # scores (B, KV, G, S, Skv)
         x = a[0].clone()
-        x[:Bo, ..., 0, :] = one[0][..., 0, :]
+        x[:Bo, ..., 0, :] = one[0][:Bo, ..., 0, :]
         a[0] = x
     else:                                 # rate decode: (T, B * S, D)
         x = a[0].clone()
@@ -2412,19 +2511,20 @@ def _first_blocks(labels):
     return keep
 
 
-def _plain(label, func, args, kw, S):
+def _plain(label, func, args, kw, S, B):
     """The library's own call for a logged op of the serving path: a
-    row-blocked op on its whole operand, an attention op on its ``S`` real
-    query rows alone (without the serving path's query block)."""
+    row-blocked op on its whole operand, an attention op on its ``B`` real
+    batch rows and ``S`` real query rows alone (without the serving path's
+    batch and query blocks)."""
     a = list(args)
     if label in ROW_OPS:
         return a[0](*a[1:])
     if label == "scores einsum":
-        a[1] = a[1][:, :S]
+        a[1], a[2] = a[1][:B, :S], a[2][:B]
     elif label == "values einsum":
-        a[1] = a[1][..., :S, :]
+        a[1], a[2] = a[1][:B, ..., :S, :], a[2][:B]
     elif label == "softmax":
-        a[0] = a[0][..., :S, :]
+        a[0] = a[0][:B, ..., :S, :]
     return func(*a, **kw)
 
 
@@ -2455,8 +2555,8 @@ def _compare(res, col, labels, ops_1, calls_1, ops_c, calls_c, params, cfg,
         want = _pick_row(label, func(*a1, **kw), Bo, 1, Bo)
         got = _pick_row(label, func(*ab, **kw), B, So, Bo)
         _count(res.setdefault(label, {}).setdefault(col, {}), got, want)
-        want = _pick_row(label, _plain(label, func, a1, kw, 1), Bo, 1, Bo)
-        got = _pick_row(label, _plain(label, func, ab, kw, min(S, Q_BLOCK)),
+        want = _pick_row(label, _plain(label, func, a1, kw, 1, Bo), Bo, 1, Bo)
+        got = _pick_row(label, _plain(label, func, ab, kw, min(S, Q_BLOCK), B),
                         B, So, Bo)
         _count(res[label].setdefault(f"library {col}", {}), got, want)
     # the FFN's kernels on the same words: W_in then W_out, per layer
@@ -3076,6 +3176,389 @@ def phase_windows(dual):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the slice's path at full width (drain and handoff; the dense
+# family)
+# ---------------------------------------------------------------------------
+
+P12_SLOTS = 4
+# 8 requests of 128 prompt tokens, 16 generated, but two of the first wave
+# stop at 4 and 6 tokens: when the notice lands after PREEMPT_AFTER steps,
+# some requests are finished, some in flight and some still waiting
+P12_GENS = (4, 16, 16, 6, 16, 16, 16, 16)
+PREEMPT_AFTER, DRAIN_GRACE = 6, 2
+# the card-vs-CPU check's requests: one of each admission wave (the first
+# four, then the two admitted when requests 0 and 3 stop, then the last
+# two), an early stopper among them
+P12_CPU_REQUESTS = (0, 1, 5, 7)
+QWEN_LAYERS = 2             # qwen3-14b's depth cut (40 at full depth)
+
+
+def _budget_serve(engine, prompts, gens, label):
+    """A counted serve of each prompt under its own budget, logits
+    captured and BSR calls recorded: (tokens, {rid: (gen, V) logits},
+    launch counts, calls, rids), in submit order."""
+    import numpy as np
+
+    engine.metrics.reset()
+    engine.logit_traces = {}
+    engine.capture_logits = True
+    calls, restore = _record(["ftp_spmm_bsr"])
+
+    def run():
+        tickets = [engine.submit(p, g) for p, g in zip(prompts, gens)]
+        out = engine.run()
+        return [out[t.rid] for t in tickets], [t.rid for t in tickets]
+
+    try:
+        (outs, rids), counts = _counted(f"{label} serve", run)
+    finally:
+        restore()
+    traces = {r: np.stack(engine.logit_traces[r]) for r in rids}
+    for o, g, r in zip(outs, gens, rids):
+        assert len(o) == g and traces[r].shape == (g, engine.cfg.vocab), r
+    return outs, traces, counts, calls, rids
+
+
+def _all_tc(counts, per_forward, forwards, label):
+    """Kernel 3 launched ``per_forward`` times a forward, every launch on
+    its tensor-core instance, and no other FTP kernel."""
+    n = per_forward * forwards
+    assert counts["ftp_bsr"] == counts["ftp_bsr_tc"] == n, (label, counts, n)
+    assert counts["ftp_bsr_simt"] == 0, (label, counts)
+    for k in ("ftp_spmm", "ftp_spmm_fused_lif", "ftp_bsr_adaptive"):
+        assert counts.get(k, 0) == 0, (label, counts)
+
+
+def _hold_calls(calls, label, per_group=8):
+    """Every recorded kernel-3 call against its plain version (both
+    instances, the FTP gate), and a sample of each (M, fuse_lif) group
+    timed against its bound, its plain version and the library matmul."""
+    err, flips = _parity_all(calls, label)
+    log(f"{label}: all {len(calls)} kernel 3 calls held against the plain "
+        f"version: max_abs_err {err:.3e} (<= {TOL}), {flips} spike-word flips "
+        "at the threshold")
+    rows = _replay(_sample(calls, per_group), prefix=label)
+    return {"launches": len(calls), "max_abs_err": err, "flips": flips,
+            "rows": rows}
+
+
+def _drain_cycle(model, params, cfg, prompts, base, execution, paging, tmp):
+    """Serve ``prompts`` under the policy, deliver the preemption notice
+    after PREEMPT_AFTER steps, drain within DRAIN_GRACE steps, save and load
+    the handoff, resume a successor and run it: tokens and captured logits
+    (the victim's for requests it finished, the successor's for the rest)
+    against the undisturbed serve ``base``, bit for bit."""
+    import numpy as np
+
+    from repro_torch.ft import PreemptionHandler
+    from repro_torch.serve import Engine, ExecutionPolicy, Handoff
+
+    label = f"12a drain {execution} {'paged' if paging else 'dense'}"
+    outs_b, traces_b, rids_b = base
+    policy = ExecutionPolicy.for_arch(cfg, execution=execution, paging=paging)
+    handler = PreemptionHandler(signals=())
+    victim = Engine(model, params, max_len=PROMPT + GEN, max_slots=P12_SLOTS,
+                    policy=policy, capture_logits=True, preemption=handler)
+    tickets = [victim.submit(p, g) for p, g in zip(prompts, P12_GENS)]
+    for _ in range(PREEMPT_AFTER):
+        victim.step()
+    handler.trigger()
+    t0 = time.perf_counter()
+    handoff = victim.drain(step_budget=DRAIN_GRACE)
+    drain_s = time.perf_counter() - t0
+    c = handoff.counts()
+    assert c["waiting"] > 0 and c["inflight"] > 0 and c["finished"] > 0, c
+    assert victim.scheduler._tickets == {} and not victim.cohorts
+    finished = {r.rid for r in handoff.requests if r.state == "finished"}
+    victim_traces = {r: np.stack(t) for r, t in victim.logit_traces.items()
+                     if r in finished}
+    handoff.save(tmp)
+    loaded = Handoff.load(tmp)
+    assert loaded.counts() == c
+    del victim
+    gc.collect()
+    successor = Engine.resume(model, params, loaded, policy=policy,
+                              capture_logits=True)
+    inflight = {r.rid: r.generated for r in loaded.requests
+                if r.state == "inflight"}
+    # the ledger holds every in-flight request with its handed-off tokens
+    assert set(successor._resume_expect) == set(inflight), (
+        sorted(successor._resume_expect), sorted(inflight))
+    for rid, gen in inflight.items():
+        np.testing.assert_array_equal(successor._resume_expect[rid], gen)
+    out, counts = _counted(f"{label} successor", successor.run)
+    assert successor._resume_expect == {}
+    assert counts["ftp_bsr"] == counts["ftp_bsr_tc"] > 0, counts
+    for t, want, rid in zip(tickets, outs_b, rids_b):
+        np.testing.assert_array_equal(out[t.rid], want)
+        got = (victim_traces[t.rid] if t.rid in finished
+               else np.stack(successor.logit_traces[t.rid]))
+        assert np.array_equal(got, traces_b[rid]), (
+            f"{label}: request {t.rid}: "
+            f"{int((got != traces_b[rid]).sum())} logits differ")
+    log(f"{label}: notice after {PREEMPT_AFTER} steps, drained in "
+        f"{drain_s:.3f}s within {DRAIN_GRACE} steps: {json.dumps(c)}; the "
+        f"successor finished every request, tokens and {sum(P12_GENS)} logit "
+        f"vectors equal to the undisturbed serve bit for bit; "
+        f"{counts['ftp_bsr']} kernel 3 launches (tc)")
+    del successor
+    gc.collect()
+    return {"counts": c, "drain_s": drain_s, "successor_launches": counts["ftp_bsr"]}
+
+
+def _batch_block_cost(cfg, flush, reps=50):
+    """The serving attention (`layers.multihead_attention` with ``q_block``)
+    of one request alone (B = 1) at ``cfg``'s widths, as served (the batch
+    zero-padded to `layers.B_BLOCK` rows) and with blocks of one row: the
+    device time of a decode (Sq 1) and a prefill (Sq PROMPT) against a
+    PROMPT + GEN cache, timed in turns in this call."""
+    import torch
+
+    from repro_torch.models import layers
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    H, KV, dh, skv = cfg.n_heads, cfg.n_kv, cfg.head_dim, PROMPT + GEN
+    k, v = (torch.randn(1, skv, KV, dh, generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    saved, out = layers.B_BLOCK, {}
+    try:
+        for name, sq, at in (("decode", 1, PROMPT + GEN - 2), ("prefill", PROMPT, 0)):
+            q = torch.randn(1, sq, H, dh, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            kv_pos = torch.arange(skv, device="cuda")
+            kv_pos = torch.where(kv_pos < at + sq, kv_pos, -1)
+
+            def call():
+                return layers.multihead_attention(
+                    q, k, v, cfg, q_offset=at, kv_positions=kv_pos,
+                    q_block=layers.Q_BLOCK)
+
+            times = {saved: [], 1: []}
+            for _ in range(2):          # served, one-row, one-row, served
+                for b in ((saved, 1) if not times[1] else (1, saved)):
+                    layers.B_BLOCK = b
+                    times[b].append(_time_ms(call, reps, flush))
+            out[name] = {"served_ms": statistics.mean(times[saved]),
+                         "one_row_ms": statistics.mean(times[1])}
+    finally:
+        layers.B_BLOCK = saved
+    log(f"{cfg.name} serving attention of one request (B 1): " + "; ".join(
+        f"{n} {r['served_ms']:.4f} ms in blocks of {saved} rows, "
+        f"{r['one_row_ms']:.4f} ms in blocks of 1"
+        for n, r in out.items()) + " (device time per call and layer)")
+    return out
+
+
+def phase_handoff():
+    """12a: gemma-2b at its published width and depth (18 layers, d_model
+    2048, 8 heads, MQA, head_dim 256, d_ff 16384, vocab 256000, tied
+    embeddings) with spiking FFNs at weight density 0.3 under PACKED_DUAL,
+    served undisturbed, then drained after PREEMPT_AFTER steps and resumed
+    under {sync, pipelined} x {dense, paged(16)}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import build_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import Engine, ExecutionPolicy, paged
+
+    cfg = build_config("gemma_2b", smoke=False, spiking=True, weight_density=0.3)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim,
+            cfg.d_ff, cfg.vocab, cfg.tie_embeddings) == (
+        18, 2048, 8, 1, 256, 16384, 256000, True)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED, device="cuda")
+    base = Engine(model, params, max_len=PROMPT + GEN, max_slots=P12_SLOTS,
+                  policy=ExecutionPolicy.for_arch(cfg), capture_logits=True)
+    torch.cuda.synchronize()
+    log(f"12a gemma-2b init + plans on the card: {time.perf_counter() - t0:.3f}s,"
+        f" {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    rng = np.random.default_rng(SEED + 12)
+    base.generate_batch([rng.integers(0, cfg.vocab, size=(8,))], 2)  # warm-up
+    prompts = [rng.integers(0, cfg.vocab, size=(PROMPT,)).astype(np.int32)
+               for _ in P12_GENS]
+    t0 = time.perf_counter()
+    outs, traces, counts, calls, rids = _budget_serve(base, prompts, P12_GENS,
+                                                      "12a gemma-2b undisturbed")
+    serve_s = time.perf_counter() - t0
+    s = base.summary()
+    forwards = s["prefill_batches"] + s["decode_batches"]
+    _all_tc(counts, 2 * cfg.n_layers, forwards, "12a undisturbed")
+    log(f"12a undisturbed serve: {len(prompts)} requests, {s['total_tokens']} "
+        f"tokens in {serve_s:.2f}s with logit capture, {forwards} forwards, "
+        f"{counts['ftp_bsr']} kernel 3 launches (all tc); sample "
+        f"{outs[1][:8].tolist()}")
+    held = _hold_calls(calls, "12a gemma-2b serve")
+    assert held["launches"] == counts["ftp_bsr"]
+    del calls
+    pick = list(P12_CPU_REQUESTS)
+    cpu_ref = _cpu_reference(model, cfg, params, [prompts[i] for i in pick],
+                             [outs[i] for i in pick],
+                             [traces[rids[i]] for i in pick])
+    flush = _flush_buffer()
+    block_cost = {c.name: _batch_block_cost(c, flush) for c in (
+        cfg, build_config("llama3_2_1b", smoke=False, spiking=True,
+                          weight_density=0.3))}
+    del flush
+    cycles = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for execution in ("sync", "pipelined"):
+            for paging in (None, paged(PAGE)):
+                key = f"{execution} {'paged' if paging else 'dense'}"
+                cycles[key] = _drain_cycle(
+                    model, params, cfg, prompts, (outs, traces, rids),
+                    execution, paging, os.path.join(tmp, key.replace(" ", "_")))
+    del base, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "requests": len(prompts), "gens": list(P12_GENS),
+            "forwards": forwards, "launches": counts["ftp_bsr"],
+            "serve_s": serve_s, "kernel3": held, "cpu_reference": cpu_ref,
+            "attention_batch_block": block_cost, "drain": cycles}
+
+
+def phase_qwen3():
+    """12b: qwen3-14b at its published width (d_model 5120, 40 heads, kv 8,
+    head_dim 128, d_ff 17408, vocab 151936, qk-norm, untied head), depth
+    cut to QWEN_LAYERS, spiking FFNs at weight density 0.3 under
+    PACKED_DUAL: kernel 3 on the 17408-wide plans, card vs CPU logits, and
+    a speculative (float draft, k 4) serve and a streamed serve bit for bit
+    equal to the single-position serve."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import build_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import Engine, ExecutionPolicy
+
+    full = build_config("qwen3_14b", smoke=False, spiking=True,
+                        weight_density=0.3)
+    cfg = dataclasses.replace(full, n_layers=QWEN_LAYERS)
+    assert (cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim, cfg.d_ff,
+            cfg.vocab, cfg.qk_norm, cfg.tie_embeddings) == (
+        5120, 40, 8, 128, 17408, 151936, True, False)
+    model = build_model(cfg)
+    params = model.init(SEED, device="cuda")
+    assert "lm_head" in params and "q_norm" in params["layers"][0]["attn"]
+    engine = Engine(model, params, max_len=PROMPT + GEN, max_slots=REQUESTS,
+                    policy=ExecutionPolicy.for_arch(cfg), capture_logits=True)
+    rng = np.random.default_rng(SEED + 13)
+    engine.generate_batch([rng.integers(0, cfg.vocab, size=(8,))], 2)  # warm-up
+    prompts = [rng.integers(0, cfg.vocab, size=(PROMPT,)).astype(np.int32)
+               for _ in range(REQUESTS)]
+    outs, got, counts, calls = _traced_serve(engine, prompts, "12b qwen3-14b")
+    s = engine.summary()
+    forwards = s["prefill_batches"] + s["decode_batches"]
+    _all_tc(counts, 2 * cfg.n_layers, forwards, "12b qwen3-14b")
+    plan = engine.params["layers"][0]["mlp"]["plan_in"]
+    log(f"12b qwen3-14b ({cfg.n_layers} of {full.n_layers} layers): "
+        f"{forwards} forwards, {counts['ftp_bsr']} kernel 3 launches (all tc) "
+        f"on W_in plans of {tuple(plan.payload.shape)} blocks")
+    held = _hold_calls(calls, "12b qwen3-14b serve")
+    del calls
+    cpu_ref = _cpu_reference(model, cfg, params, prompts, outs, got)
+    del engine
+    gc.collect()
+    # speculative (float draft, k = 4) and streamed serves against the
+    # single-position serve, bit for bit
+    float_draft = ExecutionPolicy.for_arch(cfg, spike_format="float",
+                                           weight_sparsity="dense")
+    base = Engine(model, params, max_len=SPEC_MAX_LEN, max_slots=REQUESTS,
+                  policy=ExecutionPolicy.for_arch(cfg))
+    want, want_logits, _, _ = _traced_serve(base, prompts, "12b non-speculative")
+    del base
+    spec = _spec_engine(model, params, cfg, float_draft)
+    souts, slogits, scounts, _ = _traced_serve(spec, prompts, "12b speculative")
+    ss = spec.summary()
+    assert ss["tokens_proposed"] == ss["tokens_accepted"] + ss["tokens_rejected"]
+    assert ss["speculative_rounds"] > 0
+    spec_gate = _gate("12b qwen3-14b speculative (float draft, k 4)", "bitwise",
+                      souts, slogits, want, want_logits)
+    spec_gate.update(acceptance=ss["acceptance_rate"],
+                     rounds=ss["speculative_rounds"],
+                     launches=scounts["ftp_bsr"])
+    del spec
+    gc.collect()
+    chunks, sprompt = _stream_prompt(cfg)
+    max_len = 9 * PAGE
+    mono = Engine(model, params, max_len=max_len, max_slots=1,
+                  policy=ExecutionPolicy.for_arch(cfg))
+    mwant, mlogits, _, _ = _traced_serve(mono, [sprompt], "12b monolithic")
+    del mono
+    streamer = Engine(model, params, max_len=max_len, max_slots=1,
+                      capture_logits=True, policy=ExecutionPolicy.for_arch(cfg))
+    (sgot, session), stcounts = _counted(
+        "12b stream", lambda: _drive_stream(streamer, chunks, cfg))
+    np.testing.assert_array_equal(session.prompt_tokens(), sprompt)
+    stream_logits = np.stack(streamer.drain_logit_traces()[0])[None]
+    stream_gate = _gate("12b qwen3-14b stream (120 frames)", "bitwise", [sgot],
+                        stream_logits, mwant, mlogits)
+    stream_gate.update(launches=stcounts["ftp_bsr"],
+                       windows=streamer.summary()["stream_windows"])
+    del streamer, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "full_depth": full.n_layers, "forwards": forwards,
+            "launches": counts["ftp_bsr"], "kernel3": held,
+            "cpu_reference": cpu_ref, "speculative": spec_gate,
+            "stream": stream_gate}
+
+
+def phase_smoke_archs():
+    """12c: gemma-2b, qwen3-14b and nemotron-4-340b at the smoke size in
+    the float, packed and dual modes (as `tests/test_arch_parity_matrix.py`
+    sets them) served on the card and on the CPU from the same params: the
+    same tokens, logits within LOGIT_TOL."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import Engine, ExecutionPolicy
+
+    modes = {"float": {}, "packed": dict(spiking_ffn=True, spiking_T=4),
+             "dual": dict(spiking_ffn=True, spiking_T=4,
+                          spiking_weight_density=0.3)}
+    out = {}
+    for arch in ("gemma_2b", "qwen3_14b", "nemotron_4_340b"):
+        for mode, over in modes.items():
+            cfg = dataclasses.replace(smoke_variant(get_config(arch)), **over)
+            model = build_model(cfg)
+            params = model.init(SEED, device="cpu")
+            prompts = list(np.random.default_rng(1).integers(0, cfg.vocab,
+                                                             size=(3, 8)))
+            got, traces, launches = {}, {}, 0
+            for dev in ("cuda", "cpu"):
+                eng = Engine(model, params, max_len=16, max_slots=3,
+                             capture_logits=True, device=dev,
+                             policy=ExecutionPolicy.for_arch(cfg))
+                res, counts = _counted(f"12c {arch} {mode} {dev}",
+                                       lambda: eng.generate_batch(prompts, 6))
+                got[dev] = res
+                traces[dev] = np.stack([np.stack(t)
+                                        for t in eng.drain_logit_traces()])
+                if dev == "cuda":
+                    launches = counts["ftp_bsr"] + counts["ftp_spmm"]
+                    if mode != "float":
+                        assert launches > 0, counts
+            for a, b in zip(got["cuda"], got["cpu"]):
+                np.testing.assert_array_equal(a, b)
+            drift = float(np.abs(traces["cuda"] - traces["cpu"]).max())
+            assert drift <= LOGIT_TOL, (arch, mode, drift)
+            log(f"12c {arch} smoke, {mode}: card and CPU emit the same tokens, "
+                f"max |logit drift| {drift:.3e}; FTP kernel launches {launches}")
+            out[f"{arch} {mode}"] = {"drift": drift, "launches": launches}
+    return out
+
+
 def _flash_entries(flash):
     """The kernels-line entries of kernels 5-7: headline numbers from the
     train step's own attention inputs (layer 0; `tc`, with the SIMT
@@ -3087,9 +3570,12 @@ def _flash_entries(flash):
         main = rows[0]
         src, replaces = KERNELS[name]
         by = "flash_fwd" if name == "flash_mha" else name
+        wide = flash["wide_launches"]
         entries.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": counts[name],
+            "wide_dh_launches": {"simt": wide[f"{by}_simt"],
+                                 "tc": wide[f"{by}_tc"]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -3212,6 +3698,18 @@ def main() -> int:
     flash = _flash_entries(phase_flash(captured, _train_cfg()))
     flash[-1]["train"] = train
     kernels += flash
+    del captured
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 9 done at {time.perf_counter() - t0:.1f}s")
+    gemma = phase_handoff()
+    log(f"phase 12a done at {time.perf_counter() - t0:.1f}s")
+    qwen3 = phase_qwen3()
+    log(f"phase 12b done at {time.perf_counter() - t0:.1f}s")
+    bsr["slice_path"] = {"gemma_2b": gemma, "qwen3_14b": qwen3,
+                         "smoke_archs": phase_smoke_archs()}
+    bsr["max_abs_err"] = max(bsr["max_abs_err"], gemma["kernel3"]["max_abs_err"],
+                             qwen3["kernel3"]["max_abs_err"])
     assert all(k["launches"] > 0 for k in kernels), [k["launches"] for k in kernels]
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"total {time.perf_counter() - t0:.1f}s")

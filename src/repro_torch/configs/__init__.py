@@ -1,14 +1,20 @@
-"""Architecture configs of the port.  Only the main path's arch is ported
-so far; the rest of the reference's zoo is listed in ROADMAP.md."""
+"""Architecture configs of the port: the dense family (llama3.2-1b,
+gemma-2b, qwen3-14b, nemotron-4-340b).  The reference's other archs are
+later slices, listed in ROADMAP.md."""
 from __future__ import annotations
 
 import importlib
 
 from .base import ArchConfig, smoke_variant
 
-ARCHS = ["llama3_2_1b"]
+ARCHS = ["gemma_2b", "qwen3_14b", "nemotron_4_340b", "llama3_2_1b"]
 
-_ALIASES = {"llama3.2-1b": "llama3_2_1b"}
+_ALIASES = {
+    "gemma-2b": "gemma_2b",
+    "qwen3-14b": "qwen3_14b",
+    "nemotron-4-340b": "nemotron_4_340b",
+    "llama3.2-1b": "llama3_2_1b",
+}
 
 
 def get_config(name: str) -> ArchConfig:
@@ -16,9 +22,13 @@ def get_config(name: str) -> ArchConfig:
     if mod_name not in ARCHS:
         raise NotImplementedError(
             f"arch {name!r} is not ported yet (ported: {ARCHS}); the other "
-            "model families are a later slice, see ROADMAP.md"
+            "model families are later slices, see ROADMAP.md"
         )
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
 
 
-__all__ = ["ArchConfig", "get_config", "smoke_variant"]
+def list_archs() -> list[str]:
+    return list(ARCHS)
+
+
+__all__ = ["ArchConfig", "get_config", "list_archs", "smoke_variant"]

@@ -24,6 +24,9 @@ class ArchConfig:
     expand_kv: bool = False
     rope_theta: float = 500000.0
     tie_embeddings: bool = False
+    # embedding rows scaled by sqrt(d_model) (gemma); the reference keys
+    # this on the name, the port's configs state it
+    embed_scale: bool = False
     norm_eps: float = 1e-5
 
     # MoE

@@ -16,7 +16,8 @@
 // What it computes, per (bh, row), in f32 (SIMT: from inputs upcast on
 // load; tc: bf16 products with f32 accumulation):
 //   s = (q . k) * scale, scale passed in (true_dh^-0.5: the wrapper
-//   zero-pads other dh up to the templates 32, 64, 128), after the dot;
+//   zero-pads other dh up to the templates 32, 64, 128, 192, 256), after
+//   the dot;
 //   masked s = -1e30 (causal: jk > iq; window: jk <= iq - window, absolute
 //   indices, no offset; none: nothing masked);
 //   forward: m, l, acc by the online softmax over kv tiles, starting from
@@ -59,8 +60,13 @@
 // (conflict-free column reads); 256 threads as 16 x 16, each owning a 4 x 4
 // block of the 64 x 64 score tile (rows ty + 16 i, columns tx + 16 j) and 4
 // rows x dh / 16 columns of the output tile; row max and row sums reduce
-// over the 16 lanes of a row group with warp shuffles; shared memory sized
-// for dh = 128 with f32 tiles (forward 116 KB, dq 149 KB, dk/dv 165 KB).
+// over the 16 lanes of a row group with warp shuffles; shared memory at
+// dh = 128 with f32 tiles: forward 116 KB, dq 149 KB, dk/dv 165 KB.  At dh
+// 192 and 256 the tiles are 32 rows (`Simt`; each thread a 2 x 2 score
+// block and 2 rows x dh / 16 output columns): four 64-row tiles at dh 256
+// would take 263 KB of the 227 KB a block may have; at 32 rows and dh 256,
+// forward 101 KB, dq 133 KB, dk/dv 137 KB.  Those head dims have no tc
+// instance yet: bf16 runs SIMT there (kernels/flash_mha.py::flash_instance).
 // tc: see the section's own note below (bf16 tiles through a cp.async
 // ring: forward 45 / 85 KB at dh 64 / 128, dq 54 / 102 KB, dk/dv 55 / 103 KB).
 
@@ -74,10 +80,18 @@
 
 namespace {
 
-constexpr int kTile = 64;            // q rows and kv rows per tile
-constexpr int kThreads = 256;        // 16 x 16
-constexpr int kSub = kTile / 16;     // rows (and score columns) per thread
-constexpr int kLdP = kTile + 1;      // padded row of a 64 x 64 score tile
+constexpr int kTile = 64;            // q rows and kv rows per tile (tc)
+constexpr int kThreads = 256;        // 16 x 16 (SIMT)
+
+// The SIMT instance's tile: 64 rows up to dh 128; 32 rows for dh 192 and
+// 256, where four f32 tiles of 64 rows at stride dh + 1 would pass the
+// 227 KB of shared memory a block may have (dq at dh 256: 263 KB).
+template <int DH>
+struct Simt {
+  static constexpr int kRows = DH > 128 ? 32 : 64;  // rows per tile
+  static constexpr int kSub = kRows / 16;  // rows (and score columns) a thread
+  static constexpr int kLdP = kRows + 1;   // padded row of the score tile
+};
 constexpr float kNegInf = -1e30f;    // the reference's NEG_INF
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -125,12 +139,12 @@ __device__ __forceinline__ bool tile_needed(int q0, int q1, int k0, int k1,
   return !(window && k1 - 1 <= q0 - window);
 }
 
-// Rows [row0, row0 + kTile) of a (rows, DH) matrix into shared memory as
-// f32 with row stride DH + 1; rows past ``rows`` are zero.
+// Rows [row0, row0 + Simt<DH>::kRows) of a (rows, DH) matrix into shared
+// memory as f32 with row stride DH + 1; rows past ``rows`` are zero.
 template <typename T, int DH>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
                                           int rows) {
-  for (int idx = threadIdx.x; idx < kTile * DH; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < Simt<DH>::kRows * DH; idx += kThreads) {
     const int r = idx / DH, c = idx % DH, gr = row0 + r;
     dst[r * (DH + 1) + c] = gr < rows ? to_f32(src[(size_t)gr * DH + c]) : 0.f;
   }
@@ -140,7 +154,9 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
 // of two shared tiles (stride DH + 1).
 template <int DH>
 __device__ __forceinline__ void dots(const float* a, const float* b, int ty,
-                                     int tx, float (&s)[kSub][kSub]) {
+                                     int tx,
+                                     float (&s)[Simt<DH>::kSub][Simt<DH>::kSub]) {
+  constexpr int kSub = Simt<DH>::kSub;
 #pragma unroll
   for (int i = 0; i < kSub; ++i)
 #pragma unroll
@@ -163,8 +179,10 @@ __device__ __forceinline__ void dots(const float* a, const float* b, int ty,
 template <int DH>
 __device__ __forceinline__ void dots2(const float* a, const float* b,
                                       const float* g, const float* w, int ty,
-                                      int tx, float (&s)[kSub][kSub],
-                                      float (&dp)[kSub][kSub]) {
+                                      int tx,
+                                      float (&s)[Simt<DH>::kSub][Simt<DH>::kSub],
+                                      float (&dp)[Simt<DH>::kSub][Simt<DH>::kSub]) {
+  constexpr int kSub = Simt<DH>::kSub;
 #pragma unroll
   for (int i = 0; i < kSub; ++i)
 #pragma unroll
@@ -209,6 +227,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     int S, int Skv, float scale, int causal, int window, T* __restrict__ o,
     float* __restrict__ lse) {
   constexpr int LD = DH + 1, DSUB = DH / 16;
+  // this instance's tile rows (Simt<DH>), in place of the tc instance's 64
+  constexpr int kTile = Simt<DH>::kRows, kSub = Simt<DH>::kSub,
+                kLdP = Simt<DH>::kLdP;
   extern __shared__ float smem[];
   float* qs = smem;
   float* ks = qs + kTile * LD;
@@ -304,6 +325,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const float* __restrict__ delta, int S, int Skv, float scale, int causal,
     int window, T* __restrict__ dq) {
   constexpr int LD = DH + 1, DSUB = DH / 16;
+  // this instance's tile rows (Simt<DH>), in place of the tc instance's 64
+  constexpr int kTile = Simt<DH>::kRows, kSub = Simt<DH>::kSub,
+                kLdP = Simt<DH>::kLdP;
   extern __shared__ float smem[];
   float* qs = smem;
   float* gs = qs + kTile * LD;  // do
@@ -387,6 +411,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const float* __restrict__ delta, int S, int Skv, float scale, int causal,
     int window, T* __restrict__ dk, T* __restrict__ dv) {
   constexpr int LD = DH + 1, DSUB = DH / 16;
+  // this instance's tile rows (Simt<DH>), in place of the tc instance's 64
+  constexpr int kTile = Simt<DH>::kRows, kSub = Simt<DH>::kSub,
+                kLdP = Simt<DH>::kLdP;
   extern __shared__ float smem[];
   float* ks = smem;
   float* vs = ks + kTile * LD;
@@ -1094,8 +1121,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_tc_kernel(
 
 }  // namespace tc
 
-constexpr size_t tile_bytes(int dh) { return (size_t)kTile * (dh + 1) * 4; }
-constexpr size_t score_bytes() { return (size_t)kTile * kLdP * 4; }
+// SIMT shared memory: an f32 tile of the instance's rows at stride DH + 1,
+// and its (rows x rows + 1) score tile
+template <int DH>
+constexpr size_t tile_bytes() { return (size_t)Simt<DH>::kRows * (DH + 1) * 4; }
+template <int DH>
+constexpr size_t score_bytes() {
+  return (size_t)Simt<DH>::kRows * Simt<DH>::kLdP * 4;
+}
+template <int DH>
+constexpr int simt_tiles(int rows) {
+  return (rows + Simt<DH>::kRows - 1) / Simt<DH>::kRows;
+}
 
 // Dispatch over (instance, dtype, dh): F<T, DH>::run(args...) launches a
 // SIMT instance, G<DH>::run(args...) the tensor-core one (bf16 only).
@@ -1111,10 +1148,14 @@ int dispatch(int tc, int bf16, int dh, Args... args) {
     if (dh == 32) return F<__nv_bfloat16, 32>::run(args...);
     if (dh == 64) return F<__nv_bfloat16, 64>::run(args...);
     if (dh == 128) return F<__nv_bfloat16, 128>::run(args...);
+    if (dh == 192) return F<__nv_bfloat16, 192>::run(args...);
+    if (dh == 256) return F<__nv_bfloat16, 256>::run(args...);
   } else {
     if (dh == 32) return F<float, 32>::run(args...);
     if (dh == 64) return F<float, 64>::run(args...);
     if (dh == 128) return F<float, 128>::run(args...);
+    if (dh == 192) return F<float, 192>::run(args...);
+    if (dh == 256) return F<float, 256>::run(args...);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1133,10 +1174,10 @@ struct Fwd {
   static int run(const void* q, const void* k, const void* v, int BH, int S,
                  int Skv, float scale, int causal, int window, void* o,
                  void* lse, cudaStream_t s) {
-    const size_t smem = 3 * tile_bytes(DH) + score_bytes();
+    const size_t smem = 3 * tile_bytes<DH>() + score_bytes<DH>();
     int rc = start(flash_fwd_kernel<T, DH>, smem);
     if (rc) return rc;
-    dim3 grid(BH, (S + kTile - 1) / kTile);
+    dim3 grid(BH, simt_tiles<DH>(S));
     flash_fwd_kernel<T, DH><<<grid, kThreads, smem, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), S, Skv, scale, causal, window,
@@ -1151,10 +1192,10 @@ struct BwdDq {
                  const void* dout, const void* lse, const void* delta, int BH,
                  int S, int Skv, float scale, int causal, int window,
                  void* dq, cudaStream_t s) {
-    const size_t smem = 4 * tile_bytes(DH) + score_bytes();
+    const size_t smem = 4 * tile_bytes<DH>() + score_bytes<DH>();
     int rc = start(flash_bwd_dq_kernel<T, DH>, smem);
     if (rc) return rc;
-    dim3 grid(BH, (S + kTile - 1) / kTile);
+    dim3 grid(BH, simt_tiles<DH>(S));
     flash_bwd_dq_kernel<T, DH><<<grid, kThreads, smem, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -1170,10 +1211,11 @@ struct BwdDkv {
                  const void* dout, const void* lse, const void* delta, int BH,
                  int S, int Skv, float scale, int causal, int window,
                  void* dk, void* dv, cudaStream_t s) {
-    const size_t smem = 4 * tile_bytes(DH) + 2 * score_bytes() + 2 * kTile * 4;
+    const size_t smem =
+        4 * tile_bytes<DH>() + 2 * score_bytes<DH>() + 2 * Simt<DH>::kRows * 4;
     int rc = start(flash_bwd_dkv_kernel<T, DH>, smem);
     if (rc) return rc;
-    dim3 grid(BH, (Skv + kTile - 1) / kTile);
+    dim3 grid(BH, simt_tiles<DH>(Skv));
     flash_bwd_dkv_kernel<T, DH><<<grid, kThreads, smem, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -1252,8 +1294,8 @@ struct BwdDkvTc {
 extern "C" {
 
 // q: (BH, S, dh), k, v: (BH, Skv, dh), all contiguous, bf16 (bf16 = 1) or
-// f32 (0); dh in {32, 64, 128}; tc = 1 launches the tensor-core instance
-// (bf16 only, 16-byte aligned bases), 0 the SIMT one.  o: (BH, S, dh) in
+// f32 (0); dh in {32, 64, 128, 192, 256}; tc = 1 launches the tensor-core
+// instance (bf16 only, 16-byte aligned bases, dh <= 128), 0 the SIMT one.  o: (BH, S, dh) in
 // q's dtype, lse: (BH, S) f32.  Returns cudaGetLastError() after the launch
 // (or the error that refused it).
 int flash_fwd_launch(const void* q, const void* k, const void* v, int BH,

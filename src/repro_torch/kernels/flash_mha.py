@@ -12,17 +12,20 @@ CUDA kernels and the autograd Function over them (port of
   reference's ``custom_vjp``).
 
 Each kernel has two instances (`flash_instance`): ``tc`` on the tensor
-cores for bf16 inputs, ``simt`` (SIMT f32 FMA) for f32 ones.  Each wrapper
+cores for bf16 inputs up to dh 128, ``simt`` (SIMT f32 FMA) for f32 ones
+and, above dh 128, for bf16 ones too (the tensor-core design for dh 192 and
+256 is queued in ROADMAP.md).  Each wrapper
 launches its CUDA kernel for CUDA tensors and runs its plain version
 (`ref.flash_mha_fwd_plain`, `ref.flash_mha_bwd_dq_plain`,
 `ref.flash_mha_bwd_dkv_plain`) only for tensors on the CPU, at the true dh;
 the reference's ``interpret`` switch is not ported.  There is no fallback:
 a CUDA input a kernel does not take raises, and a `tc` build or launch that
-fails raises.  The kernels are built for dh 32, 64 and 128 (`HEAD_DIMS`);
-any other dh up to 128 is zero-padded on the last axis to the next of
-them (`template_dh`) and run with the true ``dh ** -0.5`` scale, and the
-outputs are sliced back (`at_template`; zero columns add exact +0
-products).  The padding is plain torch on the wrapper's path.  The
+fails raises.  The kernels are built for dh 32, 64, 128, 192 and 256
+(`HEAD_DIMS`; 192 and 256 SIMT only); any other dh up to 256 is
+zero-padded on the last axis to the next of them (`template_dh`) and run
+with the true ``dh ** -0.5`` scale, and the outputs are sliced back
+(`at_template`; zero columns add exact +0 products).  dh > 256 raises: no
+arch of the reference's zoo has it.  The padding is plain torch on the wrapper's path.  The
 reference's block sizes ``bq``/``bk`` are validated as the reference does
 (``bq = min(bq, S)``, ``S % bq == 0``, ``Skv % bk == 0``); the kernels tile by
 64 rows whatever they are, and no output depends on them beyond rounding.
@@ -47,7 +50,8 @@ from .ref import (
 
 DEFAULT_BQ = 256
 DEFAULT_BK = 256
-HEAD_DIMS = (32, 64, 128)  # the kernels' template instances
+HEAD_DIMS = (32, 64, 128, 192, 256)  # the kernels' template instances
+TC_MAX_DH = 128  # the tensor-core instance's largest template
 INSTANCES = ("tc", "simt")
 
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")  # kernels 5, 6, 6
@@ -74,20 +78,22 @@ def reset_launch_counts() -> None:
 
 def template_dh(dh: int) -> int:
     """The kernel template a head dim runs at: the least of `HEAD_DIMS`
-    that is >= dh (16 -> 32, 48 -> 64, 80 / 96 / 112 -> 128)."""
+    that is >= dh (16 -> 32, 48 -> 64, 80 / 96 / 112 -> 128, 160 -> 192,
+    224 -> 256)."""
     if not 1 <= dh <= HEAD_DIMS[-1]:
         raise ValueError(f"the kernels take 1 <= dh <= {HEAD_DIMS[-1]}, got "
-                         f"dh={dh}")
+                         f"dh={dh} (larger head dims: see ROADMAP.md)")
     return next(t for t in HEAD_DIMS if t >= dh)
 
 
 def flash_instance(dtype: torch.dtype, dh: int) -> str:
     """The kernels' instance for inputs of ``dtype`` and head dim ``dh``:
-    ``tc`` (tensor cores) for bf16, ``simt`` for f32.  Nothing else
+    ``tc`` (tensor cores) for bf16 up to dh 128, ``simt`` for f32 and for
+    bf16 above dh 128 (no tensor-core template there yet).  Nothing else
     decides it."""
-    template_dh(dh)
+    to = template_dh(dh)
     if dtype == torch.bfloat16:
-        return "tc"
+        return "tc" if to <= TC_MAX_DH else "simt"
     if dtype == torch.float32:
         return "simt"
     raise ValueError(f"the kernels take bf16 or f32, got {dtype}")
@@ -102,7 +108,7 @@ def _pick(dtype, dh, instance):
     if instance not in INSTANCES:
         raise ValueError(f"no flash instance {instance!r}")
     if instance == "tc" and route != "tc":
-        raise ValueError(f"the tc instance does not take {dtype}")
+        raise ValueError(f"the tc instance does not take {dtype} at dh={dh}")
     return instance
 
 

@@ -30,6 +30,16 @@ instead of token prompts: each request is a `StreamSession` fed one
 synthetic sensor window (``--window-us``) per engine step, admitted on its
 first complete window and closed explicitly or by ``--idle-timeout``
 microseconds of event-time silence; ``--prompt-len`` then counts windows.
+
+Preemption: ``--handoff-path DIR`` installs a SIGTERM handler; a SIGTERM,
+or ``--preempt-after N`` engine steps, closes admission, drains the live
+cohorts within ``--drain-grace`` steps and saves the handoff to DIR.
+``--resume --handoff-path DIR`` serves a successor from it, and
+``--verify-resume`` replays every handed-off request on an undisturbed
+engine and exits non-zero unless the resumed tokens are identical:
+
+    ... --preempt-after 6 --drain-grace 2 --handoff-path /tmp/h
+    ... --resume --verify-resume --handoff-path /tmp/h
 """
 from __future__ import annotations
 
@@ -147,6 +157,72 @@ def serve_streams(engine, cfg, args):
     return [out[t.rid] for t in tickets], sessions
 
 
+def serve_preemptible(engine, preemption, prompts, args):
+    """Serve ``prompts`` until done or preempted (a SIGTERM, or
+    ``--preempt-after`` steps); on preemption drain within
+    ``--drain-grace`` steps, save the handoff to ``--handoff-path`` and
+    return None, else return the outputs in order."""
+    tickets = [engine.submit(p, args.gen) for p in prompts]
+    n_steps = 0
+    while not engine.idle and not engine.stopping:
+        if args.preempt_after and n_steps == args.preempt_after:
+            preemption.trigger()
+            break
+        engine.step()
+        n_steps += 1
+    if not engine.stopping:
+        out = engine.run()
+        return [out[t.rid] for t in tickets]
+    handoff = engine.drain(step_budget=args.drain_grace or None)
+    handoff.save(args.handoff_path)
+    c = handoff.counts()
+    print(f"preempted after {n_steps} steps; drained within grace "
+          f"{args.drain_grace or 'unbounded'}: {c['finished']} finished, "
+          f"{c['inflight']} in-flight ({c['tokens_in_flight']} tokens "
+          f"preserved), {c['waiting']} waiting -> {args.handoff_path}")
+    print("summary:", json.dumps({k: round(v, 4) if isinstance(v, float) else v
+                                  for k, v in engine.summary().items()}))
+    return None
+
+
+def resume(model, params, policy, args, device) -> int:
+    """``--resume``: a successor engine from ``--handoff-path``; with
+    ``--verify-resume`` every handed-off request again on an undisturbed
+    engine, exiting non-zero unless the tokens are identical."""
+    from repro_torch.serve import Engine, Handoff
+
+    handoff = Handoff.load(args.handoff_path)
+    c = handoff.counts()
+    print(f"resuming from {args.handoff_path}: {c['waiting']} waiting + "
+          f"{c['inflight']} in-flight ({c['tokens_in_flight']} tokens "
+          f"already emitted) + {c['finished']} finished")
+    engine = Engine.resume(model, params, handoff, policy=policy,
+                           batch_align=args.batch_align,
+                           pipeline_depth=args.pipeline_depth, device=device)
+    out = engine.run()
+    s = engine.summary()
+    print(f"resumed {len(out)} results "
+          f"({sum(len(v) for v in out.values())} tokens total)")
+    if args.verify_resume:
+        meta = handoff.meta
+        ref = Engine(model, params, max_len=meta["max_len"],
+                     max_slots=meta["max_slots"], eos_id=meta["eos_id"],
+                     batch_align=args.batch_align, policy=policy,
+                     pipeline_depth=args.pipeline_depth, device=device)
+        tickets = [ref.submit(r.prompt, r.max_new_tokens)
+                   for r in handoff.requests]
+        ref_out = ref.run()
+        for r, t in zip(handoff.requests, tickets):
+            if not np.array_equal(out[r.rid], ref_out[t.rid]):
+                raise SystemExit(f"RESUME IDENTITY FAILED: rid {r.rid} "
+                                 f"{out[r.rid][:8]} != {ref_out[t.rid][:8]}")
+        print(f"resume identity: {len(tickets)} requests token-identical "
+              "to an undisturbed engine")
+    print("summary:", json.dumps({k: round(v, 4) if isinstance(v, float) else v
+                                  for k, v in s.items()}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -238,10 +314,40 @@ def main(argv=None) -> int:
                     help="under --stream: event-time microseconds of silence "
                          "after which tick() closes a stream (0 = close it "
                          "once every window is pushed)")
+    # -- preemption / handoff (ft.preemption + serve/handoff.py) -------------
+    ap.add_argument("--handoff-path", default=None,
+                    help="directory for the drain handoff: a SIGTERM (or "
+                         "--preempt-after) closes admission, drains "
+                         "in-flight cohorts within --drain-grace steps, "
+                         "and checkpoints scheduler state here; with "
+                         "--resume, the directory to resume FROM")
+    ap.add_argument("--drain-grace", type=int, default=0,
+                    help="max engine steps granted to in-flight cohorts "
+                         "after a preemption notice (0 = run them to "
+                         "completion); unfinished requests ride the "
+                         "handoff")
+    ap.add_argument("--preempt-after", type=int, default=0,
+                    help="testing hook: deliver the preemption notice via "
+                         "PreemptionHandler.trigger() after this many "
+                         "engine steps (0 = only real SIGTERM preempts)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume a successor engine from --handoff-path "
+                         "instead of submitting fresh requests")
+    ap.add_argument("--verify-resume", action="store_true",
+                    help="with --resume: replay ALL handoff requests on an "
+                         "undisturbed reference engine and exit nonzero "
+                         "unless the resumed results are token-identical")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
+    if args.stream and (args.handoff_path or args.resume):
+        raise SystemExit(
+            "--stream does not compose with --handoff-path/--resume in this "
+            "launcher (mid-ingest drain is exercised by the test suite)"
+        )
+    if args.resume and not args.handoff_path:
+        raise SystemExit("--resume requires --handoff-path")
 
     from repro_torch import resolve_device
     from repro_torch.kernels import ftp_spmm
@@ -267,13 +373,28 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, size=(args.prompt_len,)).astype(np.int32)
                for _ in range(args.batch)]
+    if args.resume:
+        return resume(model, params, policy, args, device)
+    preemption = None
+    if args.handoff_path:
+        from repro_torch.ft import PreemptionHandler
+
+        preemption = PreemptionHandler()
     engine = Engine(model, params, max_len=max_len,
                     max_slots=args.max_slots or args.batch,
                     batch_align=args.batch_align, policy=policy,
                     capture_logits=not policy.token_identical,
-                    pipeline_depth=args.pipeline_depth, device=device)
+                    pipeline_depth=args.pipeline_depth, preemption=preemption,
+                    device=device)
     before = ftp_spmm.launch_counts()
-    if args.stream:
+    if preemption is not None:
+        try:
+            outs = serve_preemptible(engine, preemption, prompts, args)
+        finally:
+            preemption.restore()
+        if outs is None:
+            return 0
+    elif args.stream:
         outs, sessions = serve_streams(engine, cfg, args)
         # the frame-token prompts, for the drift reference below
         prompts = [sess.prompt_tokens() for sess in sessions]

@@ -27,6 +27,11 @@ ROW_BLOCK = 64
 # (`multihead_attention(q_block=...)`): a decode step and a verify window
 # fit one block, a prefill takes several.
 Q_BLOCK = 32
+# Batch rows per attention call of the serving forward, so that the
+# einsums' batch count (B x KV) has one value too: on the card an MQA row
+# alone (B x KV = 1) took another algorithm than a batch of 4 did, and its
+# logits moved in their last bits (PERF.md has the measurement).
+B_BLOCK = 4
 
 
 def _dt(cfg: ArchConfig) -> torch.dtype:
@@ -100,14 +105,16 @@ def rope_apply(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def attn_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
     D, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
-    if cfg.qk_norm:
-        raise NotImplementedError("qk_norm archs are a later slice; see ROADMAP.md")
-    return {
+    p = {
         "wq": dense_init(gen, (D, H * dh), _dt(cfg)),
         "wk": dense_init(gen, (D, KV * dh), _dt(cfg)),
         "wv": dense_init(gen, (D, KV * dh), _dt(cfg)),
         "wo": dense_init(gen, (H * dh, D), _dt(cfg)),
     }
+    if cfg.qk_norm:  # per-head rmsnorm scales of q and k (zero-initialised)
+        p["q_norm"] = torch.zeros((dh,), dtype=_dt(cfg), device=gen.device)
+        p["k_norm"] = torch.zeros((dh,), dtype=_dt(cfg), device=gen.device)
+    return p
 
 
 def _attn_mask(iq, jk) -> torch.Tensor:
@@ -127,9 +134,10 @@ def multihead_attention(q, k, v, cfg: ArchConfig, *, q_offset: int,
     attention kernel.  Queries run in chunks of ``cfg.attn_chunk`` when it
     divides Sq, which bounds the live (cq, Skv) score tile; every query row
     computes the same values either way.  ``q_block`` (the serving forward)
-    runs the queries in blocks of exactly that many positions, the last one
-    zero-padded: every product then has one shape, and a query row's values
-    do not depend on Sq (the library picks its algorithm by shape)."""
+    runs the queries in blocks of exactly that many positions and the batch
+    in blocks of `B_BLOCK` rows, both zero-padded: every product then has
+    one shape, and a query row's values depend neither on Sq nor on B (the
+    library picks its algorithm by shape)."""
     B, Sq, H, dh = q.shape
     G = H // k.shape[2]
     KV = k.shape[2]
@@ -138,7 +146,7 @@ def multihead_attention(q, k, v, cfg: ArchConfig, *, q_offset: int,
     jk = kv_positions
     kf, vf = k.float(), v.float()
 
-    def chunk_attn(q_c, iq):
+    def chunk_attn(q_c, iq, kf=kf, vf=vf):
         s = torch.einsum("bqkgd,bskd->bkgqs", q_c.float(), kf) * scale
         m = _attn_mask(iq, jk)
         s = torch.where(m[None, None, None], s, torch.full_like(s, -1e30))
@@ -148,13 +156,16 @@ def multihead_attention(q, k, v, cfg: ArchConfig, *, q_offset: int,
 
     if q_block:
         n = -(-Sq // q_block) * q_block
-        if n > Sq:
-            qg = torch.cat([qg, qg.new_zeros((B, n - Sq) + tuple(qg.shape[2:]))],
-                           dim=1)
+        nb = -(-B // B_BLOCK) * B_BLOCK
+        qg = _zero_pad(_zero_pad(qg, 1, n), 0, nb)
+        kf, vf = _zero_pad(kf, 0, nb), _zero_pad(vf, 0, nb)
         iq = q_offset + torch.arange(n, device=q.device)
-        o = [chunk_attn(qg[:, c:c + q_block], iq[c:c + q_block])
-             for c in range(0, n, q_block)]
-        o = (o[0] if len(o) == 1 else torch.cat(o, dim=1))[:, :Sq]
+        o = [chunk_attn(qg[b:b + B_BLOCK, c:c + q_block], iq[c:c + q_block],
+                        kf[b:b + B_BLOCK], vf[b:b + B_BLOCK])
+             for b in range(0, nb, B_BLOCK) for c in range(0, n, q_block)]
+        rows = [torch.cat(o[i:i + n // q_block], dim=1)
+                for i in range(0, len(o), n // q_block)]
+        o = torch.cat(rows, dim=0)[:B, :Sq]
         return o.reshape(B, Sq, H, dh)
     iq = q_offset + torch.arange(Sq, device=q.device)
     cq = cfg.attn_chunk
@@ -166,10 +177,20 @@ def multihead_attention(q, k, v, cfg: ArchConfig, *, q_offset: int,
     return o.reshape(B, Sq, H, dh)
 
 
+def _zero_pad(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """``t`` zero-padded along ``dim`` to ``size``."""
+    if t.shape[dim] == size:
+        return t
+    shape = list(t.shape)
+    shape[dim] = size - shape[dim]
+    return torch.cat([t, t.new_zeros(shape)], dim=dim)
+
+
 def attn_apply(p, x, cfg: ArchConfig, *, positions, cache=None):
-    """Projections + RoPE + attention.  ``cache=None`` (the training
-    forward) attends over the S new positions themselves, kv positions
-    ``0..S-1``, and writes nothing: every op is differentiable.  Otherwise
+    """Projections (+ qk-norm) + RoPE + attention.  ``cache=None`` (the
+    training forward) attends over the S new positions themselves, kv
+    positions ``0..S-1``, and writes nothing: every op is differentiable.
+    Otherwise
     ``cache`` is one layer's dict(k, v, kv_pos, pos): k/v (B, S_cache, KV,
     dh) are written IN PLACE at rows ``pos .. pos+S`` (the cohort owns its
     cache; the reference returns an updated copy instead), ``kv_pos`` is the
@@ -189,6 +210,11 @@ def attn_apply(p, x, cfg: ArchConfig, *, positions, cache=None):
     q = proj(xc, p["wq"].to(ct)).reshape(B, S, H, dh)
     k = proj(xc, p["wk"].to(ct)).reshape(B, S, KV, dh)
     v = proj(xc, p["wv"].to(ct)).reshape(B, S, KV, dh)
+    if cfg.qk_norm:
+        # per-head rmsnorm before RoPE; a serving forward takes its row
+        # means over fixed row blocks, as the block norms do
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps, row_invariant=cache is not None)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps, row_invariant=cache is not None)
     q = rope_apply(q, positions, cfg.rope_theta)
     k = rope_apply(k, positions, cfg.rope_theta)
     if cache is None:
@@ -300,10 +326,18 @@ def _sigmoid(x: torch.Tensor) -> torch.Tensor:
     return 1 / (1 + torch.exp(-x))
 
 
+def _in_dtype(c: float, dtype: torch.dtype) -> float:
+    """The Python constant ``c`` rounded to ``dtype``, as jax rounds a
+    (weakly typed) constant to its array operand's dtype."""
+    return float(torch.tensor(c, dtype=dtype))
+
+
 def _gelu(x: torch.Tensor) -> torch.Tensor:
-    """jax.nn.gelu's tanh approximation, op by op in x's dtype."""
-    cdf = 0.5 * (1.0 + torch.tanh(math.sqrt(2 / math.pi)
-                                  * (x + 0.044715 * (x ** 3))))
+    """jax.nn.gelu's tanh approximation, op by op in x's dtype, with its
+    constants rounded to that dtype first as jax rounds them."""
+    c = _in_dtype(math.sqrt(2 / math.pi), x.dtype)
+    a = _in_dtype(0.044715, x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + a * (x ** 3))))
     return x * cdf
 
 

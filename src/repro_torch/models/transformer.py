@@ -33,10 +33,10 @@ from .layers import (
 
 def _check_arch(cfg: ArchConfig) -> None:
     if (cfg.n_experts or not cfg.embed_inputs or cfg.encoder_only
-            or cfg.n_img_tokens or not cfg.tie_embeddings):
+            or cfg.n_img_tokens):
         raise NotImplementedError(
-            f"{cfg.name}: MoE, audio/VLM front ends, encoders and untied "
-            "heads are later slices of the port; see ROADMAP.md"
+            f"{cfg.name}: MoE, audio/VLM front ends and encoders are later "
+            "slices of the port; see ROADMAP.md"
         )
 
 
@@ -69,29 +69,34 @@ def block_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
     """Random params drawn from ``gen`` on its device: the reference's
     shapes, scaling and prune-once rule (not its numbers — torch and jax
-    generators differ; parity tests bridge the reference's params)."""
+    generators differ; parity tests bridge the reference's params).  An
+    untied arch gets its (D, V) ``lm_head``, drawn after the layers."""
     _check_arch(cfg)
-    return {
+    p = {
         "embed": dense_init(gen, (cfg.vocab, cfg.d_model), _dt(cfg),
                             fan_in=cfg.d_model),
         "layers": [block_init(gen, cfg) for _ in range(cfg.n_layers)],
         "final_norm": torch.zeros((cfg.d_model,), dtype=_dt(cfg),
                                   device=gen.device),
     }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab), _dt(cfg))
+    return p
 
 
 def prepare_params(cfg: ArchConfig, params: dict) -> dict:
     """Load-time casts the reference repeats inside every forward: the
-    attention and FFN matrices in the compute dtype, and the tied
-    unembedding as the f32 values of the compute-dtype embedding,
-    transposed once.  The values every forward sees are unchanged; only the
-    per-call casts go.  The f32 embedding stays for the token lookup
-    (`embed_tokens` casts the gathered rows)."""
+    attention and FFN matrices in the compute dtype, and the unembedding
+    (the tied embedding transposed once, or the untied ``lm_head``) as the
+    f32 values of its compute-dtype cast.  The values every forward sees
+    are unchanged; only the per-call casts go.  The f32 embedding stays for
+    the token lookup (`embed_tokens` casts the gathered rows), and the
+    qk-norm scales stay in their dtype (the norm upcasts them to f32)."""
     ct = _ct(cfg)
 
     def cast(tree):
-        return {k: w.to(ct) if isinstance(w, torch.Tensor) else w
-                for k, w in tree.items()}
+        return {k: w.to(ct) if isinstance(w, torch.Tensor) and w.ndim == 2
+                else w for k, w in tree.items()}
 
     layers = [dict(lp, attn=cast(lp["attn"]), mlp=cast(lp["mlp"]))
               for lp in params["layers"]]
@@ -100,15 +105,24 @@ def prepare_params(cfg: ArchConfig, params: dict) -> dict:
 
 
 def embed_tokens(p, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embed"][tokens].to(_ct(cfg))
+    """The compute-dtype embedding rows of ``tokens``; a config with
+    ``embed_scale`` (gemma) scales them by sqrt(d_model) rounded to that
+    dtype first, as the reference does."""
+    e = p["embed"][tokens].to(_ct(cfg))
+    if cfg.embed_scale:
+        e = e * float(torch.tensor(cfg.d_model ** 0.5, dtype=e.dtype))
+    return e
 
 
 def _unembed_weight(p, cfg: ArchConfig) -> torch.Tensor:
     """(D, V) f32 weight of the logits contraction: the compute-dtype values
-    of the tied embedding, so an f32 product equals the reference's bf16 x
-    bf16 contraction with f32 accumulation."""
+    of the tied embedding (transposed) or of the untied ``lm_head``, so an
+    f32 product equals the reference's bf16 x bf16 contraction with f32
+    accumulation."""
     if "unembed" in p:
         return p["unembed"]
+    if not cfg.tie_embeddings:
+        return p["lm_head"].to(_ct(cfg)).float()
     return p["embed"].to(_ct(cfg)).float().T.contiguous()
 
 

@@ -1,6 +1,6 @@
 """Serving: continuous-batching engine, scheduler, step executors, paged
-cache storage, speculative decoding, event-stream prompts and execution
-policy (port of `repro.serve`, one device)."""
+cache storage, speculative decoding, event-stream prompts, the preemption
+handoff and execution policy (port of `repro.serve`, one device)."""
 from .batching import (
     CacheOps,
     DenseCacheOps,
@@ -10,6 +10,7 @@ from .batching import (
 )
 from .engine import Cohort, Engine
 from .executor import PendingStep, PipelinedExecutor, SyncExecutor, make_executor
+from .handoff import Handoff, HandoffRequest, capture_handoff
 from .metrics import EngineMetrics, RequestMetrics
 from .paging import (
     CacheStore,
@@ -57,6 +58,7 @@ __all__ = [
     "AdmissionError", "AdmissionTicket", "Backpressure", "CacheOps",
     "CacheStore", "Cohort", "DenseCacheOps", "Engine", "EngineMetrics",
     "EventStream", "Exactness", "ExecutionPolicy", "FLOAT_DENSE", "Frame",
+    "Handoff", "HandoffRequest",
     "PACKED_DENSE", "PACKED_DUAL", "PACKED_DUAL_ADAPTIVE", "PackedSpikeCache",
     "PageLayout", "PagePoolExhausted", "PagedCache", "PagedCacheOps",
     "PagedSpikeCache", "Paging", "ParityError", "PendingStep",
@@ -64,6 +66,6 @@ __all__ = [
     "RequestMetrics", "RequestState", "Scheduler", "Speculation",
     "SpikeSlotPool", "StreamSession", "SyncExecutor", "Temporal",
     "acceptance_lengths", "adaptive_t", "approximate", "bitwise",
-    "bucket_key", "check_parity", "draft", "drift_report", "make_executor",
+    "bucket_key", "capture_handoff", "check_parity", "draft", "drift_report", "make_executor",
     "max_logit_drift", "pad_batch", "paged", "propose_chain",
 ]

@@ -53,6 +53,12 @@ Prompts need not be complete at submit time: `submit_stream` queues a
 chunk at a time as they arrive; generation starts once the stream closes,
 with the tokens of the same frames submitted as one prompt.
 
+Preemption: with ``preemption=PreemptionHandler()`` a SIGTERM (or
+``trigger()``) closes admission at the next step and `run()` returns;
+`drain` runs the live cohorts within a step budget and returns a
+`serve.handoff.Handoff`, from which `Engine.resume` builds a successor that
+finishes every request token-identically.
+
 The engine runs on the CUDA device unless ``device`` names another one; it
 raises when there is no card and no device was named.
 """
@@ -69,6 +75,7 @@ from repro_torch.core.packing import pack_spikes, timestep_popcount
 
 from .batching import DenseCacheOps, PackedSpikeCache, spike_sparsity, upload
 from .executor import make_executor
+from .handoff import capture_handoff
 from .metrics import EngineMetrics, RequestMetrics
 from .paging import (
     CacheStore,
@@ -80,8 +87,8 @@ from .paging import (
     SpikeSlotPool,
     propose_chain,
 )
-from .policy import ExecutionPolicy
-from .scheduler import AdmissionTicket, RequestState, Scheduler
+from .policy import ExecutionPolicy, ParityError
+from .scheduler import AdmissionTicket, Request, RequestState, Scheduler
 
 
 @dataclass
@@ -142,6 +149,7 @@ class Engine:
         pipeline_depth: int = 2,
         page_pool_rows: int | None = None,   # paging='paged': pool capacity
         prefix_cache: bool | None = None,    # paging='paged': radix index
+        preemption=None,                     # ft.preemption.PreemptionHandler
         device=None,
     ):
         cfg = model.cfg
@@ -166,6 +174,14 @@ class Engine:
         self.logit_trace_window = logit_trace_window
         self.logit_traces: dict[int, list[np.ndarray]] = {}
         self.metrics = EngineMetrics()
+        # preemption drain (ft/preemption.py): once the handler's
+        # should_stop flips, the next step closes admission and run()
+        # returns; the owner calls drain() for the handoff
+        self.preemption = preemption
+        # resume ledger: rid -> the tokens a predecessor had emitted, held
+        # against the replay in _finish (a lost token raises)
+        self._resume_expect: dict[int, np.ndarray] = {}
+        self.handoff_prefix_keys: list[np.ndarray] = []
         # every ported arch decodes its rows independently; the pipelined
         # executor clamps its window to 1 where they are coupled (MoE)
         self.row_independent = cfg.n_experts == 0
@@ -323,8 +339,19 @@ class Engine:
     def new_cohort(self, **kw) -> Cohort:
         return Cohort(**kw)
 
+    @property
+    def stopping(self) -> bool:
+        """True once a preemption notice landed (or `drain` closed
+        admission): `run()` returns and the owner should `drain()`."""
+        return ((self.preemption is not None and self.preemption.should_stop)
+                or self.scheduler.closed)
+
     def step(self) -> dict:
-        """One engine iteration; a free no-op when idle."""
+        """One engine iteration; a free no-op when idle.  A pending
+        preemption notice closes admission first."""
+        if (self.preemption is not None and self.preemption.should_stop
+                and not self.scheduler.closed):
+            self.scheduler.close()
         if self.idle:
             return {"active": 0, "queued": 0, "cohorts": 0}
         return self.executor.step()
@@ -335,8 +362,10 @@ class Engine:
         self.executor.drain()
 
     def run(self) -> dict[int, np.ndarray]:
-        """Drive steps until drained; returns {rid: generated tokens}."""
-        while not self.idle:
+        """Drive steps until drained; returns {rid: generated tokens}.
+        Returns early, with the results so far, once `stopping` flips (the
+        preemption path: the owner then calls `drain()`)."""
+        while not self.idle and not self.stopping:
             self.step()
         return {
             rid: np.asarray(st.generated, np.int32)
@@ -349,20 +378,76 @@ class Engine:
         out = self.run()
         return [out[t.rid] for t in tickets]
 
+    # -- preemption drain / handoff / resume (serve/handoff.py) --------------
     def drain(self, *, step_budget: int | None = None):
-        """The reference's preemption drain and handoff: not ported yet."""
-        raise NotImplementedError(
-            "Engine.drain (preemption drain and handoff) is not ported yet; "
-            "it is item 9e of the port's queue in ROADMAP.md"
-        )
+        """Preemption drain: close admission, step the live cohorts to
+        completion (or for at most ``step_budget`` more steps, the drain
+        grace), then tear them down and return the `Handoff` a successor
+        resumes from.
+
+        No token is lost: every dispatched pipelined step lands (`flush`)
+        before in-flight progress is captured, and a speculative round
+        emits only verified tokens, so progress is never half-verified.
+        Finished results ride the handoff as data; unfinished and waiting
+        requests are replayed by the successor.  A cohort still ingesting a
+        stream cannot finish (its stream is open): it hands off best-effort,
+        the frames completed so far as the successor request's prompt."""
+        self.scheduler.close()
+        budget = step_budget
+        while (self.cohorts
+               and any(c.stream is None for c in self.cohorts)
+               and (budget is None or budget > 0)):
+            self.step()
+            if budget is not None:
+                budget -= 1
+        self.flush()             # land every in-flight pipelined step
+        self.executor.retire()   # requests that finished during the grace
+        inflight: list[RequestState] = []
+        for cohort in self.cohorts:  # the grace ran out with live requests
+            inflight.extend(cohort.slots)
+            self.scheduler.release(len(cohort.slots))
+            self.release_cohort(cohort)
+        self.cohorts = []
+        drained = self.scheduler.drain()
+        self.metrics.n_drained += len(inflight) + len(drained)
+        return capture_handoff(self, drained, inflight)
 
     @classmethod
-    def resume(cls, model, params, handoff, **engine_kwargs):
-        """The reference's resume from a handoff: not ported yet."""
-        raise NotImplementedError(
-            "Engine.resume (a successor from a handoff) is not ported yet; "
-            "it is item 9e of the port's queue in ROADMAP.md"
-        )
+    def resume(cls, model, params, handoff, **engine_kwargs) -> "Engine":
+        """A successor engine from a drain handoff.
+
+        The geometry (max_len, max_slots, max_queue, eos_id) defaults to the
+        predecessor's, from ``handoff.meta``; ``policy`` and any override
+        ride ``engine_kwargs``.  (``bucket_align`` is recorded too; the
+        port's engine buckets by exact length, as the predecessor did.)
+        Finished results are preloaded and not counted again in this
+        engine's metrics; waiting and in-flight requests are re-queued under
+        their original rids with their whole budgets: a replay that, under
+        a bitwise policy, reproduces the predecessor's tokens.  Each
+        in-flight request's handed-off progress is held against its replay
+        at finish (`_finish`), so a lost token raises."""
+        meta = handoff.meta
+        for key in ("max_len", "max_slots", "max_queue", "eos_id"):
+            engine_kwargs.setdefault(key, meta[key])
+        eng = cls(model, params, **engine_kwargs)
+        eng.handoff_prefix_keys = [np.asarray(k, np.int32)
+                                   for k in handoff.prefix_keys]
+        eng.scheduler.reserve_ids(handoff.max_rid + 1)
+        for hr in handoff.requests:
+            req = Request(hr.rid, np.asarray(hr.prompt, np.int32),
+                          hr.max_new_tokens)
+            if hr.state == "finished":
+                st = RequestState(req)
+                st.generated = [int(t) for t in hr.generated]
+                st.finish_reason = hr.finish_reason
+                st.first_token_time = st.finish_time = req.submit_time
+                eng.results[hr.rid] = st
+                continue
+            eng.scheduler.restore(req)
+            if (hr.state == "inflight" and hr.generated.size
+                    and eng.policy.token_identical):
+                eng._resume_expect[hr.rid] = np.asarray(hr.generated, np.int32)
+        return eng
 
     # -- executor services --------------------------------------------------
     @torch.no_grad()
@@ -603,6 +688,17 @@ class Engine:
                 del trace[: len(trace) - w]
 
     def _finish(self, st: RequestState) -> None:
+        expect = self._resume_expect.pop(st.rid, None)
+        if expect is not None:
+            # the lost-token gate: the replay must extend the predecessor's
+            # handed-off progress exactly (recorded under bitwise policies)
+            got = np.asarray(st.generated[: expect.shape[0]], np.int32)
+            if not np.array_equal(got, expect):
+                raise ParityError(
+                    f"resumed request {st.rid} diverged from its handoff "
+                    f"progress: replayed {got.tolist()} vs handed-off "
+                    f"{expect.tolist()}"
+                )
         self.results[st.rid] = st
         req = st.request
         self.metrics.record(RequestMetrics(
@@ -618,6 +714,7 @@ class Engine:
     def summary(self) -> dict:
         s = self.metrics.summary()
         s["rejected"] = self.scheduler.n_rejected
+        s["admission_closed"] = self.scheduler.closed
         s["device"] = str(self.device)
         s["policy"] = self.policy.describe()
         s["exactness"] = self.policy.exactness.mode

@@ -47,6 +47,7 @@ class EngineMetrics:
     n_prefix_hits: int = 0        # requests admitted from the radix index
     n_prefix_tokens_reused: int = 0   # prompt tokens whose prefill was skipped
     n_straggler_events: int = 0   # StepTimer detections fed from stage_s
+    n_drained: int = 0            # requests handed off unfinished at drain
     # event streams (serve/streaming.py): sessions admitted through the
     # scheduler's stream lane, frames ingested, and each frame's wait from
     # its window's completion to the session's first generated token
@@ -124,6 +125,7 @@ class EngineMetrics:
             "page_moves": self.n_page_moves,
             "prefix_hits": self.n_prefix_hits,
             "prefix_tokens_reused": self.n_prefix_tokens_reused,
+            "drained_requests": self.n_drained,
             "straggler_events": self.n_straggler_events,
             "speculative_rounds": self.n_speculative_rounds,
             "draft_batches": self.n_draft_batches,

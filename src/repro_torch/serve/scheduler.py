@@ -1,6 +1,5 @@
 """Request lifecycle + continuous-batching scheduler (port of
-`repro.serve.scheduler`, with the prefix-hit and stream lanes; the drain
-lane, which closes admission for a handoff, is ROADMAP item 9e).
+`repro.serve.scheduler`, with the prefix-hit, stream and drain lanes).
 
 * Admission control: a bounded waiting queue; `submit` rejects when the
   queue is full or the request can never fit (``prompt + max_new +
@@ -18,6 +17,10 @@ lane, which closes admission for a handoff, is ROADMAP item 9e).
 * Streams: `submit_stream` queues a `StreamSession` whose prompt has not
   arrived yet; `schedule_streams` admits it, one session per cohort, once
   its first event window is complete.
+* Drain (preemption): `close` rejects new submits with a ``draining``
+  reason and schedules no further group; `drain` pops every waiting
+  request for the handoff (terminal ``drained`` tickets); `restore`
+  re-queues a handed-off request under its rid on the successor.
 """
 from __future__ import annotations
 
@@ -92,10 +95,12 @@ class RequestState:
 class AdmissionTicket:
     """Structured admission outcome returned by `Scheduler.submit`:
     ``"queued"`` at submit, ``"admitted"`` once the request joins a prefill
-    group, ``"rejected"`` on the `AdmissionError` a refused submit raises."""
+    group, ``"rejected"`` on the `AdmissionError` a refused submit raises
+    (reason ``"draining: ..."`` once admission is closed), ``"drained"``
+    when `Scheduler.drain` pops it for a handoff."""
 
     request: Request | None
-    outcome: str = "queued"        # queued | admitted | rejected
+    outcome: str = "queued"        # queued | admitted | rejected | drained
     prefix_hit: bool = False       # matched a published prefix at submit
     reused_tokens: int = 0         # prompt tokens whose prefill is skipped
     reason: str | None = None
@@ -139,13 +144,22 @@ class Scheduler:
         self._ids = itertools.count()
         self._tickets: dict[int, AdmissionTicket] = {}
         self.n_rejected = 0
+        self.closed = False
 
     def _reject(self, msg: str) -> AdmissionError:
         self.n_rejected += 1
         return AdmissionError(msg)
 
+    def _refuse_if_closed(self) -> None:
+        if self.closed:
+            raise self._reject(
+                "draining: admission closed for preemption; "
+                "resubmit to the successor engine"
+            )
+
     def submit(self, prompt, max_new_tokens: int) -> AdmissionTicket:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
+        self._refuse_if_closed()
         if prompt.shape[0] < 1 or max_new_tokens < 1:
             raise self._reject("empty prompt or non-positive max_new_tokens")
         need = (bucket_key(prompt.shape[0], self.bucket_align)
@@ -184,6 +198,7 @@ class Scheduler:
         waits in its own lane until its first event window is complete
         (`schedule_streams`), then gets a cohort of its own; the request's
         prompt starts empty and fills with frame tokens as they land."""
+        self._refuse_if_closed()
         if max_new_tokens < 1:
             raise self._reject("non-positive max_new_tokens")
         if max_new_tokens + 1 > self.max_len:
@@ -203,7 +218,7 @@ class Scheduler:
         """Pop the sessions whose first window has landed, capped by free
         slots (one session per cohort).  A session that closed without a
         frame gets a terminal ``rejected`` ticket."""
-        if not self.stream_waiting:
+        if self.closed or not self.stream_waiting:
             return []
         from .streaming import Backpressure
 
@@ -246,7 +261,7 @@ class Scheduler:
         """Pop the next prefill batch: same-bucket requests, FIFO order, led
         by the oldest waiting request, capped by free slots ([] when nothing
         can run).  The caller releases slots with `release()`."""
-        if not self.waiting or self.free_slots <= 0:
+        if self.closed or not self.waiting or self.free_slots <= 0:
             return []
         key = bucket_key(self.waiting[0].prompt_len, self.bucket_align)
         group: list[Request] = []
@@ -270,7 +285,7 @@ class Scheduler:
         ``prompt_len``), FIFO order led by the oldest hit, capped by free
         slots.  Entries stay pinned until the engine calls
         `release_hit_pins` after its admit."""
-        if not self.hit_waiting or self.free_slots <= 0:
+        if self.closed or not self.hit_waiting or self.free_slots <= 0:
             return []
         lead_len = self.hit_waiting[0][0].prompt_len
         group: list[tuple[Request, object]] = []
@@ -316,3 +331,67 @@ class Scheduler:
         self.active_slots -= n
         if self.active_slots < 0:
             raise RuntimeError("released more slots than were active")
+
+    # -- handoff: restore on the successor ----------------------------------
+    def restore(self, req: Request) -> AdmissionTicket:
+        """Re-queue a handed-off request under its own rid (the resume path,
+        `serve/handoff.py`).  Capacity checks are skipped: the predecessor
+        accepted it.  The prefix lookup runs again against this engine's
+        index."""
+        ticket = AdmissionTicket(request=req)
+        entry = (self.prefix_index.lookup(req.prompt)
+                 if self.prefix_index is not None else None)
+        if entry is not None:
+            entry.pins += 1
+            ticket.prefix_hit = True
+            ticket.reused_tokens = entry.prompt_len
+            self.hit_waiting.append((req, entry))
+        else:
+            self.waiting.append(req)
+        self._tickets[req.rid] = ticket
+        return ticket
+
+    def reserve_ids(self, start: int) -> None:
+        """Start rid allocation at ``start``, past the handed-off requests,
+        so restored and new requests never share a rid."""
+        self._ids = itertools.count(start)
+
+    # -- preemption drain ---------------------------------------------------
+    def close(self) -> None:
+        """Close admission (idempotent): new submits are rejected with a
+        ``draining`` reason and no further prefill, hit or stream group is
+        scheduled.  Admitted requests keep their slots."""
+        self.closed = True
+
+    def drain(self) -> list[tuple[Request, AdmissionTicket | None]]:
+        """Pop every waiting request of the three lanes for the handoff, in
+        FIFO order, prefill lane first, then prefix hits, then streams.
+        Each ticket gets the terminal ``drained`` outcome and leaves the
+        ticket map; hit entries are unpinned; a waiting stream hands off
+        the frames it has completed as its prompt."""
+        from .streaming import Backpressure
+
+        self.close()
+        out: list[tuple[Request, AdmissionTicket | None]] = []
+        for req in self.waiting:
+            out.append((req, self._mark_drained(req.rid)))
+        for req, entry in self.hit_waiting:
+            entry.pins -= 1
+            out.append((req, self._mark_drained(req.rid)))
+        for session, req in self.stream_waiting:
+            try:
+                session.poll()
+            except Backpressure:
+                pass  # the frames materialized so far stand
+            req.prompt = session.prompt_tokens()
+            out.append((req, self._mark_drained(req.rid)))
+        self.waiting.clear()
+        self.hit_waiting.clear()
+        self.stream_waiting.clear()
+        return out
+
+    def _mark_drained(self, rid: int) -> AdmissionTicket | None:
+        t = self._tickets.pop(rid, None)
+        if t is not None:
+            t.outcome = "drained"
+        return t

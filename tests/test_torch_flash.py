@@ -159,24 +159,61 @@ def test_cpu_path_launches_no_kernel_and_validates_blocks():
 # instance routing and the head-dim padding (the CUDA kernels' templates)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dh", range(1, 129))
+@pytest.mark.parametrize("dh", range(1, 257))
 def test_flash_instance_and_template_dh(dh):
-    """bf16 routes to the tensor-core instance and f32 to SIMT at every dh
-    the kernels take; dh is padded to the next template."""
-    assert t_flash.template_dh(dh) == (32 if dh <= 32 else 64 if dh <= 64 else 128)
-    assert t_flash.flash_instance(torch.bfloat16, dh) == "tc"
+    """bf16 routes to the tensor-core instance up to dh 128 and to SIMT
+    above it, f32 to SIMT, at every dh the kernels take; dh is padded to
+    the next template."""
+    want = next(t for t in (32, 64, 128, 192, 256) if t >= dh)
+    assert t_flash.template_dh(dh) == want
+    assert t_flash.flash_instance(torch.bfloat16, dh) == (
+        "tc" if dh <= 128 else "simt")
     assert t_flash.flash_instance(torch.float32, dh) == "simt"
 
 
-@pytest.mark.parametrize("dh", [0, 129, 192, 256])
+@pytest.mark.parametrize("dh", [0, 257])
 def test_flash_refuses_dh_outside_the_templates(dh):
-    with pytest.raises(ValueError, match=f"dh={dh}"):
+    with pytest.raises(ValueError, match=f"dh={dh}.*ROADMAP"):
         t_flash.template_dh(dh)
     with pytest.raises(ValueError, match=f"dh={dh}"):
         t_flash.flash_instance(torch.bfloat16, dh)
     x = torch.zeros(1, 64, dh)
     with pytest.raises(ValueError, match=f"dh={dh}"):
         t_flash.at_template(t_ref.flash_mha_fwd_plain, x, x, x)
+
+
+@pytest.mark.parametrize("dh", [129, 160, 192, 256])
+def test_flash_wide_head_dims_route_and_match_reference(dh):
+    """Above dh 128 (nemotron's 192, gemma's 256, and padded 129 / 160):
+    bf16 routes to SIMT (a tc override raises), the padding path with the
+    plain versions in the kernels' place matches the reference's Pallas
+    kernels in interpret mode, o and lse within 3e-4, dq, dk, dv within
+    3e-3 (the file's tolerances), causal with a window of 32."""
+    assert t_flash.flash_instance(torch.bfloat16, dh) == "simt"
+    q, k, v = _qkv(dh, 2, 128, dh)
+    do = np.random.default_rng(dh + 1).normal(size=q.shape).astype(np.float32)
+    qb, kb, vb = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    with pytest.raises(ValueError, match=f"does not take.*dh={dh}"):
+        t_flash.flash_mha_fwd(qb, kb, vb, instance="tc")
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    kw = dict(causal=True, window=32)
+    to, tl = t_flash.at_template(t_ref.flash_mha_fwd_plain, tq, tk, tv, **kw)
+    delta = (to * tdo).sum(-1)
+    tdq = t_flash.at_template(t_ref.flash_mha_bwd_dq_plain, tq, tk, tv, tdo,
+                              tl, delta, **kw)
+    tdk, tdv = t_flash.at_template(t_ref.flash_mha_bwd_dkv_plain, tq, tk, tv,
+                                   tdo, tl, delta, **kw)
+    assert to.shape == tdq.shape == q.shape and tdk.shape == tdv.shape == k.shape
+    jo, jl = j_flash_fwd(*map(jnp.asarray, (q, k, v)), bq=64, bk=64,
+                         interpret=True, **kw)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=3e-4, atol=3e-4)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=3e-4, atol=3e-4)
+    _, vjp = jax.vjp(lambda a, b, c: j_flash_mha(a, b, c, True, 32, 64, 64,
+                                                 True),
+                     *map(jnp.asarray, (q, k, v)))
+    for got, want in zip((tdq, tdk, tdv), vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-3,
+                                   atol=3e-3)
 
 
 def test_flash_instance_override_must_fit_the_dtype():

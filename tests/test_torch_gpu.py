@@ -758,15 +758,40 @@ def test_flash_tc_copies_an_unaligned_base():
 
 
 @pytest.mark.gpu
-def test_flash_kernels_refuse_what_they_do_not_take():
-    """dh 192 (above the largest template, 128) and f16 are refused; asking
-    for the tensor-core instance on f32 inputs is refused."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [160, 192, 256])
+@pytest.mark.parametrize("S,skv,causal,window", [
+    (256, 256, True, 0), (200, 200, True, 50), (128, 512, False, 0),
+    (256, 64, True, 32)])
+def test_flash_wide_instance_matches_plain(S, skv, causal, window, dh, dtype):
+    """The SIMT instance at dh 192 and 256 (32-row tiles), and 160 padded to
+    192: f32 and bf16 inputs (bf16 routes there above dh 128), against the
+    plain versions, counted on `simt`; two runs equal bit for bit."""
     from repro_torch.kernels import flash_mha as fm
 
     _cuda()
-    q, k, v, _ = _flash_inputs(1, 1, 128, 192, torch.float32)
-    with pytest.raises(ValueError, match="dh"):
+    q, k, v, do = _flash_inputs(S + skv + dh, 2, S, dh, dtype, skv=skv)
+    assert fm.flash_instance(dtype, dh) == "simt"
+    o, lse, grads = _flash_hold(q, k, v, do, causal, window)
+    o2, lse2, grads2 = _flash_hold(q, k, v, do, causal, window)
+    for a, b in zip((o, lse, *grads), (o2, lse2, *grads2)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_flash_kernels_refuse_what_they_do_not_take():
+    """dh 257 (above the largest template, 256) and f16 are refused; asking
+    for the tensor-core instance on f32 inputs, or on bf16 above dh 128, is
+    refused."""
+    from repro_torch.kernels import flash_mha as fm
+
+    _cuda()
+    q, k, v, _ = _flash_inputs(1, 1, 128, 257, torch.float32)
+    with pytest.raises(ValueError, match="dh=257"):
         fm.flash_mha_fwd(q, k, v)
+    q, k, v, _ = _flash_inputs(1, 1, 128, 192, torch.bfloat16)
+    with pytest.raises(ValueError, match="does not take"):
+        fm.flash_mha_fwd(q, k, v, instance="tc")
     q, k, v, _ = _flash_inputs(1, 1, 128, 64, torch.float16)
     with pytest.raises(ValueError, match="bf16 or f32"):
         fm.flash_mha_fwd(q, k, v)
@@ -1118,6 +1143,101 @@ def test_serve_stream_on_card(serve_model, paging):
     _window_gate([want], mono.drain_logit_traces(), [got],
                  engine.drain_logit_traces())
     assert engine.metrics.n_stream_windows == 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("execution", ["sync", "pipelined"])
+@pytest.mark.parametrize("paging", [None, 8])
+def test_serve_drain_resume_on_card(serve_model, execution, paging, tmp_path):
+    """Drain after 2 steps within a 2-step grace, save, load, resume: every
+    request's tokens equal the undisturbed serve's on the card, the ledger
+    held every in-flight request."""
+    from repro_torch.ft import PreemptionHandler
+    from repro_torch.serve import Engine, Handoff, paged
+
+    cfg, model, params = serve_model
+    pol = ExecutionPolicy.for_arch(cfg, execution=execution,
+                                   paging=paged(paging) if paging else None)
+    prompts = _serve_prompts(cfg.vocab, [8] * 5, seed=31)
+    want = Engine(model, params, max_len=16, max_slots=2, policy=pol
+                  ).generate_batch(prompts, 8)
+    h = PreemptionHandler(signals=())
+    victim = Engine(model, params, max_len=16, max_slots=2, policy=pol,
+                    preemption=h)
+    tickets = [victim.submit(p, 8) for p in prompts]
+    victim.step()
+    victim.step()
+    h.trigger()
+    handoff = victim.drain(step_budget=2)
+    assert handoff.counts()["tokens_in_flight"] > 0
+    handoff.save(str(tmp_path))
+    succ = Engine.resume(model, params, Handoff.load(str(tmp_path)), policy=pol)
+    inflight = {r.rid for r in handoff.requests if r.state == "inflight"}
+    assert set(succ._resume_expect) == inflight
+    out = succ.run()
+    assert succ._resume_expect == {}
+    for t, w in zip(tickets, want):
+        np.testing.assert_array_equal(out[t.rid], w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("execution", ["sync", "pipelined"])
+def test_serve_drain_discards_half_verified_speculative_progress(serve_model,
+                                                                  execution):
+    """A speculative serve on the card drained mid-flight hands off only
+    verified tokens (a prefix of the non-speculative serve's), and the
+    successor ends every request equal to it."""
+    from repro_torch.serve import Engine
+
+    cfg = serve_model[0]
+    prompts = _serve_prompts(cfg.vocab, [8, 12, 8, 8], seed=23)
+    base = _engine(serve_model, max_len=32, max_slots=4)
+    want = base.generate_batch(prompts, 12)
+    spec = _spec_engine(serve_model, execution=execution)
+    spec.capture_logits = False
+    reqs = [spec.submit(p, 12) for p in prompts]
+    spec.step()
+    spec.step()
+    handoff = spec.drain(step_budget=0)
+    inflight = [hr for hr in handoff.requests if hr.state == "inflight"]
+    assert inflight
+    by_rid = {r.rid: i for i, r in enumerate(reqs)}
+    for hr in inflight:
+        w = want[by_rid[hr.rid]]
+        np.testing.assert_array_equal(hr.generated, w[: len(hr.generated)])
+    succ = Engine.resume(serve_model[1], serve_model[2], handoff,
+                         policy=spec.policy)
+    out = succ.run()
+    for r in reqs:
+        np.testing.assert_array_equal(out[r.rid], want[by_rid[r.rid]])
+
+
+@pytest.mark.gpu
+def test_serve_drain_hands_off_mid_ingest_stream(serve_model):
+    """Draining with a stream still ingesting on the card ends, and hands
+    the frames completed so far off as the successor's prompt."""
+    from repro_torch.data.events import moving_blob_events, split_into_windows
+    from repro_torch.serve import EventStream, StreamSession
+
+    cfg = serve_model[0]
+    engine = _engine(serve_model, max_len=24)
+    events = moving_blob_events(2, height=8, width=8, window_us=1000,
+                                events_per_window=16, seed=11)
+    chunks = split_into_windows(events, 2, 1000)
+    stream = EventStream(1000)
+    session = StreamSession(stream, height=8, width=8, T=cfg.spiking_T,
+                            vocab=cfg.vocab)
+    ticket = engine.submit_stream(session, 6)
+    stream.push(chunks[0])
+    stream.push(chunks[1])
+    engine.step()
+    assert engine.cohorts and engine.cohorts[0].stream is session
+    handoff = engine.drain()
+    [hr] = [r for r in handoff.requests if r.rid == ticket.rid]
+    assert hr.state == "inflight" and hr.generated.size == 0
+    np.testing.assert_array_equal(
+        hr.prompt, session.prompt_tokens()[: hr.prompt.shape[0]])
+    assert engine.metrics.n_drained == 1 and not engine.cohorts
 
 
 @pytest.mark.gpu

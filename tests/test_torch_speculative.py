@@ -23,9 +23,7 @@ Both packages get the reference's params (`repro_torch.bridge`).  Held:
   op under ``jax.disable_jit`` reproduces).
 
 Reference cases left out: the ``mesh`` cells of
-``test_speculative_token_identity_matrix`` (the mesh, ROADMAP item 12) and
-``test_drain_discards_half_verified_speculative_progress`` (drain and
-handoff, item 9e).
+``test_speculative_token_identity_matrix`` (the mesh, ROADMAP item 12).
 """
 import dataclasses
 
@@ -589,16 +587,41 @@ def test_generate_batch_speculative_identity_and_counters(models):
     assert "speculation=draft(k=4" in s["policy"]
 
 
-def test_drain_and_resume_refuse_naming_roadmap(models):
-    """The drain cells of the reference file wait for the handoff slice:
-    the port refuses them by name."""
+@pytest.mark.parametrize("execution", ["sync", "pipelined"])
+def test_drain_discards_half_verified_speculative_progress(models, execution):
+    """Preempting a speculative engine mid-serve hands off only verified
+    tokens: every in-flight request's progress is a prefix of the
+    non-speculative stream, and the successor's replay reproduces it
+    (`Engine.resume` holds the handed-off progress against the replay), so
+    every request ends equal to the non-speculative serve."""
     tcfg, tm, tp = models[1]
-    eng = Engine(tm, tp, max_len=16, device="cpu",
-                 policy=ExecutionPolicy.for_arch(tcfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.drain(step_budget=0)
-    with pytest.raises(NotImplementedError, match="9e"):
-        Engine.resume(tm, tp, None)
+    prompts = _prompts(tcfg.vocab, (8, 12, 8, 8), seed=3)
+    base = Engine(tm, tp, max_len=48, max_slots=4, batch_align=2,
+                  device="cpu", policy=ExecutionPolicy.for_arch(tcfg))
+    reference = base.generate_batch(prompts, 12)
+    pol = ExecutionPolicy.for_arch(tcfg, execution=execution,
+                                   speculation=draft(_float_draft(tcfg), k=4))
+    eng = Engine(tm, tp, max_len=48, max_slots=4, batch_align=2,
+                 device="cpu", policy=pol)
+    reqs = [eng.submit(p, 12) for p in prompts]
+    eng.step()
+    eng.step()
+    assert eng.metrics.n_speculative_rounds > 0
+    handoff = eng.drain(step_budget=0)
+    inflight = [hr for hr in handoff.requests if hr.state == "inflight"]
+    assert inflight, "expected live requests at preemption"
+    assert any(hr.generated.size > 1 for hr in inflight)
+    by_rid = {r.rid: i for i, r in enumerate(reqs)}
+    for hr in inflight:
+        want = reference[by_rid[hr.rid]]
+        got = np.asarray(hr.generated, np.int32)
+        # no half-verified overhang: the handoff carries a verified prefix
+        np.testing.assert_array_equal(got, want[: len(got)])
+    successor = Engine.resume(tm, tp, handoff, policy=pol, device="cpu")
+    assert successor._resume_expect
+    out = successor.run()
+    for r in reqs:
+        np.testing.assert_array_equal(out[r.rid], reference[by_rid[r.rid]])
 
 
 def test_admission_reserves_speculation_slack(models):

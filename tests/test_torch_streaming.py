@@ -23,8 +23,7 @@ Held:
 The reference's zero-retrace check becomes: after the first session, a
 second one builds no join plan and no kernel (the port does not trace).
 Reference cases left out: the ``mesh`` cells of
-``test_stream_token_identity_matrix`` (the mesh, ROADMAP item 12) and
-``test_drain_hands_off_mid_ingest_stream`` (drain and handoff, item 9e).
+``test_stream_token_identity_matrix`` (the mesh, ROADMAP item 12).
 """
 import dataclasses
 
@@ -569,3 +568,50 @@ def test_idle_step_is_guaranteed_noop(models):
     m = engine.metrics
     assert m.stage_s == {} and m.wall_s == 0.0 and m.max_queue_depth == 0
     assert m.n_prefill_batches == 0 and m.n_decode_batches == 0
+
+
+def test_drain_hands_off_mid_ingest_stream(models):
+    """`Engine.drain()` with an ingesting cohort ends (its stream cannot
+    close from inside the engine) and hands the frames completed so far off
+    as the successor request's prompt; the reference's drain of the same
+    stream hands off the same prompt, and the successor serves it as a
+    plain request."""
+    tcfg, tm, tp = models[1]
+    jcfg, jm, jp = models[0]
+    events = moving_blob_events(2, height=H, width=W, window_us=WINDOW_US,
+                                events_per_window=16, seed=11)
+    chunks = split_into_windows(events, 2, WINDOW_US)
+    got = {}
+    for name, mod, make in (
+            ("port", t_streaming, lambda: Engine(
+                tm, tp, max_len=24, device="cpu",
+                policy=ExecutionPolicy.for_arch(tcfg))),
+            ("ref", j_streaming, lambda: JEngine(
+                jm, jp, max_len=24, policy=JPolicy.for_arch(jcfg)))):
+        engine = make()
+        stream = mod.EventStream(WINDOW_US)
+        session = mod.StreamSession(stream, height=H, width=W,
+                                    T=tcfg.spiking_T, vocab=tcfg.vocab)
+        ticket = engine.submit_stream(session, MAX_NEW)
+        stream.push(chunks[0])
+        stream.push(chunks[1])      # seals window 0
+        engine.step()               # admitted: frame 0 prefilled, stream open
+        assert engine.cohorts and engine.cohorts[0].stream is session
+        handoff = engine.drain()    # must not spin on the open stream
+        [hr] = [r for r in handoff.requests if r.rid == ticket.rid]
+        assert hr.state == "inflight" and hr.generated.size == 0
+        np.testing.assert_array_equal(
+            hr.prompt, session.prompt_tokens()[: hr.prompt.shape[0]])
+        assert hr.prompt.shape[0] >= 1
+        assert engine.metrics.n_drained == 1 and not engine.cohorts
+        got[name] = (handoff, engine)
+    np.testing.assert_array_equal(got["port"][0].requests[0].prompt,
+                                  got["ref"][0].requests[0].prompt)
+    handoff = got["port"][0]
+    successor = Engine.resume(tm, tp, handoff, device="cpu",
+                              policy=ExecutionPolicy.for_arch(tcfg))
+    out = successor.run()
+    want = Engine(tm, tp, max_len=24, device="cpu",
+                  policy=ExecutionPolicy.for_arch(tcfg)).generate_batch(
+        [handoff.requests[0].prompt], MAX_NEW)[0]
+    np.testing.assert_array_equal(out[handoff.requests[0].rid], want)
