@@ -33,11 +33,12 @@ Phases, each asserted; a failed phase ends the run with a non-zero exit:
              beat SIMT at T = 4).
 4. small   — a smoke-size model served on the card and on the CPU, under
              the dual-sparse and the dense-weight policy: the same tokens.
-5. serve   — full-width llama3.2-1b (16 layers, d_model 2048, d_ff 8192,
-             vocab 128256) with spiking FFNs at weight density 0.3, random
+5. serve   — full-width llama3.2-1b (d_model 2048, d_ff 8192, vocab
+             128256; LLAMA_LAYERS of its 16 layers here and in phases 6,
+             7, 10 and 11) with spiking FFNs at weight density 0.3, random
              weights from a seed, served by the `Engine` under PACKED_DUAL:
              4 requests of 128 prompt tokens and 16 generated tokens.  Kernel
-             3's launch count must be exactly 2 x 16 x forwards, all through
+             3's launch count must be exactly 2 x layers x forwards, all through
              its tensor-core instance (and no other kernel's move); tokens
              must equal the port's own greedy loop;
              the served logits of every step must lie within ``LOGIT_TOL`` of
@@ -109,7 +110,8 @@ Phases, each asserted; a failed phase ends the run with a non-zero exit:
              (a) the pipelined executor (depth 2) serves phase 5's requests
              under the dual-sparse and the dense-weight policy: tokens and
              every captured logit vector equal to phases 5 and 6 bit for
-             bit, all 512 launches of each route through `tc`; (b) a
+             bit, all 2 x layers x 16 launches of each route through
+             `tc`; (b) a
              pipelined serve whose decode and encode stages (the decode
              dispatch, its token and logit copies to pinned memory, the
              spike encode) run under ``torch.cuda.set_sync_debug_mode
@@ -160,13 +162,14 @@ which bf16 takes above dh 128): bf16 at BH 8 x S 4096, causal and window
 causal; dh 160 padded to 192.
 
 12. the slice's path, after phase 9:
-             (a) gemma-2b at its published width and depth (18 layers,
-             d_model 2048, 8 heads, MQA, head_dim 256, d_ff 16384, vocab
-             256000, tied embeddings) with spiking FFNs at density 0.3
+             (a) gemma-2b at its published width (d_model 2048, 8 heads,
+             MQA, head_dim 256, d_ff 16384, vocab 256000, tied
+             embeddings), depth cut from 18 to GEMMA_LAYERS (the run's time,
+             since phase 13) with spiking FFNs at density 0.3
              under PACKED_DUAL, random weights from a seed: 8 requests of
              128 prompt tokens, 16 generated (two of the first wave stop at
              4 and 6), 4 slots.  The undisturbed serve: kernel 3 launched 2
-             x 18 x forwards, all `tc`, every call held against its plain
+             x layers x forwards, all `tc`, every call held against its plain
              version, a sample timed; four requests, one of each admission
              wave, held against the CPU (teacher-forced, LOGIT_TOL); the
              serving attention of a lone request timed with and without
@@ -188,9 +191,36 @@ causal; dh 160 padded to 192.
              float / packed / dual, served on the card and the CPU: the
              same tokens, logits within LOGIT_TOL.
 
-Prints a JSON line of per-kernel measurements before the last line (the
-headline numbers are each kernel's mean launch on its path), and as the
-last line ``{"ok": true, "device": {...}}``.
+13. the recurrent families, after phase 12: (a) rwkv6-1.6b at its
+             published width and depth (24 layers, d_model 2048, 32 heads x
+             64, d_ff 7168, vocab 65536) and (b) zamba2-7b likewise (81
+             Mamba2 layers, d_model 3584, 112 SSM heads x 64, state 64;
+             the shared attention + MLP block every 6 layers, vocab 32000),
+             float, random weights from a seed: phase 12a's schedule (8 x
+             128 prompt, 16 generated, two stop early, 4 slots; zamba2's
+             sixth prompt is 100 tokens: the per-step SSD scan) under
+             {sync, pipelined} x {dense, paged(16)}, tokens and every
+             captured logit vector equal bit for bit; one request served
+             alone equal to itself in its cohort bit for bit; a drain after
+             6 steps resumed bit for bit; speculation refused; no FTP or
+             flash kernel launched.  Timed: 3 serves of 4 x 128 + 16 (tok/s,
+             TTFT, decode step), one profiled serve (idle share, top device
+             ops), the device launches of one prefill and one decode step.
+             Card vs CPU on copies at the same width cut to 6 (rwkv6) and
+             3 (zamba2) layers, 4 requests teacher-forced, and zamba2 at 15
+             layers in f32 compute (prefills of a 128- and a 100-token
+             prompt; its bf16 drift there is logged, not gated: at random
+             init the model amplifies rounding differences with depth), the
+             CPU side in a spawned process beside the card's serves: logits
+             within LOGIT_TOL, greedy tokens equal but at near ties; the
+             card's own drift under other row / batch blocks logged beside
+             it.  (c) both archs at smoke size (zamba2 also
+             with a spiking shared MLP) on the card and the CPU: the same
+             tokens, logits within LOGIT_TOL.
+
+Prints a JSON line of phase 13's measurements, then a JSON line of
+per-kernel measurements (the headline numbers are each kernel's mean launch
+on its path), and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -236,6 +266,11 @@ KERNELS = {
 # the port to against the jitted JAX reference, whose excess precision on
 # bf16 residual adds flips FFN spikes the same way other GEMM orders do.
 LOGIT_TOL = 0.25
+# llama3.2-1b's depth in the serve phases (5-7, 10, 11; 16 layers at full
+# depth, which the train step of phase 8 keeps): with phase 13 the whole
+# run took 1139.2 s of its 1200 on a slow host (PERF.md §6).  Every gate
+# of those phases holds layer by layer; kernel times are per launch.
+LLAMA_LAYERS = 8
 TIMED_SERVES = 3
 PEAK_F32_FLOP_S = 67e12    # H100 SXM f32 outside the tensor cores
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 8, 128  # launch/train.py's batch, seq
@@ -256,8 +291,11 @@ FLASH_TOL_BF16 = 1e-2
 FLASH_VS_MODEL_TOL = 2e-2
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke +{time.perf_counter() - _T0:.1f}s] {msg}", flush=True)
 
 
 def phase_device():
@@ -900,10 +938,12 @@ def _timed(engine, prompts, outs, label):
 
 
 def phase_serve():
-    """The main path: full-width llama3.2-1b served by the engine under
-    PACKED_DUAL.  The run whose launches are counted captures its logits and
+    """The main path: full-width llama3.2-1b (depth cut to LLAMA_LAYERS)
+    served by the engine under PACKED_DUAL.  The run whose launches are counted captures its logits and
     records every kernel call's inputs; the timed and profiled serves that
     follow run as `launch/serve.py` does, without logit capture."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -911,15 +951,17 @@ def phase_serve():
     from repro_torch.models.registry import build_model
     from repro_torch.serve import Engine, ExecutionPolicy
 
-    cfg = build_config("llama3_2_1b", smoke=False, spiking=True, weight_density=0.3)
-    assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab) == (16, 2048, 8192, 128256)
+    full = build_config("llama3_2_1b", smoke=False, spiking=True, weight_density=0.3)
+    assert (full.n_layers, full.d_model, full.d_ff, full.vocab) == (16, 2048, 8192, 128256)
+    cfg = dataclasses.replace(full, n_layers=LLAMA_LAYERS)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(SEED, device="cuda")
     engine = Engine(model, params, max_len=PROMPT + GEN, max_slots=REQUESTS,
                     policy=ExecutionPolicy.for_arch(cfg), capture_logits=True)
     torch.cuda.synchronize()
-    log(f"init + plans on the card: {time.perf_counter() - t0:.3f}s, "
+    log(f"llama3.2-1b ({cfg.n_layers} of {full.n_layers} layers) init + plans on "
+        f"the card: {time.perf_counter() - t0:.3f}s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     rng = np.random.default_rng(SEED)
     engine.generate_batch([rng.integers(0, cfg.vocab, size=(8,))], 2)  # warm-up
@@ -2299,7 +2341,7 @@ def phase_features(dual, dense):
         _bitwise(f"pipelined {route}", outs, got, ref["outs"], ref["logits"])
         n = sum(counts[k] for k in expect if not k.endswith("_tc"))
         tc = counts["ftp_bsr_tc" if route == "dual-sparse" else "ftp_dense_tc"]
-        assert n == tc == 512, counts
+        assert n == tc == 2 * cfg.n_layers * GEN, counts
         log(f"10a pipelined {route} (depth 2): tokens and all {REQUESTS} x {GEN} "
             f"logit vectors equal to the sync serve's bit for bit; {n} kernel "
             f"launches, all {tc} through the tensor-core instance")
@@ -3192,6 +3234,10 @@ PREEMPT_AFTER, DRAIN_GRACE = 6, 2
 # two), an early stopper among them
 P12_CPU_REQUESTS = (0, 1, 5, 7)
 QWEN_LAYERS = 2             # qwen3-14b's depth cut (40 at full depth)
+# gemma-2b's depth cut (18 at full depth): phase 13 took the whole run past
+# 800 s at full depth (929.1 s on one H100, PERF.md §6); every gate of 12a
+# holds layer by layer, and its kernel times are per launch
+GEMMA_LAYERS = 6
 
 
 def _budget_serve(engine, prompts, gens, label):
@@ -3243,18 +3289,20 @@ def _hold_calls(calls, label, per_group=8):
             "rows": rows}
 
 
-def _drain_cycle(model, params, cfg, prompts, base, execution, paging, tmp):
+def _drain_cycle(model, params, cfg, prompts, base, execution, paging, tmp,
+                 phase="12a", kernel3=True):
     """Serve ``prompts`` under the policy, deliver the preemption notice
     after PREEMPT_AFTER steps, drain within DRAIN_GRACE steps, save and load
     the handoff, resume a successor and run it: tokens and captured logits
     (the victim's for requests it finished, the successor's for the rest)
-    against the undisturbed serve ``base``, bit for bit."""
+    against the undisturbed serve ``base``, bit for bit.  ``kernel3``: the
+    successor's FFNs ran kernel 3 (else no FTP kernel ran)."""
     import numpy as np
 
     from repro_torch.ft import PreemptionHandler
     from repro_torch.serve import Engine, ExecutionPolicy, Handoff
 
-    label = f"12a drain {execution} {'paged' if paging else 'dense'}"
+    label = f"{phase} drain {execution} {'paged' if paging else 'dense'}"
     outs_b, traces_b, rids_b = base
     policy = ExecutionPolicy.for_arch(cfg, execution=execution, paging=paging)
     handler = PreemptionHandler(signals=())
@@ -3289,7 +3337,10 @@ def _drain_cycle(model, params, cfg, prompts, base, execution, paging, tmp):
         np.testing.assert_array_equal(successor._resume_expect[rid], gen)
     out, counts = _counted(f"{label} successor", successor.run)
     assert successor._resume_expect == {}
-    assert counts["ftp_bsr"] == counts["ftp_bsr_tc"] > 0, counts
+    if kernel3:
+        assert counts["ftp_bsr"] == counts["ftp_bsr_tc"] > 0, counts
+    else:
+        assert not any(counts.values()), counts
     for t, want, rid in zip(tickets, outs_b, rids_b):
         np.testing.assert_array_equal(out[t.rid], want)
         got = (victim_traces[t.rid] if t.rid in finished
@@ -3301,7 +3352,7 @@ def _drain_cycle(model, params, cfg, prompts, base, execution, paging, tmp):
         f"{drain_s:.3f}s within {DRAIN_GRACE} steps: {json.dumps(c)}; the "
         f"successor finished every request, tokens and {sum(P12_GENS)} logit "
         f"vectors equal to the undisturbed serve bit for bit; "
-        f"{counts['ftp_bsr']} kernel 3 launches (tc)")
+        f"{counts['ftp_bsr']} kernel 3 launches")
     del successor
     gc.collect()
     return {"counts": c, "drain_s": drain_s, "successor_launches": counts["ftp_bsr"]}
@@ -3351,11 +3402,12 @@ def _batch_block_cost(cfg, flush, reps=50):
 
 
 def phase_handoff():
-    """12a: gemma-2b at its published width and depth (18 layers, d_model
-    2048, 8 heads, MQA, head_dim 256, d_ff 16384, vocab 256000, tied
-    embeddings) with spiking FFNs at weight density 0.3 under PACKED_DUAL,
-    served undisturbed, then drained after PREEMPT_AFTER steps and resumed
-    under {sync, pipelined} x {dense, paged(16)}."""
+    """12a: gemma-2b at its published width (d_model 2048, 8 heads, MQA,
+    head_dim 256, d_ff 16384, vocab 256000, tied embeddings), depth cut to
+    GEMMA_LAYERS, with spiking FFNs at weight density 0.3 under
+    PACKED_DUAL, served undisturbed, then drained after PREEMPT_AFTER steps
+    and resumed under {sync, pipelined} x {dense, paged(16)}."""
+    import dataclasses
     import tempfile
 
     import numpy as np
@@ -3365,17 +3417,19 @@ def phase_handoff():
     from repro_torch.models.registry import build_model
     from repro_torch.serve import Engine, ExecutionPolicy, paged
 
-    cfg = build_config("gemma_2b", smoke=False, spiking=True, weight_density=0.3)
-    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim,
-            cfg.d_ff, cfg.vocab, cfg.tie_embeddings) == (
+    full = build_config("gemma_2b", smoke=False, spiking=True, weight_density=0.3)
+    assert (full.n_layers, full.d_model, full.n_heads, full.n_kv, full.head_dim,
+            full.d_ff, full.vocab, full.tie_embeddings) == (
         18, 2048, 8, 1, 256, 16384, 256000, True)
+    cfg = dataclasses.replace(full, n_layers=GEMMA_LAYERS)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(SEED, device="cuda")
     base = Engine(model, params, max_len=PROMPT + GEN, max_slots=P12_SLOTS,
                   policy=ExecutionPolicy.for_arch(cfg), capture_logits=True)
     torch.cuda.synchronize()
-    log(f"12a gemma-2b init + plans on the card: {time.perf_counter() - t0:.3f}s,"
+    log(f"12a gemma-2b ({cfg.n_layers} of {full.n_layers} layers) init + plans "
+        f"on the card: {time.perf_counter() - t0:.3f}s,"
         f" {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     rng = np.random.default_rng(SEED + 12)
     base.generate_batch([rng.integers(0, cfg.vocab, size=(8,))], 2)  # warm-up
@@ -3415,7 +3469,8 @@ def phase_handoff():
     del base, params
     gc.collect()
     torch.cuda.empty_cache()
-    return {"arch": cfg.name, "requests": len(prompts), "gens": list(P12_GENS),
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "requests": len(prompts),
+            "gens": list(P12_GENS),
             "forwards": forwards, "launches": counts["ftp_bsr"],
             "serve_s": serve_s, "kernel3": held, "cpu_reference": cpu_ref,
             "attention_batch_block": block_cost, "drain": cycles}
@@ -3535,7 +3590,7 @@ def phase_smoke_archs():
             params = model.init(SEED, device="cpu")
             prompts = list(np.random.default_rng(1).integers(0, cfg.vocab,
                                                              size=(3, 8)))
-            got, traces, launches = {}, {}, 0
+            got, traces, launches, held = {}, {}, 0, {}
             for dev in ("cuda", "cpu"):
                 eng = Engine(model, params, max_len=16, max_slots=3,
                              capture_logits=True, device=dev,
@@ -3557,6 +3612,526 @@ def phase_smoke_archs():
                 f"max |logit drift| {drift:.3e}; FTP kernel launches {launches}")
             out[f"{arch} {mode}"] = {"drift": drift, "launches": launches}
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the recurrent families (rwkv6-1.6b, zamba2-7b) at full width
+# ---------------------------------------------------------------------------
+
+# zamba2's odd prompt: not a multiple of ssm_chunk (128), so its prefill
+# takes the per-step SSD scan while the 128-token ones take the chunked form
+P13_SHORT_PROMPT, P13_SHORT_AT = 100, 5
+# Card vs CPU at the published width, on depth-cut copies (the CPU's time):
+# (arch, layers, compute dtype, teacher-forced decode steps), each over 4
+# requests, prefill + 15 decodes.  rwkv6 24 -> 6 layers, bf16, within
+# LOGIT_TOL.  zamba2 81 -> 15 layers (2 groups of 6, each followed by the
+# shared block, its attention decoding through its KV cache, then the tail
+# of 3), a 128- and a 100-token prompt (both SSD forms): in f32 compute
+# within LOGIT_TOL, and in bf16 held against that f32 run on the CPU (see
+# P13_BF16_FACTOR).  At random init zamba2 turns the devices' bf16
+# last-bit differences into a card-vs-CPU bf16 drift that grows with depth
+# (PERF.md §6 has every depth's readings).
+P13_CPU_CASES = {
+    "rwkv6_1_6b": ("rwkv6_1_6b", 6, "bfloat16", GEN - 1),
+    "zamba2_7b f32": ("zamba2_7b", 15, "float32", GEN - 1),
+    "zamba2_7b bf16": ("zamba2_7b", 15, "bfloat16", GEN - 1),
+}
+# zamba2's bf16 gate: the card's bf16 logits lie no further from the CPU's
+# f32 run of the same copy than the CPU's own bf16 run does, by more than
+# this factor (max and mean |difference|): a device fault in a bf16 path
+# would show as the card alone leaving the f32 run
+P13_BF16_FACTOR = 2.0
+P13_LONE = 1                 # the request served alone for the row gate
+
+
+def _p13_prompts(cfg, n=len(P12_GENS)):
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 21)
+    lens = [PROMPT] * n
+    if cfg.family == "hybrid" and n > P13_SHORT_AT:
+        lens[P13_SHORT_AT] = P13_SHORT_PROMPT
+    return [rng.integers(0, cfg.vocab, size=(L,)).astype(np.int32) for L in lens]
+
+
+def _no_kernels(counts, label):
+    assert not any(counts.values()), (label, counts)
+
+
+def _p13_cell(model, params, cfg, prompts, execution, paging, label):
+    """One counted serve of the 8 requests under ``execution`` x
+    ``paging``, logits captured: (tokens, {rid: logits}, rids)."""
+    from repro_torch.serve import Engine, ExecutionPolicy
+
+    eng = Engine(model, params, max_len=PROMPT + GEN, max_slots=P12_SLOTS,
+                 policy=ExecutionPolicy.for_arch(cfg, execution=execution,
+                                                 paging=paging),
+                 capture_logits=True)
+    outs, traces, counts, _, rids = _budget_serve(eng, prompts, P12_GENS, label)
+    _no_kernels(counts, label)
+    s = eng.summary()
+    del eng
+    gc.collect()
+    return outs, traces, rids, s
+
+
+def _same_serve(label, got, want):
+    """Two serves of the same requests: tokens and every logit vector equal
+    bit for bit (requests in submit order)."""
+    import numpy as np
+
+    outs, traces, rids = got[:3]
+    w_outs, w_traces, w_rids = want[:3]
+    for i, (a, b) in enumerate(zip(outs, w_outs)):
+        np.testing.assert_array_equal(a, b, err_msg=f"{label}: request {i}")
+        x, y = traces[rids[i]], w_traces[w_rids[i]]
+        assert np.array_equal(x, y), (
+            f"{label}: request {i}: {int((x != y).sum())} of {x.size} logits "
+            "differ")
+
+
+def _p13_cut(arch, n_layers, compute_dtype, steps):
+    """A card-vs-CPU copy of an arch (a `P13_CPU_CASES` entry): its
+    published width, depth cut to ``n_layers``, in ``compute_dtype``; 4
+    prompts (zamba2's last one of P13_SHORT_PROMPT tokens: the per-step SSD
+    scan) and the ``steps`` tokens each is teacher-forced with.  Returns
+    (full cfg, cut cfg, prompts, fed)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.launch.serve import build_config
+
+    full = build_config(arch, smoke=False, spiking=False, weight_density=1.0)
+    cfg = dataclasses.replace(full, n_layers=n_layers, compute_dtype=compute_dtype)
+    rng = np.random.default_rng(SEED + 22)
+    lens = [PROMPT] * 3 + [P13_SHORT_PROMPT if cfg.family == "hybrid" else PROMPT]
+    prompts = [rng.integers(0, cfg.vocab, size=(n,)) for n in lens]
+    fed = [rng.integers(0, cfg.vocab, size=(steps,)) for _ in lens]
+    return full, cfg, prompts, fed
+
+
+def _teacher_forced(model, params, prompts, fed, device):
+    """Each request alone on ``device``: its prefill's last-position logits,
+    then one decode per fed token; a (GEN, V) f32 array a request."""
+    import torch
+
+    out = []
+    with torch.no_grad():
+        for p, f in zip(prompts, fed):
+            cache = model.init_cache(1, PROMPT + GEN, device=device)
+            logits, cache = model.prefill(
+                params, {"tokens": torch.as_tensor(p, device=device)[None].long()},
+                cache)
+            steps = [logits[0, -1]]
+            for t in f:
+                logits, cache = model.decode(
+                    params, torch.full((1, 1), int(t), dtype=torch.long,
+                                       device=device), cache)
+                steps.append(logits[0, -1])
+            out.append(torch.stack(steps).float().cpu().numpy())
+    return out
+
+
+def _p13_cpu_worker(case):
+    """In a spawned process: a `P13_CPU_CASES` copy's params drawn on the CPU
+    from SEED (the card's copy is drawn the same way), teacher-forced on the
+    CPU.  Returns (logits per request, seconds)."""
+    t0 = time.perf_counter()
+    sys.path.insert(0, SRC)
+    import torch
+
+    from repro_torch.models.registry import build_model
+
+    # leave the serving process a core for its dispatch
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    _, cfg, prompts, fed = _p13_cut(*case)
+    model = build_model(cfg)
+    params = model.prepare(model.init(SEED, device="cpu"))
+    return _teacher_forced(model, params, prompts, fed, "cpu"), time.perf_counter() - t0
+
+
+_P13_DRAWN = {}
+
+
+def _p13_on_card(case):
+    """The same copy's logits on the card (params drawn on the CPU, moved;
+    one draw a depth, kept for the copy's other compute dtype: the draw
+    is in the param dtype)."""
+    import torch
+
+    from repro_torch.models.registry import build_model
+
+    _, cfg, prompts, fed = _p13_cut(*case)
+    model = build_model(cfg)
+    key = case[:2]
+    if key not in _P13_DRAWN:
+        _P13_DRAWN[key] = model.init(SEED, device="cpu")
+    params = model.prepare(_tree_to(_P13_DRAWN[key], "cuda"))
+    out = _teacher_forced(model, params, prompts, fed, "cuda")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _p13_drift(card, cpu):
+    """Card against CPU logits (lists of per-request (steps, V) arrays)."""
+    import numpy as np
+
+    want, got = np.concatenate(cpu), np.concatenate(card)
+    top2 = np.sort(want, axis=-1)[..., -2:]
+    close = (top2[..., 1] - top2[..., 0]) <= 2 * LOGIT_TOL
+    differ = want.argmax(-1) != got.argmax(-1)
+    return {"max_abs_drift": float(np.abs(got - want).max()),
+            "max_abs_drift_per_request": [float(np.abs(a - b).max())
+                                          for a, b in zip(card, cpu)],
+            "max_abs_drift_prefill": float(max(np.abs(a[0] - b[0]).max()
+                                               for a, b in zip(card, cpu))),
+            "mean_abs_drift": float(np.abs(got - want).mean()),
+            "logit_std": float(want.std()),
+            "tokens_compared": int(differ.size),
+            "tokens_disagree": int(differ.sum()),
+            "tokens_disagree_off_tie": int((differ & ~close).sum())}
+
+
+def _p13_card_vs_cpu(key, cpu_future):
+    """Card vs CPU on a `P13_CPU_CASES` copy: the same params and fed tokens
+    through the port on the card and (``cpu_future``) on the CPU.  Logits
+    within LOGIT_TOL; a greedy token may differ only where the CPU's top
+    two lie within 2 x LOGIT_TOL.  Beside it, a witness: the card again
+    with other row and batch blocks (the same math in other summation
+    orders, where the library picks other algorithms)."""
+    from repro_torch.models import layers
+
+    case = P13_CPU_CASES[key]
+    card = _p13_on_card(case)
+    saved = layers.ROW_BLOCK, layers.B_BLOCK
+    layers.ROW_BLOCK, layers.B_BLOCK = 32, 8
+    try:
+        witness = _p13_on_card(case)
+    finally:
+        layers.ROW_BLOCK, layers.B_BLOCK = saved
+    cpu, cpu_s = cpu_future.result()
+    out = dict(_p13_drift(card, cpu), case=list(case), cpu_seconds=cpu_s,
+               witness_max_abs=_p13_drift(card, witness)["max_abs_drift"])
+    log(f"13 {key} card vs CPU ({case[1]} layers, {case[2]}, "
+        f"{len(cpu)} requests, {case[3]} fed tokens each): max |logit drift| "
+        f"{out['max_abs_drift']:.3e} (per request "
+        f"{[round(x, 4) for x in out['max_abs_drift_per_request']]}, prefill "
+        f"{out['max_abs_drift_prefill']:.3e}, mean {out['mean_abs_drift']:.3e}, "
+        f"logit std {out['logit_std']:.3f}); the card against itself in other "
+        f"blocks {out['witness_max_abs']:.3e}; {out['tokens_disagree']} of "
+        f"{out['tokens_compared']} greedy tokens disagree; CPU {cpu_s:.1f}s")
+    assert out["max_abs_drift"] <= LOGIT_TOL, out
+    assert out["tokens_disagree_off_tie"] == 0, out
+    return out
+
+
+def _p13_bf16_vs_f32(futures):
+    """zamba2 at 15 layers in bf16: the card's logits and the CPU's, each
+    against the CPU's f32 run of the same copy (params, prompts, fed
+    tokens).  Gated: the card's distance is at most P13_BF16_FACTOR times
+    the CPU's, in max and in mean; the card-vs-CPU bf16 drift is logged."""
+    case = P13_CPU_CASES["zamba2_7b bf16"]
+    truth, _ = futures["zamba2_7b f32"].result()
+    cpu, cpu_s = futures["zamba2_7b bf16"].result()
+    card = _p13_on_card(case)
+    out = {"case": list(case), "cpu_seconds": cpu_s, "factor": P13_BF16_FACTOR,
+           "card_vs_cpu_f32": _p13_drift(card, truth),
+           "cpu_vs_cpu_f32": _p13_drift(cpu, truth),
+           "card_vs_cpu": _p13_drift(card, cpu)}
+    ratio = {k: out["card_vs_cpu_f32"][k] / out["cpu_vs_cpu_f32"][k]
+             for k in ("max_abs_drift", "mean_abs_drift")}
+    out["ratio"] = ratio
+    d_card, d_cpu = out["card_vs_cpu_f32"], out["cpu_vs_cpu_f32"]
+    log(f"13 zamba2_7b bf16 ({case[1]} layers, {len(cpu)} requests, {case[3]} "
+        f"fed tokens each) against the CPU's f32 run: card max "
+        f"{d_card['max_abs_drift']:.4e} mean {d_card['mean_abs_drift']:.4e}, "
+        f"CPU max {d_cpu['max_abs_drift']:.4e} mean {d_cpu['mean_abs_drift']:.4e}"
+        f" (card / CPU {ratio['max_abs_drift']:.3f} / "
+        f"{ratio['mean_abs_drift']:.3f}, <= {P13_BF16_FACTOR}); greedy tokens "
+        f"off the f32 run's: card {d_card['tokens_disagree']}, CPU "
+        f"{d_cpu['tokens_disagree']} of {d_cpu['tokens_compared']}; bf16 card "
+        f"vs CPU {out['card_vs_cpu']['max_abs_drift']:.4e} (not gated), "
+        f"{out['card_vs_cpu']['tokens_disagree']} tokens differ; CPU {cpu_s:.1f}s")
+    assert all(r <= P13_BF16_FACTOR for r in ratio.values()), out
+    return out
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _launches_per_call(model, params, cfg):
+    """Device launches (kernels, copies, fills) of one prefill (4 x 128)
+    and of one decode step of the 4 rows after it, counted from a profiler
+    pass over each call; None where the profiler saw no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    toks = torch.randint(0, cfg.vocab, (REQUESTS, PROMPT), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(SEED))
+    out = {}
+    with torch.no_grad():
+        cache = model.init_cache(REQUESTS, PROMPT + GEN, device="cuda")
+        for name in ("prefill", "decode"):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                if name == "prefill":
+                    logits, cache = model.prefill(params, {"tokens": toks}, cache)
+                else:
+                    logits, cache = model.decode(
+                        params, logits[:, -1].argmax(-1)[:, None], cache)
+                torch.cuda.synchronize()
+            out[name] = sum(1 for e in prof.events()
+                            if e.device_type == DeviceType.CUDA) or None
+    return out
+
+
+def _p13_profile(engine, prompts, unprofiled_wall):
+    """One serve under torch.profiler: device busy time against the host
+    wall, and the five largest device ops by time."""
+    from collections import Counter
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.generate_batch(prompts, GEN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.device_time_total * 1e-6
+    busy = sum(by_name.values())
+    out = {"wall_s": wall, "device_busy_s": busy,
+           "idle_share_profiled": 1.0 - busy / wall if busy else None,
+           "idle_share_unprofiled": (1.0 - busy / unprofiled_wall
+                                     if busy else None),
+           "top_ops_ms": [[n[:100], 1e3 * t] for n, t in by_name.most_common(5)]}
+    if busy:
+        log(f"profile: device busy {busy:.3f}s, idle {out['idle_share_profiled']:.3f}"
+            f" of the profiled wall ({wall:.3f}s), "
+            f"{out['idle_share_unprofiled']:.3f} of the unprofiled one")
+        for name, ms in out["top_ops_ms"]:
+            log(f"  {ms:9.3f} ms  {name}")
+    else:
+        log("profile: no device time recorded (not measured)")
+    return out
+
+
+def _p13_arch(arch, futures):
+    """13a / 13b: one recurrent arch at its published width and depth, then
+    its card-vs-CPU checks (their CPU sides running in ``futures``)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import build_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import Engine, ExecutionPolicy, draft, paged
+
+    tag = "13a" if arch == "rwkv6_1_6b" else "13b"
+    cfg = build_config(arch, smoke=False, spiking=False, weight_density=1.0)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.prepare(model.init(SEED, device="cuda"))
+    gc.collect()
+    torch.cuda.synchronize()
+    log(f"{tag} {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab}) init + prepare on the card: {time.perf_counter() - t0:.3f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    prompts = _p13_prompts(cfg)
+    warm = Engine(model, params, max_len=PROMPT + GEN, max_slots=P12_SLOTS,
+                  policy=ExecutionPolicy.for_arch(cfg))
+    warm.generate_batch([prompts[0][:8]], 2)
+    del warm
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "prompt_lens": [len(p) for p in prompts], "gens": list(P12_GENS)}
+    cells = {}
+    for execution in ("sync", "pipelined"):
+        for paging in (None, paged(PAGE)):
+            key = f"{execution} {'paged' if paging else 'dense'}"
+            t1 = time.perf_counter()
+            cells[key] = _p13_cell(model, params, cfg, prompts, execution,
+                                   paging, f"{tag} {key}")
+            log(f"{tag} {key}: {cells[key][3]['total_tokens']} tokens, "
+                f"{cells[key][3]['prefill_batches']} prefills, "
+                f"{cells[key][3]['decode_batches']} decodes in "
+                f"{time.perf_counter() - t1:.2f}s with logit capture")
+    base = cells["sync dense"]
+    for key, cell in cells.items():
+        if key != "sync dense":
+            _same_serve(f"{tag} {key} vs sync dense", cell, base)
+    log(f"{tag}: sync / pipelined x dense / paged({PAGE}) equal bit for bit "
+        f"(tokens and {sum(P12_GENS)} logit vectors each); sample "
+        f"{base[0][1][:8].tolist()}")
+    res["cells_bitwise"] = True
+    # the row gate: request P13_LONE served alone
+    lone = Engine(model, params, max_len=PROMPT + GEN, max_slots=P12_SLOTS,
+                  policy=ExecutionPolicy.for_arch(cfg), capture_logits=True)
+    l_outs, l_traces, counts, _, l_rids = _budget_serve(
+        lone, [prompts[P13_LONE]], [P12_GENS[P13_LONE]], f"{tag} lone")
+    _no_kernels(counts, f"{tag} lone")
+    np.testing.assert_array_equal(l_outs[0], base[0][P13_LONE])
+    x, y = l_traces[l_rids[0]], base[1][base[2][P13_LONE]]
+    assert np.array_equal(x, y), (
+        f"{tag}: the lone request's logits differ from its cohort's at "
+        f"{int((x != y).sum())} of {x.size} elements")
+    log(f"{tag}: request {P13_LONE} served alone equals itself in its cohort "
+        f"bit for bit ({x.shape[0]} logit vectors)")
+    del lone
+    res["lone_equals_cohort"] = True
+    with tempfile.TemporaryDirectory() as tmp:
+        res["drain"] = _drain_cycle(model, params, cfg, prompts,
+                                    (base[0], base[1], base[2]), "sync", None,
+                                    tmp, phase=tag, kernel3=False)
+    try:
+        Engine(model, params, max_len=PROMPT + GEN, policy=ExecutionPolicy.for_arch(
+            cfg, speculation=draft(ExecutionPolicy.for_arch(cfg), SPEC_K)))
+    except ValueError as e:
+        assert "non-rewindable" in str(e), e
+        log(f"{tag}: speculation refused: {e}")
+        res["speculation_refused"] = str(e)
+    else:
+        raise AssertionError(f"{tag}: speculation was not refused")
+    # timed: 4 x 128 + 16, no logit capture
+    timed_prompts = prompts[:REQUESTS]
+    engine = Engine(model, params, max_len=PROMPT + GEN, max_slots=REQUESTS,
+                    policy=ExecutionPolicy.for_arch(cfg))
+    want = engine.generate_batch(timed_prompts, GEN)
+    for a, b in zip(want, base[0][:REQUESTS]):
+        np.testing.assert_array_equal(a[:len(b)], b[:len(a)])
+    timed, best = _timed(engine, timed_prompts, want, tag)
+    s = best
+    res["serve"] = {
+        "tok_s": s["throughput_tok_s"], "ttft_s_p50": s["ttft_s_p50"],
+        "wall_s": s["wall_s"], "stage_s": s["stage_s"],
+        "decode_step_ms": 1e3 * s["stage_s"]["decode"] / s["decode_batches"],
+        "tok_s_runs": [t["throughput_tok_s"] for t in timed],
+        "ttft_s_p50_runs": [t["ttft_s_p50"] for t in timed]}
+    log(f"{tag}: decode step {res['serve']['decode_step_ms']:.2f} ms "
+        f"({s['decode_batches']} decodes of {REQUESTS} rows)")
+    res["profile"] = _p13_profile(engine, timed_prompts, best["wall_s"])
+    del engine
+    gc.collect()
+    res["launches_per_call"] = _launches_per_call(model, params, cfg)
+    log(f"{tag}: device launches in one prefill ({REQUESTS} x {PROMPT}) "
+        f"{res['launches_per_call']['prefill']}, in one decode step "
+        f"{res['launches_per_call']['decode']}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if cfg.family == "hybrid":
+        res["cpu_reference"] = _p13_card_vs_cpu("zamba2_7b f32",
+                                                futures["zamba2_7b f32"])
+        res["cpu_reference_bf16"] = _p13_bf16_vs_f32(futures)
+    else:
+        res["cpu_reference"] = _p13_card_vs_cpu(arch, futures[arch])
+    _P13_DRAWN.clear()
+    return res
+
+
+def _p13_smoke():
+    """13c: rwkv6 and zamba2 at the smoke size (zamba2 also with a spiking
+    shared MLP, served under `for_arch`'s policy: packed spikes, dense
+    weights), on the card and on the CPU from the same params: the same
+    tokens, logits within LOGIT_TOL.  Every kernel 1-2 call of the spiking
+    card serve is replayed against its plain version."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import Engine, ExecutionPolicy
+
+    out = {}
+    for arch, over in (("rwkv6_1_6b", {}), ("zamba2_7b", {}),
+                       ("zamba2_7b", {"spiking_ffn": True})):
+        cfg = dataclasses.replace(smoke_variant(get_config(arch)), **over)
+        model = build_model(cfg)
+        params = model.init(SEED, device="cpu")
+        prompts = list(np.random.default_rng(1).integers(0, cfg.vocab,
+                                                         size=(3, 8)))
+        mode = "spiking" if over else "float"
+        got, traces, launches, held = {}, {}, 0, {}
+        for dev in ("cuda", "cpu"):
+            eng = Engine(model, params, max_len=16, max_slots=3,
+                         capture_logits=True, device=dev,
+                         policy=ExecutionPolicy.for_arch(cfg))
+            calls, restore = _record(["ftp_spmm", "ftp_spmm_fused_lif"])
+            try:
+                res, counts = _counted(f"13c {arch} {mode} {dev}",
+                                       lambda: eng.generate_batch(prompts, 6))
+            finally:
+                restore()
+            got[dev] = res
+            traces[dev] = np.stack([np.stack(t) for t in eng.drain_logit_traces()])
+            if dev == "cuda":
+                launches = sum(counts[k] for k in ("ftp_spmm", "ftp_spmm_fused_lif"))
+                assert (launches > 0) == bool(over), counts
+                assert len(calls) == launches, (len(calls), counts)
+                held = _hold_dense_calls(calls, f"13c {arch} {mode}")
+        for a, b in zip(got["cuda"], got["cpu"]):
+            np.testing.assert_array_equal(a, b)
+        drift = float(np.abs(traces["cuda"] - traces["cpu"]).max())
+        assert drift <= LOGIT_TOL, (arch, mode, drift)
+        log(f"13c {arch} smoke, {mode}: card and CPU emit the same tokens, "
+            f"max |logit drift| {drift:.3e}; dense-weight FTP launches {launches}")
+        out[f"{arch} {mode}"] = {"drift": drift, "launches": launches, **held}
+    return out
+
+
+def _hold_dense_calls(calls, label):
+    """Every recorded kernel 1-2 call against its plain version (the FTP
+    gate), on the instance it was routed to; returns the worst error and
+    the spike-word flips."""
+    err, flips = 0.0, 0
+    for n, (name, args, _) in enumerate(calls):
+        a, w, Tc = args[:3]
+        e, f = _dense_parity(f"{label} {name} call {n}", a, w, Tc,
+                             name == "ftp_spmm_fused_lif")
+        err, flips = max(err, e), flips + f
+    log(f"{label}: all {len(calls)} kernel 1-2 calls held against the plain "
+        f"version: max_abs_err {err:.3e} (<= {TOL}), {flips} spike-word flips "
+        "at the threshold")
+    return {"held_calls": len(calls), "max_abs_err": err, "flips": flips}
+
+
+def phase_recurrent():
+    """13: rwkv6-1.6b and zamba2-7b at their published widths and depths,
+    then the smoke cells.  The card-vs-CPU checks' CPU side runs in one
+    spawned worker process from the start, beside the card's serves."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    res = {}
+    archs = ("rwkv6_1_6b", "zamba2_7b")
+    with ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context(
+            "spawn")) as pool:
+        futures = {k: pool.submit(_p13_cpu_worker, case)
+                   for k, case in P13_CPU_CASES.items()}
+        for arch in archs:
+            t1 = time.perf_counter()
+            res[arch] = _p13_arch(arch, futures)
+            res[arch]["seconds"] = time.perf_counter() - t1
+            log(f"13 {arch} done in {res[arch]['seconds']:.1f}s")
+    res["smoke"] = _p13_smoke()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 13 in {res['seconds']:.1f}s")
+    return res
 
 
 def _flash_entries(flash):
@@ -3710,7 +4285,11 @@ def main() -> int:
                          "smoke_archs": phase_smoke_archs()}
     bsr["max_abs_err"] = max(bsr["max_abs_err"], gemma["kernel3"]["max_abs_err"],
                              qwen3["kernel3"]["max_abs_err"])
+    log(f"phase 12 done at {time.perf_counter() - t0:.1f}s")
+    recurrent = phase_recurrent()
+    log(f"phase 13 done at {time.perf_counter() - t0:.1f}s")
     assert all(k["launches"] > 0 for k in kernels), [k["launches"] for k in kernels]
+    print(json.dumps({"recurrent": recurrent}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {

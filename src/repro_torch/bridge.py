@@ -3,7 +3,8 @@
 The reference's params come as a nested dict of numpy arrays (the caller
 does ``jax.tree.map(np.asarray, params)``; this module imports no jax).
 `params_from_reference` turns that tree into the port's layout: the same
-dict, with the stacked ``layers`` axis split into a list of per-layer dicts;
+dict, with each stacked layer axis (``layers``; Zamba2's ``mamba``) split
+into a list of per-layer dicts and every other key carried as it is;
 `train_state_from_reference` does the same for a whole AdamW train state
 (params, the moments m and v, the step counts and the error-feedback
 buffer), so both packages can start training from one state.
@@ -48,19 +49,29 @@ def _map(tree, fn):
     return fn(tree)
 
 
+# the keys under which a family stacks its layers on a leading axis: the
+# transformers' and RWKV6's ``layers``, Zamba2's ``mamba`` (its ``shared``
+# block is one unstacked dict)
+STACKED_KEYS = ("layers", "mamba")
+
+
 def params_from_reference(tree: dict, *, device="cpu") -> dict:
-    """Reference param tree (numpy leaves, layers stacked on axis 0) ->
-    the port's param tree (torch leaves on ``device``, per-layer list)."""
+    """Reference param tree (numpy leaves, layers stacked on axis 0 under
+    `STACKED_KEYS`) -> the port's param tree (torch leaves on ``device``,
+    a per-layer list under each of those keys)."""
     out = {k: _map(v, lambda a: to_torch(a, device))
-           for k, v in tree.items() if k != "layers"}
-    stacked = tree["layers"]
-    n_layers = {np.shape(a)[0] for a in _leaves(stacked)}
-    if len(n_layers) != 1:
-        raise ValueError(f"layer leaves disagree on depth: {n_layers}")
-    out["layers"] = [
-        _map(stacked, lambda a, i=i: to_torch(np.asarray(a)[i], device))
-        for i in range(n_layers.pop())
-    ]
+           for k, v in tree.items() if k not in STACKED_KEYS}
+    for key in STACKED_KEYS:
+        if key not in tree:
+            continue
+        stacked = tree[key]
+        n_layers = {np.shape(a)[0] for a in _leaves(stacked)}
+        if len(n_layers) != 1:
+            raise ValueError(f"{key} leaves disagree on depth: {n_layers}")
+        out[key] = [
+            _map(stacked, lambda a, i=i: to_torch(np.asarray(a)[i], device))
+            for i in range(n_layers.pop())
+        ]
     return out
 
 

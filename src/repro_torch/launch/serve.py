@@ -1,5 +1,6 @@
 """Serving launcher of the port: the continuous-batching engine over the
-dense transformer family, on the CUDA device by default.
+dense transformer family and the recurrent ones (``--arch rwkv6_1_6b``,
+``--arch zamba2_7b``), on the CUDA device by default.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_2_1b \
         --spiking --weight-density 0.3 --batch 4 --prompt-len 128 --gen 16

@@ -69,6 +69,23 @@ def row_blocks(fn, x: torch.Tensor, *args) -> torch.Tensor:
     return (out[0] if len(out) == 1 else torch.cat(out))[:n]
 
 
+def batch_blocks(fn, args, fills) -> tuple:
+    """``fn(*block)`` over blocks of `B_BLOCK` rows (dim 0) of the tensors
+    ``args``, the last block padded with rows of ``fills`` (one value per
+    argument), as the results' rows for the args' rows: ``fn`` returns a
+    tuple of tensors whose dim 0 is the block's rows.  Every call sees one
+    batch count, so a row's values do not depend on how many rows share the
+    dispatch (the serving attention's einsums, the recurrent cores'
+    einsums and cumsum)."""
+    n = args[0].shape[0]
+    nb = -(-n // B_BLOCK) * B_BLOCK
+    if nb != n:
+        args = [torch.cat([a, a.new_full((nb - n,) + tuple(a.shape[1:]), f)])
+                for a, f in zip(args, fills)]
+    outs = [fn(*(a[i:i + B_BLOCK] for a in args)) for i in range(0, nb, B_BLOCK)]
+    return tuple((o[0] if len(o) == 1 else torch.cat(o))[:n] for o in zip(*outs))
+
+
 def _mean_square(x: torch.Tensor) -> torch.Tensor:
     return (x * x).mean(-1, keepdim=True)
 
@@ -156,17 +173,15 @@ def multihead_attention(q, k, v, cfg: ArchConfig, *, q_offset: int,
 
     if q_block:
         n = -(-Sq // q_block) * q_block
-        nb = -(-B // B_BLOCK) * B_BLOCK
-        qg = _zero_pad(_zero_pad(qg, 1, n), 0, nb)
-        kf, vf = _zero_pad(kf, 0, nb), _zero_pad(vf, 0, nb)
         iq = q_offset + torch.arange(n, device=q.device)
-        o = [chunk_attn(qg[b:b + B_BLOCK, c:c + q_block], iq[c:c + q_block],
-                        kf[b:b + B_BLOCK], vf[b:b + B_BLOCK])
-             for b in range(0, nb, B_BLOCK) for c in range(0, n, q_block)]
-        rows = [torch.cat(o[i:i + n // q_block], dim=1)
-                for i in range(0, len(o), n // q_block)]
-        o = torch.cat(rows, dim=0)[:B, :Sq]
-        return o.reshape(B, Sq, H, dh)
+
+        def batch_block(qb, kb, vb):
+            return (torch.cat([chunk_attn(qb[:, c:c + q_block], iq[c:c + q_block],
+                                          kb, vb)
+                               for c in range(0, n, q_block)], dim=1),)
+
+        o, = batch_blocks(batch_block, (_zero_pad(qg, 1, n), kf, vf), (0.0,) * 3)
+        return o[:, :Sq].reshape(B, Sq, H, dh)
     iq = q_offset + torch.arange(Sq, device=q.device)
     cq = cfg.attn_chunk
     if cq and Sq > cq and Sq % cq == 0:
@@ -243,6 +258,14 @@ def _row_invariant_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return row_blocks(torch.matmul, x, w)
 
 
+def project(x: torch.Tensor, w: torch.Tensor, *, row_invariant: bool) -> torch.Tensor:
+    """``x (..., K) @ w (K, N)`` as one 2-D product over x's rows, over
+    fixed row blocks (`row_blocks`) when ``row_invariant`` (the serving
+    forward)."""
+    mm = _row_invariant_matmul if row_invariant else torch.matmul
+    return mm(x.reshape(-1, x.shape[-1]), w).reshape(tuple(x.shape[:-1]) + (-1,))
+
+
 # ---------------------------------------------------------------------------
 # MLP: the spiking dual-sparse FFN and the dense MLPs
 # ---------------------------------------------------------------------------
@@ -296,8 +319,18 @@ def attach_spiking_ffn_plans(params: dict, cfg: ArchConfig) -> dict:
         return dict(mlp, plan_in=build_weight_plan(mlp["wu"].to(ct)),
                     plan_out=build_weight_plan(mlp["wd"].to(ct)))
 
-    layers = [dict(lp, mlp=prepare(lp["mlp"])) for lp in params["layers"]]
-    return dict(params, layers=layers)
+    def walk(node):
+        # every spiking-FFN weight pair (a dict with wu and wd, no gate),
+        # wherever the family keeps it: each layer's mlp, zamba's shared one
+        if isinstance(node, dict):
+            if {"wu", "wd"} <= node.keys() and "wg" not in node:
+                return prepare(node)
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return node
+
+    return walk(params)
 
 
 def derive_draft_params(params: dict, cfg: ArchConfig, density: float) -> dict:
@@ -341,7 +374,8 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return x * cdf
 
 
-def mlp_apply(p, x, cfg: ArchConfig, spiking_mode: str = "train"):
+def mlp_apply(p, x, cfg: ArchConfig, spiking_mode: str = "train", *,
+              row_invariant: bool = False):
     """The FFN.  Spiking: the dual-sparse spiking FFN under the FTP
     dataflow; ``infer`` with attached plans routes both GEMMs through the
     dual-sparse BSR kernel, ``infer`` without plans runs them against the
@@ -352,25 +386,31 @@ def mlp_apply(p, x, cfg: ArchConfig, spiking_mode: str = "train"):
     adaptive temporal axis, `Engine._configure_draft`) runs both GEMMs
     under that policy, so its timestep gate reaches the kernel.  Dense:
     swiglu / geglu / sq_relu / gelu in the compute dtype, whatever the
-    mode."""
+    mode; ``row_invariant`` (zamba's shared block in a serving forward)
+    runs its products over fixed row blocks (`project`)."""
     if spiking_mode not in SPIKING_MODES:
         raise ValueError(f"unknown spiking FFN mode {spiking_mode!r}")
     ct = _ct(cfg)
     xc = x.to(ct)
     if not cfg.spiking_ffn:
-        up = xc @ p["wu"].to(ct)
+        def mm(a, w):
+            if row_invariant:
+                return project(a, w.to(ct), row_invariant=True)
+            return a @ w.to(ct)
+
+        up = mm(xc, p["wu"])
         if cfg.act == "swiglu":
-            g = xc @ p["wg"].to(ct)
+            g = mm(xc, p["wg"])
             h = g * _sigmoid(g) * up
         elif cfg.act == "geglu":
-            h = _gelu(xc @ p["wg"].to(ct)) * up
+            h = _gelu(mm(xc, p["wg"])) * up
         elif cfg.act == "sq_relu":
             h = torch.square(torch.relu(up))
         elif cfg.act == "gelu":
             h = _gelu(up)
         else:
             raise ValueError(cfg.act)
-        return (h @ p["wd"].to(ct)).to(x.dtype)
+        return mm(h, p["wd"]).to(x.dtype)
     from repro_torch.core.snn_layers import SpikingConfig, spiking_ffn_apply
 
     scfg = SpikingConfig(T=cfg.spiking_T, weight_density=cfg.spiking_weight_density)

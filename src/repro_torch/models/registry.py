@@ -1,5 +1,6 @@
-"""Uniform Model interface (port of `repro.models.registry`, the dense
-transformer family only; ``axes`` waits for the multi-device slice).
+"""Uniform Model interface (port of `repro.models.registry`: the dense
+transformer family, RWKV6 (``ssm``) and Zamba2 (``hybrid``); ``axes``
+waits for the multi-device slice).
 
     init(seed=0, *, device=None) -> params      (seeded torch.Generator)
     loss(params, batch) -> scalar loss          (the training forward)
@@ -21,7 +22,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 
-from . import transformer
+from . import rwkv6, ssm_lm, transformer
 
 
 @dataclass(frozen=True)
@@ -37,7 +38,34 @@ class Model:
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    if cfg.family != "dense":
+    if cfg.family == "dense":
+        init_params = transformer.init_params
+        loss, prepare = transformer.loss_fn, transformer.prepare_params
+        prefill, decode = transformer.prefill, transformer.decode_step
+
+        def init_cache(batch, max_len, device):
+            return transformer.init_cache(cfg, batch, max_len, device=device)
+
+        cache_axes = transformer.cache_axes
+    elif cfg.family == "ssm":
+        init_params = ssm_lm.rwkv_init
+        loss, prepare = ssm_lm.rwkv_loss, ssm_lm.rwkv_prepare
+        prefill, decode = ssm_lm.rwkv_prefill, ssm_lm.rwkv_decode
+
+        def init_cache(batch, max_len, device):
+            return rwkv6.state_init(cfg, batch, device=device)
+
+        cache_axes = rwkv6.state_axes
+    elif cfg.family == "hybrid":
+        init_params = ssm_lm.zamba_init
+        loss, prepare = ssm_lm.zamba_loss, ssm_lm.zamba_prepare
+        prefill, decode = ssm_lm.zamba_prefill, ssm_lm.zamba_decode
+
+        def init_cache(batch, max_len, device):
+            return ssm_lm.zamba_state_init(cfg, batch, max_len, device=device)
+
+        cache_axes = ssm_lm.zamba_state_axes
+    else:
         raise NotImplementedError(
             f"model family {cfg.family!r} is a later slice of the port; "
             "see ROADMAP.md"
@@ -46,19 +74,16 @@ def build_model(cfg: ArchConfig) -> Model:
     def init(seed: int = 0, *, device=None):
         gen = torch.Generator(device=resolve_device(device))
         gen.manual_seed(seed)
-        return transformer.init_params(cfg, gen)
-
-    def init_cache(batch: int, max_len: int, *, device=None):
-        return transformer.init_cache(cfg, batch, max_len,
-                                      device=resolve_device(device))
+        return init_params(cfg, gen)
 
     return Model(
         cfg=cfg,
         init=init,
-        loss=lambda p, b: transformer.loss_fn(p, cfg, b),
-        prepare=lambda p: transformer.prepare_params(cfg, p),
-        prefill=lambda p, b, c, **kw: transformer.prefill(p, cfg, b, c, **kw),
-        decode=lambda p, t, c, **kw: transformer.decode_step(p, cfg, t, c, **kw),
-        init_cache=init_cache,
-        cache_axes=lambda: transformer.cache_axes(cfg),
+        loss=lambda p, b: loss(p, cfg, b),
+        prepare=lambda p: prepare(cfg, p),
+        prefill=lambda p, b, c, **kw: prefill(p, cfg, b, c, **kw),
+        decode=lambda p, t, c, **kw: decode(p, cfg, t, c, **kw),
+        init_cache=lambda b, s, *, device=None: init_cache(
+            b, s, resolve_device(device)),
+        cache_axes=lambda: cache_axes(cfg),
     )

@@ -93,15 +93,18 @@ def prepare_params(cfg: ArchConfig, params: dict) -> dict:
     the token lookup (`embed_tokens` casts the gathered rows), and the
     qk-norm scales stay in their dtype (the norm upcasts them to f32)."""
     ct = _ct(cfg)
-
-    def cast(tree):
-        return {k: w.to(ct) if isinstance(w, torch.Tensor) and w.ndim == 2
-                else w for k, w in tree.items()}
-
-    layers = [dict(lp, attn=cast(lp["attn"]), mlp=cast(lp["mlp"]))
+    layers = [dict(lp, attn=cast_matrices(lp["attn"], ct),
+                   mlp=cast_matrices(lp["mlp"], ct))
               for lp in params["layers"]]
     return dict(params, layers=layers,
                 unembed=_unembed_weight(params, cfg))
+
+
+def cast_matrices(tree: dict, ct: torch.dtype) -> dict:
+    """``tree`` with its 2-D tensors (an attention's or an FFN's matrices)
+    in ``ct``; other leaves (norm scales, join plans) as they are."""
+    return {k: w.to(ct) if isinstance(w, torch.Tensor) and w.ndim == 2
+            else w for k, w in tree.items()}
 
 
 def embed_tokens(p, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:

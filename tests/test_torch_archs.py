@@ -344,9 +344,12 @@ def test_init_shapes_untied_head_and_bridge(arch):
 
 
 def test_configs_listed_with_aliases_and_others_refused():
-    assert set(NEW_ARCHS) | {"llama3_2_1b"} == set(ARCHS) == set(list_archs())
+    recurrent = {"rwkv6_1_6b", "zamba2_7b"}
+    assert (set(NEW_ARCHS) | {"llama3_2_1b"} | recurrent == set(ARCHS)
+            == set(list_archs()))
     for alias, name in (("gemma-2b", "gemma_2b"), ("qwen3-14b", "qwen3_14b"),
-                        ("nemotron-4-340b", "nemotron_4_340b")):
+                        ("nemotron-4-340b", "nemotron_4_340b"),
+                        ("rwkv6-1.6b", "rwkv6_1_6b"), ("zamba2-7b", "zamba2_7b")):
         assert get_config(alias) == get_config(name)
         # the reference's fields, plus the port's stated embedding scale,
         # which the reference keys on the name
@@ -354,13 +357,13 @@ def test_configs_listed_with_aliases_and_others_refused():
         assert got.pop("embed_scale") == name.startswith("gemma")
         assert got == dataclasses.asdict(j_get_config(name))
     assert not get_config("llama3_2_1b").embed_scale
-    for arch in ("rwkv6_1_6b", "mixtral_8x22b", "hubert-xlarge"):
+    for arch in ("mixtral_8x22b", "hubert-xlarge", "llava_next_mistral_7b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(arch)
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("arch", NEW_ARCHS + ("rwkv6_1_6b", "zamba2_7b"))
 def test_for_arch_policies_match_reference(arch, mode):
     """`ExecutionPolicy.for_arch` derives the reference's policy for each
     arch and mode, under every execution (the reference names a placement

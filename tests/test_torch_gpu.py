@@ -1257,3 +1257,96 @@ def test_row_blocks_row_invariant_on_card(op):
     full = row_blocks(fn, x, *args)
     for n in (1, 4, 20, ROW_BLOCK, ROW_BLOCK + 1):
         assert torch.equal(row_blocks(fn, x[:n], *args), full[:n]), n
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families (rwkv6, zamba2) at smoke size on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=["rwkv6_1_6b", "zamba2_7b"])
+def recurrent_model(request):
+    """A recurrent arch's smoke variant, params drawn on the CPU (the same
+    params serve on the card and on the CPU)."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models.registry import build_model
+
+    _cuda()
+    cfg = smoke_variant(get_config(request.param))
+    model = build_model(cfg)
+    return cfg, model, model.init(0, device="cpu")
+
+
+def _recurrent_serve(recurrent_model, prompts, gens, device="cuda", **kw):
+    """(tokens in submit order, logit traces in submit order) of one serve
+    of ``prompts`` with budgets ``gens``."""
+    from repro_torch.serve import Engine
+
+    cfg, model, params = recurrent_model
+    pol = ExecutionPolicy.for_arch(cfg, execution=kw.pop("execution", "sync"),
+                                   paging=kw.pop("paging", None))
+    eng = Engine(model, params, policy=pol, capture_logits=True, device=device,
+                 **kw)
+    tickets = [eng.submit(p, g) for p, g in zip(prompts, gens)]
+    out = eng.run()
+    return ([out[t.rid] for t in tickets],
+            [np.stack(eng.logit_traces[t.rid]) for t in tickets])
+
+
+@pytest.mark.gpu
+def test_recurrent_serve_on_card_matches_cpu(recurrent_model):
+    """The same requests served on the card and on the CPU (zamba2's
+    prompt of 16 takes the SSD chunked form at ssm_chunk 8, its 13 the
+    per-step scan): the same tokens, logits within 0.25."""
+    prompts = _serve_prompts(recurrent_model[0].vocab, [16, 16, 13], seed=4)
+    gens = [6, 6, 6]
+    card = _recurrent_serve(recurrent_model, prompts, gens, max_len=24,
+                            max_slots=3)
+    cpu = _recurrent_serve(recurrent_model, prompts, gens, device="cpu",
+                           max_len=24, max_slots=3)
+    for a, b in zip(card[0], cpu[0]):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(card[1], cpu[1]):
+        assert np.abs(a - b).max() <= 0.25
+
+
+@pytest.mark.gpu
+def test_recurrent_lone_request_equals_cohort_on_card(recurrent_model):
+    """Row invariance on the card: a request served alone emits the tokens
+    and logits it emits in a cohort of four, bit for bit."""
+    prompts = _serve_prompts(recurrent_model[0].vocab, [8] * 4, seed=5)
+    kw = dict(max_len=16, max_slots=4)
+    cohort = _recurrent_serve(recurrent_model, prompts, [6] * 4, **kw)
+    lone = _recurrent_serve(recurrent_model, prompts[2:3], [6], **kw)
+    np.testing.assert_array_equal(lone[0][0], cohort[0][2])
+    assert np.array_equal(lone[1][0], cohort[1][2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("execution,paging", [("pipelined", False),
+                                              ("sync", True),
+                                              ("pipelined", True)])
+def test_recurrent_serve_features_equal_sync_dense_on_card(recurrent_model,
+                                                           execution, paging):
+    """Staggered continuous batching (a merge, retires) under pipelined
+    execution and paged state: the sync dense serve's tokens and logits bit
+    for bit."""
+    from repro_torch.serve import Engine, paged
+
+    cfg, model, params = recurrent_model
+    prompts = _serve_prompts(cfg.vocab, [8, 9, 12, 8], seed=6)
+    gens, arrivals = [4, 5, 4, 6], [0, 1, 1, 2]
+
+    def serve(execution, paging):
+        pol = ExecutionPolicy.for_arch(cfg, execution=execution,
+                                       paging=paged(8) if paging else None)
+        eng = Engine(model, params, policy=pol, max_len=32, max_slots=4,
+                     capture_logits=True, device="cuda")
+        got = _staggered_serve(eng, prompts, gens, arrivals)
+        return got, eng.drain_logit_traces(), eng.metrics.n_merges
+
+    want, want_logits, _ = serve("sync", False)
+    got, logits, merges = serve(execution, paging)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b, a)
+    _same_logits(want_logits, logits)
+    assert merges >= 1

@@ -11,10 +11,12 @@ reference's on the same operation sequence (the reference's toy layout:
 one sequence leaf, one state leaf, two locals) and hold page ids,
 ref-counts, free lists, hits, evictions and copy-on-write pages equal.
 
-Reference cases left out: the rwkv6 and zamba2 cells of
-``test_paged_token_identity_staggered`` and
-``test_prefix_hit_skips_prefill_token_identical`` (those families are item
-10 of the port's queue, ROADMAP), and
+The rwkv6 and zamba2 cells of ``test_paged_token_identity_staggered`` and
+``test_prefix_hit_skips_prefill_token_identical`` are
+``test_paged_token_identity_staggered_recurrent`` and
+``test_prefix_hit_skips_prefill_recurrent``: their caches page a state leaf
+per row (rwkv6 has no sequence leaf at all; zamba2 pages the shared
+block's k / v too).  Reference case left out:
 ``test_meshed_paged_identity_and_rebalance_without_copies`` (the mesh, item
 12).  ``test_admission_ticket_lifecycle_and_shim`` keeps its lifecycle part:
 the port has no deprecated ticket shim.  The reference's
@@ -152,6 +154,69 @@ def test_paged_token_identity_staggered(dense, execution):
     ref = _ref(dense, j_paged(8), execution, max_len=32, max_slots=8)
     for a, b in zip(_run_staggered(ref, prompts, gens, arrivals), got):
         np.testing.assert_array_equal(b, a)
+
+
+_RECURRENT: dict = {}
+
+
+def _recurrent(arch):
+    """(reference, port) cfg, model and params of a recurrent arch's smoke
+    variant (the port's bridged from the reference's)."""
+    if arch not in _RECURRENT:
+        jcfg = smoke_variant(get_config(arch))
+        jm = j_build(jcfg)
+        jp = jm.init(jax.random.PRNGKey(0))
+        tcfg = build_config(arch, smoke=True, spiking=False, weight_density=1.0)
+        tp = bridge.params_from_reference(jax.tree.map(np.asarray, jp))
+        _RECURRENT[arch] = (jcfg, jm, jp), (tcfg, t_build(tcfg), tp)
+    return _RECURRENT[arch]
+
+
+@pytest.mark.parametrize("execution", ["sync", "pipelined"])
+@pytest.mark.parametrize("arch", ["rwkv6_1_6b", "zamba2_7b"])
+def test_paged_token_identity_staggered_recurrent(arch, execution):
+    """The reference's rwkv6 / zamba2 cells of the staggered test: paged ==
+    dense bit for bit (tokens and captured logits; the state leaves are one
+    page per row), a merge happened, and the tokens equal the reference's
+    paged engine's."""
+    models = _recurrent(arch)
+    prompts = _prompts(models[0][0].vocab, [8, 9, 12])
+    gens, arrivals = [4, 5, 4], [0, 1, 1]
+    kw = dict(max_len=32, max_slots=8, capture_logits=True)
+    d = _port(models, execution=execution, **kw)
+    want = _run_staggered(d, prompts, gens, arrivals)
+    p = _port(models, paged(8), execution, **kw)
+    got = _run_staggered(p, prompts, gens, arrivals)
+    assert p.store.layout.has_state
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b, a)
+    for ta, tb in zip(d.drain_logit_traces(), p.drain_logit_traces()):
+        for x, y in zip(ta, tb):
+            np.testing.assert_array_equal(y, x)
+    assert p.metrics.n_merges >= 1
+    ref = _ref(models, j_paged(8), execution, max_len=32, max_slots=8)
+    for a, b in zip(_run_staggered(ref, prompts, gens, arrivals), got):
+        np.testing.assert_array_equal(b, a)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_1_6b", "zamba2_7b"])
+def test_prefix_hit_skips_prefill_recurrent(arch):
+    """The reference's rwkv6 / zamba2 cells of the prefix-hit test: a
+    repeated prompt is a full-prompt hit (its state page and locals come
+    from the index), no prefill runs, and the tokens are the cold path's."""
+    models = _recurrent(arch)
+    prompts = _prompts(models[0][0].vocab, [8, 12])
+    pe = _port(models, paged(8), max_len=32, max_slots=8)
+    cold = pe.generate_batch(prompts, 5)
+    prefills_before = pe.metrics.n_prefill_batches
+    t0, t1 = pe.submit(prompts[0], 5), pe.submit(prompts[1], 5)
+    assert t0.prefix_hit and t1.prefix_hit
+    assert t0.reused_tokens == 8 and t1.reused_tokens == 12
+    out = pe.run()
+    assert pe.metrics.n_prefill_batches == prefills_before
+    assert pe.metrics.n_prefix_hits == 2
+    np.testing.assert_array_equal(out[t0.rid], cold[0])
+    np.testing.assert_array_equal(out[t1.rid], cold[1])
 
 
 def test_paged_token_identity_dual_sparse(dual):
