@@ -218,8 +218,41 @@ causal; dh 160 padded to 192.
              with a spiking shared MLP) on the card and the CPU: the same
              tokens, logits within LOGIT_TOL.
 
-Prints a JSON line of phase 13's measurements, then a JSON line of
-per-kernel measurements (the headline numbers are each kernel's mean launch
+14. the MoE families and the stub front ends, after phase 13, float,
+             random weights from a seed, no FTP or flash kernel on their
+             paths: (a) phi3.5-moe at its published width (d_model 4096, 16
+             experts x d_ff 6400, GQA 32 / 8 x 128, vocab 32064), 4 of its
+             32 layers: 4 requests of 96, 112, 128 and 144 prompt tokens
+             (distinct: capacity routing couples a cohort's rows, so the
+             engine merges no cohorts), 16 new each, 4 slots, under {sync,
+             pipelined} x {dense, paged(16)}: every request's tokens equal
+             the port's solo loop and the cells equal bit for bit; two
+             same-length requests (budgets 2 and 5) in one cohort pipelined
+             (depth 4, clamped to 1) equal sync; speculation refused;
+             timed (tok/s, TTFT, decode step), profiled (idle share, top
+             device ops), the launches of a 4 x 128 prefill and a decode
+             step and the (token, k) pairs capacity dropped in each.  (b)
+             mixtral-8x22b at its published width (d_model 6144, 8 experts
+             x d_ff 16384, window 4096, vocab 32768), 2 of 56 layers:
+             prompts of 8192 (two windows: the temporary full-length
+             prefill) and 4080 (decodes that wrap the ring), 32 new each,
+             the same gates, and the ring witness: each request through a
+             full-length cache, teacher-forced, logits within LOGIT_TOL of
+             the served ones.  (c) card vs CPU on copies at published width
+             (phi3.5-moe and mixtral 1 layer, llava 2, hubert 4; 2
+             requests, 8 teacher-forced decodes), the CPU side in a spawned
+             process (params drawn on the card from the seed and moved):
+             logits within LOGIT_TOL, tokens equal but at near ties, the
+             routing choices that differ per layer reported.  (d)
+             llava-next-mistral-7b at full depth: a prefill of 2 x (576
+             image + 64 text positions) and 16 greedy decodes, finite,
+             timed; hubert-xlarge at full depth: an encoder prefill of 4 x
+             1024 frames and AdamW train steps, finite, timed.  Phase 12c
+             also runs the four at smoke size (window 16; mixtral's prompts
+             of 32 and 12 tokens) on the card and the CPU.
+
+Prints a JSON line of phase 13's measurements and one of phase 14's, then
+a JSON line of per-kernel measurements (the headline numbers are each kernel's mean launch
 on its path), and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -3611,6 +3644,90 @@ def phase_smoke_archs():
             log(f"12c {arch} smoke, {mode}: card and CPU emit the same tokens, "
                 f"max |logit drift| {drift:.3e}; FTP kernel launches {launches}")
             out[f"{arch} {mode}"] = {"drift": drift, "launches": launches}
+    out.update(_smoke_new_archs())
+    return out
+
+
+def _smoke_new_archs():
+    """12c for phase 14's archs at smoke size (4 experts, window 16, 8
+    image tokens), float, from the same params on the card and the CPU:
+    phi3.5-moe and mixtral served (prompts of 32 and 12 tokens, 6 new
+    each: for mixtral the temporary full-length prefill and decodes across
+    the ring's wrap), the same tokens, logits within LOGIT_TOL, the routing
+    choices that differ reported; llava's prefill with image embeddings and
+    6 greedy decodes on the card, the CPU teacher-forced with its tokens,
+    and hubert's encoder prefill, within LOGIT_TOL with the same greedy
+    tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.data import SyntheticLMData, batch_to_torch
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import Engine, ExecutionPolicy
+
+    out = {}
+    for arch in ("phi3_5_moe", "mixtral_8x22b"):
+        cfg = smoke_variant(get_config(arch))
+        model = build_model(cfg)
+        params = model.init(SEED, device="cpu")
+        prompts = [np.random.default_rng(n).integers(0, cfg.vocab, size=(n,))
+                   for n in (32, 12)]
+        got, traces, routes = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            eng = Engine(model, params, max_len=40, max_slots=2,
+                         capture_logits=True, device=dev,
+                         policy=ExecutionPolicy.for_arch(cfg))
+            routes[dev] = []
+            restore = _record_routes(routes[dev])
+            try:
+                got[dev], counts = _counted(f"12c {arch} {dev}",
+                                            lambda: eng.generate_batch(prompts, 6))
+            finally:
+                restore()
+            _no_kernels(counts, f"12c {arch}")
+            traces[dev] = [np.stack(t) for t in eng.drain_logit_traces()]
+        flips = sum(int((a.cpu() != b).sum()) for (a, _), (b, _)
+                    in zip(routes["cuda"], routes["cpu"]))
+        drift = max(float(np.abs(a - b).max())
+                    for a, b in zip(traces["cuda"], traces["cpu"]))
+        log(f"12c {arch} smoke: card vs CPU max |logit drift| {drift:.3e}, "
+            f"{flips} of {sum(e.numel() for e, _ in routes['cpu'])} routing "
+            f"choices differ; tokens {[o.tolist() for o in got['cuda']]}")
+        for a, b in zip(got["cuda"], got["cpu"]):
+            np.testing.assert_array_equal(a, b)
+        assert drift <= LOGIT_TOL, (arch, drift)
+        out[f"{arch} float"] = {"drift": drift, "routing_flips": flips}
+    for arch in ("llava_next_mistral_7b", "hubert_xlarge"):
+        cfg = smoke_variant(get_config(arch))
+        model = build_model(cfg)
+        params = model.init(SEED, device="cpu")
+        batch = SyntheticLMData(cfg, seq_len=24, global_batch=2).batch(0)
+        batch.pop("labels")
+        logits, fed = {}, None
+        for dev in ("cuda", "cpu"):
+            p = model.prepare(_tree_to(params, dev))
+            with torch.no_grad():
+                cache = (None if cfg.encoder_only else
+                         model.init_cache(2, 32, device=dev))
+                lg, cache = model.prefill(p, batch_to_torch(batch, dev), cache)
+                steps = [lg[:, -1]]
+                for i in range(0 if cfg.encoder_only else 6):
+                    tok = (steps[-1].argmax(-1)[:, None] if fed is None
+                           else fed[i].to(dev))
+                    lg, cache = model.decode(p, tok, cache)
+                    steps.append(lg[:, -1])
+            logits[dev] = torch.stack(steps, 1).float().cpu().numpy()
+            if fed is None:   # the card's greedy tokens, fed to the CPU
+                fed = [torch.from_numpy(logits[dev][:, i].argmax(-1))[:, None]
+                       for i in range(logits[dev].shape[1] - 1)]
+        drift = float(np.abs(logits["cuda"] - logits["cpu"]).max())
+        log(f"12c {arch} smoke: card vs CPU ({logits['cpu'].shape[1]} steps) "
+            f"max |logit drift| {drift:.3e}")
+        np.testing.assert_array_equal(logits["cuda"].argmax(-1),
+                                      logits["cpu"].argmax(-1))
+        assert drift <= LOGIT_TOL, (arch, drift)
+        out[f"{arch} float"] = {"drift": drift}
     return out
 
 
@@ -3894,18 +4011,22 @@ def _launches_per_call(model, params, cfg):
     return out
 
 
-def _p13_profile(engine, prompts, unprofiled_wall):
-    """One serve under torch.profiler: device busy time against the host
-    wall, and the five largest device ops by time."""
+def _p13_profile(engine, prompts, unprofiled_wall, gen=GEN, host_ops=True):
+    """One serve of ``gen`` new tokens under torch.profiler: device busy
+    time against the host wall, and the five largest device ops by time.
+    ``host_ops=False`` records the device's activity alone (the host ops'
+    events take the profiler tens of seconds to list on a long serve)."""
     from collections import Counter
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops
+                                            else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        engine.generate_batch(prompts, GEN)
+        engine.generate_batch(prompts, gen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = Counter()
@@ -4134,6 +4255,640 @@ def phase_recurrent():
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the MoE families (phi3.5-moe; mixtral-8x22b through its
+# sliding-window ring) and the stub front ends (llava-next-mistral-7b,
+# hubert-xlarge) at published width
+# ---------------------------------------------------------------------------
+
+# Depth cuts (the card's memory and the run's time; every gate holds layer
+# by layer): phi3.5-moe 32 -> 4 layers (1.300 B params a layer), mixtral
+# 56 -> 2 (2.504 B a layer); llava (32) and hubert (48) at full depth.
+P14_LAYERS = {"phi3_5_moe": 4, "mixtral_8x22b": 2}
+# 14a: distinct prompt lengths (capacity routing couples a cohort's rows,
+# so the engine merges no cohorts: each request decodes alone, as in the
+# solo loop), 16 new tokens each, 4 slots; max_len a multiple of the page
+P14A_PROMPTS = (96, 112, 128, 144)
+# 14b: a prompt of two windows (8192: the temporary full-length prefill)
+# and one of 4080 (the plain prefill, then decodes that wrap the ring at
+# 4096), 32 new tokens each
+P14B_PROMPTS, P14B_GEN = (8192, 4080), 32
+# 14c, card vs CPU (the CPU's time): (arch, layers) at published width, 2
+# requests of 64 prompt tokens (llava: 576 image + 64 text positions;
+# hubert: 512 frames) in one batch, then 8 teacher-forced decodes
+P14_CPU_CASES = {"phi3_5_moe": 1, "mixtral_8x22b": 1,
+                 "llava_next_mistral_7b": 2, "hubert_xlarge": 4}
+P14C_BATCH, P14C_PROMPT, P14C_DECODES, P14C_FRAMES = 2, 64, 8, 512
+# 14d: llava 2 x (576 + 64) then 16 greedy decodes; hubert 4 x 1024 frames
+P14D_LLAVA_TEXT, P14D_LLAVA_DECODES = 64, 16
+P14D_HUBERT_BATCH, P14D_HUBERT_FRAMES = 4, 1024
+
+
+def _p14_model(arch, n_layers=None):
+    """(cfg, model, prepared params on the card): published width, depth
+    cut to ``n_layers``, drawn on the card from SEED."""
+    import dataclasses
+
+    from repro_torch.launch.serve import build_config
+    from repro_torch.models.registry import build_model
+
+    cfg = build_config(arch, smoke=False, spiking=False, weight_density=1.0)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = build_model(cfg)
+    return cfg, model, model.prepare(model.init(SEED, device="cuda"))
+
+
+def _free():
+    """Collect the caller's dropped model and empty the card's cache."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _record_routes(store):
+    """Keep each `layers.moe_route` call's (expert ids, kept mask), device
+    tensors as they are (no copy, no sync); returns the undo."""
+    from repro_torch.models import layers
+
+    orig = layers.moe_route
+
+    def recorded(router, xt, cfg):
+        out = orig(router, xt, cfg)
+        store.append((out[2], out[4]))
+        return out
+
+    layers.moe_route = recorded
+    return lambda: setattr(layers, "moe_route", orig)
+
+
+def _drops(routes, n_layers):
+    """Dropped (token, k) pairs of a list of routes, per layer and all."""
+    per = [0] * n_layers
+    pairs = [0] * n_layers
+    for i, (_, keep) in enumerate(routes):
+        per[i % n_layers] += int((~keep).sum())
+        pairs[i % n_layers] += keep.numel()
+    return {"dropped_per_layer": per, "pairs_per_layer": pairs,
+            "dropped": sum(per), "pairs": sum(pairs)}
+
+
+def _p14_cut_inputs(cfg):
+    """14c's inputs for an arch (numpy, from SEED): the prefill batch and
+    the teacher-forced tokens (B, 1) of each decode."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 23)
+    B = P14C_BATCH
+    if not cfg.embed_inputs:
+        return {"frames": rng.standard_normal((B, P14C_FRAMES, cfg.d_model),
+                                              dtype=np.float32)}, []
+    S = cfg.n_img_tokens + P14C_PROMPT
+    batch = {"tokens": rng.integers(0, cfg.vocab, size=(B, S))}
+    if cfg.n_img_tokens:
+        batch["img_embed"] = rng.standard_normal(
+            (B, cfg.n_img_tokens, cfg.d_model), dtype=np.float32)
+    fed = [rng.integers(0, cfg.vocab, size=(B, 1)) for _ in range(P14C_DECODES)]
+    return batch, fed
+
+
+def _p14_forward(cfg, model, params, batch, fed, device):
+    """Prefill then one decode per fed token on ``device``: per request a
+    (steps, V) f32 array of the last position's logits (an encoder's: the
+    logits of every frame, (S, V)), and the routes of every MoE call as
+    numpy (expert ids, kept mask)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer
+
+    routes = []
+    restore = _record_routes(routes)
+    try:
+        with torch.no_grad():
+            tb = {k: (torch.as_tensor(v, device=device).long() if v.dtype.kind in "iu"
+                      else torch.as_tensor(v, device=device)) for k, v in batch.items()}
+            if cfg.encoder_only:   # the encoder prefill's path, every frame
+                x, _ = transformer.forward(params, cfg, tb)
+                out = transformer.unembed(params, cfg, x).float().cpu().numpy()
+            else:
+                S = next(iter(tb.values())).shape[1]
+                cache = model.init_cache(P14C_BATCH, S + len(fed), device=device)
+                logits, cache = model.prefill(params, tb, cache)
+                steps = [logits[:, -1]]
+                for tok in fed:
+                    logits, cache = model.decode(
+                        params, torch.as_tensor(tok, device=device).long(), cache)
+                    steps.append(logits[:, -1])
+                out = torch.stack(steps, 1).float().cpu().numpy()
+    finally:
+        restore()
+    routes = [(e.cpu().numpy(), k.cpu().numpy()) for e, k in routes]
+    return [out[b] for b in range(out.shape[0])], routes
+
+
+def _p14_cpu_worker(arch):
+    """In a spawned process: a `P14_CPU_CASES` copy's params drawn on the
+    card from SEED as the main process draws them, moved to the CPU and run
+    there.  Returns (logits per request, routes, seconds)."""
+    t0 = time.perf_counter()
+    sys.path.insert(0, SRC)
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.serve import build_config
+    from repro_torch.models.registry import build_model
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    cfg = dataclasses.replace(build_config(arch, smoke=False, spiking=False,
+                                           weight_density=1.0),
+                              n_layers=P14_CPU_CASES[arch])
+    model = build_model(cfg)
+    params = _tree_to(model.init(SEED, device="cuda"), "cpu")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.prepare(params)
+    batch, fed = _p14_cut_inputs(cfg)
+    logits, routes = _p14_forward(cfg, model, params, batch, fed, "cpu")
+    return logits, routes, time.perf_counter() - t0
+
+
+def _p14_card_vs_cpu(arch, future):
+    """14c: the copy on the card against ``future``'s CPU run of the same
+    params and inputs: logits within LOGIT_TOL (hubert's at every frame),
+    greedy tokens equal but at near ties; for the MoE archs the (token, k)
+    routing choices and kept flags that differ, per layer."""
+    import numpy as np
+
+    cfg, model, params = _p14_model(arch, P14_CPU_CASES[arch])
+    batch, fed = _p14_cut_inputs(cfg)
+    card, routes = _p14_forward(cfg, model, params, batch, fed, "cuda")
+    del params
+    _free()
+    cpu, cpu_routes, cpu_s = future.result()
+    out = dict(_p13_drift(card, cpu), layers=cfg.n_layers, cpu_seconds=cpu_s,
+               steps=card[0].shape[0])
+    if cfg.n_experts:
+        L = cfg.n_layers
+        assert len(routes) == len(cpu_routes) == L * (1 + len(fed))
+        flips, kept = [0] * L, [0] * L
+        for i, ((e, k), (ce, ck)) in enumerate(zip(routes, cpu_routes)):
+            flips[i % L] += int((e != ce).sum())
+            kept[i % L] += int((k != ck).sum())
+        out.update(routing_flips_per_layer=flips, kept_flips_per_layer=kept,
+                   routing_choices=sum(e.size for e, _ in routes))
+    log(f"14c {arch} card vs CPU ({cfg.n_layers} layers at published width, "
+        f"{P14C_BATCH} requests, {out['steps']} "
+        f"{'frames' if cfg.encoder_only else 'steps'}): max |logit drift| "
+        f"{out['max_abs_drift']:.3e} (prefill {out['max_abs_drift_prefill']:.3e}, "
+        f"mean {out['mean_abs_drift']:.3e}, logit std {out['logit_std']:.3f}); "
+        f"{out['tokens_disagree']} of {out['tokens_compared']} greedy tokens "
+        f"disagree" + (f"; routing choices that differ per layer "
+                       f"{out['routing_flips_per_layer']} of "
+                       f"{out['routing_choices']}, kept flags "
+                       f"{out['kept_flips_per_layer']}" if cfg.n_experts else "")
+        + f"; CPU {cpu_s:.1f}s")
+    assert out["max_abs_drift"] <= LOGIT_TOL, out
+    assert out["tokens_disagree_off_tie"] == 0, out
+    return out
+
+
+def _p14_solo(model, params, prompts, gen, max_len):
+    """The port's own greedy loop, each request alone on the card."""
+    import torch
+
+    from repro_torch.launch.serve import generate
+
+    return [generate(model, params, torch.as_tensor(p, device="cuda")[None].long(),
+                     model.init_cache(1, max_len, device="cuda"), gen)[0].cpu().numpy()
+            for p in prompts]
+
+
+def _p14_cells(model, params, cfg, prompts, gens, max_len, tag):
+    """The four serve cells, {sync, pipelined} x {dense, paged(PAGE)},
+    logits captured: each equal to the sync dense one bit for bit."""
+    from repro_torch.serve import Engine, ExecutionPolicy, paged
+
+    cells = {}
+    for execution in ("sync", "pipelined"):
+        for paging in (None, paged(PAGE)):
+            key = f"{execution} {'paged' if paging else 'dense'}"
+            t1 = time.perf_counter()
+            eng = Engine(model, params, max_len=max_len, max_slots=len(prompts),
+                         policy=ExecutionPolicy.for_arch(cfg, execution=execution,
+                                                         paging=paging),
+                         pipeline_depth=4)
+            assert not eng.merge_cohorts and eng.batch_align == 1
+            outs, traces, counts, _, rids = _budget_serve(eng, prompts, gens,
+                                                          f"{tag} {key}")
+            _no_kernels(counts, f"{tag} {key}")
+            assert eng.metrics.n_merges == 0
+            cells[key] = (outs, traces, rids, eng.summary())
+            del eng
+            gc.collect()
+            log(f"{tag} {key}: {cells[key][3]['total_tokens']} tokens, "
+                f"{cells[key][3]['decode_batches']} decodes in "
+                f"{time.perf_counter() - t1:.2f}s with logit capture")
+    base = cells["sync dense"]
+    for key, cell in cells.items():
+        if key != "sync dense":
+            _same_serve(f"{tag} {key} vs sync dense", cell, base)
+    return base
+
+
+def _p14_timed(model, params, cfg, prompts, gen, max_len, tag):
+    """3 timed serves (no logit capture) and one profiled, as phase 13's:
+    tok/s, TTFT p50, the decode stage per engine step (every one-row cohort
+    decodes once a step) and per cohort's decode, the idle share, the top
+    device ops."""
+    import numpy as np
+
+    from repro_torch.serve import Engine, ExecutionPolicy
+
+    engine = Engine(model, params, max_len=max_len, max_slots=len(prompts),
+                    policy=ExecutionPolicy.for_arch(cfg))
+    want = engine.generate_batch(prompts, gen)
+    timed = []
+    for _ in range(TIMED_SERVES):
+        engine.metrics.reset()
+        again = engine.generate_batch(prompts, gen)
+        for a, b in zip(again, want):
+            np.testing.assert_array_equal(a, b)
+        timed.append(engine.summary())
+    tok_s = [t["throughput_tok_s"] for t in timed]
+    s = timed[tok_s.index(statistics.median(tok_s))]
+    res = {"tok_s": s["throughput_tok_s"], "ttft_s_p50": s["ttft_s_p50"],
+           "wall_s": s["wall_s"], "stage_s": s["stage_s"],
+           "decode_calls": s["decode_batches"],
+           "decode_call_ms": 1e3 * s["stage_s"]["decode"] / s["decode_batches"],
+           "decode_step_ms": 1e3 * s["stage_s"]["decode"] / (gen - 1),
+           "tok_s_runs": tok_s,
+           "ttft_s_p50_runs": [t["ttft_s_p50"] for t in timed]}
+    log(f"{tag} timed serves (no logit capture): tok/s "
+        f"{[round(x, 1) for x in tok_s]}, TTFT p50 ms "
+        f"{[round(t['ttft_s_p50'] * 1e3, 1) for t in timed]}; decode step "
+        f"{res['decode_step_ms']:.2f} ms ({len(prompts)} one-row cohorts), "
+        f"{res['decode_call_ms']:.2f} ms a cohort's decode; stages "
+        f"{json.dumps(s['stage_s'])}")
+    res["profile"] = _p13_profile(engine, prompts, s["wall_s"], gen=gen,
+                                  host_ops=False)
+    del engine
+    gc.collect()
+    return res
+
+
+def _p14_calls(model, params, cfg):
+    """Device launches of one prefill (4 x 128) and one decode step of the 4
+    rows after it (`_launches_per_call`), and the (token, k) pairs capacity
+    dropped in each, per layer (one cohort of 4 rows: capacity 1 at the
+    decode for both archs)."""
+    routes = []
+    restore = _record_routes(routes)
+    try:
+        launches = _launches_per_call(model, params, cfg)
+    finally:
+        restore()
+    L = cfg.n_layers
+    assert len(routes) == 2 * L, len(routes)
+    return {"launches": launches, "prefill_drops": _drops(routes[:L], L),
+            "decode_drops": _drops(routes[L:], L)}
+
+
+def _p14_spec_refused(model, params, cfg, tag):
+    from repro_torch.serve import Engine, ExecutionPolicy, draft
+
+    try:
+        Engine(model, params, max_len=64, policy=ExecutionPolicy.for_arch(
+            cfg, speculation=draft(ExecutionPolicy.for_arch(cfg), SPEC_K)))
+    except ValueError as e:
+        assert "capacity routing" in str(e), e
+        log(f"{tag}: speculation refused: {e}")
+        return str(e)
+    raise AssertionError(f"{tag}: speculation was not refused")
+
+
+def _p14_prompts(arch, cfg):
+    """A served arch's prompts (numpy, from SEED), new tokens each, max_len
+    (a multiple of PAGE), and the rng to draw more from."""
+    import numpy as np
+
+    lens, gen = ((P14A_PROMPTS, GEN) if arch == "phi3_5_moe" else
+                 (P14B_PROMPTS, P14B_GEN))
+    rng = np.random.default_rng(SEED + (24 if arch == "phi3_5_moe" else 25))
+    prompts = [rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32)
+               for n in lens]
+    return prompts, gen, -(-(max(lens) + gen) // PAGE) * PAGE, rng
+
+
+def _p14_speed(arch):
+    """14a / 14b's speeds, read once the CPU worker has ended: the served
+    arch loaded again from SEED, `_p14_timed` on its prompts."""
+    cfg, model, params = _p14_model(arch, P14_LAYERS[arch])
+    prompts, gen, max_len, _ = _p14_prompts(arch, cfg)
+    out = _p14_timed(model, params, cfg, prompts, gen, max_len,
+                     "14a" if arch == "phi3_5_moe" else "14b")
+    del params
+    _free()
+    return out
+
+
+def _p14_phi():
+    """14a: phi3.5-moe at published width, P14_LAYERS deep: the gates and
+    the launch and drop counts (its speeds: `_p14_speed`)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import Engine, ExecutionPolicy
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model, params = _p14_model("phi3_5_moe", P14_LAYERS["phi3_5_moe"])
+    torch.cuda.synchronize()
+    log(f"14a {cfg.name} ({cfg.n_layers} of 32 layers, d_model {cfg.d_model}, "
+        f"{cfg.n_experts} experts x d_ff {cfg.d_ff}, vocab {cfg.vocab}) init + "
+        f"prepare on the card: {time.perf_counter() - t0:.2f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    prompts, _, max_len, rng = _p14_prompts("phi3_5_moe", cfg)
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "prompt_lens": list(P14A_PROMPTS), "gen": GEN}
+    solo = _p14_solo(model, params, prompts, GEN, max_len)
+    base = _p14_cells(model, params, cfg, prompts, [GEN] * len(prompts),
+                      max_len, "14a")
+    for i, (a, b) in enumerate(zip(base[0], solo)):
+        np.testing.assert_array_equal(a, b, err_msg=f"14a request {i} vs solo")
+    log(f"14a: every request's tokens equal the solo loop's, and the four "
+        f"cells equal bit for bit (tokens and {len(prompts) * GEN} logit "
+        f"vectors each); sample {base[0][0][:8].tolist()}")
+    res["cells_bitwise"] = res["equals_solo"] = True
+    # two same-length requests in one cohort, budgets 2 and 5: the
+    # reference's test_pipelined_moe_clamps_window_and_keeps_identity
+    pair = [prompts[2], rng.integers(0, cfg.vocab, size=(P14A_PROMPTS[2],)
+                                     ).astype(np.int32)]
+    got = {}
+    for execution in ("sync", "pipelined"):
+        eng = Engine(model, params, max_len=max_len, max_slots=2,
+                     policy=ExecutionPolicy.for_arch(cfg, execution=execution),
+                     pipeline_depth=4)
+        if execution == "pipelined":
+            assert eng.executor.depth == 1
+        got[execution] = _budget_serve(eng, pair, [2, 5], f"14a pair {execution}")
+        del eng
+    _same_serve("14a pair pipelined (depth 4 -> 1) vs sync",
+                (got["pipelined"][0], got["pipelined"][1], got["pipelined"][4]),
+                (got["sync"][0], got["sync"][1], got["sync"][4]))
+    log("14a: a same-length pair (budgets 2 and 5) in one cohort: pipelined "
+        "(depth asked 4, clamped to 1) equals sync bit for bit")
+    res["pair_pipelined_equals_sync"] = True
+    res["speculation_refused"] = _p14_spec_refused(model, params, cfg, "14a")
+    res["calls"] = _p14_calls(model, params, cfg)
+    log(f"14a: device launches in one prefill (4 x {PROMPT}) "
+        f"{res['calls']['launches']['prefill']}, one decode step of 4 rows "
+        f"{res['calls']['launches']['decode']}; capacity dropped "
+        f"{res['calls']['prefill_drops']['dropped']} of "
+        f"{res['calls']['prefill_drops']['pairs']} (token, k) pairs in the "
+        f"prefill (per layer {res['calls']['prefill_drops']['dropped_per_layer']}), "
+        f"{res['calls']['decode_drops']['dropped']} of "
+        f"{res['calls']['decode_drops']['pairs']} in the decode step")
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    _free()
+    return res
+
+
+def _p14_mixtral():
+    """14b: mixtral-8x22b at published width, P14_LAYERS deep, through its
+    ring cache: the gates, the ring witness, the launch and drop counts."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params = _p14_model("mixtral_8x22b", P14_LAYERS["mixtral_8x22b"])
+    torch.cuda.synchronize()
+    log(f"14b {cfg.name} ({cfg.n_layers} of 56 layers, d_model {cfg.d_model}, "
+        f"{cfg.n_experts} experts x d_ff {cfg.d_ff}, window {cfg.window}, vocab "
+        f"{cfg.vocab}) init + prepare on the card: {time.perf_counter() - t0:.2f}s,"
+        f" {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    prompts, _, max_len, _ = _p14_prompts("mixtral_8x22b", cfg)
+    gens = [P14B_GEN] * len(prompts)
+    assert model.init_cache(1, max_len, device="cuda")["k"].shape[2] == cfg.window
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers, "window": cfg.window,
+           "prompt_lens": list(P14B_PROMPTS), "gen": P14B_GEN, "max_len": max_len}
+    t1 = time.perf_counter()
+    solo = _p14_solo(model, params, prompts, P14B_GEN, max_len)
+    log(f"14b solo loop: {time.perf_counter() - t1:.2f}s")
+    base = _p14_cells(model, params, cfg, prompts, gens, max_len, "14b")
+    for i, (a, b) in enumerate(zip(base[0], solo)):
+        np.testing.assert_array_equal(a, b, err_msg=f"14b request {i} vs solo")
+    log(f"14b: both requests' tokens equal the solo loop's, the four cells "
+        f"equal bit for bit; sample {base[0][1][:8].tolist()}")
+    res["cells_bitwise"] = res["equals_solo"] = True
+    res["ring_witness"] = _p14_ring_witness(model, params, cfg, prompts, base,
+                                            max_len)
+    res["calls"] = _p14_calls(model, params, cfg)
+    log(f"14b: device launches in one prefill (4 x {PROMPT}) "
+        f"{res['calls']['launches']['prefill']}, one decode step of 4 rows "
+        f"{res['calls']['launches']['decode']}; capacity dropped "
+        f"{res['calls']['prefill_drops']['dropped']} of "
+        f"{res['calls']['prefill_drops']['pairs']} pairs in the prefill, "
+        f"{res['calls']['decode_drops']['dropped']} of "
+        f"{res['calls']['decode_drops']['pairs']} in the decode step")
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    _free()
+    return res
+
+
+def _p14_ring_witness(model, params, cfg, prompts, base, max_len):
+    """Each served request again through a full-length cache (no ring, no
+    wrap), teacher-forced with its served tokens: under the sliding-window
+    mask the same computation but for the order of the attention's sums.
+    Logits within LOGIT_TOL of the served ones; the greedy tokens that
+    differ are reported."""
+    import numpy as np
+    import torch
+
+    outs, traces, rids = base[:3]
+    diffs, differ = [], 0
+    with torch.no_grad():
+        for p, toks, rid in zip(prompts, outs, rids):
+            cache = model.init_cache(1, max_len, device="cuda", full=True)
+            assert cache["k"].shape[2] == max_len
+            logits, cache = model.prefill(
+                params, {"tokens": torch.as_tensor(p, device="cuda")[None].long()},
+                cache)
+            steps = [logits[0, -1]]
+            for t in toks[:-1]:
+                logits, cache = model.decode(
+                    params, torch.full((1, 1), int(t), device="cuda",
+                                       dtype=torch.long), cache)
+                steps.append(logits[0, -1])
+            full = torch.stack(steps).float().cpu().numpy()
+            diffs.append(float(np.abs(full - traces[rid]).max()))
+            differ += int((full.argmax(-1) != np.asarray(toks)).sum())
+    out = {"max_abs_logit_diff": max(diffs), "per_request": diffs,
+           "tokens_differ": differ, "tokens": int(sum(len(o) for o in outs))}
+    log(f"14b ring witness: the served logits against a full-length cache's "
+        f"(same requests, teacher-forced): max |diff| {out['max_abs_logit_diff']:.3e}"
+        f" (per request {[round(d, 5) for d in diffs]}), {differ} of "
+        f"{out['tokens']} greedy tokens differ")
+    assert out["max_abs_logit_diff"] <= LOGIT_TOL, out
+    return out
+
+
+def _p14_llava():
+    """14d: llava-next-mistral-7b at published width and depth: prefill 2 x
+    (576 image + 64 text positions), then 16 greedy decodes."""
+    import numpy as np
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model, params = _p14_model("llava_next_mistral_7b")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 26)
+    S = cfg.n_img_tokens + P14D_LLAVA_TEXT
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, size=(2, S)),
+                                       device="cuda").long(),
+             "img_embed": torch.as_tensor(rng.standard_normal(
+                 (2, cfg.n_img_tokens, cfg.d_model), dtype=np.float32), device="cuda")}
+    times, logits_all = [], []
+    with torch.no_grad():
+        for _ in range(2):   # the first call warms the allocator and cuBLAS
+            cache = model.init_cache(2, S + P14D_LLAVA_DECODES, device="cuda")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, cache = model.prefill(params, batch, cache)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        steps = [logits[:, -1]]
+        t1 = time.perf_counter()
+        for _ in range(P14D_LLAVA_DECODES - 1):
+            logits, cache = model.decode(params, steps[-1].argmax(-1)[:, None], cache)
+            steps.append(logits[:, -1])
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t1
+        got = torch.stack(steps, 1).float().cpu().numpy()
+    assert got.shape == (2, P14D_LLAVA_DECODES, cfg.vocab) and np.isfinite(got).all()
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers, "init_s": init_s,
+           "prefill_s": times[1], "prefill_s_first": times[0],
+           "decode_step_ms": 1e3 * dec_s / (P14D_LLAVA_DECODES - 1),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "tokens": got.argmax(-1).tolist()}
+    log(f"14d {cfg.name} ({cfg.n_layers} layers, published width): init + "
+        f"prepare {init_s:.2f}s; prefill 2 x ({cfg.n_img_tokens} image + "
+        f"{P14D_LLAVA_TEXT} text) {1e3 * times[1]:.2f} ms (first call "
+        f"{1e3 * times[0]:.2f} ms), {P14D_LLAVA_DECODES - 1} greedy decodes "
+        f"{res['decode_step_ms']:.2f} ms each; logits finite; peak "
+        f"{res['peak_gib']:.2f} GiB")
+    del params, cache
+    _free()
+    return res
+
+
+def _p14_hubert():
+    """14d: hubert-xlarge at published width and depth: an encoder prefill
+    of 4 x 1024 frames, then train steps (AdamW, its optimizer)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import SyntheticLMData, batch_to_torch
+    from repro_torch.launch.serve import build_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import init_train_state, make_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = build_config("hubert_xlarge", smoke=False, spiking=False,
+                       weight_density=1.0)
+    assert cfg.optimizer == "adamw" and cfg.encoder_only
+    model = build_model(cfg)
+    state = init_train_state(model, SEED, device="cuda")
+    data = SyntheticLMData(cfg, seq_len=P14D_HUBERT_FRAMES,
+                           global_batch=P14D_HUBERT_BATCH)
+    batch = batch_to_torch(data.batch(0), "cuda")
+    prepared = model.prepare(state["params"])
+    with torch.no_grad():
+        model.prefill(prepared, {"frames": batch["frames"]}, None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, none = model.prefill(prepared, {"frames": batch["frames"]}, None)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    assert none is None and logits.shape == (P14D_HUBERT_BATCH, 1, cfg.vocab)
+    assert torch.isfinite(logits).all()
+    del prepared
+    step_fn = make_train_step(model)
+    times, losses, gnorms = [], [], []
+    for _ in range(2):   # the first step warms the allocator and cuBLAS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    assert np.isfinite(losses).all() and np.isfinite(gnorms).all(), (losses, gnorms)
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "prefill_s": prefill_s, "frames": [P14D_HUBERT_BATCH, P14D_HUBERT_FRAMES],
+           "train_step_s": times[1], "train_step_s_first": times[0],
+           "losses": losses, "grad_norms": gnorms,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"14d {cfg.name} ({cfg.n_layers} layers, published width): encoder "
+        f"prefill {P14D_HUBERT_BATCH} x {P14D_HUBERT_FRAMES} frames "
+        f"{1e3 * prefill_s:.2f} ms; train step (AdamW) {1e3 * times[1]:.1f} ms "
+        f"(first {1e3 * times[0]:.1f} ms), losses {[round(x, 4) for x in losses]},"
+        f" grad norms {[round(x, 4) for x in gnorms]}; peak "
+        f"{res['peak_gib']:.2f} GiB")
+    del state, batch
+    _free()
+    return res
+
+
+def phase_moe_frontends():
+    """14: phi3.5-moe and mixtral-8x22b served (a, b), card vs CPU on
+    depth-cut copies of all four archs (c), llava and hubert at full depth
+    (d).  The CPU side of 14c runs in a spawned process (which draws its
+    params on the card) beside the untimed gates of 14a-c alone; every
+    speed is read after it has ended, with the host and the card to this
+    process."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    res = {}
+    with ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context(
+            "spawn")) as pool:
+        futures = {a: pool.submit(_p14_cpu_worker, a) for a in P14_CPU_CASES}
+        for key, fn in (("phi3_5_moe", _p14_phi), ("mixtral_8x22b", _p14_mixtral)):
+            t1 = time.perf_counter()
+            res[key] = fn()
+            res[key]["gate_seconds"] = time.perf_counter() - t1
+            log(f"14 {key} gates done in {res[key]['gate_seconds']:.1f}s")
+        t1 = time.perf_counter()
+        res["card_vs_cpu"] = {a: _p14_card_vs_cpu(a, f) for a, f in futures.items()}
+        log(f"14c done in {time.perf_counter() - t1:.1f}s")
+    log(f"14: the CPU worker has ended at +{time.perf_counter() - t0:.1f}s; "
+        f"the speeds follow")
+    for key in ("phi3_5_moe", "mixtral_8x22b"):
+        t1 = time.perf_counter()
+        res[key]["serve"] = _p14_speed(key)
+        res[key]["speed_seconds"] = time.perf_counter() - t1
+    for key, fn in (("llava_next_mistral_7b", _p14_llava),
+                    ("hubert_xlarge", _p14_hubert)):
+        t1 = time.perf_counter()
+        res[key] = fn()
+        res[key]["seconds"] = time.perf_counter() - t1
+        log(f"14 {key} done in {res[key]['seconds']:.1f}s")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 14 in {res['seconds']:.1f}s")
+    return res
+
+
 def _flash_entries(flash):
     """The kernels-line entries of kernels 5-7: headline numbers from the
     train step's own attention inputs (layer 0; `tc`, with the SIMT
@@ -4288,8 +5043,11 @@ def main() -> int:
     log(f"phase 12 done at {time.perf_counter() - t0:.1f}s")
     recurrent = phase_recurrent()
     log(f"phase 13 done at {time.perf_counter() - t0:.1f}s")
+    moe_frontends = phase_moe_frontends()
+    log(f"phase 14 done at {time.perf_counter() - t0:.1f}s")
     assert all(k["launches"] > 0 for k in kernels), [k["launches"] for k in kernels]
     print(json.dumps({"recurrent": recurrent}), flush=True)
+    print(json.dumps({"moe_frontends": moe_frontends}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,10 @@
 """Serving launcher of the port: the continuous-batching engine over the
-dense transformer family and the recurrent ones (``--arch rwkv6_1_6b``,
-``--arch zamba2_7b``), on the CUDA device by default.
+dense transformer family, the MoE ones (``--arch phi3_5_moe``, ``--arch
+mixtral_8x22b``: no cohort merges and no batch padding, capacity routing
+couples a batch's rows) and the recurrent ones (``--arch rwkv6_1_6b``,
+``--arch zamba2_7b``), on the CUDA device by default.  hubert-xlarge is
+encoder-only and refused; llava's stub front end needs image embeddings,
+which token requests do not carry.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_2_1b \
         --spiking --weight-density 0.3 --batch 4 --prompt-len 128 --gen 16
@@ -357,6 +361,8 @@ def main(argv=None) -> int:
 
     cfg = build_config(args.arch, smoke=args.smoke, spiking=args.spiking,
                        weight_density=args.weight_density)
+    if not cfg.supports_decode:
+        raise SystemExit(f"{cfg.name} is encoder-only; no decode path")
     device = resolve_device(args.device)
     policy = build_policy(args, cfg)
     print(f"policy: {policy.describe()}  device: {device}")

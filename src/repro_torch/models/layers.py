@@ -1,6 +1,7 @@
-"""Primitive layers of the transformer (port of `repro.models.layers`: the
-causal GQA attention with and without a KV cache, the spiking FFN and the
-dense MLPs).
+"""Primitive layers of the transformer (port of `repro.models.layers`: GQA
+attention, causal, sliding-window or bidirectional, with and without a KV
+cache (a ring of ``window`` slots for sliding-window attention), the
+spiking FFN, the dense MLPs and the top-k capacity-routed MoE).
 
 Params are plain dicts of tensors.  Compute runs in ``cfg.compute_dtype``
 (bf16) with reductions and softmax in f32, in the reference's op order.
@@ -117,7 +118,8 @@ def rope_apply(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 # ---------------------------------------------------------------------------
-# attention (GQA, causal, exact softmax chunked over queries)
+# attention (GQA; causal, sliding-window or bidirectional; exact softmax
+# chunked over queries)
 # ---------------------------------------------------------------------------
 
 def attn_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -134,17 +136,31 @@ def attn_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
     return p
 
 
-def _attn_mask(iq, jk) -> torch.Tensor:
-    """Causal mask.  iq: (cq,) absolute query positions; jk: (Skv,) absolute
-    kv positions of the cache slots (-1 = empty slot)."""
-    return (jk[None, :] <= iq[:, None]) & (jk[None, :] >= 0)
+ATTN_MODES = ("causal", "swa", "bidir")
+
+
+def _attn_mask(iq, jk, mode: str = "causal", window: int = 0) -> torch.Tensor:
+    """iq: (cq,) absolute query positions; jk: (Skv,) absolute kv positions
+    of the cache slots (a ring's stored positions; -1 = empty slot).
+    ``causal``: jk <= iq; ``swa`` also jk > iq - window; ``bidir``: every
+    filled slot."""
+    if mode == "bidir":
+        m = torch.ones((iq.shape[0], jk.shape[0]), dtype=torch.bool,
+                       device=jk.device)
+    elif mode in ("causal", "swa"):
+        m = jk[None, :] <= iq[:, None]
+        if mode == "swa":
+            m = m & (jk[None, :] > (iq[:, None] - window))
+    else:
+        raise ValueError(f"unknown attention mode {mode!r} ({ATTN_MODES})")
+    return m & (jk[None, :] >= 0)
 
 
 def multihead_attention(q, k, v, cfg: ArchConfig, *, q_offset: int,
                         kv_positions: torch.Tensor, q_block: int | None = None):
     """q: (B, Sq, H, dh); k, v: (B, Skv, KV, dh) -> (B, Sq, H, dh); the
     queries sit at positions ``q_offset ..``, the kv slots at
-    ``kv_positions`` (Skv,).
+    ``kv_positions`` (Skv,); ``cfg.attn`` picks the mask (`_attn_mask`).
 
     f32 scores, a -1e30 mask, f32 softmax, probabilities rounded to v's
     dtype before the value contraction — the reference's form, not a fused
@@ -165,7 +181,7 @@ def multihead_attention(q, k, v, cfg: ArchConfig, *, q_offset: int,
 
     def chunk_attn(q_c, iq, kf=kf, vf=vf):
         s = torch.einsum("bqkgd,bskd->bkgqs", q_c.float(), kf) * scale
-        m = _attn_mask(iq, jk)
+        m = _attn_mask(iq, jk, cfg.attn, cfg.window)
         s = torch.where(m[None, None, None], s, torch.full_like(s, -1e30))
         p = torch.softmax(s, dim=-1)
         o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), vf)
@@ -201,18 +217,35 @@ def _zero_pad(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
     return torch.cat([t, t.new_zeros(shape)], dim=dim)
 
 
+def cache_slot(pos: int, S: int, s_cache: int, attn: str) -> int:
+    """First cache slot of S new positions from position ``pos``: ``pos %
+    s_cache``, clamped so that the S rows fit, as the reference's
+    ``dynamic_update_slice`` clamps its start.  A sliding-window cache is a
+    ring of ``window`` slots and wraps; a full-length cache (causal,
+    bidirectional) must hold ``pos + S`` positions, or this raises."""
+    if S > s_cache or (attn != "swa" and pos + S > s_cache):
+        raise ValueError(
+            f"cache of {s_cache} slots cannot take positions "
+            f"{pos}..{pos + S - 1} (admission bounds prompt + new tokens "
+            "by max_len)"
+        )
+    return min(pos % s_cache, s_cache - S)
+
+
 def attn_apply(p, x, cfg: ArchConfig, *, positions, cache=None):
-    """Projections (+ qk-norm) + RoPE + attention.  ``cache=None`` (the
-    training forward) attends over the S new positions themselves, kv
-    positions ``0..S-1``, and writes nothing: every op is differentiable.
-    Otherwise
-    ``cache`` is one layer's dict(k, v, kv_pos, pos): k/v (B, S_cache, KV,
-    dh) are written IN PLACE at rows ``pos .. pos+S`` (the cohort owns its
-    cache; the reference returns an updated copy instead), ``kv_pos`` is the
-    already-updated slot-position vector and ``pos`` a host int."""
-    if cfg.attn != "causal" or cfg.expand_kv:
+    """Projections (+ qk-norm) + RoPE (none for ``bidir``: the encoders here
+    use no position encoding in attention) + attention under ``cfg.attn``.
+    ``cache=None`` (the training forward) attends over the S new positions
+    themselves, kv positions ``0..S-1``, and writes nothing: every op is
+    differentiable.  Otherwise ``cache`` is one layer's dict(k, v, kv_pos,
+    pos): k/v (B, S_cache, KV, dh) are written IN PLACE at the rows from
+    `cache_slot` (the cohort owns its cache; the reference returns an
+    updated copy instead), ``kv_pos`` is the already-updated slot-position
+    vector and ``pos`` a host int."""
+    if cfg.expand_kv:
         raise NotImplementedError(
-            f"attn={cfg.attn!r}/expand_kv archs are a later slice; see ROADMAP.md"
+            "expand_kv (KV heads replicated for tensor parallelism) is the "
+            "multi-device slice; see ROADMAP.md item 12"
         )
     B, S, D = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
@@ -230,22 +263,18 @@ def attn_apply(p, x, cfg: ArchConfig, *, positions, cache=None):
         # means over fixed row blocks, as the block norms do
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps, row_invariant=cache is not None)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps, row_invariant=cache is not None)
-    q = rope_apply(q, positions, cfg.rope_theta)
-    k = rope_apply(k, positions, cfg.rope_theta)
+    if cfg.attn != "bidir":
+        q = rope_apply(q, positions, cfg.rope_theta)
+        k = rope_apply(k, positions, cfg.rope_theta)
     if cache is None:
         o = multihead_attention(q, k, v, cfg, q_offset=0,
                                 kv_positions=torch.arange(S, device=x.device))
         out = o.reshape(B * S, H * dh) @ p["wo"].to(ct)
         return out.reshape(B, S, D).to(x.dtype)
     pos = cache["pos"]
-    if pos + S > cache["k"].shape[1]:
-        raise ValueError(
-            f"cache of {cache['k'].shape[1]} slots cannot take positions "
-            f"{pos}..{pos + S - 1} (admission bounds prompt + new tokens "
-            "by max_len)"
-        )
-    cache["k"][:, pos:pos + S] = k.to(cache["k"].dtype)
-    cache["v"][:, pos:pos + S] = v.to(cache["v"].dtype)
+    slot = cache_slot(pos, S, cache["k"].shape[1], cfg.attn)
+    cache["k"][:, slot:slot + S] = k.to(cache["k"].dtype)
+    cache["v"][:, slot:slot + S] = v.to(cache["v"].dtype)
     o = multihead_attention(
         q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), cfg,
         q_offset=pos, kv_positions=cache["kv_pos"], q_block=Q_BLOCK,
@@ -423,3 +452,89 @@ def mlp_apply(p, x, cfg: ArchConfig, spiking_mode: str = "train", *,
     y = spiking_ffn_apply(weights, xc, scfg, mode=spiking_mode, plans=plans,
                           policy=p.get("ffn_policy"))
     return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-k token-choice router, capacity-based dispatch
+# ---------------------------------------------------------------------------
+
+EXPERT_WEIGHTS = ("wu", "wg", "wd")
+
+
+def moe_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    """The f32 router (D, E), then ``wu`` (E, D, F), ``wd`` (E, F, D) and,
+    for gated activations, ``wg`` (E, D, F), drawn in that order with the
+    reference's fan-ins."""
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {
+        "router": dense_init(gen, (D, E), torch.float32),
+        "wu": dense_init(gen, (E, D, F), _dt(cfg), fan_in=D),
+        "wd": dense_init(gen, (E, F, D), _dt(cfg), fan_in=F),
+    }
+    if cfg.act in ("swiglu", "geglu"):
+        p["wg"] = dense_init(gen, (E, D, F), _dt(cfg), fan_in=D)
+    return p
+
+
+def moe_route(router: torch.Tensor, xt: torch.Tensor, cfg: ArchConfig):
+    """The routing of T tokens ``xt`` (T, D): (probs (T, E) f32, gates
+    (T, K) f32 renormalised over the top K, expert ids (T, K), capacity
+    positions (T, K), kept mask (T, K), capacity C).
+
+    C = max(1, int(T K capacity_factor / E)) comes from the call's token
+    count, so a token's routing depends on the other rows of its batch.
+    Top-k is a stable descending sort: among equal probabilities the lower
+    expert index comes first, as ``jax.lax.top_k`` returns it (``torch.
+    topk`` promises no order).  Each (token, k) takes the next free slot of
+    its expert's buffer in token-major order (an int cumsum); past C it is
+    dropped."""
+    T = xt.shape[0]
+    E, K = cfg.n_experts, cfg.top_k
+    C = max(1, int(T * K * cfg.capacity_factor / E))
+    probs = torch.softmax(xt.float() @ router.float(), dim=-1)
+    gate, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, eidx = gate[:, :K], eidx[:, :K]
+    gate = gate / gate.sum(-1, keepdim=True)
+    onehot = torch.nn.functional.one_hot(eidx, E)           # (T, K, E) int
+    flat = onehot.reshape(T * K, E)
+    pos = ((flat.cumsum(0) - flat).reshape(T, K, E) * onehot).sum(-1)
+    return probs, gate, eidx, pos, pos < C, C
+
+
+def moe_apply(p, x, cfg: ArchConfig):
+    """Top-k MoE with capacity-based dispatch; x (B, S, D) -> (y (B, S, D)
+    in x's dtype, the Switch load-balancing loss E sum_e f_e p_e (f32)).
+
+    Dispatch: each kept (token, k) pair owns one (expert, slot) of the
+    (E, C, D) buffer (`moe_route`), so an indexed write of the kept pairs
+    onto zeros gives the reference's scatter-add values whatever the order:
+    ``index_copy_`` over E C + 1 rows, the dropped pairs all sent to the
+    extra row, which is cut off.  The expert products are one ``bmm`` each
+    in the compute dtype on every device, the activation runs op by op
+    (`_sigmoid`, `_gelu`), the combine sum_k y_tk (gate keep) in the
+    compute dtype."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    xt = x.reshape(T, D)
+    probs, gate, eidx, pos, keep, C = moe_route(p["router"], xt, cfg)
+
+    slot = torch.where(keep, eidx * C + pos, E * C).reshape(T * K)
+    disp = x.new_zeros((E * C + 1, D))
+    disp.index_copy_(0, slot, xt[:, None, :].expand(T, K, D).reshape(T * K, D))
+    ct = _ct(cfg)
+    disp = disp[:E * C].reshape(E, C, D).to(ct)
+    h_u = torch.bmm(disp, p["wu"].to(ct))
+    if "wg" in p:
+        g = torch.bmm(disp, p["wg"].to(ct))
+        h = (g * _sigmoid(g) if cfg.act == "swiglu" else _gelu(g)) * h_u
+    else:
+        h = torch.square(torch.relu(h_u)) if cfg.act == "sq_relu" else _gelu(h_u)
+    y_e = torch.bmm(h, p["wd"].to(ct))                 # (E, C, D)
+
+    zero = torch.zeros_like(eidx)
+    y_tk = y_e[torch.where(keep, eidx, zero), torch.where(keep, pos, zero)]
+    y = (y_tk * (gate * keep).to(y_tk.dtype)[..., None]).sum(1)
+    top1 = torch.nn.functional.one_hot(eidx[:, 0], E).float()
+    aux = E * torch.sum(top1.mean(0) * probs.mean(0))
+    return y.reshape(B, S, D).to(x.dtype), aux

@@ -1,6 +1,7 @@
-"""Uniform Model interface (port of `repro.models.registry`: the dense
-transformer family, RWKV6 (``ssm``) and Zamba2 (``hybrid``); ``axes``
-waits for the multi-device slice).
+"""Uniform Model interface (port of `repro.models.registry`: the
+transformer families ``dense``, ``moe``, ``audio`` and ``vlm``, RWKV6
+(``ssm``) and Zamba2 (``hybrid``); ``axes`` waits for the multi-device
+slice).
 
     init(seed=0, *, device=None) -> params      (seeded torch.Generator)
     loss(params, batch) -> scalar loss          (the training forward)
@@ -8,6 +9,8 @@ waits for the multi-device slice).
     prefill(params, batch, cache, *, spiking_mode) -> (logits, cache)
     decode(params, tokens, cache, *, spiking_mode) -> (logits, cache)
     init_cache(batch, max_len, *, device=None) -> cache    cache_axes()
+        (a transformer's also takes ``full=True``: a sliding-window arch's
+        cache at full length instead of its ring)
 
 ``device=None`` means the CUDA device; without one the call raises rather
 than run on the CPU — pass ``device="cpu"`` for that.
@@ -38,13 +41,14 @@ class Model:
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "audio", "vlm"):
         init_params = transformer.init_params
         loss, prepare = transformer.loss_fn, transformer.prepare_params
         prefill, decode = transformer.prefill, transformer.decode_step
 
-        def init_cache(batch, max_len, device):
-            return transformer.init_cache(cfg, batch, max_len, device=device)
+        def init_cache(batch, max_len, device, full=False):
+            return transformer.init_cache(cfg, batch, max_len, device=device,
+                                          full=full)
 
         cache_axes = transformer.cache_axes
     elif cfg.family == "ssm":
@@ -66,10 +70,7 @@ def build_model(cfg: ArchConfig) -> Model:
 
         cache_axes = ssm_lm.zamba_state_axes
     else:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is a later slice of the port; "
-            "see ROADMAP.md"
-        )
+        raise ValueError(f"unknown family {cfg.family!r}")
 
     def init(seed: int = 0, *, device=None):
         gen = torch.Generator(device=resolve_device(device))
@@ -83,7 +84,7 @@ def build_model(cfg: ArchConfig) -> Model:
         prepare=lambda p: prepare(cfg, p),
         prefill=lambda p, b, c, **kw: prefill(p, cfg, b, c, **kw),
         decode=lambda p, t, c, **kw: decode(p, cfg, t, c, **kw),
-        init_cache=lambda b, s, *, device=None: init_cache(
-            b, s, resolve_device(device)),
+        init_cache=lambda b, s, *, device=None, **kw: init_cache(
+            b, s, resolve_device(device), **kw),
         cache_axes=lambda: cache_axes(cfg),
     )

@@ -1,6 +1,8 @@
-"""Decoder-only transformer LM, dense-attention family (port of
-`repro.models.transformer`): the training forward and loss, and serving's
-prefill and decode over a KV cache.
+"""Transformer LM (port of `repro.models.transformer`): decoder-only dense
+and MoE archs (causal or sliding-window attention), the bidirectional
+encoder (hubert: frame embeddings in, no decode) and the VLM backbone
+(llava: projected image embeddings over the first positions); the training
+forward and loss, and serving's prefill and decode over a KV cache.
 
 Params are a dict; ``params["layers"]`` is a list of per-layer dicts (the
 reference stacks them on a leading axis and scans; the port walks them in a
@@ -8,8 +10,10 @@ Python loop, with `torch.utils.checkpoint` per layer where the reference
 remats its scan body).  The KV cache keeps the reference's stacked layout —
 ``k/v (L, B, S, KV, dh)`` — with ``kv_pos`` (S,) the absolute position held
 by each slot (-1 = empty) and ``pos`` the number of positions written, a
-host int.  A serving forward writes its new k/v rows into the cache IN PLACE
-and returns the cache dict with the advanced ``kv_pos``/``pos``.
+host int.  A sliding-window arch's cache is a ring of ``window`` slots
+(position p in slot p % window).  A serving forward writes its new k/v rows
+into the cache IN PLACE and returns the cache dict with the advanced
+``kv_pos``/``pos``.
 """
 from __future__ import annotations
 
@@ -19,85 +23,103 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 
 from .layers import (
+    EXPERT_WEIGHTS,
     _ct,
     _dt,
     attn_apply,
     attn_init,
+    cache_slot,
     dense_init,
     mlp_apply,
     mlp_init,
+    moe_apply,
+    moe_init,
     rmsnorm,
     row_blocks,
 )
 
 
-def _check_arch(cfg: ArchConfig) -> None:
-    if (cfg.n_experts or not cfg.embed_inputs or cfg.encoder_only
-            or cfg.n_img_tokens):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE, audio/VLM front ends and encoders are later "
-            "slices of the port; see ROADMAP.md"
-        )
-
-
 def block_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
     dev = gen.device
-    return {
+    p = {
         "ln1": torch.zeros((cfg.d_model,), dtype=_dt(cfg), device=dev),
         "attn": attn_init(gen, cfg),
         "ln2": torch.zeros((cfg.d_model,), dtype=_dt(cfg), device=dev),
-        "mlp": mlp_init(gen, cfg),
     }
+    if cfg.n_experts:
+        p["moe"] = moe_init(gen, cfg)
+    else:
+        p["mlp"] = mlp_init(gen, cfg)
+    return p
 
 
 def block_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
                 spiking_mode: str = "train"):
-    """Pre-norm transformer block; returns the new residual stream.  A
-    serving forward (with a cache) takes its norms' row means row-invariant
-    (`layers.row_blocks`)."""
+    """Pre-norm transformer block; returns (the new residual stream, the
+    MoE load-balancing term or 0.0).  A serving forward (with a cache)
+    takes its norms' row means row-invariant (`layers.row_blocks`)."""
     serving = cache is not None
     h = attn_apply(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps,
                                       row_invariant=serving),
                    cfg, positions=positions, cache=cache)
     x = x + h
-    h2 = mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps,
-                                     row_invariant=serving),
-                   cfg, spiking_mode=spiking_mode)
-    return x + h2
+    h2 = rmsnorm(x, p["ln2"], cfg.norm_eps, row_invariant=serving)
+    if cfg.n_experts:
+        h2, aux = moe_apply(p["moe"], h2, cfg)
+    else:
+        h2, aux = mlp_apply(p["mlp"], h2, cfg, spiking_mode=spiking_mode), 0.0
+    return x + h2, aux
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
     """Random params drawn from ``gen`` on its device: the reference's
     shapes, scaling and prune-once rule (not its numbers — torch and jax
-    generators differ; parity tests bridge the reference's params).  An
-    untied arch gets its (D, V) ``lm_head``, drawn after the layers."""
-    _check_arch(cfg)
-    p = {
-        "embed": dense_init(gen, (cfg.vocab, cfg.d_model), _dt(cfg),
-                            fan_in=cfg.d_model),
-        "layers": [block_init(gen, cfg) for _ in range(cfg.n_layers)],
-        "final_norm": torch.zeros((cfg.d_model,), dtype=_dt(cfg),
-                                  device=gen.device),
-    }
-    if not cfg.tie_embeddings:
+    generators differ; parity tests bridge the reference's params), in its
+    order: the token embedding (archs that embed tokens), the layers, then
+    the encoder's ``head`` or an untied arch's ``lm_head`` (D, V), the
+    VLM's ``mm_proj`` (D, D), and the zero ``in_norm`` of frame inputs."""
+    dev = gen.device
+    p = {}
+    if cfg.embed_inputs:
+        p["embed"] = dense_init(gen, (cfg.vocab, cfg.d_model), _dt(cfg),
+                                fan_in=cfg.d_model)
+    p["layers"] = [block_init(gen, cfg) for _ in range(cfg.n_layers)]
+    p["final_norm"] = torch.zeros((cfg.d_model,), dtype=_dt(cfg), device=dev)
+    if cfg.encoder_only:
+        p["head"] = dense_init(gen, (cfg.d_model, cfg.vocab), _dt(cfg))
+    elif not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab), _dt(cfg))
+    if cfg.n_img_tokens:
+        p["mm_proj"] = dense_init(gen, (cfg.d_model, cfg.d_model), _dt(cfg))
+    if not cfg.embed_inputs:
+        p["in_norm"] = torch.zeros((cfg.d_model,), dtype=_dt(cfg), device=dev)
     return p
 
 
 def prepare_params(cfg: ArchConfig, params: dict) -> dict:
     """Load-time casts the reference repeats inside every forward: the
-    attention and FFN matrices in the compute dtype, and the unembedding
-    (the tied embedding transposed once, or the untied ``lm_head``) as the
-    f32 values of its compute-dtype cast.  The values every forward sees
-    are unchanged; only the per-call casts go.  The f32 embedding stays for
-    the token lookup (`embed_tokens` casts the gathered rows), and the
-    qk-norm scales stay in their dtype (the norm upcasts them to f32)."""
+    attention and FFN matrices, the experts' (E, ., .) weights and the VLM
+    projector in the compute dtype, and the unembedding (the tied embedding
+    transposed once, the untied ``lm_head`` or the encoder's ``head``) as
+    the f32 values of its compute-dtype cast.  The values every forward
+    sees are unchanged; only the per-call casts go.  The MoE router stays
+    f32 (the reference routes in f32: a rounded router would pick other
+    experts), the f32 embedding stays for the token lookup (`embed_tokens`
+    casts the gathered rows), and the norm scales stay in their dtype (the
+    norms upcast them to f32)."""
     ct = _ct(cfg)
-    layers = [dict(lp, attn=cast_matrices(lp["attn"], ct),
-                   mlp=cast_matrices(lp["mlp"], ct))
-              for lp in params["layers"]]
-    return dict(params, layers=layers,
-                unembed=_unembed_weight(params, cfg))
+    layers = []
+    for lp in params["layers"]:
+        lp = dict(lp, attn=cast_matrices(lp["attn"], ct))
+        if "moe" in lp:
+            lp["moe"] = cast_experts(lp["moe"], ct)
+        else:
+            lp["mlp"] = cast_matrices(lp["mlp"], ct)
+        layers.append(lp)
+    out = dict(params, layers=layers, unembed=_unembed_weight(params, cfg))
+    if "mm_proj" in params:
+        out["mm_proj"] = params["mm_proj"].to(ct)
+    return out
 
 
 def cast_matrices(tree: dict, ct: torch.dtype) -> dict:
@@ -105,6 +127,12 @@ def cast_matrices(tree: dict, ct: torch.dtype) -> dict:
     in ``ct``; other leaves (norm scales, join plans) as they are."""
     return {k: w.to(ct) if isinstance(w, torch.Tensor) and w.ndim == 2
             else w for k, w in tree.items()}
+
+
+def cast_experts(moe: dict, ct: torch.dtype) -> dict:
+    """An MoE dict with its expert weights (`layers.EXPERT_WEIGHTS`) in
+    ``ct`` and the router as it is (f32)."""
+    return {k: w.to(ct) if k in EXPERT_WEIGHTS else w for k, w in moe.items()}
 
 
 def embed_tokens(p, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -119,11 +147,13 @@ def embed_tokens(p, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
 
 def _unembed_weight(p, cfg: ArchConfig) -> torch.Tensor:
     """(D, V) f32 weight of the logits contraction: the compute-dtype values
-    of the tied embedding (transposed) or of the untied ``lm_head``, so an
-    f32 product equals the reference's bf16 x bf16 contraction with f32
-    accumulation."""
+    of the encoder's ``head``, the tied embedding (transposed) or the
+    untied ``lm_head``, so an f32 product equals the reference's bf16 x
+    bf16 contraction with f32 accumulation."""
     if "unembed" in p:
         return p["unembed"]
+    if cfg.encoder_only:
+        return p["head"].to(_ct(cfg)).float()
     if not cfg.tie_embeddings:
         return p["lm_head"].to(_ct(cfg)).float()
     return p["embed"].to(_ct(cfg)).float().T.contiguous()
@@ -138,31 +168,55 @@ def unembed(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return row_blocks(torch.matmul, xf, _unembed_weight(p, cfg)).reshape(B, S, -1)
 
 
-def _stack_forward(layers, x, cfg: ArchConfig, positions):
-    """Walk the layer stack without a cache (the training forward).  With
-    ``cfg.remat`` and autograd recording, each layer is checkpointed (its
-    activations recomputed in the backward), as the reference remats its
-    scan body."""
-    def body(lp, x):
-        return block_apply(lp, x, cfg, positions=positions)
-
-    for lp in layers:
-        if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(body, lp, x, use_reentrant=False)
-        else:
-            x = body(lp, x)
+def embed_batch(p, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """The first residual stream (B, S, D) in the compute dtype: token
+    embeddings, with a VLM's projected image embeddings (``img_embed`` (B,
+    n_img, D) @ ``mm_proj``) over the first n_img positions — the prompt's
+    first S - n_img token embeddings shift right behind them, the rest are
+    cut, as the reference's ``concat`` does — or a frame encoder's
+    ``frames`` (B, S, D) through its input norm."""
+    ct = _ct(cfg)
+    if not cfg.embed_inputs:
+        return rmsnorm(batch["frames"].to(ct), p["in_norm"], cfg.norm_eps)
+    x = embed_tokens(p, cfg, batch["tokens"])
+    if cfg.n_img_tokens:
+        if "img_embed" not in batch:
+            raise ValueError(
+                f"{cfg.name} needs img_embed (B, {cfg.n_img_tokens}, "
+                f"{cfg.d_model}) beside its tokens: its vision front end is a "
+                "stub whose patch embeddings are an input")
+        img = batch["img_embed"].to(ct) @ p["mm_proj"].to(ct)
+        x = torch.cat([img, x[:, :x.shape[1] - img.shape[1]]], dim=1)
     return x
 
 
-def forward(p, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    """Training/eval forward: tokens (B, S) -> final-normed hidden states
-    (B, S, D) in the compute dtype (the reference also returns the MoE
-    auxiliary loss, which no ported arch has)."""
-    x = embed_tokens(p, cfg, batch["tokens"])
+def _stack_forward(layers, x, cfg: ArchConfig, positions):
+    """Walk the layer stack without a cache (the training forward); returns
+    (x, the summed MoE load-balancing terms).  With ``cfg.remat`` and
+    autograd recording, each layer is checkpointed (its activations
+    recomputed in the backward), as the reference remats its scan body."""
+    def body(lp, x):
+        return block_apply(lp, x, cfg, positions=positions)
+
+    aux = 0.0
+    for lp in layers:
+        if cfg.remat and torch.is_grad_enabled():
+            x, a = checkpoint(body, lp, x, use_reentrant=False)
+        else:
+            x, a = body(lp, x)
+        aux = aux + a
+    return x, aux
+
+
+def forward(p, cfg: ArchConfig, batch: dict):
+    """Training/eval forward: ``batch`` holds tokens (B, S), or frames
+    (B, S, D) (audio), or tokens and img_embed (VLM) -> (final-normed hidden
+    states (B, S, D) in the compute dtype, the MoE load-balancing term)."""
+    x = embed_batch(p, cfg, batch)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    x = _stack_forward(p["layers"], x, cfg, positions)
-    return rmsnorm(x, p["final_norm"], cfg.norm_eps)
+    x, aux = _stack_forward(p["layers"], x, cfg, positions)
+    return rmsnorm(x, p["final_norm"], cfg.norm_eps), aux
 
 
 def ce_loss(p, cfg: ArchConfig, x, labels) -> torch.Tensor:
@@ -193,20 +247,26 @@ def ce_loss(p, cfg: ArchConfig, x, labels) -> torch.Tensor:
 
 
 def loss_fn(p, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    return ce_loss(p, cfg, forward(p, cfg, batch), batch["labels"])
+    """Cross entropy, plus 0.01 x the load-balancing term per layer for an
+    MoE arch."""
+    x, aux = forward(p, cfg, batch)
+    loss = ce_loss(p, cfg, x, batch["labels"])
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux / cfg.n_layers
+    return loss
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
-               device: torch.device, dtype=torch.bfloat16) -> dict:
-    if cfg.attn != "causal":
-        raise NotImplementedError(
-            f"attn={cfg.attn!r} ring caches are a later slice; see ROADMAP.md"
-        )
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.head_dim)
+               device: torch.device, dtype=torch.bfloat16,
+               full: bool = False) -> dict:
+    """An empty KV cache: ``max_len`` slots, or for a sliding-window arch a
+    ring of min(max_len, window) unless ``full``."""
+    S = min(max_len, cfg.window) if (cfg.attn == "swa" and not full) else max_len
+    shape = (cfg.n_layers, batch, S, cfg.n_kv, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
-        "kv_pos": torch.full((max_len,), -1, dtype=torch.int32, device=device),
+        "kv_pos": torch.full((S,), -1, dtype=torch.int32, device=device),
         "pos": 0,
     }
 
@@ -222,17 +282,19 @@ def cache_axes(cfg: ArchConfig) -> dict:
 
 def _stack_forward_cached(layers, x, cfg: ArchConfig, positions, cache,
                           spiking_mode: str):
-    """Walk the layer stack, writing each layer's k/v rows into the cache."""
+    """Walk the layer stack, writing each layer's k/v rows into the cache
+    from slot `layers.cache_slot` on."""
     S = x.shape[1]
     pos = cache["pos"]
+    slot = cache_slot(pos, S, cache["k"].shape[2], cfg.attn)
     kv_pos = cache["kv_pos"].clone()
-    kv_pos[pos:pos + S] = pos + torch.arange(S, dtype=torch.int32,
-                                             device=kv_pos.device)
+    kv_pos[slot:slot + S] = pos + torch.arange(S, dtype=torch.int32,
+                                               device=kv_pos.device)
     for i, lp in enumerate(layers):
         lc = {"k": cache["k"][i], "v": cache["v"][i], "kv_pos": kv_pos,
               "pos": pos}
-        x = block_apply(lp, x, cfg, positions=positions, cache=lc,
-                        spiking_mode=spiking_mode)
+        x, _ = block_apply(lp, x, cfg, positions=positions, cache=lc,
+                           spiking_mode=spiking_mode)
     return x, {"k": cache["k"], "v": cache["v"], "kv_pos": kv_pos,
                "pos": pos + S}
 
@@ -240,12 +302,36 @@ def _stack_forward_cached(layers, x, cfg: ArchConfig, positions, cache,
 def prefill(p, cfg: ArchConfig, batch: dict, cache, *,
             spiking_mode: str = "train"):
     """Process the whole prompt, fill the cache, return last-token logits
-    (B, 1, V) and the cache."""
-    x = embed_tokens(p, cfg, batch["tokens"])
+    (B, 1, V) and the cache.
+
+    A sliding-window prompt longer than the ring runs through a temporary
+    full-length cache and keeps its last ``window`` slots, which needs
+    window | S (the ring's slots then line up with a plain tail).  An
+    encoder (hubert) has no decode: its prefill is the encoder forward over
+    the whole input, the last position's logits, and the cache untouched."""
+    if cfg.encoder_only:
+        x, _ = forward(p, cfg, batch)
+        return unembed(p, cfg, x[:, -1:]), cache
+    x = embed_batch(p, cfg, batch)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    x, new_cache = _stack_forward_cached(p["layers"], x, cfg, positions,
-                                         cache, spiking_mode)
+    w = cache["k"].shape[2]
+    if cfg.attn == "swa" and S > w:
+        if S % w:
+            raise ValueError(
+                f"SWA prefill requires window | seq_len (ring of {w} slots, "
+                f"prompt of {S})")
+        tmp = init_cache(cfg, B, S, device=x.device, dtype=cache["k"].dtype,
+                         full=True)
+        x, full = _stack_forward_cached(p["layers"], x, cfg, positions, tmp,
+                                        spiking_mode)
+        cache["k"].copy_(full["k"][:, :, S - w:])
+        cache["v"].copy_(full["v"][:, :, S - w:])
+        new_cache = dict(cache, kv_pos=full["kv_pos"][S - w:].clone(),
+                         pos=full["pos"])
+    else:
+        x, new_cache = _stack_forward_cached(p["layers"], x, cfg, positions,
+                                             cache, spiking_mode)
     x = rmsnorm(x, p["final_norm"], cfg.norm_eps, row_invariant=True)
     return unembed(p, cfg, x[:, -1:]), new_cache
 
@@ -255,6 +341,8 @@ def decode_step(p, cfg: ArchConfig, tokens, cache, *,
     """tokens (B, S) -> (logits (B, S, V), cache).  S > 1 is a window of
     consecutive positions; the causal mask inside it comes from the
     absolute positions, as in the reference."""
+    if cfg.encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only; no decode path")
     x = embed_tokens(p, cfg, tokens)
     B, S = x.shape[:2]
     positions = (cache["pos"] + torch.arange(S, device=x.device))[None].expand(B, S)

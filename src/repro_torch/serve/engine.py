@@ -162,7 +162,6 @@ class Engine:
         self.cfg = cfg
         self.max_len = max_len
         self.eos_id = eos_id
-        self.batch_align = batch_align
         self.capture_logits = capture_logits
         if logit_trace_window is not None and logit_trace_window < 1:
             raise ValueError(
@@ -182,9 +181,13 @@ class Engine:
         # against the replay in _finish (a lost token raises)
         self._resume_expect: dict[int, np.ndarray] = {}
         self.handoff_prefix_keys: list[np.ndarray] = []
-        # every ported arch decodes its rows independently; the pipelined
-        # executor clamps its window to 1 where they are coupled (MoE)
+        # MoE capacity routing couples the rows of a batch (a token's
+        # experts depend on its cohort): such an arch never merges cohorts,
+        # pads no prefill batch, and the pipelined executor clamps its
+        # window to 1
         self.row_independent = cfg.n_experts == 0
+        self.merge_cohorts = self.row_independent
+        self.batch_align = batch_align if self.row_independent else 1
         self._axes = model.cache_axes()
         # -- speculative decoding (ExecutionPolicy.speculation) --------------
         # a rejected write rolls back by rewinding the position locals:

@@ -287,9 +287,10 @@ class SyncExecutor:
         """Merge cohorts at the same sequence position: caches concat along
         their batch axes (or their page tables), alignment rows are dropped
         so live rows stay a prefix.  Ingesting stream cohorts never merge:
-        their length is still moving."""
+        their length is still moving; nor do the cohorts of an engine with
+        ``merge_cohorts`` off (a row-coupled arch)."""
         e = self.engine
-        if len(e.cohorts) < 2:
+        if not e.merge_cohorts or len(e.cohorts) < 2:
             return
         by_len: dict[int, list] = {}
         merged = []

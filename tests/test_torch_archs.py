@@ -344,22 +344,24 @@ def test_init_shapes_untied_head_and_bridge(arch):
 
 
 def test_configs_listed_with_aliases_and_others_refused():
-    recurrent = {"rwkv6_1_6b", "zamba2_7b"}
-    assert (set(NEW_ARCHS) | {"llama3_2_1b"} | recurrent == set(ARCHS)
-            == set(list_archs()))
-    for alias, name in (("gemma-2b", "gemma_2b"), ("qwen3-14b", "qwen3_14b"),
-                        ("nemotron-4-340b", "nemotron_4_340b"),
-                        ("rwkv6-1.6b", "rwkv6_1_6b"), ("zamba2-7b", "zamba2_7b")):
+    """All ten archs of the reference, under its names and aliases, with
+    its fields (plus the port's stated embedding scale, which the reference
+    keys on the name); an unknown name is refused."""
+    from repro.configs import _ALIASES as j_aliases
+    from repro.configs import list_archs as j_list_archs
+
+    assert set(ARCHS) == set(list_archs()) == set(j_list_archs())
+    assert len(ARCHS) == 10
+    for alias, name in j_aliases.items():
         assert get_config(alias) == get_config(name)
-        # the reference's fields, plus the port's stated embedding scale,
-        # which the reference keys on the name
         got = dataclasses.asdict(get_config(name))
         assert got.pop("embed_scale") == name.startswith("gemma")
         assert got == dataclasses.asdict(j_get_config(name))
+    assert get_config("phi3.5-moe-42b-a6.6b").n_experts == 16
     assert not get_config("llama3_2_1b").embed_scale
-    for arch in ("mixtral_8x22b", "hubert-xlarge", "llava_next_mistral_7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
+    for name in ("mixtral", "gpt2", "llama3_2_1b_x"):
+        with pytest.raises(ValueError, match="unknown arch"):
+            get_config(name)
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -21,7 +21,9 @@ outputs are held to the same gate as against the plain version.
 
 Run the dense kernels' tests alone with ``-k dense``, the BSR tensor-core
 instance's with ``-k bsr_tc``, the flash kernels' (5-7, both instances)
-with ``-k flash``.
+with ``-k flash``, the MoE archs' (no kernel of their own: the routing
+and a serve through mixtral's ring cache, card against CPU) with
+``-k moe``.
 """
 import numpy as np
 import pytest
@@ -1350,3 +1352,104 @@ def test_recurrent_serve_features_equal_sync_dense_on_card(recurrent_model,
         np.testing.assert_array_equal(b, a)
     _same_logits(want_logits, logits)
     assert merges >= 1
+
+
+# ---------------------------------------------------------------------------
+# the MoE families (phi3.5-moe, mixtral with its ring cache) at smoke size
+# on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=["phi3_5_moe", "mixtral_8x22b"])
+def moe_model(request):
+    """An MoE arch's smoke variant, params drawn on the CPU (the same params
+    run on the card and on the CPU)."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models.registry import build_model
+
+    _cuda()
+    cfg = smoke_variant(get_config(request.param))
+    model = build_model(cfg)
+    return cfg, model, model.init(0, device="cpu")
+
+
+@pytest.mark.gpu
+def test_moe_apply_on_card_matches_cpu(moe_model):
+    """One layer's `moe_apply` on the same bf16 inputs, prefill-shaped (2 x
+    16) and decode-shaped (4 x 1, capacity 2 of 4 experts): the same expert
+    ids and kept mask (the f32 router of the two devices sums in other
+    orders: only a top-k gap below 1e-4 may route otherwise, and none is
+    met here), outputs within 2^-7 (a bf16 ulp at 1: the two devices' bf16
+    ``bmm`` sum in other orders and may round apart), the load-balancing term
+    within 1e-5."""
+    from repro_torch.models import layers
+
+    cfg, _, params = moe_model
+    p = params["layers"][0]["moe"]
+    pc = {k: v.cuda() for k, v in p.items()}
+    gen = torch.Generator().manual_seed(3)
+    for B, S in ((2, 16), (4, 1)):
+        x = torch.randn(B, S, cfg.d_model, generator=gen).bfloat16()
+        want, want_aux = layers.moe_apply(p, x, cfg)
+        got, aux = layers.moe_apply(pc, x.cuda(), cfg)
+        r_cpu = layers.moe_route(p["router"], x.reshape(B * S, -1), cfg)
+        r_gpu = layers.moe_route(pc["router"], x.cuda().reshape(B * S, -1), cfg)
+        for a, b in zip(r_gpu[2:5], r_cpu[2:5]):
+            assert torch.equal(a.cpu(), b)
+        torch.testing.assert_close(got.cpu(), want, rtol=2**-7, atol=2**-7)
+        assert abs(float(aux) - float(want_aux)) <= 1e-5
+
+
+def _moe_serve(moe_model, prompts, gens, arrivals, device="cuda", **kw):
+    """(tokens, logit traces) of one staggered serve, in submit order."""
+    from repro_torch.serve import Engine, paged
+
+    cfg, model, params = moe_model
+    pol = ExecutionPolicy.for_arch(
+        cfg, execution=kw.pop("execution", "sync"),
+        paging=paged(8) if kw.pop("paging", False) else None)
+    eng = Engine(model, params, policy=pol, capture_logits=True, device=device,
+                 **kw)
+    got = _staggered_serve(eng, prompts, gens, arrivals)
+    assert eng.metrics.n_merges == 0
+    return got, eng.drain_logit_traces()
+
+
+# prompts of distinct lengths (no shared prefill: capacity routing couples a
+# batch's rows); mixtral's window is 16 at smoke size, so its 32-token
+# prompt runs through the temporary full-length cache and its 12-token one
+# wraps the ring
+MOE_PROMPTS, MOE_GENS, MOE_ARRIVALS = [32, 12, 9], [8, 8, 6], [0, 1, 1]
+
+
+@pytest.mark.gpu
+def test_moe_serve_on_card_matches_cpu(moe_model):
+    """The same requests served on the card and on the CPU: the same tokens,
+    logits within 0.25."""
+    prompts = _serve_prompts(moe_model[0].vocab, MOE_PROMPTS, seed=7)
+    card = _moe_serve(moe_model, prompts, MOE_GENS, MOE_ARRIVALS, max_len=40,
+                      max_slots=3)
+    cpu = _moe_serve(moe_model, prompts, MOE_GENS, MOE_ARRIVALS, device="cpu",
+                     max_len=40, max_slots=3)
+    for a, b in zip(card[0], cpu[0]):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(card[1], cpu[1]):
+        assert np.abs(np.stack(a) - np.stack(b)).max() <= 0.25
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("execution,paging", [("pipelined", False),
+                                              ("sync", True),
+                                              ("pipelined", True)])
+def test_moe_serve_features_equal_sync_dense_on_card(moe_model, execution,
+                                                     paging):
+    """Pipelined execution and the paged cache (mixtral's ring in pages of
+    8) on the card: the sync dense serve's tokens and logits bit for bit."""
+    prompts = _serve_prompts(moe_model[0].vocab, MOE_PROMPTS, seed=8)
+    kw = dict(max_len=40, max_slots=3)
+    want, want_logits = _moe_serve(moe_model, prompts, MOE_GENS, MOE_ARRIVALS,
+                                   **kw)
+    got, logits = _moe_serve(moe_model, prompts, MOE_GENS, MOE_ARRIVALS,
+                             execution=execution, paging=paging, **kw)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b, a)
+    _same_logits(want_logits, logits)

@@ -14,8 +14,10 @@ Reference cases left out, each for an item of the port's queue (ROADMAP):
 ``test_rebalance_pad_policy``, ``test_cache_pad_rows_appends_zero_rows``,
 ``test_pipelined_mesh_rebalance_repacks_skewed_cohorts`` and
 ``test_rebalanced_cohort_cache_shards_down_data_axis`` (the mesh, item
-12); ``test_pipelined_moe_clamps_window_and_keeps_identity`` (MoE, item
-10d: the port's window clamp is held here on an engine marked row-coupled).
+12).  The reference's ``test_pipelined_moe_clamps_window_and_keeps_identity``
+is ported in `tests/test_torch_moe.py`; here the window clamp and the
+engine's other row-coupling rules (no cohort merge, no batch padding) are
+held on an engine marked row-coupled.
 The reference's ``test_pipelined_dual_sparse_zero_retrace`` becomes
 ``test_no_plan_or_kernel_build_after_first_step``: the port does not trace,
 so what must not recur per request is a join-plan build or a kernel build.
@@ -148,6 +150,45 @@ def test_row_coupled_engine_clamps_window_to_one(dense):
     engine.row_independent = False
     assert PipelinedExecutor(engine, depth=4).depth == 1
     assert _port(dense, max_len=16).row_independent
+
+
+@pytest.mark.parametrize("execution", ["sync", "pipelined"])
+def test_row_coupled_engine_never_merges_and_pads_no_batch(dense, execution):
+    """An engine whose arch couples its rows (``n_experts`` set: MoE
+    capacity routing in the reference) keeps two cohorts that reach one
+    length apart, where an independent-row engine merges them, and forces
+    ``batch_align`` to 1 (the reference engine's `merge_cohorts` and
+    alignment rule).  The model computes the dense llama either way: only
+    the engine's reading of the config changes."""
+    tcfg, tm, tp = dense[1]
+    coupled_model = dataclasses.replace(
+        tm, cfg=dataclasses.replace(tcfg, n_experts=4))
+    prompts = _prompts(tcfg.vocab, [8, 9], seed=21)
+    runs = {}
+    for name, model in (("independent", tm), ("coupled", coupled_model)):
+        eng = Engine(model, tp, max_len=20, max_slots=4, batch_align=4,
+                     device="cpu", policy=ExecutionPolicy.for_arch(
+                         tcfg, execution=execution))
+        lengths = []
+
+        def watch(eng=eng, lengths=lengths):
+            lengths.append(sorted(c.length for c in eng.cohorts))
+
+        eng.submit(prompts[0], 6)
+        eng.step()
+        watch()
+        eng.submit(prompts[1], 6)
+        while not eng.idle:
+            eng.step()
+            watch()
+        runs[name] = eng, lengths
+    eng, lengths = runs["coupled"]
+    assert not eng.merge_cohorts and eng.batch_align == 1
+    assert any(len(ls) == 2 and ls[0] == ls[1] for ls in lengths), lengths
+    assert eng.metrics.n_merges == 0 and eng.summary()["padded_rows"] == 0
+    eng, _ = runs["independent"]
+    assert eng.merge_cohorts and eng.batch_align == 4
+    assert eng.metrics.n_merges == 1
 
 
 def test_dispatch_pipelined_refuses_per_call_plan_building():
