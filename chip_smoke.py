@@ -71,8 +71,9 @@ Phases, each asserted; a failed phase ends the run with a non-zero exit:
              the reference's adaptive bench shape (T = 16, M = 128, K = 2304,
              N = 512, element density 0.03, 256-wide blocks, 12 of 16 planes
              silent; its f32 payload runs SIMT, and a bf16 copy `tc`).
-             Timed against a bound that counts the live planes (for kernel 3
-             as for kernel 4: a silent plane needs no work).
+             Timed against a bound that counts the live planes and the
+             non-silent words (for kernel 3 as for kernel 4: a silent plane
+             or word needs no work).
 
 8. train  — full-width, full-depth llama3.2-1b with spiking FFNs (T = 4,
              weight density 0.3), seed 0, trained 5 steps by
@@ -251,14 +252,47 @@ causal; dh 160 padded to 192.
              also runs the four at smoke size (window 16; mixtral's prompts
              of 32 and 12 tokens) on the card and the CPU.
 
-Prints a JSON line of phase 13's measurements and one of phase 14's, then
-a JSON line of per-kernel measurements (the headline numbers are each kernel's mean launch
-on its path), and as the last line ``{"ok": true, "device": {...}}``.
+15. the paper's SNN track, after phase 14: (a) the four Table II layers
+             (A-L4, V-L8, R-L19, T-HFF) at their exact (T, M, N, K) from
+             `configs.snn_workloads`: spike words drawn on the card with
+             exact counts for the layer's non-silent fraction and spike
+             density (measured beside Table II's: silent within 0.01,
+             density within 0.02), normal
+             weights pruned unstructured to its density, bf16.  Kernel 3
+             through `ops.dispatch`'s per-call route (raw weights under
+             PACKED_DUAL: a plan built per call), fused and unfused, and
+             kernels 1 and 2 on the same operands, each held against
+             `ftp_spmspm` by phase 3's gates (full sums within ``TOL``,
+             words but near v_th), the unfused sums against
+             `sequential_spmspm` too.  T-HFF also: kernel 4 under
+             adaptive_t(1) == kernel 3 bit for bit (its words and words with
+             plane 0 cleared), and the same weights block-pruned 128 x 128.
+             Timed on a prebuilt plan (CUDA events, L2 flushed): kernel 3,
+             kernels 1 and 2 and their plain versions, the matmul of the
+             unpacked planes, `ftp_spmspm`,
+             `sequential_spmspm` and the bound; the plan build's host time,
+             the joined-block share and the non-zero MAC share beside ns d_b.
+             No speed gate.  (b) AlexNet, VGG16 and ResNet19 from
+             `sim.workloads.get_network`, layer by layer at their im2col
+             GEMM shapes and sparsities (drawn and held as in (a)), kernel 3
+             fused through the same route and gates; each layer timed with
+             its plain version, the matmul and its bound, summed per
+             network, and the layers on the SIMT instance.  (c) the LTH example (`examples/
+             train_snn_lth_torch.py`) at ``P15_LTH`` steps on the card: loss
+             finite, the masked weights at the pruned density, the hidden
+             layer not all silent, and silent after the preprocessing >=
+             before.
+
+Prints a JSON line of phase 13's measurements, one of phase 14's and one
+of phase 15's, then a JSON line of per-kernel measurements (the headline
+numbers are each kernel's mean launch on its path), and as the last line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -441,27 +475,31 @@ def _bound_of(nbytes, ops):
 def _bound(args, bm, fuse, tmap=None):
     """Least time for one BSR call's work on the card: each input byte read
     once, each output byte written once (payload blocks that some live,
-    spike-active join slot needs), against the dense bf16 operations of
-    those joins over the planes that need work: those carrying a spike
-    (a silent plane adds nothing, with or without ``tmap``), less those
-    ``tmap`` gates.  Returns (ms, "bytes" or "operations")."""
+    spike-active join slot needs), against the bf16 operations of those
+    joins: 2 T' bn for every spike word that is not silent (a silent word
+    needs no work, as in `_bound_dense`) in the (row tile, k block) of a
+    joined slot, over the T' planes that carry a spike (a silent plane adds
+    nothing, with or without ``tmap``), less those ``tmap`` gates.
+    Returns (ms, "bytes" or "operations")."""
     import torch
+    import torch.nn.functional as F
 
     from repro_torch.core.packing import timestep_activity_map
 
     a, payload, kidx, vidx, cnt, act, n_out, Tc = args[:8]
-    M = a.shape[0]
+    M, K = a.shape
+    nm, nkb = act.shape
     _, bk, bn = payload.shape
     kidx, vidx, cnt = kidx.long(), vidx.long(), cnt.long()
     live = torch.arange(kidx.shape[1], device=a.device)[None] < cnt[:, None]
     joined = (act[:, kidx] > 0) & live[None]              # (nm, nnb, jmax)
-    rows = torch.clamp(M - bm * torch.arange(act.shape[0], device=a.device),
-                       max=bm)
+    words = F.pad((a != 0).int(), (0, nkb * bk - K, 0, nm * bm - M))
+    words = words.reshape(nm, bm, nkb, bk).sum((1, 3))    # (nm, nkb)
     live = timestep_activity_map(a, Tc)
     if tmap is not None:
         live = live & (tmap > 0)
     planes = int(live.sum())
-    ops = 2 * planes * bk * bn * int((joined.sum((1, 2)) * rows).sum())
+    ops = 2 * planes * bn * int((words[:, kidx] * joined).sum())
     used = torch.zeros(payload.shape[0], dtype=torch.bool, device=a.device)
     used[vidx[joined.any(0)]] = True
     out = M * n_out * 4 * (2 if fuse else Tc + 1)
@@ -4889,6 +4927,351 @@ def phase_moe_frontends():
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the paper's SNN track
+# ---------------------------------------------------------------------------
+
+P15_LAYERS = ("A-L4", "V-L8", "R-L19", "T-HFF")
+P15_REPS = 30      # timed calls of each kernel and yardstick (median)
+P15_NET_REPS = 10  # timed launches of each network layer
+# the drawn operands against Table II: silent fraction, per-timestep density
+P15_SILENT_TOL, P15_DENSITY_TOL = 0.01, 0.02
+# the LTH example at a few steps: 2 rounds of 40 leave a hidden layer that
+# still fires (at 1 round of 20 every hidden neuron is silent)
+P15_LTH = {"steps": 40, "rounds": 2, "density": 0.05}
+
+
+def _p15_operands(gen, layer):
+    """Packed words and raw f32 weights at one workload layer's sparsity,
+    drawn on ``gen``'s device (the card) with exact counts: round(ns M K)
+    neurons are non-silent; each fires at one random timestep, and
+    round(d_a T M K) less that many further spikes fall on random free
+    (neuron, timestep) slots of the non-silent ones, so that the silent
+    fraction and the per-timestep density are the layer's up to rounding
+    (where ns / T <= d_a <= ns; else the density is clipped, and the gate
+    beside the draw fails).  Returns (words, normal weights (K, N),
+    measured sparsity beside the table's)."""
+    import torch
+
+    from repro_torch.core.packing import pack_spikes
+
+    Tl, M, N, K = layer.T, layer.M, layer.N, layer.K
+    dev = gen.device
+    n = M * K
+    n_live = round(layer.ns * n)
+    neuron = torch.randperm(n, generator=gen, device=dev)[:n_live]
+    first = torch.randint(0, Tl, (n_live,), generator=gen, device=dev)
+    fire = torch.arange(Tl, device=dev)[None] == first[:, None]  # (n_live, T)
+    free = (~fire).flatten().nonzero().flatten()
+    extra = min(max(0, round(layer.d_a * Tl * n) - n_live), free.numel())
+    pick = free[torch.randperm(free.numel(), generator=gen, device=dev)[:extra]]
+    fire.view(-1)[pick] = True
+    planes = torch.zeros((Tl, n), dtype=torch.bool, device=dev)
+    planes[:, neuron] = fire.T
+    planes = planes.reshape(Tl, M, K)
+    words = pack_spikes(planes)
+    w32 = torch.randn((K, N), generator=gen, device=dev)
+    stats = {"silent": float((words == 0).float().mean()), "table_silent": 1 - layer.ns,
+             "density": float(planes.float().mean()), "table_density": layer.d_a}
+    return words, w32, stats
+
+
+def _p15_held(label, stats):
+    """The drawn operands' sparsity against the layer's."""
+    assert abs(stats["silent"] - stats["table_silent"]) <= P15_SILENT_TOL, (label, stats)
+    assert abs(stats["density"] - stats["table_density"]) <= P15_DENSITY_TOL, (
+        label, stats)
+
+
+def _p15_prune(w32, d_b, block=None):
+    import torch
+
+    from repro_torch.core.snn_layers import prune_by_magnitude
+
+    return prune_by_magnitude(w32, d_b, block=block).to(torch.bfloat16)
+
+
+def _p15_shares(words, w, args):
+    """The joined-block share of one kernel-3 call (spike-active joined
+    slots over all (row tile, column block, k block) triples), the plan's
+    live weight-block share, and the share of the dense MACs whose word and
+    weight are both non-zero."""
+    import torch
+
+    a, payload, kidx, vidx, cnt, act = args[:6]
+    nm, nkb = act.shape
+    nnb, jmax = kidx.shape
+    live = torch.arange(jmax, device=a.device)[None] < cnt[:, None]
+    joined = int(((act[:, kidx.long()] > 0) & live[None]).sum())
+    M, K = words.shape
+    nz = ((words != 0).sum(0).double() * (w != 0).sum(1).double()).sum()
+    return {"joined_block_share": joined / (nm * nnb * nkb),
+            "weight_block_share": int(cnt.sum()) / (nkb * nnb),
+            "nonzero_mac_share": float(nz) / (M * K * w.shape[1])}
+
+
+def _p15_args(words, plan, n_out, Tl):
+    from repro_torch.kernels import ftp_spmm, ops
+
+    bm = ftp_spmm.pick_bm(words.shape[0], Tl)
+    return bm, (words, plan.payload, plan.kidx, plan.vidx, plan.cnt,
+                ops._activity(words, bm, plan), n_out, Tl)
+
+
+def _p15_plan(w):
+    """The per-call plan, built as `ops.dispatch` builds it, with the
+    host time of the build (best of 3)."""
+    import torch
+
+    from repro_torch.kernels.join_plan import build_weight_plan
+
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = build_weight_plan(w)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return plan, best
+
+
+def _p15_only(counts, want, label):
+    got = {k: v for k, v in counts.items() if v}
+    assert got == want, f"{label}: launches {got}, expected {want}"
+
+
+def _p15_layer(name, gen, flush):
+    """15a: one Table II layer through kernel 3's per-call route (fused
+    and unfused), held against the FTP and sequential yardsticks; kernels 1
+    and 2 on the same operands; times and shares."""
+    import torch
+
+    from repro_torch.configs.snn_workloads import get_snn_workload
+    from repro_torch.core.ftp import ftp_spmspm, sequential_spmspm
+    from repro_torch.kernels import ftp_spmm, ops
+    from repro_torch.serve.policy import PACKED_DUAL
+
+    layer = get_snn_workload(name)
+    Tl, M, N, K = layer.T, layer.M, layer.N, layer.K
+    words, w32, stats = _p15_operands(gen, layer)
+    _p15_held(name, stats)
+    w = _p15_prune(w32, layer.d_b)
+    plan, build_s = _p15_plan(w)
+    bm, args = _p15_args(words, plan, N, Tl)
+    inst = _bsr_instance(args)
+    (fused, full), counts = _counted(f"15a {name} per-call route", lambda: (
+        ops.dispatch(words, w, PACKED_DUAL, Tl, fuse_lif=True),
+        ops.dispatch(words, w, PACKED_DUAL, Tl, fuse_lif=False)))
+    _p15_only(counts, {"ftp_bsr": 2, f"ftp_bsr_{inst}": 2}, name)
+    o_ftp = ftp_spmspm(words, w, Tl)
+    o_seq = sequential_spmspm(words, w, Tl)
+    torch.cuda.synchronize()
+    seq_err = float((o_seq - o_ftp).abs().max())
+    assert seq_err <= TOL, f"{name}: sequential vs FTP {seq_err:.3e}"
+    err, flips = _hold(f"15a {name} kernel 3 fused", *fused, o_ftp, True)
+    err = max(err, _hold(f"15a {name} kernel 3", full[0], full[1], o_ftp, False)[0],
+              _hold(f"15a {name} kernel 3 vs sequential", full[0], full[1], o_seq,
+                    False)[0])
+    assert not bool(full[1].any()), f"{name}: U must be zero without the LIF"
+    (d_full, d_fused), dcounts = _counted(f"15a {name} kernels 1-2", lambda: (
+        _dense_call(words, w, Tl, False), _dense_call(words, w, Tl, True)))
+    dinst = f"ftp_dense_{_dense_instance(w)}"
+    _p15_only(dcounts, {"ftp_spmm": 1, "ftp_spmm_fused_lif": 1, dinst: 2}, name)
+    d_err = max(_hold(f"15a {name} kernel 1", d_full[0], None, o_ftp, False)[0],
+                _hold(f"15a {name} kernel 2", *d_fused, o_ftp, True)[0])
+    row = {"case": name, "T": Tl, "M": M, "N": N, "K": K, **stats,
+           "d_b": layer.d_b, "weight_density": float((w != 0).float().mean()),
+           "ns_d_b": layer.ns * layer.d_b, "instance": inst,
+           "plan_blocks": [plan.bk, plan.bn], "plan_build_s": build_s,
+           "max_abs_err": err, "flips": flips, "dense_max_abs_err": d_err,
+           "sequential_vs_ftp": seq_err, **_p15_shares(words, w, args)}
+    row.update(_measure(args, bm, True, flush, w, P15_REPS))
+    row["k1_ms"] = _time_ms(lambda: ftp_spmm.ftp_spmm(words, w, Tl), P15_REPS, flush)
+    row["k2_ms"] = _time_ms(lambda: ftp_spmm.ftp_spmm_fused_lif(words, w, Tl),
+                            P15_REPS, flush)
+    row["k1_plain_ms"] = _time_ms(lambda: ftp_spmm.ftp_spmm_plain(words, w, Tl),
+                                  max(1, P15_REPS // 5), flush)
+    row["k2_plain_ms"] = _time_ms(
+        lambda: ftp_spmm.ftp_spmm_fused_lif_plain(words, w, Tl),
+        max(1, P15_REPS // 5), flush)
+    row["k1_bound_ms"] = _bound_dense(words, w, Tl, False)[0]
+    row["k2_bound_ms"] = _bound_dense(words, w, Tl, True)[0]
+    row["ftp_ms"] = _time_ms(lambda: ftp_spmspm(words, w, Tl), P15_REPS, flush)
+    row["sequential_ms"] = _time_ms(lambda: sequential_spmspm(words, w, Tl),
+                                    P15_REPS, flush)
+    log(f"15a {name} (T {Tl}, M {M}, N {N}, K {K}): silent {stats['silent']:.4f} "
+        f"(Table II {stats['table_silent']:.4f}), density {stats['density']:.4f} "
+        f"({stats['table_density']:.4f}); {inst}, plan {plan.bk}x{plan.bn} built in "
+        f"{build_s * 1e3:.2f} ms; joined blocks {row['joined_block_share']:.4f}, "
+        f"non-zero MACs {row['nonzero_mac_share']:.5f} (ns d_b "
+        f"{row['ns_d_b']:.5f}); err {err:.3e}, flips {flips}, dense err "
+        f"{d_err:.3e}{_fmt(row)}, kernel 1 {row['k1_ms']:.4f} ms (plain "
+        f"{row['k1_plain_ms']:.4f}, bound {row['k1_bound_ms']:.4f}), kernel 2 "
+        f"{row['k2_ms']:.4f} ms (plain {row['k2_plain_ms']:.4f}, bound "
+        f"{row['k2_bound_ms']:.4f}), ftp "
+        f"{row['ftp_ms']:.4f} ms, sequential {row['sequential_ms']:.4f} ms")
+    extra = {}
+    if name == "T-HFF":
+        extra = _p15_thff(gen, words, w, w32, layer, fused, full, flush)
+    return row, extra, {"k3": counts["ftp_bsr"], "k1": dcounts["ftp_spmm"],
+                        "k2": dcounts["ftp_spmm_fused_lif"]}
+
+
+def _p15_thff(gen, words, w, w32, layer, fused, full, flush):
+    """15a, T-HFF also: kernel 4 (adaptive_t(1)) == kernel 3 bit for bit,
+    on the layer's words and on words with plane 0 cleared (both kernels
+    timed there); the same weights block-pruned (128 x 128) at the same
+    density: the join skips."""
+    import torch
+
+    from repro_torch.core.ftp import ftp_spmspm
+    from repro_torch.core.packing import timestep_activity_map
+    from repro_torch.kernels import ftp_spmm, ops
+    from repro_torch.serve.policy import PACKED_DUAL, PACKED_DUAL_ADAPTIVE
+
+    Tl, N = layer.T, layer.N
+    cleared = words & ~1
+
+    def adaptive():
+        return [ops.dispatch(a, w, PACKED_DUAL_ADAPTIVE, Tl, fuse_lif=f)
+                for a in (words, cleared) for f in (True, False)]
+
+    got, counts = _counted("15a T-HFF adaptive_t(1)", adaptive)
+    assert counts["ftp_bsr_adaptive"] == 4 and counts["ftp_bsr"] == 0, counts
+    want = [fused, full] + [ops.dispatch(cleared, w, PACKED_DUAL, Tl, fuse_lif=f)
+                            for f in (True, False)]
+    for (c, u), (cw, uw) in zip(got, want):
+        assert torch.equal(c, cw) and torch.equal(u, uw), "kernel 4 != kernel 3"
+    plan, _ = _p15_plan(w)
+    bm, args = _p15_args(cleared, plan, N, Tl)
+    tmap = timestep_activity_map(cleared, Tl).to(torch.int32)
+    ad = _measure(args, bm, True, flush, w, P15_REPS, tmap)
+    ad["k3_ms"] = _time_ms(lambda: ftp_spmm.ftp_spmm_bsr(*args, bm=bm, fuse_lif=True),
+                           P15_REPS, flush)
+    log(f"15a T-HFF, plane 0 silent: kernel 4 {ad['ms']:.4f} ms, kernel 3 "
+        f"{ad['k3_ms']:.4f} ms{_fmt(ad)}")
+    wb = _p15_prune(w32, layer.d_b, block=(128, 128))
+    plan, build_s = _p15_plan(wb)
+    bm, args = _p15_args(words, plan, N, Tl)
+    (c, u), bcounts = _counted("15a T-HFF block-pruned per-call route",
+                               lambda: ops.dispatch(words, wb, PACKED_DUAL, Tl,
+                                                    fuse_lif=True))
+    inst = _bsr_instance(args)
+    _p15_only(bcounts, {"ftp_bsr": 1, f"ftp_bsr_{inst}": 1}, "T-HFF block")
+    err, flips = _hold("15a T-HFF block-pruned", c, u, ftp_spmspm(words, wb, Tl), True)
+    row = {"case": "T-HFF block-pruned 128x128", "instance": inst,
+           "weight_density": float((wb != 0).float().mean()), "plan_build_s": build_s,
+           "max_abs_err": err, "flips": flips, **_p15_shares(words, wb, args)}
+    row.update(_measure(args, bm, True, flush, wb, P15_REPS))
+    log(f"15a T-HFF block-pruned: joined blocks {row['joined_block_share']:.4f}, "
+        f"weight blocks {row['weight_block_share']:.4f}, err {err:.3e}, flips "
+        f"{flips}{_fmt(row)}")
+    return {"block_pruned": row, "adaptive_equal_bitwise": True,
+            "adaptive_plane0_silent": ad, "k4": counts["ftp_bsr_adaptive"],
+            "k3": bcounts["ftp_bsr"]}
+
+
+def _p15_network(name, gen, flush):
+    """15b: every layer of one network at its im2col GEMM shape, its
+    operands held to its sparsity as in 15a, through kernel 3 (fused LIF,
+    per-call route), held against the FTP yardstick; each layer's launch
+    timed on a prebuilt plan beside its plain version, the library matmul
+    and its bound, summed per network."""
+    from repro_torch.core.ftp import ftp_spmspm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.join_plan import build_weight_plan
+    from repro_torch.serve.policy import PACKED_DUAL
+    from repro_torch.sim.workloads import get_network
+
+    net = get_network(name)
+    ops_in = [(layer, *_p15_operands(gen, layer)) for layer in net.layers]
+    for layer, _, _, stats in ops_in:
+        _p15_held(f"15b {name} {layer.name}", stats)
+    ops_in = [(layer, words, _p15_prune(w32, layer.d_b), stats)
+              for layer, words, w32, stats in ops_in]
+    outs, counts = _counted(f"15b {name}", lambda: [
+        ops.dispatch(words, w, PACKED_DUAL, layer.T, fuse_lif=True)
+        for layer, words, w, _ in ops_in])
+    assert counts["ftp_bsr"] == len(net.layers), counts
+    rows, err = [], 0.0
+    for (layer, words, w, stats), (c, u) in zip(ops_in, outs):
+        bm, args = _p15_args(words, build_weight_plan(w), layer.N, layer.T)
+        e, flips = _hold(f"15b {name} {layer.name}", c, u,
+                         ftp_spmspm(words, w, layer.T), True)
+        err = max(err, e)
+        rows.append({"layer": layer.name, "shape": [layer.T, layer.M, layer.N, layer.K],
+                     **_measure(args, bm, True, flush, w, P15_NET_REPS),
+                     "max_abs_err": e, "flips": flips, **stats, "d_b": layer.d_b,
+                     **_p15_shares(words, w, args)})
+    res = {"layers": rows, "n_layers": len(rows),
+           "simt_layers": counts["ftp_bsr_simt"], "tc_layers": counts["ftp_bsr_tc"],
+           **{key: sum(r[key] for r in rows)
+              for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+           "max_abs_err": err, "k3": counts["ftp_bsr"]}
+    log(f"15b {name}: {len(rows)} layers ({res['simt_layers']} SIMT, "
+        f"{res['tc_layers']} tc), kernel 3 {res['ms']:.4f} ms in all, plain "
+        f"{res['plain_ms']:.4f} ms, matmul {res['library_ms']:.4f} ms, bound "
+        f"{res['bound_ms']:.4f} ms, max err {err:.3e}")
+    return res
+
+
+def _p15_lth(device="cuda"):
+    """15c: the LTH example's functions on the card at a few steps."""
+    import importlib.util
+
+    from repro_torch.core.snn_layers import assert_weight_density
+
+    path = os.path.join(ROOT, "examples", "train_snn_lth_torch.py")
+    spec = importlib.util.spec_from_file_location("train_snn_lth_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    out, _ = _counted("15c LTH", lambda: mod.run(**P15_LTH, device=device,
+                                                 log=lambda m: log(f"15c {m}")))
+    assert math.isfinite(out["loss"]) and math.isfinite(out["loss_ft"]), out
+    for w in out["weights"].values():
+        assert_weight_density(w, out["density"], tol=1e-6)
+    assert out["silent"] < 1.0, "the trained hidden layer is all silent"
+    assert out["silent_ft"] >= out["silent"], (out["silent"], out["silent_ft"])
+    res = {k: v for k, v in out.items() if k != "weights"}
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def phase_snn_track(device="cuda"):
+    """15: the four Table II layers (a), the three networks (b) and the
+    LTH example (c).  Returns the phase's results, with the launches of
+    kernels 1-4 on its paths."""
+    import torch
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    flush = _flush_buffer()
+    res = {"layers": [], "networks": {}}
+    launches = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+    for name in P15_LAYERS:
+        row, extra, n = _p15_layer(name, gen, flush)
+        res["layers"].append(row)
+        if extra:
+            res["thff"] = extra
+            n = dict(n, k3=n["k3"] + extra["k3"], k4=extra["k4"])
+        for k, v in n.items():
+            launches[k] += v
+    log(f"15a done in {time.perf_counter() - t0:.1f}s")
+    for name in ("alexnet", "vgg16", "resnet19"):
+        res["networks"][name] = _p15_network(name, gen, flush)
+        launches["k3"] += res["networks"][name]["k3"]
+    log(f"15b done in {time.perf_counter() - t0:.1f}s")
+    del flush
+    torch.cuda.empty_cache()
+    res["lth"] = _p15_lth(device)
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 15 in {res['seconds']:.1f}s, launches {launches}")
+    return res
+
+
 def _flash_entries(flash):
     """The kernels-line entries of kernels 5-7: headline numbers from the
     train step's own attention inputs (layer 0; `tc`, with the SIMT
@@ -5045,9 +5428,38 @@ def main() -> int:
     log(f"phase 13 done at {time.perf_counter() - t0:.1f}s")
     moe_frontends = phase_moe_frontends()
     log(f"phase 14 done at {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    snn = phase_snn_track()
+    log(f"phase 15 done at {time.perf_counter() - t0:.1f}s")
+    by_name = {k["name"]: k for k in kernels}
+    for name, key in (("ftp_bsr", "k3"), ("ftp_bsr_adaptive", "k4"),
+                      ("ftp_spmm", "k1"), ("ftp_spmm_fused_lif", "k2")):
+        entry = by_name[name]
+        entry["snn_track"] = {"launches": snn["launches"][key]}
+        assert snn["launches"][key] > 0, (name, snn["launches"])
+    thff = next(r for r in snn["layers"] if r["case"] == "T-HFF")
+    by_name["ftp_bsr"]["snn_track"].update(
+        {k: thff[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                              "max_abs_err", "instance")},
+        networks={n: {k: net[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                  for n, net in snn["networks"].items()})
+    for name, key in (("ftp_spmm", "k1"), ("ftp_spmm_fused_lif", "k2")):
+        by_name[name]["snn_track"].update(
+            {k: thff[f"{key}_{k}"] for k in ("ms", "plain_ms", "bound_ms")},
+            library_ms=thff["library_ms"])
+    by_name["ftp_bsr"]["max_abs_err"] = max(
+        by_name["ftp_bsr"]["max_abs_err"],
+        max(r["max_abs_err"] for r in snn["layers"]),
+        max(n["max_abs_err"] for n in snn["networks"].values()))
+    for name in ("ftp_spmm", "ftp_spmm_fused_lif"):
+        by_name[name]["max_abs_err"] = max(
+            by_name[name]["max_abs_err"],
+            max(r["dense_max_abs_err"] for r in snn["layers"]))
     assert all(k["launches"] > 0 for k in kernels), [k["launches"] for k in kernels]
     print(json.dumps({"recurrent": recurrent}), flush=True)
     print(json.dumps({"moe_frontends": moe_frontends}), flush=True)
+    print(json.dumps({"snn_track": snn}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {

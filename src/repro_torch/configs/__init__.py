@@ -2,7 +2,8 @@
 family (gemma-2b, qwen3-14b, nemotron-4-340b, llama3.2-1b), the recurrent
 ones (rwkv6-1.6b, the ``ssm`` family; zamba2-7b, the ``hybrid`` one), the
 MoE ones (mixtral-8x22b with its sliding window, phi3.5-moe) and the stub
-front ends (hubert-xlarge, ``audio``; llava-next-mistral-7b, ``vlm``)."""
+front ends (hubert-xlarge, ``audio``; llava-next-mistral-7b, ``vlm``).
+`snn_workloads` holds the paper's Table II workloads beside them."""
 from __future__ import annotations
 
 import importlib

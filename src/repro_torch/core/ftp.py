@@ -40,3 +40,12 @@ def ftp_spmspm_unpacked(spikes: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     T, M, K = spikes.shape
     o = spikes.reshape(T * M, K).to(torch.float32) @ b.to(torch.float32)
     return o.reshape(T, M, b.shape[1])
+
+
+def sequential_spmspm(packed_a: torch.Tensor, b: torch.Tensor, T: int) -> torch.Tensor:
+    """Timestep-sequential spMspM, the baseline dataflow of SparTen-SNN /
+    GoSPA-SNN / Gamma-SNN: one (M, K) x (K, N) product per timestep, each
+    reading B again.  The same values as `ftp_spmspm`; it is a yardstick
+    for the FTP schedule, not a kernel.  -> (T, M, N) f32."""
+    a = unpack_spikes(packed_a, T, dtype=torch.float32)
+    return torch.stack([a[t] @ b.to(torch.float32) for t in range(T)])

@@ -17,6 +17,8 @@ import math
 
 import torch
 
+from .packing import pack_spikes
+
 DEFAULT_VTH = 1.0
 DEFAULT_TAU = 0.5
 SURROGATE_ALPHA = 2.0
@@ -58,6 +60,18 @@ def lif_forward(
         u = tau * x * (1.0 - c)
         spikes.append(c)
     return torch.stack(spikes), u
+
+
+def plif_packed(
+    o: torch.Tensor,
+    v_th: float = DEFAULT_VTH,
+    tau: float = DEFAULT_TAU,
+):
+    """The P-LIF unit (paper Fig. 7): full sums for all T in, packed spike
+    words out.  o: (T, ...) full sums.  Returns (packed int32 words (...),
+    final potential (...)); inference only (no gradient through packing)."""
+    spikes, u = lif_forward(o, v_th=v_th, tau=tau)
+    return pack_spikes(spikes), u
 
 
 def direct_encode(

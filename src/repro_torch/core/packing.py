@@ -13,6 +13,7 @@ above the one kept).  Convert to and from the reference with
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MAX_T = 32  # packed words are 32 bits
@@ -44,6 +45,17 @@ def unpack_spikes(
     return ((packed[None] >> shifts) & 1).to(dtype)
 
 
+def silent_fraction(packed: torch.Tensor) -> torch.Tensor:
+    """Fraction of silent neurons (packed word == 0): paper Table II
+    'AvSpA packed'."""
+    return (packed == 0).to(torch.float32).mean()
+
+
+def spike_sparsity(spikes: torch.Tensor) -> torch.Tensor:
+    """Per-timestep spike sparsity: paper Table II 'AvSpA origin'."""
+    return (spikes == 0).to(torch.float32).mean()
+
+
 def popcount(packed: torch.Tensor) -> torch.Tensor:
     """Number of timesteps at which each neuron fires (int32)."""
     return unpack_spikes(packed, MAX_T, torch.int32).sum(0, dtype=torch.int32)
@@ -56,6 +68,16 @@ def mask_low_activity(packed: torch.Tensor, min_spikes: int = 2) -> torch.Tensor
     return torch.where(keep, packed, torch.zeros_like(packed))
 
 
+def mask_low_activity_spikes(
+    spikes: torch.Tensor, min_spikes: int = 2
+) -> torch.Tensor:
+    """The same preprocessing on an unpacked (T, ...) spike tensor, for
+    fine-tuning: the mask comes from the spike counts and multiplies the
+    spikes, so gradients flow through the surviving ones."""
+    count = spikes.sum(0, keepdim=True)
+    return spikes * (count >= min_spikes).to(spikes.dtype)
+
+
 def block_activity_map(packed: torch.Tensor, bm: int, bk: int) -> torch.Tensor:
     """(M, K) packed words -> (M//bm, K//bk) bool, True where the block has
     at least one non-silent neuron."""
@@ -64,6 +86,49 @@ def block_activity_map(packed: torch.Tensor, bm: int, bk: int) -> torch.Tensor:
         raise ValueError(f"shape {(M, K)} not divisible by block {(bm, bk)}")
     blocks = packed.reshape(M // bm, bm, K // bk, bk)
     return (blocks != 0).any(dim=3).any(dim=1)
+
+
+def block_nonzero_map(w: torch.Tensor, bk: int, bn: int) -> torch.Tensor:
+    """(K, N) weights -> (K//bk, N//bn) bool, True where the block holds a
+    non-zero weight (the block view of the paper's column fibers)."""
+    K, N = w.shape
+    if K % bk or N % bn:
+        raise ValueError(f"shape {(K, N)} not divisible by block {(bk, bn)}")
+    blocks = w.reshape(K // bk, bk, N // bn, bn)
+    return (blocks != 0).any(dim=3).any(dim=1)
+
+
+def compression_efficiency(spikes) -> dict:
+    """The paper's compression-efficiency metric (§IV-A) for a (T, M, K)
+    spike array (numpy, or a tensor moved to numpy): spike bits conveyed
+    per coordinate-overhead bit of each format.
+
+      * csr:  ceil(log2(K)) coordinate bits per non-zero spike, per
+              timestep;
+      * loas: one K-bit bitmask per row, shared by all T timesteps.
+
+    Paper example: CSR spends 2 x 4 coordinate bits on 2 spikes (25 %);
+    LoAS a 4-bit row bitmask on 5 spikes (125 %)."""
+    if isinstance(spikes, torch.Tensor):
+        spikes = spikes.detach().cpu().numpy()
+    T, M, K = spikes.shape
+    nnz_spikes = int(spikes.sum())
+    packed = np.zeros((M, K), dtype=np.uint32)
+    for t in range(T):
+        packed |= (spikes[t].astype(np.uint32) & 1) << t
+    nonsilent = int((packed != 0).sum())
+    coord_bits = max(1, int(np.ceil(np.log2(K))))
+    csr_overhead = nnz_spikes * coord_bits
+    loas_overhead = M * K  # one bitmask bit per (row, position)
+    return {
+        "spike_bits": nnz_spikes,
+        "csr_overhead_bits": csr_overhead,
+        "loas_overhead_bits": loas_overhead,
+        "loas_payload_bits": nonsilent * T,
+        "csr_efficiency": nnz_spikes / max(csr_overhead, 1),
+        "loas_efficiency": nnz_spikes / max(loas_overhead, 1),
+        "silent_fraction": 1.0 - nonsilent / (M * K),
+    }
 
 
 # ---------------------------------------------------------------------------

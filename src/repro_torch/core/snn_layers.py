@@ -1,5 +1,5 @@
 """Dual-sparse spiking layers on the FTP dataflow (port of
-`repro.core.snn_layers`, main-path parts).
+`repro.core.snn_layers`).
 
 * **train**: float {0,1} spikes, surrogate-gradient LIF, differentiable.
 * **infer**: packed int32 spike words.  With load-time `WeightJoinPlan`s
@@ -11,6 +11,11 @@
 `spiking_ffn_apply` is the drop-in transformer MLP replacement: direct
 encoding in, rate decoding out.  Pruning happens once, at init/load; the
 apply paths never re-prune (the plans are built from the stored zeros).
+
+``SpikingConfig.preprocess_min_spikes`` is the paper's silent-neuron
+preprocessing (§V): presynaptic neurons firing fewer times are masked on
+every path (train: multiplicatively, infer: their words zeroed).  The
+default 0 leaves every path as it is.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ import torch
 
 from .ftp import ftp_layer, ftp_spmspm, ftp_spmspm_unpacked
 from .lif import DEFAULT_TAU, DEFAULT_VTH, direct_encode, lif_forward, rate_decode
-from .packing import pack_spikes
+from .packing import mask_low_activity, mask_low_activity_spikes, pack_spikes
 
 
 @dataclass(frozen=True)
@@ -29,6 +34,10 @@ class SpikingConfig:
     T: int = 4
     v_th: float = DEFAULT_VTH
     tau: float = DEFAULT_TAU
+    # silent-neuron preprocessing (paper §V): mask neurons firing fewer
+    # times than this; 0 disables, the paper uses 2
+    preprocess_min_spikes: int = 0
+    # fraction of weights kept after LTH pruning (paper: 1.8-3.2 %)
     weight_density: float = 1.0
 
 
@@ -88,9 +97,33 @@ def assert_weight_density(w, density: float, tol: float = 0.05) -> None:
         )
 
 
+def sparsity_mask(w: torch.Tensor) -> torch.Tensor:
+    """The stored hard-zero pattern as a multiplicative {0,1} mask."""
+    return (w != 0).to(w.dtype)
+
+
 def freeze_pruned(w: torch.Tensor) -> torch.Tensor:
     """Identity on values; gradients reach surviving weights only."""
-    return w * (w != 0).to(w.dtype).detach()
+    return w * sparsity_mask(w).detach()
+
+
+def _preprocess(packed: torch.Tensor, cfg: SpikingConfig) -> torch.Tensor:
+    """Packed words after the silent-neuron preprocessing of ``cfg``."""
+    if cfg.preprocess_min_spikes > 0:
+        return mask_low_activity(packed, cfg.preprocess_min_spikes)
+    return packed
+
+
+def spiking_linear_train(
+    spikes: torch.Tensor, w: torch.Tensor, cfg: SpikingConfig
+) -> torch.Tensor:
+    """(T, M, K) float spikes x (K, N) -> (T, M, N) float spikes: the
+    differentiable training path (surrogate-gradient BPTT)."""
+    if cfg.preprocess_min_spikes > 0:
+        spikes = mask_low_activity_spikes(spikes, cfg.preprocess_min_spikes)
+    out, _ = lif_forward(ftp_spmspm_unpacked(spikes, w), v_th=cfg.v_th,
+                         tau=cfg.tau)
+    return out
 
 
 def spiking_linear_infer(
@@ -99,6 +132,7 @@ def spiking_linear_infer(
     """(M, K) packed words x (K, N) dense weights -> (M, N) packed words
     (one LoAS layer): the fused dense-weight kernel (kernel 2) for words on
     the card, the plain `ftp_layer` for words on the CPU."""
+    packed = _preprocess(packed, cfg)
     if packed.is_cuda:
         from repro_torch.kernels import ops
         from repro_torch.serve.policy import PACKED_DENSE
@@ -167,7 +201,7 @@ def spiking_ffn_apply_packed(
         plans = (params.get("plan_in"), params.get("plan_out"))
     plan_in, plan_out = plans
     lead = packed_in.shape[:-1]
-    pm = packed_in.reshape(-1, packed_in.shape[-1])
+    pm = _preprocess(packed_in.reshape(-1, packed_in.shape[-1]), cfg)
     if plan_in is not None:
         packed_h, o = _ffn_dual_sparse(pm, plan_in, plan_out, w_in, w_out, cfg)
     else:
@@ -241,12 +275,10 @@ def spiking_ffn_apply(
     if mode == "train":
         if cfg.weight_density < 1.0:
             w_in, w_out = freeze_pruned(w_in), freeze_pruned(w_out)
-        hidden, _ = lif_forward(
-            ftp_spmspm_unpacked(spikes_in, w_in), v_th=cfg.v_th, tau=cfg.tau
-        )
+        hidden = spiking_linear_train(spikes_in, w_in, cfg)
         o = ftp_spmspm_unpacked(hidden, w_out)
     elif mode == "infer":
-        packed_in = pack_spikes(spikes_in)
+        packed_in = _preprocess(pack_spikes(spikes_in), cfg)
         if plan_in is not None:
             _, o = _ffn_dual_sparse(packed_in, plan_in, plan_out, w_in, w_out,
                                     cfg, policy)

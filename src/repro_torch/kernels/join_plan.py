@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .ftp_spmm import _COLS
+
 # Default weight block (the reference's MXU-sized 128x128).
 BK, BN = 128, 128
 
@@ -103,10 +105,19 @@ def build_weight_plan(
 
     Pads K/N up to block multiples, compresses to block-CSR, and derives the
     per-column-block join lists with vectorized numpy.  The plan lives on
-    ``w``'s device; the payload keeps ``w``'s dtype."""
+    ``w``'s device; the payload keeps ``w``'s dtype.
+
+    Blocks the caller does not give follow the reference's rule
+    (`pick_plan_blocks`), except on the card, where a column block that is
+    not a multiple of the BSR kernels' 32-column tile (N < 128 and not a
+    multiple of 32, as in the Table II fc layers) widens to the next
+    multiple: the padding columns are zero and add +0, and callers cut
+    the output back to N."""
     K, N = w.shape
     if bk is None or bn is None:
         pbk, pbn = pick_plan_blocks(K, N)
+        if w.is_cuda:
+            pbn += (-pbn) % _COLS
         bk = bk if bk is not None else pbk
         bn = bn if bn is not None else pbn
     pk, pn = (-K) % bk, (-N) % bn

@@ -14,16 +14,21 @@
   side is a block-activity map computed here, on the operand's device, per
   call.  Under ``temporal='adaptive'`` a timestep-activity map is computed
   on the device too, and the adaptive instance of the kernel skips the
-  planes it gates.
+  planes it gates;
+* ``weight_sparsity='dual_sparse'`` + raw (pruned) weights -> the same
+  kernel through a plan built per call (`_dual_sparse_once`), for
+  examples, tests and offline experiments; serving builds its plans once
+  at load.  ``execution='pipelined'`` refuses this route.
 
-`dispatch_decode_window` is the speculative verify's (B, S, K) entry.
-Per-call plan building (dual_sparse policy with raw weights) and the mesh
-entries are later slices and raise.  ``ftp_spmm.launch_counts()`` counts
-each kernel's launches: the port's counterpart of the reference's
+`dispatch_decode_window` is the speculative verify's (B, S, K) entry;
+`build_block_join` is the fully joined host-side view for offline
+analysis.  The mesh entries are a later slice.  ``ftp_spmm.launch_counts()``
+counts each kernel's launches: the port's counterpart of the reference's
 ``BSR_TRACE_COUNT`` (the port does not trace, so it counts launches).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -35,7 +40,11 @@ from repro_torch.core.packing import (
 )
 
 from . import ftp_spmm as _k
-from .join_plan import WeightJoinPlan
+from .join_plan import (
+    WeightJoinPlan,
+    build_block_csr,
+    build_weight_plan,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -128,6 +137,32 @@ def _bsr_batched(a, plan, T, v_th=DEFAULT_VTH, tau=DEFAULT_TAU, *,
     return out.reshape(T, B, M, N), u.reshape(B, M, N)
 
 
+def _dual_sparse_once(
+    a: torch.Tensor,
+    w: torch.Tensor,
+    T: int,
+    v_th: float = DEFAULT_VTH,
+    tau: float = DEFAULT_TAU,
+    *,
+    fuse_lif: bool = True,
+    adaptive: bool = False,
+    min_spikes: int = 1,
+):
+    """One dual-sparse LoAS layer with its plan built per call: (M, K) or
+    batched (B, M, K) packed words x raw (K, N) pruned weights -> kernel 3
+    (kernel 4 under ``adaptive``) through a `WeightJoinPlan` built on
+    ``w``'s device with the reference's block rule (`pick_plan_blocks`).
+    Returns (packed words, U) with ``fuse_lif``, else (full sums, zeros),
+    shaped as the plan route's.
+
+    On the card the plan's column block may be wider than the reference's
+    (`build_weight_plan`): its zero columns add +0 and the output is cut
+    back to N, so the values are those of the reference's blocks."""
+    fn = _bsr_batched if a.ndim == 3 else _bsr
+    return fn(a, build_weight_plan(w), T, v_th, tau, n_out=w.shape[1],
+              fuse_lif=fuse_lif, adaptive=adaptive, min_spikes=min_spikes)
+
+
 def dispatch(
     a,
     weights_or_plan,
@@ -144,8 +179,15 @@ def dispatch(
     ``a``: float: (T, M, K) {0,1} planes; packed: (M, K) or batched
     (B, M, K) int32 words.  Returns (T, M[, N-batched], N) full sums without
     ``fuse_lif`` on the float and dense routes, and (spikes, U) with it; the
-    plan route always returns a pair — (packed words, U) with ``fuse_lif``,
-    else (full sums, zeros)."""
+    dual-sparse routes (a plan, or raw weights under a ``dual_sparse``
+    policy) always return a pair — (packed words, U) with ``fuse_lif``, else
+    (full sums, zeros).
+
+    Raw weights under a ``dual_sparse`` policy build their plan per call
+    (offline convenience; serving builds plans once at load and passes
+    them in).  Under ``execution='pipelined'`` that route raises: building
+    a plan reads the weights' block map on the host, a device sync in the
+    dispatch path the pipelined executor keeps sync-free."""
     from repro_torch.serve.policy import ExecutionPolicy  # serve sits above
 
     if not isinstance(policy, ExecutionPolicy):
@@ -158,6 +200,15 @@ def dispatch(
             "got a WeightJoinPlan but policy.weight_sparsity="
             f"{policy.weight_sparsity!r}; use a dual_sparse policy "
             "(repro_torch.serve.policy.PACKED_DUAL) or pass dense weights"
+        )
+    if (policy.execution == "pipelined"
+            and policy.weight_sparsity == "dual_sparse" and not plan_like):
+        raise ValueError(
+            "execution='pipelined' forbids per-call plan building (it reads "
+            "the weights' block map on the host, forcing a device sync in "
+            "the dispatch hot path); build the WeightJoinPlan once at load "
+            "(join_plan.build_weight_plan / "
+            "models.layers.attach_spiking_ffn_plans) and pass it in"
         )
     if policy.spike_format == "float":
         from repro_torch.core.ftp import ftp_spmspm_unpacked
@@ -179,11 +230,9 @@ def dispatch(
         return fn(a, weights_or_plan, T, v_th, tau, n_out=n_out,
                   fuse_lif=fuse_lif, adaptive=adaptive, min_spikes=min_spikes)
     if policy.weight_sparsity == "dual_sparse":
-        raise NotImplementedError(
-            "a dual_sparse policy with raw weights builds a plan per call, "
-            "which is not ported yet; build the WeightJoinPlan at load "
-            "(join_plan.build_weight_plan) — see ROADMAP.md"
-        )
+        return _dual_sparse_once(a, weights_or_plan, T, v_th, tau,
+                                 fuse_lif=fuse_lif, adaptive=adaptive,
+                                 min_spikes=min_spikes)
     if adaptive and min_spikes > 1:
         a = mask_low_activity_timesteps(a, T, min_spikes)
     if fuse_lif:
@@ -213,3 +262,38 @@ def dispatch_decode_window(a, weights_or_plan, policy, T: int, **kwargs):
             f"spike_format={policy.spike_format!r}"
         )
     return dispatch(a, weights_or_plan, policy, T, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# offline analysis
+# ---------------------------------------------------------------------------
+
+def build_block_join(a_packed: torch.Tensor, b: torch.Tensor, bm: int, bk: int,
+                     bn: int):
+    """The fully joined host-side view (offline analysis and debugging):
+    for every output tile (i, j), the k-blocks where A's (bm, bk) spike
+    block is active AND B's (bk, bn) block is non-zero, ascending.  The
+    serving path never calls this: it splits the join into the load-time
+    plan and the in-kernel activity skip.
+
+    ``a_packed``: (M, K) int32 words; ``b``: (K, N) weights.  M, K and N
+    must be block multiples.  Returns (payload (nnzb, bk, bn) on ``b``'s
+    device, kidx (nm, nnb, jmax), vidx (nm, nnb, jmax), cnt (nm, nnb) as
+    int32 numpy, jmax): the reference's join lists."""
+    N = b.shape[1]
+    payload, idx, bnz = build_block_csr(b, bk, bn)
+    a_act = block_activity_map(a_packed, bm, bk).cpu().numpy()
+    nnb = N // bn
+    # joined[i, j, kb] = a_act[i, kb] & bnz[kb, j]
+    joined = a_act[:, None, :] & bnz.T[None, :, :]  # (nm, nnb, nkb)
+    cnt = joined.sum(axis=2).astype(np.int32)
+    jmax = max(1, int(cnt.max()))
+    # a stable argsort of ~joined brings the joined k-blocks to the front,
+    # ascending, per (i, j) tile
+    order = np.argsort(~joined, axis=2, kind="stable")[..., :jmax]
+    live = np.arange(jmax)[None, None, :] < cnt[..., None]
+    kidx = np.where(live, order, 0).astype(np.int32)
+    vidx = np.where(
+        live, idx[kidx, np.arange(nnb)[None, :, None]], 0
+    ).astype(np.int32)
+    return payload, kidx, vidx, cnt, jmax

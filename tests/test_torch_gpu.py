@@ -343,6 +343,78 @@ def test_bsr_routing_by_dtype_and_blocks():
     _hold(got, None, o, False)
 
 
+def _table_ii_words(rng, T, M, K, d_a, ns):
+    """Packed words at a Table II layer's sparsity: non-silent with
+    probability ``ns``, then firing at each timestep with d_a / ns, at
+    least once."""
+    live = rng.random((M, K)) < ns
+    fire = rng.random((T, M, K)) < min(1.0, d_a / ns)
+    fire[rng.integers(0, T, size=(M, K)), np.arange(M)[:, None],
+         np.arange(K)[None, :]] = True
+    fire &= live[None]
+    return sum(fire[t].astype(np.uint32) << t for t in range(T)).astype(np.uint32)
+
+
+# (T, M, N, K, d_a, ns, d_b): T-HFF (Table II); AlexNet's conv1 (K = 27,
+# bk 27) and fc2 (N = 10: the column block widens to 32) at AlexNet's
+# Table II averages
+TABLE_II_SHAPES = {
+    "T-HFF": (4, 784, 3072, 3072, 0.15, 0.18, 0.032),
+    "alexnet-conv1": (4, 1024, 64, 27, 0.188, 0.287, 0.018),
+    "alexnet-fc2": (4, 1, 10, 1024, 0.188, 0.287, 0.018),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fuse", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", list(TABLE_II_SHAPES))
+def test_per_call_route_at_table_ii_shapes(shape, dtype, fuse):
+    """Raw unstructured-pruned weights under PACKED_DUAL: a plan built per
+    call, one launch of kernel 3 (bf16 T-HFF on `tc`, the small blocks on
+    SIMT), held against the dense plain oracle."""
+    dev = _cuda()
+    T, M, N, K, d_a, ns, d_b = TABLE_II_SHAPES[shape]
+    rng = np.random.default_rng(K + N)
+    a = words_to_torch(_table_ii_words(rng, T, M, K, d_a, ns), dev)
+    w = prune_by_magnitude(torch.from_numpy(rng.normal(size=(K, N)).astype(
+        np.float32)), d_b).to(dev, dtype)
+    want_inst = "tc" if (shape == "T-HFF" and dtype == torch.bfloat16) else "simt"
+    before = ftp_spmm.launch_counts()
+    c, u = ops.dispatch(a, w, PACKED_DUAL, T, fuse_lif=fuse)
+    torch.cuda.synchronize()
+    inst = f"ftp_bsr_{want_inst}"
+    assert ftp_spmm.launch_counts() == dict(
+        before, ftp_bsr=before["ftp_bsr"] + 1, **{inst: before[inst] + 1})
+    assert c.shape == ((M, N) if fuse else (T, M, N))
+    _hold(c, u, ref.ftp_spmm_ref(a, w, T), fuse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fuse", [True, False])
+def test_load_time_plan_at_n_10_widens_and_equals_per_call(fuse):
+    """A load-time plan of an N = 10 weight built on the card has the
+    per-call route's 32-wide column block: it launches the SIMT instance
+    and gives the per-call route's outputs bit for bit."""
+    dev = _cuda()
+    T, M, N, K, d_a, ns, d_b = TABLE_II_SHAPES["alexnet-fc2"]
+    rng = np.random.default_rng(K + N)
+    a = words_to_torch(_table_ii_words(rng, T, M, K, d_a, ns), dev)
+    w = prune_by_magnitude(torch.from_numpy(rng.normal(size=(K, N)).astype(
+        np.float32)), d_b).to(dev, torch.bfloat16)
+    plan = build_weight_plan(w)
+    assert plan.bn == 32 and build_weight_plan(w.cpu()).bn == 10
+    before = ftp_spmm.launch_counts()
+    c, u = ops.dispatch(a, plan, PACKED_DUAL, T, n_out=N, fuse_lif=fuse)
+    torch.cuda.synchronize()
+    assert ftp_spmm.launch_counts() == dict(
+        before, ftp_bsr=before["ftp_bsr"] + 1,
+        ftp_bsr_simt=before["ftp_bsr_simt"] + 1)
+    c_call, u_call = ops.dispatch(a, w, PACKED_DUAL, T, fuse_lif=fuse)
+    assert torch.equal(c, c_call) and torch.equal(u, u_call)
+    _hold(c, u, ref.ftp_spmm_ref(a, w, T), fuse)
+
+
 # ---------------------------------------------------------------------------
 # kernels 1 and 2: packed spikes x dense weights
 # ---------------------------------------------------------------------------

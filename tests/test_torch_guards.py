@@ -20,7 +20,8 @@ FORBIDDEN = re.compile(
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def test_port_sources_import_no_jax_and_no_reference():
@@ -30,6 +31,8 @@ def test_port_sources_import_no_jax_and_no_reference():
     }
     assert {k: v for k, v in offenders.items() if v} == {}
     assert len(offenders) > 20  # the scan saw the package
+    assert "examples/quickstart_torch.py" in offenders  # and the examples
+    assert "examples/train_snn_lth_torch.py" in offenders
 
 
 def test_forbidden_pattern_tells_the_packages_apart():
@@ -102,3 +105,17 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
         r = _run_smoke(cwd, env)
         assert r.returncode != 0
         assert '"ok"' not in r.stdout and '"kernels"' not in r.stdout
+
+
+@pytest.mark.parametrize("example", ["quickstart_torch", "train_snn_lth_torch"])
+def test_examples_raise_without_a_card_and_without_device(example):
+    """The port's examples run on the card unless ``--device cpu``: without
+    a card and without the flag they raise instead of running on the CPU,
+    and they import no jax."""
+    _no_card()
+    args = ["--steps", "1", "--rounds", "1"] if example.startswith("train") else []
+    r = subprocess.run([sys.executable, str(ROOT / "examples" / f"{example}.py"),
+                        *args], env=_env(), capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode != 0
+    assert "device='cpu'" in r.stderr

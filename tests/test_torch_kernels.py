@@ -188,12 +188,18 @@ def test_float_route_matches_reference():
 
 
 def test_dispatch_refuses_unported_routes():
+    """A plan under a dense policy and a non-policy raise.  Raw weights
+    under a dual_sparse policy build their plan per call (the route is
+    ported): the same result as the plan built at load."""
     packed, w, T, _ = _bsr_case("all_silent")
     plan = build_weight_plan(torch.from_numpy(w))
     with pytest.raises(ValueError, match="weight_sparsity"):
         ops.dispatch(words_to_torch(packed), plan, FLOAT_DENSE, T)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.dispatch(words_to_torch(packed), torch.from_numpy(w), PACKED_DUAL, T)
+    got, _ = ops.dispatch(words_to_torch(packed), torch.from_numpy(w),
+                          PACKED_DUAL, T)
+    want, _ = ops.dispatch(words_to_torch(packed), plan, PACKED_DUAL, T,
+                           n_out=w.shape[1])
+    assert torch.equal(got, want)
     with pytest.raises(TypeError):
         ops.dispatch(words_to_torch(packed), plan, "packed_dual", T)
 

@@ -192,13 +192,13 @@ def test_row_coupled_engine_never_merges_and_pads_no_batch(dense, execution):
 
 
 def test_dispatch_pipelined_refuses_per_call_plan_building():
-    """Per-call plan building reads the weights on the host; the port
-    refuses it under every policy, the pipelined one included, and a
-    prebuilt plan gives the sync policy's result."""
+    """Per-call plan building reads the weights on the host; the pipelined
+    policy refuses it as the reference does, and a prebuilt plan gives the
+    sync policy's result."""
     from repro_torch.kernels.join_plan import build_weight_plan
 
     pol = dataclasses.replace(PACKED_DUAL, execution="pipelined")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="pipelined"):
         ops.dispatch(torch.zeros((8, 32), dtype=torch.int32),
                      torch.zeros((32, 16)), pol, 4)
     rng = np.random.default_rng(0)
