@@ -283,10 +283,32 @@ causal; dh 160 padded to 192.
              layer not all silent, and silent after the preprocessing >=
              before.
 
-Prints a JSON line of phase 13's measurements, one of phase 14's and one
-of phase 15's, then a JSON line of per-kernel measurements (the headline
-numbers are each kernel's mean launch on its path), and as the last line
-``{"ok": true, "device": {...}}``.
+16. the dry run and the roofline on the card, after phase 15, its time
+             logged against ``P16_BUDGET_S``: (a) every decode and train cell of the
+             assignment and llama3.2-1b x prefill_32k counted on meta tensors
+             at full width and shape (`launch.dryrun`: counts at a few
+             depths, batches and sequence lengths, extrapolated), in spawned
+             processes while (d) runs; the table of memory, fits,
+             flops, bytes and the three roofline terms printed.  (b) every
+             cell whose dry-run total fits ``P16_FIT_SHARE`` of the card's
+             memory run for real at full width, depth and batch: its counted
+             flops and bytes on the card must EQUAL the dry run's; one step
+             timed (median of 3 after a warm-up) against its roofline time;
+             max_memory_allocated against the dry run's total.  (c) the main
+             path (phase 5's llama3.2-1b, spiking, density 0.3, LLAMA_LAYERS,
+             PACKED_DUAL): `attribution_summary` of one 4-row decode step and
+             one 4 x 128 prefill, kernel 3 counted by its work formula
+             (`roofline.kernel_work`) with its counted calls equal to the
+             `launch_counts()` delta, each step's device time against its
+             roofline time.  (d) the three serve / train examples on the
+             card: `serve_llm_torch`, `serve_dvs_torch` (incremental ==
+             one-shot) and `spiking_ffn_llm_torch` at ``P16_FFN_STEPS``
+             steps (its loss must drop).
+
+Prints a JSON line of phase 13's measurements, one of phase 14's, one of
+phase 15's and one of phase 16's (``{"roofline": ...}``), then a JSON line
+of per-kernel measurements (the headline numbers are each kernel's mean
+launch on its path), and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -306,8 +328,6 @@ SRC = os.path.join(ROOT, "src")
 # summed in f32 in two different orders: rounding differences stay orders
 # of magnitude below this.
 TOL = 1e-3
-PEAK_BYTES_S = 3.35e12     # H100 SXM HBM3
-PEAK_BF16_FLOP_S = 989e12  # H100 SXM dense bf16 tensor cores
 T = 4
 SEED = 0
 PROMPT, GEN, REQUESTS = 128, 16, 4
@@ -339,7 +359,6 @@ LOGIT_TOL = 0.25
 # of those phases holds layer by layer; kernel times are per launch.
 LLAMA_LAYERS = 8
 TIMED_SERVES = 3
-PEAK_F32_FLOP_S = 67e12    # H100 SXM f32 outside the tensor cores
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 8, 128  # launch/train.py's batch, seq
 # Random-init CE: logits of unit variance give ln V + 1/2 on average; the
 # batch moves it by less than this.
@@ -467,57 +486,23 @@ def _lif_margin(o, v_th=1.0, tau=0.5):
     return margin
 
 
-def _bound_of(nbytes, ops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_BF16_FLOP_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def _bound(args, bm, fuse, tmap=None):
-    """Least time for one BSR call's work on the card: each input byte read
-    once, each output byte written once (payload blocks that some live,
-    spike-active join slot needs), against the bf16 operations of those
-    joins: 2 T' bn for every spike word that is not silent (a silent word
-    needs no work, as in `_bound_dense`) in the (row tile, k block) of a
-    joined slot, over the T' planes that carry a spike (a silent plane adds
-    nothing, with or without ``tmap``), less those ``tmap`` gates.
-    Returns (ms, "bytes" or "operations")."""
-    import torch
-    import torch.nn.functional as F
+    """Least time for one BSR call's work on the card
+    (`roofline.kernel_work.bsr_work`: the bytes each input and output needs
+    once against 2 T' bn bf16 operations per non-silent word of each
+    joined block).  Returns (ms, "bytes" or "operations")."""
+    from repro_torch.roofline import kernel_work as kw
 
-    from repro_torch.core.packing import timestep_activity_map
-
-    a, payload, kidx, vidx, cnt, act, n_out, Tc = args[:8]
-    M, K = a.shape
-    nm, nkb = act.shape
-    _, bk, bn = payload.shape
-    kidx, vidx, cnt = kidx.long(), vidx.long(), cnt.long()
-    live = torch.arange(kidx.shape[1], device=a.device)[None] < cnt[:, None]
-    joined = (act[:, kidx] > 0) & live[None]              # (nm, nnb, jmax)
-    words = F.pad((a != 0).int(), (0, nkb * bk - K, 0, nm * bm - M))
-    words = words.reshape(nm, bm, nkb, bk).sum((1, 3))    # (nm, nkb)
-    live = timestep_activity_map(a, Tc)
-    if tmap is not None:
-        live = live & (tmap > 0)
-    planes = int(live.sum())
-    ops = 2 * planes * bn * int((words[:, kidx] * joined).sum())
-    used = torch.zeros(payload.shape[0], dtype=torch.bool, device=a.device)
-    used[vidx[joined.any(0)]] = True
-    out = M * n_out * 4 * (2 if fuse else Tc + 1)
-    nbytes = (a.numel() * 4 + int(used.sum()) * bk * bn * payload.element_size()
-              + act.numel() * 4 + (kidx.numel() + vidx.numel() + cnt.numel()) * 4
-              + out + (0 if tmap is None else tmap.numel() * 4))
-    return _bound_of(nbytes, ops)
+    return kw.bound_ms(*kw.bsr_work(*args[:8], bm=bm, fuse_lif=fuse, tmap=tmap))
 
 
 def _bound_dense(a, w, Tc, fuse):
-    """Least time for one dense-weight call: the words and the weight read
-    once, the output written once, against 2 T N bf16 operations for every
-    spike word that is not silent (a silent word needs no work)."""
-    M, K = a.shape
-    N = w.shape[1]
-    out = M * N * 8 if fuse else Tc * M * N * 4
-    nbytes = a.numel() * 4 + w.numel() * w.element_size() + out
-    return _bound_of(nbytes, 2 * Tc * N * int((a != 0).sum()))
+    """Least time for one dense-weight call (`kernel_work.dense_work`: the
+    words and the weight read once, the output written once, against 2 T N
+    bf16 operations per non-silent word)."""
+    from repro_torch.roofline import kernel_work as kw
+
+    return kw.bound_ms(*kw.dense_work(a, w, Tc, fuse))
 
 
 def _dense_weight(args):
@@ -1718,37 +1703,16 @@ def _to_bh(t, groups=1):
     return t.permute(0, 2, 1, 3).reshape(B * H, S, dh).contiguous()
 
 
-def _visible_pairs(S, Skv, causal, window):
-    """(query, key) pairs the mask leaves visible: the work the kernels
-    need (a tile the mask fills adds nothing)."""
-    import torch
-
-    from repro_torch.kernels.ref import _attn_mask
-
-    return int(_attn_mask(S, Skv, causal, window, "cpu").sum())
-
-
 def _flash_bounds(q, Skv, causal, window):
-    """{kernel: (bound ms, bound_by)} for one attention call: each input
-    read once and each output written once, against 4 dh (forward), 6 dh
-    (dq: s, dp, dq), 8 dh (dk/dv: s, dp, dk, dv) and 12 dh (forward and
-    backward without recompute) multiply-adds x 2 per visible pair, at the
-    bf16 tensor-core peak for bf16 inputs and the f32 peak for f32."""
-    BH, S, dh = q.shape
-    e = q.element_size()
-    pairs = BH * _visible_pairs(S, Skv, causal, window)
-    peak = PEAK_BF16_FLOP_S if e == 2 else PEAK_F32_FLOP_S
-    qo, kv, rows = BH * S * dh * e, BH * Skv * dh * e, BH * S * 4
-    work = {"flash_fwd": (2 * qo + 2 * kv + rows, 4 * dh),
-            "flash_bwd_dq": (3 * qo + 2 * kv + 2 * rows, 6 * dh),
-            "flash_bwd_dkv": (2 * qo + 4 * kv + 2 * rows, 8 * dh),
-            "flash_mha": (4 * qo + 4 * kv, 12 * dh)}
-    out = {}
-    for name, (nbytes, flop_per_pair) in work.items():
-        t_bytes, t_ops = nbytes / PEAK_BYTES_S, flop_per_pair * pairs / peak
-        out[name] = (1e3 * max(t_bytes, t_ops),
-                     "bytes" if t_bytes >= t_ops else "operations")
-    return out
+    """{kernel: (bound ms, bound_by)} for one attention call
+    (`roofline.kernel_work.flash_work`: the visible pairs' multiply-adds
+    against each input read once and each output written once), at the bf16
+    tensor-core peak for bf16 inputs and the f32 peak for f32."""
+    from repro_torch.roofline import kernel_work as kw
+
+    dtype = kw.flash_dtype(q)
+    return {name: kw.bound_ms(nbytes, ops, dtype)
+            for name, (nbytes, ops) in kw.flash_work(q, Skv, causal, window).items()}
 
 
 def _sdpa_args(q, k, v, causal, window, B):
@@ -5272,6 +5236,253 @@ def phase_snn_track(device="cuda"):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the dry run and the roofline on the card, and the examples
+# ---------------------------------------------------------------------------
+
+P16_BUDGET_S = 90
+P16_FIT_SHARE = 0.9     # (b): the share of the card a dry-run total may fill
+P16_WORKERS = 6         # (a): processes counting the dry runs' points
+P16_FFN_STEPS = 40      # (d): spiking_ffn_llm_torch's steps
+
+
+def _p16_cells():
+    """(a)'s cells: every decode and train cell, and llama3.2-1b's prefill."""
+    from repro_torch.launch.specs import runnable_cells
+
+    return ([(a, s) for a, s in runnable_cells() if s != "prefill_32k"]
+            + [("llama3_2_1b", "prefill_32k")])
+
+
+def _p16_row(rec):
+    r, st, mem = rec["roofline"], rec["op_stats"], rec["memory"]
+    return {"arch": rec["arch"], "shape": rec["shape"],
+            "mem_gib": mem["total_bytes"] / 2**30, "fits": rec["fits"],
+            "flops": st["flops"], "bytes": st["bytes_accessed"],
+            "t_comp_s": r["t_comp_s"], "t_mem_s": r["t_mem_s"],
+            "t_coll_s": r["t_coll_s"], "bottleneck": r["bottleneck"],
+            "roofline_fraction": r["roofline_fraction"],
+            "repeats": st["repeats"], "count_s": rec["count_s"]}
+
+
+def _p16_step_ms(fn, reps=3):
+    """Median device-clock ms of ``fn()`` over ``reps`` calls after one
+    warm-up (CUDA events around each call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _p16_on_card(rec, name):
+    """(b): one dry-run cell run for real at full size: counted flops and
+    bytes equal the dry run's, the step timed, the memory compared."""
+    import torch
+
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.roofline import count
+    from repro_torch.roofline.report import roofline_from_record
+
+    arch, shape = rec["arch"], rec["shape"]
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    cell = build_cell(arch, shape, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()  # the args stay, init's transients go
+    st = count(cell.fn, *cell.args)
+    want = rec["op_stats"]
+    assert (st.flops, st.bytes_accessed) == (want["flops"], want["bytes_accessed"]), (
+        arch, shape, st.flops, want["flops"], st.bytes_accessed, want["bytes_accessed"])
+    assert st.flops_by_dtype == want["flops_by_dtype"], (st.flops_by_dtype,
+                                                          want["flops_by_dtype"])
+    ms = _p16_step_ms(lambda: cell.fn(*cell.args))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    roof = roofline_from_record(dict(rec, device=name))
+    row = {"arch": arch, "shape": shape, "flops": st.flops,
+           "bytes": st.bytes_accessed, "step_ms": ms,
+           "roofline_ms": roof["t_total_us"] / 1e3,
+           "share_of_roofline": roof["t_total_us"] / 1e3 / ms,
+           "roofline_fraction": roof["roofline_fraction"],
+           "roofline_fraction_measured": roof["roofline_fraction"]
+           * roof["t_total_us"] / 1e3 / ms,
+           "max_memory_allocated_gib": peak / 2**30,
+           "memory_over_dry_run": peak / rec["memory"]["total_bytes"]}
+    log(f"16b {arch} x {shape} on the card: counted flops {st.flops:.4e} and bytes "
+        f"{st.bytes_accessed:.4e} == the dry run's; step {ms:.3f} ms against a "
+        f"roofline of {row['roofline_ms']:.4f} ms ({roof['bottleneck']}); "
+        f"roofline_fraction {row['roofline_fraction_measured']:.4g} measured "
+        f"({roof['roofline_fraction']:.4g} at the roofline); max_memory_allocated "
+        f"{row['max_memory_allocated_gib']:.3f} GiB = "
+        f"{row['memory_over_dry_run']:.3f} x the dry run's")
+    del cell
+    torch.cuda.empty_cache()
+    return row
+
+
+def _p16_main_path(name):
+    """(c): phase 5's llama3.2-1b under PACKED_DUAL, one 4-row decode step
+    and one 4 x 128 prefill counted (kernel 3 by its work formula) and
+    timed against their roofline times."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.kernels import ftp_spmm
+    from repro_torch.launch.serve import build_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.roofline import attribution_summary
+    from repro_torch.roofline.report import model_flops_for, roofline_from_record
+    from repro_torch.serve import Engine, ExecutionPolicy
+
+    cfg = dataclasses.replace(build_config("llama3_2_1b", smoke=False, spiking=True,
+                                           weight_density=0.3), n_layers=LLAMA_LAYERS)
+    model = build_model(cfg)
+    engine = Engine(model, model.init(SEED, device="cuda"), max_len=PROMPT + GEN,
+                    max_slots=REQUESTS, policy=ExecutionPolicy.for_arch(cfg))
+    params, mode = engine.params, engine.spiking_mode
+    assert mode == "infer"
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, size=(REQUESTS, PROMPT)),
+                              device="cuda").long()
+    cache = model.init_cache(REQUESTS, PROMPT + GEN, device="cuda")
+    _, cache = model.prefill(params, {"tokens": prompts}, cache, spiking_mode=mode)
+    token = torch.zeros((REQUESTS, 1), dtype=torch.long, device="cuda")
+    steps = {
+        "decode": (lambda: model.decode(params, token, cache, spiking_mode=mode),
+                   ShapeCell("decode_4", PROMPT + GEN, REQUESTS, "decode")),
+        "prefill": (lambda: model.prefill(
+            params, {"tokens": prompts},
+            model.init_cache(REQUESTS, PROMPT + GEN, device="cuda"),
+            spiking_mode=mode), ShapeCell("prefill_4x128", PROMPT, REQUESTS, "prefill")),
+    }
+    out = {}
+    for label, (fn, cell) in steps.items():
+        before = ftp_spmm.launch_counts()
+        summary = attribution_summary(fn)
+        torch.cuda.synchronize()
+        after = ftp_spmm.launch_counts()
+        k3 = summary["kernels"]["ftp_bsr"]
+        launched = after["ftp_bsr"] - before["ftp_bsr"]
+        assert k3["calls"] == launched == 2 * cfg.n_layers, (k3, launched)
+        assert after["ftp_bsr_tc"] - before["ftp_bsr_tc"] == launched
+        assert set(summary["kernels"]) == {"ftp_bsr"}, summary["kernels"]
+        ms = _p16_step_ms(fn)
+        _, busy_s, top = _device_busy(fn)
+        rec = {"device": name, "op_stats": summary, "model_flops": model_flops_for(cfg, cell),
+               "cell": dataclasses.asdict(cell),
+               "memory": {"total_bytes": torch.cuda.max_memory_allocated()}}
+        roof = roofline_from_record(rec)
+        t_roof = roof["t_total_us"] / 1e3
+        out[label] = dict(
+            summary, step_ms=ms, device_busy_ms=busy_s * 1e3, roofline_ms=t_roof,
+            bottleneck=roof["bottleneck"], roofline_fraction=roof["roofline_fraction"],
+            share_of_roofline=t_roof / ms, busy_share_of_roofline=t_roof / (busy_s * 1e3),
+            kernel3_share_of_bytes=k3["bytes"] / summary["bytes_accessed"],
+            kernel3_launches=launched, top_device_ops=[(n, t * 1e3) for n, t in top[:5]])
+        log(f"16c {label}: {summary['flops']:.4e} flops ({summary['flops_by_dtype']}), "
+            f"{summary['bytes_accessed']:.4e} bytes, intensity "
+            f"{summary['arithmetic_intensity']:.2f}; kernel 3 {launched} calls == "
+            f"launches, {k3['flops']:.4e} ops / {k3['bytes']:.4e} bytes by its formula; "
+            f"step {ms:.3f} ms (device busy {busy_s * 1e3:.3f} ms) against a roofline of "
+            f"{t_roof:.4f} ms ({roof['bottleneck']}): {t_roof / ms:.4f} of the step")
+    del engine, params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _p16_example(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _p16_examples():
+    """(d): the three examples on the card."""
+    t0 = time.perf_counter()
+    res = {}
+    served = _p16_example("serve_llm_torch").main([])
+    res["serve_llm"] = {r["arch"]: {"tokens": int(r["summary"]["total_tokens"]),
+                                    "merges": int(r["summary"]["cohort_merges"])}
+                        for r in served}
+    assert all(r["merges"] >= 1 and r["tokens"] == 48 for r in res["serve_llm"].values())
+    dvs = _p16_example("serve_dvs_torch").run()  # asserts incremental == one-shot
+    res["serve_dvs"] = {"identical": True,
+                        "timesteps_skipped": int(dvs["summary"]["timesteps_skipped"])}
+    losses = _p16_example("spiking_ffn_llm_torch").run(steps=P16_FFN_STEPS)["losses"]
+    assert all(map(math.isfinite, losses)) and losses[-1] < losses[0], losses
+    res["spiking_ffn_llm"] = {"steps": P16_FFN_STEPS, "loss_first": losses[0],
+                              "loss_last": losses[-1]}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"16d examples on the card in {res['seconds']:.1f}s: {json.dumps(res)}")
+    return res
+
+
+def phase_roofline(smi):
+    """16: (a) the dry runs in spawned processes while (d) runs on the card,
+    then (c) and (b).  Returns the phase's results."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline.report import device_peaks, parse_smi
+
+    t0 = time.perf_counter()
+    name, watts = parse_smi(smi)
+    device_peaks(name)  # a card without the table's numbers fails here
+    cells = _p16_cells()
+    with ProcessPoolExecutor(max_workers=P16_WORKERS, mp_context=multiprocessing.get_context(
+            "spawn")) as pool, ThreadPoolExecutor(max_workers=len(cells)) as threads:
+        futures = [threads.submit(dryrun.run_cell, a, s, device=name, pool=pool)
+                   for a, s in cells]
+        examples = _p16_examples()
+        recs = [f.result() for f in futures]
+    t_a = time.perf_counter() - t0
+    failed = [(r["arch"], r["shape"], r.get("error")) for r in recs if not r["ok"]]
+    assert not failed, failed
+    rows = [_p16_row(r) for r in recs]
+    log(f"16a dry runs of {len(rows)} cells at full width (card {name}, {watts} W; "
+        f"the peaks are the data sheet's at 700 W), done {t_a:.1f}s into the phase:")
+    log(f"  {'arch':24s} {'shape':12s} {'mem GiB':>8s} fits {'flops':>10s} "
+        f"{'bytes':>10s} {'t_comp ms':>10s} {'t_mem ms':>10s} {'t_coll':>6s} bound")
+    for r in rows:
+        log(f"  {r['arch']:24s} {r['shape']:12s} {r['mem_gib']:8.2f} "
+            f"{'Y' if r['fits'] else 'N':4s} {r['flops']:10.3e} {r['bytes']:10.3e} "
+            f"{r['t_comp_s'] * 1e3:10.4f} {r['t_mem_s'] * 1e3:10.4f} "
+            f"{r['t_coll_s']:6.1f} {r['bottleneck']}")
+    main_path = _p16_main_path(name)  # timed with no dry run beside it
+    cap = P16_FIT_SHARE * torch.cuda.get_device_properties(0).total_memory
+    fit = [r for r in recs if r["memory"]["total_bytes"] <= cap]
+    log(f"16b {len(fit)} cells fit {P16_FIT_SHARE} of the card's "
+        f"{cap / P16_FIT_SHARE / 2**30:.2f} GiB: {[(r['arch'], r['shape']) for r in fit]}")
+    on_card = [_p16_on_card(r, name) for r in fit]
+    seconds = time.perf_counter() - t0
+    log(f"phase 16 in {seconds:.1f}s (budget {P16_BUDGET_S}s"
+        f"{'' if seconds <= P16_BUDGET_S else ': OVER'})")
+    return {"device": name, "power_limit_w": watts, "dry_run": rows,
+            "dry_run_s": t_a, "on_card": on_card, "main_path": main_path,
+            "examples": examples, "seconds": seconds}
+
+
 def _flash_entries(flash):
     """The kernels-line entries of kernels 5-7: headline numbers from the
     train step's own attention inputs (layer 0; `tc`, with the SIMT
@@ -5354,7 +5565,7 @@ def _serve_summary(s):
 
 def main() -> int:
     t0 = time.perf_counter()
-    phase_device()
+    smi = phase_device()
     phase_build()
     rows, dense_rows = phase_kernel()
     phase_small_cpu_vs_card()
@@ -5432,6 +5643,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     snn = phase_snn_track()
     log(f"phase 15 done at {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    roofline = phase_roofline(smi)
+    log(f"phase 16 done at {time.perf_counter() - t0:.1f}s")
     by_name = {k["name"]: k for k in kernels}
     for name, key in (("ftp_bsr", "k3"), ("ftp_bsr_adaptive", "k4"),
                       ("ftp_spmm", "k1"), ("ftp_spmm_fused_lif", "k2")):
@@ -5460,6 +5675,7 @@ def main() -> int:
     print(json.dumps({"recurrent": recurrent}), flush=True)
     print(json.dumps({"moe_frontends": moe_frontends}), flush=True)
     print(json.dumps({"snn_track": snn}), flush=True)
+    print(json.dumps({"roofline": roofline}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {

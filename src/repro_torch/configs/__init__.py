@@ -3,12 +3,21 @@ family (gemma-2b, qwen3-14b, nemotron-4-340b, llama3.2-1b), the recurrent
 ones (rwkv6-1.6b, the ``ssm`` family; zamba2-7b, the ``hybrid`` one), the
 MoE ones (mixtral-8x22b with its sliding window, phi3.5-moe) and the stub
 front ends (hubert-xlarge, ``audio``; llava-next-mistral-7b, ``vlm``).
-`snn_workloads` holds the paper's Table II workloads beside them."""
+`snn_workloads` holds the paper's Table II workloads beside them; `base`
+the assignment's four shape cells (`SHAPES`) and which of them each arch
+runs."""
 from __future__ import annotations
 
 import importlib
 
-from .base import ArchConfig, smoke_variant
+from .base import (
+    SHAPES,
+    ArchConfig,
+    ShapeCell,
+    applicable_shapes,
+    skip_reason,
+    smoke_variant,
+)
 
 ARCHS = ["gemma_2b", "qwen3_14b", "nemotron_4_340b", "llama3_2_1b",
          "rwkv6_1_6b", "hubert_xlarge", "llava_next_mistral_7b",
@@ -39,4 +48,5 @@ def list_archs() -> list[str]:
     return list(ARCHS)
 
 
-__all__ = ["ArchConfig", "get_config", "list_archs", "smoke_variant"]
+__all__ = ["ARCHS", "SHAPES", "ArchConfig", "ShapeCell", "applicable_shapes",
+           "get_config", "list_archs", "skip_reason", "smoke_variant"]

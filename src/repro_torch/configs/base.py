@@ -1,5 +1,7 @@
-"""Architecture configuration schema (copy of `repro.configs.base`'s
-`ArchConfig` and `smoke_variant`; the port keeps its own copy)."""
+"""Architecture and shape configuration schema (copy of
+`repro.configs.base`: `ArchConfig` with its parameter counts, the
+assignment's four shape cells, their applicability and `smoke_variant`;
+the port keeps its own copy)."""
 from __future__ import annotations
 
 import dataclasses
@@ -65,6 +67,95 @@ class ArchConfig:
 
     supports_decode: bool = True
     subquadratic: bool = False
+
+    def n_params(self) -> int:
+        """Analytic parameter count (embeddings included once if tied)."""
+        D, F, V, L = self.d_model, self.d_ff, self.vocab, self.n_layers
+        p = 0
+        if self.embed_inputs:
+            p += V * D
+        if not self.tie_embeddings and not self.encoder_only:
+            p += D * V
+        if self.encoder_only:
+            p += D * V  # classifier head
+        per_layer = 0
+        if self.family in ("dense", "audio", "vlm", "moe"):
+            if self.n_heads:
+                per_layer += D * self.n_heads * self.head_dim      # q
+                per_layer += 2 * D * self.n_kv * self.head_dim     # k, v
+                per_layer += self.n_heads * self.head_dim * D      # o
+            n_mats = 3 if self.act in ("swiglu", "geglu") else 2
+            ffn = n_mats * D * F
+            if self.n_experts:
+                per_layer += self.n_experts * ffn + D * self.n_experts
+            else:
+                per_layer += ffn
+            per_layer += 2 * D  # norms
+        elif self.family == "ssm":
+            if self.name.startswith("rwkv"):
+                # time-mix: r,k,v,g,o (5 DxD) + low-rank decay; channel-mix 2
+                per_layer += 5 * D * D + 2 * D * F + D * 64 * 2
+            else:
+                d_in = self.ssm_expand * D
+                per_layer += D * (2 * d_in + 2 * self.ssm_state) + d_in * D
+        elif self.family == "hybrid":
+            d_in = self.ssm_expand * D
+            per_layer += 2 * D * d_in  # in_proj (x, z)
+            per_layer += d_in * (2 * self.ssm_state)  # B, C proj
+            per_layer += d_in * D  # out proj
+        p += L * per_layer
+        if self.family == "hybrid" and self.shared_attn_every:
+            # one shared attention+MLP block
+            p += 2 * D * self.n_heads * self.head_dim + 2 * D * self.n_kv * self.head_dim
+            p += 3 * D * F
+        return p
+
+    def active_params(self) -> int:
+        """Active (per-token) params — differs from n_params for MoE."""
+        if not self.n_experts:
+            return self.n_params()
+        D, F, L = self.d_model, self.d_ff, self.n_layers
+        n_mats = 3 if self.act in ("swiglu", "geglu") else 2
+        inactive = L * (self.n_experts - self.top_k) * n_mats * D * F
+        return self.n_params() - inactive
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def applicable_shapes(cfg: ArchConfig) -> dict[str, ShapeCell | None]:
+    """Which of the four shape cells run for this arch; None = skip, with
+    the reason from `skip_reason` in the dry run's manifest."""
+    out: dict[str, ShapeCell | None] = {}
+    for name, cell in SHAPES.items():
+        if cell.kind == "decode" and (cfg.encoder_only or not cfg.supports_decode):
+            out[name] = None
+        elif name == "long_500k" and not cfg.subquadratic:
+            out[name] = None
+        else:
+            out[name] = cell
+    return out
+
+
+def skip_reason(cfg: ArchConfig, shape: str) -> str:
+    if shape in ("decode_32k", "long_500k") and cfg.encoder_only:
+        return "encoder-only arch has no decode step"
+    if shape == "long_500k" and not cfg.subquadratic:
+        return "pure full-attention arch; 500k decode needs sub-quadratic attention"
+    return ""
 
 
 def smoke_variant(cfg: ArchConfig) -> ArchConfig:

@@ -6,7 +6,9 @@ Every batch is a pure function of (seed, step): a restart needs only the
 step counter in the train state.  The token stream mixes Zipfian unigrams
 with a copy structure (the next token is often the one two back), so the
 LM loss has something to learn.  The generator is numpy's, as in the
-reference; `batch_to_torch` moves a batch to the device.
+reference; `batch_to_torch` moves a batch to the device, and
+`batch_shapes` gives one batch of a shape cell as meta tensors (the dry
+run's inputs, torch's counterpart of ``jax.ShapeDtypeStruct``).
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCell
 
 
 @dataclasses.dataclass
@@ -55,3 +57,23 @@ def batch_to_torch(batch: dict, device) -> dict:
     return {k: torch.from_numpy(v).to(device=device, dtype=torch.int64)
             if v.dtype.kind in "iu" else torch.from_numpy(v).to(device)
             for k, v in batch.items()}
+
+
+def batch_shapes(cfg: ArchConfig, cell: ShapeCell) -> dict:
+    """One batch of ``cell`` as meta tensors: the reference's keys and
+    shapes in the port's dtypes (token ids and labels int64, as
+    `batch_to_torch` gives them; frames and image embeddings f32)."""
+    B, S = cell.global_batch, cell.seq_len
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    out = {}
+    if cfg.embed_inputs:
+        out["tokens"] = meta((B, S), torch.int64)
+    else:
+        out["frames"] = meta((B, S, cfg.d_model), torch.float32)
+    out["labels"] = meta((B, S), torch.int64)
+    if cfg.n_img_tokens:
+        out["img_embed"] = meta((B, cfg.n_img_tokens, cfg.d_model), torch.float32)
+    return out

@@ -31,7 +31,11 @@ reference's block sizes ``bq``/``bk`` are validated as the reference does
 64 rows whatever they are, and no output depends on them beyond rounding.
 `launch_counts()` counts kernel launches (not plain-version calls), by
 kernel and by instance, and the Function's backward passes that launched
-the backward kernels.
+the backward kernels.  Under an active op counter
+(`repro_torch.roofline.op_stats`) each of `flash_mha_fwd`,
+`flash_mha_bwd_dq` and `flash_mha_bwd_dkv` counts one call by its least
+work (`roofline.kernel_work.flash_work`, from shapes alone) and none of the
+aten ops inside it.
 """
 from __future__ import annotations
 
@@ -40,6 +44,9 @@ import functools
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.roofline import kernel_work
+from repro_torch.roofline.op_stats import counted_kernel
 
 from . import _build
 from .ref import (
@@ -217,6 +224,14 @@ def _fwd_launch(q, k, v, *, scale, causal, window, instance):
     return o, lse
 
 
+def _work(name):
+    def work(q, k, v, *args, causal=True, window=0, **kwargs):
+        nbytes, ops = kernel_work.flash_work(q, k.shape[1], causal, window)[name]
+        return name, kernel_work.flash_dtype(q), ops, nbytes
+    return work
+
+
+@counted_kernel(_work("flash_fwd"))
 def flash_mha_fwd(q, k, v, *, causal=True, window=0, bq=DEFAULT_BQ,
                   bk=DEFAULT_BK, instance=None):
     """q (BH, S, dh), k, v (BH, Skv, dh) -> (o (BH, S, dh) in q's dtype,
@@ -283,6 +298,7 @@ def _dkv_launch(q, k, v, do, lse, delta, *, scale, causal, window, instance):
     return dk, dv
 
 
+@counted_kernel(_work("flash_bwd_dq"))
 def flash_mha_bwd_dq(q, k, v, do, lse, delta, *, causal=True, window=0,
                      bq=DEFAULT_BQ, bk=DEFAULT_BK, instance=None):
     """dq (BH, S, dh) in q's dtype from the forward's lse and delta =
@@ -295,6 +311,7 @@ def flash_mha_bwd_dq(q, k, v, do, lse, delta, *, causal=True, window=0,
                        window=window, instance=inst)
 
 
+@counted_kernel(_work("flash_bwd_dkv"))
 def flash_mha_bwd_dkv(q, k, v, do, lse, delta, *, causal=True, window=0,
                       bq=DEFAULT_BQ, bk=DEFAULT_BK, instance=None):
     """(dk, dv) (BH, Skv, dh) in k's and v's dtypes (kernel 6, the dk/dv

@@ -22,6 +22,13 @@ through the kernel: ``LAUNCHES`` (kernel 3), ``ADAPTIVE_LAUNCHES`` (4),
 and ``DENSE_SIMT_LAUNCHES`` count the launches of kernels 1 and 2 together
 by the instance that ran, ``BSR_TC_LAUNCHES`` and ``BSR_SIMT_LAUNCHES``
 those of kernels 3 and 4.
+
+Under an active op counter (`repro_torch.roofline.op_stats`) each of
+`ftp_spmm`, `ftp_spmm_fused_lif` and `ftp_spmm_bsr` counts one call by its
+least work (`roofline.kernel_work`; it reads the words, so a counted call
+waits for the device) and none of the aten ops inside it: the same stats on
+the CPU as on the card.  The work depends on the spike words, so meta or
+fake inputs raise there.
 """
 from __future__ import annotations
 
@@ -32,6 +39,8 @@ import torch
 
 from repro_torch.core.lif import DEFAULT_TAU, DEFAULT_VTH
 from repro_torch.core.packing import MAX_T, unpack_spikes
+from repro_torch.roofline import kernel_work
+from repro_torch.roofline.op_stats import DTYPE_NAMES, counted_kernel
 
 from . import _build
 from .ref import ftp_spmm_fused_lif_ref as ftp_spmm_fused_lif_plain
@@ -244,6 +253,15 @@ def _dense_launch(a, b, T, v_th, tau, fuse_lif, instance=None):
     return out, u
 
 
+def _dense_work(name: str, fuse_lif: bool):
+    def work(a, b, T, *args, **kwargs):
+        kernel_work.check_values(a, name)
+        nbytes, ops = kernel_work.dense_work(a, b, T, fuse_lif)
+        return name, DTYPE_NAMES[b.dtype], ops, nbytes
+    return work
+
+
+@counted_kernel(_dense_work("ftp_spmm", False))
 def ftp_spmm(a: torch.Tensor, b: torch.Tensor, T: int, *,
              instance: str | None = None) -> torch.Tensor:
     """(M, K) int32 packed spikes x (K, N) bf16/f32 dense weights -> (T, M,
@@ -259,6 +277,7 @@ def ftp_spmm(a: torch.Tensor, b: torch.Tensor, T: int, *,
     return out
 
 
+@counted_kernel(_dense_work("ftp_spmm_fused_lif", True))
 def ftp_spmm_fused_lif(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -354,6 +373,16 @@ def bsr_tc_shape(nnb: int, bn: int, jmax: int, T: int, bm: int) -> dict[str, int
             "slots_per_rank": -(-jmax // splits), "rows": t_pad * bm}
 
 
+def _bsr_work(a, payload, kidx, vidx, cnt, act, n_out, T, v_th=DEFAULT_VTH,
+              tau=DEFAULT_TAU, *, bm, fuse_lif=True, tmap=None, instance=None):
+    kernel_work.check_values(a, "ftp_spmm_bsr")
+    nbytes, ops = kernel_work.bsr_work(a, payload, kidx, vidx, cnt, act, n_out,
+                                       T, bm=bm, fuse_lif=fuse_lif, tmap=tmap)
+    name = "ftp_bsr" if tmap is None else "ftp_bsr_adaptive"
+    return name, DTYPE_NAMES[payload.dtype], ops, nbytes
+
+
+@counted_kernel(_bsr_work)
 def ftp_spmm_bsr(
     a: torch.Tensor,
     payload: torch.Tensor,

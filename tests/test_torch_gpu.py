@@ -23,7 +23,7 @@ Run the dense kernels' tests alone with ``-k dense``, the BSR tensor-core
 instance's with ``-k bsr_tc``, the flash kernels' (5-7, both instances)
 with ``-k flash``, the MoE archs' (no kernel of their own: the routing
 and a serve through mixtral's ring cache, card against CPU) with
-``-k moe``.
+``-k moe``, the op counter's (card counts == CPU counts) with ``-k counted``.
 """
 import numpy as np
 import pytest
@@ -1525,3 +1525,53 @@ def test_moe_serve_features_equal_sync_dense_on_card(moe_model, execution,
     for a, b in zip(want, got):
         np.testing.assert_array_equal(b, a)
     _same_logits(want_logits, logits)
+
+
+# ---------------------------------------------------------------------------
+# the op counter (roofline.op_stats): the card counts what the CPU counts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_counted_stats_on_card_equal_cpu(kind):
+    """A smoke llama cell (`launch.specs.build_cell`) counted on the card and
+    on the CPU: the same flops, flops by dtype, bytes and op count (the
+    counts read shapes only; the kernels are not on this path)."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.roofline import count
+
+    dev = _cuda()
+    cfg = smoke_variant(get_config("llama3_2_1b"))
+    cell = ShapeCell(kind, 64, 4, kind)
+    got = {}
+    for d in (dev, "cpu"):
+        c = build_cell("llama3_2_1b", kind, cfg=cfg, cell=cell, device=d)
+        st = count(c.fn, *c.args)
+        got[str(d)] = (st.flops, st.flops_by_dtype, st.bytes_accessed, st.n_ops)
+    assert got["cuda"] == got["cpu"] and got["cpu"][0] > 0
+
+
+@pytest.mark.gpu
+def test_counted_kernel_3_on_card_equals_cpu():
+    """Kernel 3 counted at its entry by its work formula on the same inputs
+    on the card (it launches) and on the CPU (its plain version runs): equal
+    stats, one call each, and the card's call is one launch."""
+    from repro_torch.roofline import count
+
+    dev = _cuda()
+    a, w = _mk(np.random.default_rng(0), 4, 16, 256, 256, density=0.3, w_density=0.3)
+    a, w = words_to_torch(a), torch.as_tensor(w).to(torch.bfloat16)
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        plan, words = build_weight_plan(w.to(d)), a.to(d)
+        ftp_spmm.reset_launch_counts()
+        st = count(lambda: ops.dispatch(words, plan, PACKED_DUAL, 4, n_out=256,
+                                        fuse_lif=True))
+        got[d.type] = (st.kernels, st.flops, st.bytes_accessed, st.n_ops)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert ftp_spmm.launch_counts()["ftp_bsr"] == 1
+    assert got["cuda"] == got["cpu"]
+    assert got["cpu"][0]["ftp_bsr"]["calls"] == 1

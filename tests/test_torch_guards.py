@@ -33,6 +33,7 @@ def test_port_sources_import_no_jax_and_no_reference():
     assert len(offenders) > 20  # the scan saw the package
     assert "examples/quickstart_torch.py" in offenders  # and the examples
     assert "examples/train_snn_lth_torch.py" in offenders
+    assert "examples/serve_llm_torch.py" in offenders
 
 
 def test_forbidden_pattern_tells_the_packages_apart():
@@ -107,13 +108,16 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
         assert '"ok"' not in r.stdout and '"kernels"' not in r.stdout
 
 
-@pytest.mark.parametrize("example", ["quickstart_torch", "train_snn_lth_torch"])
+@pytest.mark.parametrize("example", ["quickstart_torch", "train_snn_lth_torch",
+                                     "serve_llm_torch", "serve_dvs_torch",
+                                     "spiking_ffn_llm_torch"])
 def test_examples_raise_without_a_card_and_without_device(example):
     """The port's examples run on the card unless ``--device cpu``: without
     a card and without the flag they raise instead of running on the CPU,
     and they import no jax."""
     _no_card()
-    args = ["--steps", "1", "--rounds", "1"] if example.startswith("train") else []
+    args = {"train_snn_lth_torch": ["--steps", "1", "--rounds", "1"],
+            "spiking_ffn_llm_torch": ["--steps", "1"]}.get(example, [])
     r = subprocess.run([sys.executable, str(ROOT / "examples" / f"{example}.py"),
                         *args], env=_env(), capture_output=True, text=True,
                        timeout=120)
