@@ -305,8 +305,30 @@ causal; dh 160 padded to 192.
              one-shot) and `spiking_ffn_llm_torch` at ``P16_FFN_STEPS``
              steps (its loss must drop).
 
+17. the serve mesh (item 12a), after phase 16: phase 5's model and params
+             on MESH_LOGICAL logical devices of the card (`launch.mesh`).
+             (a) the dual-sparse serve at data=2 x model=2, data=1 x model=4
+             and data=4 x model=1: tokens and captured logits EQUAL to the
+             single-device serve's, every kernel-3 launch on the tensor-core
+             instance (each slab with its parent plan's launch shape), data
+             x model launches a GEMM, a sample of the slab calls held
+             against the plain version by phase 3's gate; (b) the dense-
+             weight route at data=2 x model=2 (kernel 1 as column slabs,
+             kernel 2 once a data group) == its single-device serve; (c)
+             kernel 4 at min_spikes 1 under the mesh == (a); (d) pipelined x
+             paged at data=2 x model=2 == the sync dense single-device
+             serve, a skewed cohort re-packed (rebalances > 0), re-mesh
+             data=2 x model=2 -> one device -> data=1 x model=2 mid-serve
+             with every token kept and no page copied; (e) tok/s and the
+             decode step of each mesh beside the single-device ones (four
+             logical devices on one card: no multi-card speed is claimed),
+             and the f32 unembed over vocab column slabs against the whole
+             product (why the unembed runs over fixed column blocks); (f)
+             with more than one card, (a) on distinct cards.
+
 Prints a JSON line of phase 13's measurements, one of phase 14's, one of
-phase 15's and one of phase 16's (``{"roofline": ...}``), then a JSON line
+phase 15's, one of phase 16's (``{"roofline": ...}``) and one of phase
+17's (``{"mesh": ...}``), then a JSON line
 of per-kernel measurements (the headline numbers are each kernel's mean
 launch on its path), and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -2500,7 +2522,8 @@ def _label_ops(ops, params, n_layers):
         if kind == "rows":
             labels.append("rmsnorm mean" if args[0] is layers._mean_square
                           else weights.get(id(args[2]))
-                          if args[0] is torch.matmul else None)
+                          if args[0] in (torch.matmul, layers._vocab_mm)
+                          else None)
         elif kind == "einsum":
             labels.append(einsums.get(args[0]))
         elif kind == "softmax":
@@ -5483,6 +5506,289 @@ def phase_roofline(smi):
             "examples": examples, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the serve mesh, logical devices on the card (item 12a)
+# ---------------------------------------------------------------------------
+
+MESH_SPECS = ("data=2,model=2", "data=1,model=4", "data=4,model=1")
+MESH_LOGICAL = 4       # logical devices of every phase-17 mesh
+MESH_SKEW = (GEN, GEN, GEN, GEN - 6)   # (d): one request retires early
+MESH_REMESH_AFTER = 4  # (d): engine steps before each re-mesh
+
+
+def _mesh_of(spec, distinct=False):
+    """A (data, model) mesh of MESH_LOGICAL logical devices: all on cuda:0,
+    or (``distinct``) round-robin over the cards."""
+    import torch
+
+    from repro_torch.launch.mesh import LogicalDevice
+    from repro_torch.serve.sharding import make_serve_mesh
+
+    n = torch.cuda.device_count() if distinct else 1
+    return make_serve_mesh(spec, devices=[
+        LogicalDevice(i, torch.device("cuda", i % n))
+        for i in range(MESH_LOGICAL)])
+
+
+def _mesh_serve(engine, prompts, label, gens=None):
+    """One counted serve (launch counts 0 before, read after; kernel 3's
+    calls recorded, logits captured): (outs, logits (B, steps, V), counts,
+    calls, forwards)."""
+    import numpy as np
+
+    engine.metrics.reset()
+    engine.logit_traces = {}
+    calls, restore = _record(["ftp_spmm_bsr"])
+    try:
+        if gens is None:
+            run = lambda: engine.generate_batch(prompts, GEN)
+        else:
+            def run():
+                t = [engine.submit(p, g) for p, g in zip(prompts, gens)]
+                out = engine.run()
+                return [out[x.rid] for x in t]
+        outs, counts = _counted(label, run)
+    finally:
+        restore()
+    s = engine.summary()
+    forwards = s["prefill_batches"] + s["decode_batches"]
+    traces = engine.drain_logit_traces()
+    logits = [np.stack(t) for t in traces]
+    return outs, logits, counts, calls, forwards
+
+
+def _mesh_same(label, outs, logits, want_outs, want_logits):
+    import numpy as np
+
+    for i, (a, b) in enumerate(zip(outs, want_outs)):
+        assert np.array_equal(np.asarray(a), np.asarray(b)), (label, i, a, b)
+    for i, (a, b) in enumerate(zip(logits, want_logits)):
+        assert a.shape == b.shape and np.array_equal(a, b), (
+            label, i, float(np.abs(a - b).max()))
+
+
+def _mesh_speed(engine, prompts, outs):
+    """TIMED_SERVES serves without logit capture (tokens unchanged): the
+    median run's tok/s and its decode step (wall after the first token
+    over GEN - 1 steps of the 4-row cohort)."""
+    import numpy as np
+
+    engine.capture_logits = False
+    runs = []
+    for _ in range(TIMED_SERVES):
+        engine.metrics.reset()
+        again = engine.generate_batch(prompts, GEN)
+        for a, b in zip(again, outs):
+            np.testing.assert_array_equal(a, b)
+        s = engine.summary()
+        runs.append((s["throughput_tok_s"],
+                     1e3 * (s["wall_s"] - s["ttft_s_p50"]) / (GEN - 1)))
+    engine.capture_logits = True
+    tok_s = sorted(r[0] for r in runs)[len(runs) // 2]
+    step = next(r[1] for r in runs if r[0] == tok_s)
+    return {"tok_s": tok_s, "decode_step_ms": step,
+            "tok_s_runs": [r[0] for r in runs],
+            "decode_step_ms_runs": [r[1] for r in runs]}
+
+
+def _vocab_slabs(params):
+    """Trouble spot of vocab sharding, measured: one 64-row block of an f32
+    unembed product over column slabs V/2, V/4 and V/8 against the whole
+    product (the library may pick its algorithm by N), at llama's (D, V)
+    and at the smoke size's (64, 512): the elements that differ.  Where any
+    differ, a vocab slab is not the whole product's slice, which is why the
+    unembedding runs over fixed column blocks on every path
+    (`layers.vocab_blocks`)."""
+    import torch
+
+    blocks = params["unembed"]
+    w_full = torch.cat(list(blocks), dim=1)
+    g = torch.Generator(device=blocks.device).manual_seed(SEED)
+    w_smoke = torch.randn(64, 512, generator=g, device=blocks.device)
+    out = {}
+    for name, w in (("llama", w_full), ("smoke", w_smoke)):
+        x = torch.randn(64, w.shape[0], generator=g, device=w.device)
+        whole = x @ w
+        for parts in (2, 4, 8):
+            per = w.shape[1] // parts
+            sl = torch.cat([x @ w[:, j * per:(j + 1) * per].contiguous()
+                            for j in range(parts)], dim=1)
+            out[f"{name} V={w.shape[1]} V/{parts}"] = int((sl != whole).sum())
+    del w_full
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_mesh(smi):
+    """Phase 17: bitwise mesh serving on logical devices of the card.  (a)
+    the dual-sparse main path (phase 5's model and params) at data=2 x
+    model=2, data=1 x model=4 and data=4 x model=1, tokens and captured
+    logits equal to the single-device serve bit for bit, every kernel-3
+    launch on the tensor-core instance, data x model launches a GEMM, the
+    unembedding's column blocks dealt over the model axis, a sample of the
+    slab calls held against the plain version; (b) the dense-
+    weight route at data=2 x model=2 (kernel 1 as slabs, kernel 2 a data
+    group each) == its single-device serve; (c) kernel 4 at min_spikes 1
+    under the mesh == (a); (d) pipelined x paged at data=2 x model=2 ==
+    the sync dense single-device serve, a skewed cohort re-packed, re-mesh
+    data=2 x model=2 -> one device -> data=1 x model=2 mid-serve keeping
+    every token and copying no page; (e) the `mesh` line, with the vocab
+    slab probe (`_vocab_slabs`); (f) with more than one card, (a) with the
+    logical devices on distinct cards."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import build_config
+    from repro_torch.models.layers import VocabSlabs
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import Engine, ExecutionPolicy, Placement, paged
+    from repro_torch.serve.policy import PACKED_DUAL_ADAPTIVE
+
+    t0 = time.perf_counter()
+    full = build_config("llama3_2_1b", smoke=False, spiking=True,
+                        weight_density=0.3)
+    cfg = dataclasses.replace(full, n_layers=LLAMA_LAYERS)
+    model = build_model(cfg)
+    params = model.init(SEED, device="cuda")  # phase 5's params
+    rng = np.random.default_rng(SEED)
+    rng.integers(0, cfg.vocab, size=(8,))  # phase 5's warm-up draw
+    prompts = [rng.integers(0, cfg.vocab, size=(PROMPT,)).astype(np.int32)
+               for _ in range(REQUESTS)]
+    L = cfg.n_layers
+
+    def engine(spec=None, distinct=False, **kw):
+        mesh = None if spec is None else _mesh_of(spec, distinct)
+        pol = ExecutionPolicy.for_arch(cfg, placement=Placement(mesh=mesh),
+                                       **kw.pop("policy", {}))
+        return Engine(model, params, max_len=PROMPT + GEN,
+                      max_slots=REQUESTS, policy=pol, capture_logits=True,
+                      **kw)
+
+    res = {"physical_devices": torch.cuda.device_count(),
+           "logical_devices": MESH_LOGICAL, "smi": smi, "meshes": {}}
+    single = engine()
+    single.generate_batch([prompts[0][:8]], 2)  # warm-up
+    want, want_l, counts, _, fwd = _mesh_serve(single, prompts,
+                                               "17 single-device dual")
+    assert counts["ftp_bsr"] == counts["ftp_bsr_tc"] == 2 * L * fwd, counts
+    base = {"ftp_bsr_launches_per_decode_step": 2 * L,
+            **_mesh_speed(single, prompts, want)}
+    res["single_device"] = base
+    worst = (0.0, 0)
+    launches = 0
+    for spec in MESH_SPECS:
+        dn, mp = (int(t.split("=")[1]) for t in spec.split(","))
+        eng = engine(spec)
+        outs, logits, counts, calls, fwd = _mesh_serve(eng, prompts,
+                                                       f"17a {spec}")
+        _mesh_same(f"17a {spec}", outs, logits, want, want_l)
+        vocab = eng.params["unembed"]
+        assert isinstance(vocab, VocabSlabs) == (mp > 1), (spec, vocab)
+        n = 2 * L * fwd * dn * mp
+        assert counts["ftp_bsr"] == counts["ftp_bsr_tc"] == n, (spec, counts)
+        assert counts["ftp_bsr_simt"] == 0 and counts["ftp_spmm"] == 0
+        launches += counts["ftp_bsr"]
+        err, flips = _parity_all(_sample(calls, 2), f"17a {spec}")
+        worst = (max(worst[0], err), worst[1] + flips)
+        res["meshes"][spec] = {
+            "ftp_bsr_launches_per_decode_step": 2 * L * dn * mp,
+            "launches": counts["ftp_bsr"], "all_tc": True,
+            **_mesh_speed(eng, prompts, outs)}
+        log(f"17a {spec}: tokens and logits == single device; "
+            f"{counts['ftp_bsr']} kernel-3 launches ({dn * mp} a GEMM), all "
+            f"tc; {json.dumps(res['meshes'][spec])}")
+        del eng
+        gc.collect()
+    res["kernel3"] = {"launches": launches, "max_abs_err": worst[0],
+                      "flips": worst[1]}
+    # (b) the dense-weight route
+    d_single = engine(policy={"weight_sparsity": "dense"})
+    d_want, d_want_l, _, _, _ = _mesh_serve(d_single, prompts,
+                                            "17b single-device dense")
+    del d_single
+    d_mesh = engine("data=2,model=2", policy={"weight_sparsity": "dense"})
+    outs, logits, counts, _, fwd = _mesh_serve(d_mesh, prompts,
+                                               "17b dense data=2,model=2")
+    _mesh_same("17b", outs, logits, d_want, d_want_l)
+    assert counts["ftp_spmm"] == counts["ftp_dense_tc"] - counts[
+        "ftp_spmm_fused_lif"] == L * fwd * 4, counts
+    assert counts["ftp_spmm_fused_lif"] == L * fwd * 2 and counts["ftp_bsr"] == 0
+    res["dense"] = {"ftp_spmm_launches": counts["ftp_spmm"],
+                    "ftp_spmm_fused_lif_launches": counts["ftp_spmm_fused_lif"]}
+    del d_mesh
+    gc.collect()
+    # (c) kernel 4 at min_spikes 1 under the mesh
+    a_mesh = engine("data=2,model=2")
+    for lp in a_mesh.params["layers"]:
+        lp["mlp"]["ffn_policy"] = PACKED_DUAL_ADAPTIVE
+    outs, logits, counts, _, fwd = _mesh_serve(a_mesh, prompts,
+                                               "17c adaptive data=2,model=2")
+    _mesh_same("17c", outs, logits, want, want_l)
+    assert counts["ftp_bsr_adaptive"] == counts["ftp_bsr_tc"] == 2 * L * fwd * 4
+    assert counts["ftp_bsr"] == 0, counts
+    res["adaptive"] = {"ftp_bsr_adaptive_launches": counts["ftp_bsr_adaptive"]}
+    del a_mesh
+    gc.collect()
+    # (d) pipelined x paged under the mesh
+    feat = {"execution": "pipelined", "paging": paged(PAGE)}
+    p_mesh = engine("data=2,model=2", policy=feat, prefix_cache=False)
+    outs, logits, _, _, _ = _mesh_serve(p_mesh, prompts, "17d pipelined paged")
+    _mesh_same("17d", outs, logits, want, want_l)
+    skew, _, _, _, _ = _mesh_serve(p_mesh, prompts, "17d skewed", MESH_SKEW)
+    for i, g in enumerate(MESH_SKEW):
+        np.testing.assert_array_equal(skew[i], want[i][:g])
+    rebalances = p_mesh.metrics.n_rebalances
+    assert rebalances > 0, "the skewed cohort did not re-pack"
+    p_mesh.metrics.reset()
+    tickets = [p_mesh.submit(p, GEN) for p in prompts]
+    moves = p_mesh.metrics.n_page_moves
+    for target in ("single", "data=1,model=2"):
+        for _ in range(MESH_REMESH_AFTER):
+            p_mesh.step()
+        if target == "single":
+            rep = p_mesh.remesh(devices=list(_mesh_of("data=2,model=2")
+                                             .devices.flat)[:1])
+        else:
+            rep = p_mesh.remesh(mesh=_mesh_of("data=1,model=2"))
+        assert rep["remeshed"], rep
+    out = p_mesh.run()
+    for t, w in zip(tickets, want):
+        np.testing.assert_array_equal(out[t.rid], w)
+    assert p_mesh.metrics.n_page_moves == moves == 0
+    assert p_mesh.metrics.n_remeshes == 2
+    res["features"] = {"rebalances": rebalances, "remeshes": 2,
+                       "page_moves": 0}
+    del p_mesh
+    gc.collect()
+    # (f) distinct cards
+    if torch.cuda.device_count() > 1:
+        eng = engine("data=2,model=2", distinct=True)
+        outs, logits, counts, _, _ = _mesh_serve(eng, prompts, "17f cards")
+        _mesh_same("17f", outs, logits, want, want_l)
+        res["multi_card"] = {"cards": eng.summary()["mesh_physical_devices"]}
+        del eng
+    else:
+        res["multi_card"] = ("no multi-card run: one card; every logical "
+                             "device of this phase shared it")
+    # the single-device serve timed again after every mesh: what the
+    # phase's own course does to the host-bound decode step
+    res["single_device_again"] = _mesh_speed(single, prompts, want)
+    del single
+    res["vocab_slab_differing_elements"] = _vocab_slabs(model.prepare(params))
+    res["note"] = (f"{MESH_LOGICAL} logical devices on "
+                   f"{torch.cuda.device_count()} card(s): the times are those "
+                   "of one card running every shard's launches; no "
+                   "multi-card speed is claimed")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 17: {json.dumps(res)}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def _flash_entries(flash):
     """The kernels-line entries of kernels 5-7: headline numbers from the
     train step's own attention inputs (layer 0; `tc`, with the SIMT
@@ -5647,6 +5953,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     roofline = phase_roofline(smi)
     log(f"phase 16 done at {time.perf_counter() - t0:.1f}s")
+    mesh = phase_mesh(smi)
+    log(f"phase 17 done at {time.perf_counter() - t0:.1f}s")
     by_name = {k["name"]: k for k in kernels}
     for name, key in (("ftp_bsr", "k3"), ("ftp_bsr_adaptive", "k4"),
                       ("ftp_spmm", "k1"), ("ftp_spmm_fused_lif", "k2")):
@@ -5671,11 +5979,20 @@ def main() -> int:
         by_name[name]["max_abs_err"] = max(
             by_name[name]["max_abs_err"],
             max(r["dense_max_abs_err"] for r in snn["layers"]))
+    by_name["ftp_bsr"]["mesh"] = mesh["kernel3"]
+    by_name["ftp_bsr_adaptive"]["mesh"] = {
+        "launches": mesh["adaptive"]["ftp_bsr_adaptive_launches"]}
+    by_name["ftp_spmm"]["mesh"] = {"launches": mesh["dense"]["ftp_spmm_launches"]}
+    by_name["ftp_spmm_fused_lif"]["mesh"] = {
+        "launches": mesh["dense"]["ftp_spmm_fused_lif_launches"]}
+    by_name["ftp_bsr"]["max_abs_err"] = max(by_name["ftp_bsr"]["max_abs_err"],
+                                            mesh["kernel3"]["max_abs_err"])
     assert all(k["launches"] > 0 for k in kernels), [k["launches"] for k in kernels]
     print(json.dumps({"recurrent": recurrent}), flush=True)
     print(json.dumps({"moe_frontends": moe_frontends}), flush=True)
     print(json.dumps({"snn_track": snn}), flush=True)
     print(json.dumps({"roofline": roofline}), flush=True)
+    print(json.dumps({"mesh": mesh}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {

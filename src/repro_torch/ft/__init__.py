@@ -1,6 +1,6 @@
-"""Fault tolerance of the training loop (port of `repro.ft`: preemption
-and straggler detection; elastic re-meshing waits for the multi-device
-slice)."""
+"""Fault tolerance (port of `repro.ft`: preemption, straggler detection,
+and the serve half of elastic re-meshing, `elastic.plan_serve_mesh`; the
+trainer's re-mesh is ROADMAP item 12c)."""
 from .preemption import PreemptionHandler
 from .straggler import StepTimer
 

@@ -10,6 +10,7 @@ sources loads the library it finds instead of building again.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -94,3 +95,14 @@ def load(name: str) -> ctypes.CDLL:
     if not path.exists():
         build()
     return ctypes.CDLL(str(path))
+
+
+def on_card(device):
+    """The context a ctypes launch on ``device``'s tensors runs in: that
+    card made current (a launch runs on the current device, whatever the
+    tensors' stream), or nothing to switch when the process sees one card."""
+    import torch
+
+    if torch.cuda.device_count() > 1:
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

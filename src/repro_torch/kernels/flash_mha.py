@@ -214,11 +214,12 @@ def _fwd_launch(q, k, v, *, scale, causal, window, instance):
     BH, S, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((BH, S), dtype=torch.float32, device=q.device)
-    rc = _lib().flash_fwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        *_geometry(q, S, k.shape[1], scale, causal, window, instance),
-        o.data_ptr(), lse.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with _build.on_card(q.device):  # launch on the tensors' card
+        rc = _lib().flash_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *_geometry(q, S, k.shape[1], scale, causal, window, instance),
+            o.data_ptr(), lse.data_ptr(),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, f"flash_fwd ({instance})")
     _count("flash_fwd", instance)
     return o, lse
@@ -277,9 +278,11 @@ def _dq_launch(q, k, v, do, lse, delta, *, scale, causal, window, instance):
     """Kernel 6's dq kernel at a template dh."""
     q, k, v, do = map(_aligned, (q, k, v, do))  # alive through the launch
     dq = torch.empty_like(q)
-    rc = _lib().flash_bwd_dq_launch(
-        *_bwd_args(q, k, v, do, lse, delta, scale, causal, window, instance),
-        dq.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
+    with _build.on_card(q.device):
+        rc = _lib().flash_bwd_dq_launch(
+            *_bwd_args(q, k, v, do, lse, delta, scale, causal, window,
+                       instance),
+            dq.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, f"flash_bwd_dq ({instance})")
     _count("flash_bwd_dq", instance)
     return dq
@@ -289,10 +292,12 @@ def _dkv_launch(q, k, v, do, lse, delta, *, scale, causal, window, instance):
     """Kernel 6's dk/dv kernel at a template dh."""
     q, k, v, do = map(_aligned, (q, k, v, do))  # alive through the launch
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    rc = _lib().flash_bwd_dkv_launch(
-        *_bwd_args(q, k, v, do, lse, delta, scale, causal, window, instance),
-        dk.data_ptr(), dv.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with _build.on_card(q.device):
+        rc = _lib().flash_bwd_dkv_launch(
+            *_bwd_args(q, k, v, do, lse, delta, scale, causal, window,
+                       instance),
+            dk.data_ptr(), dv.data_ptr(),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, f"flash_bwd_dkv ({instance})")
     _count("flash_bwd_dkv", instance)
     return dk, dv

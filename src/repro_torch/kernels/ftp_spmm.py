@@ -204,7 +204,7 @@ def dense_tc_shape(M: int, K: int, N: int, T: int) -> dict[str, int]:
             "bm": rows // t_pad}
 
 
-def _dense_launch(a, b, T, v_th, tau, fuse_lif, instance=None):
+def _dense_launch(a, b, T, v_th, tau, fuse_lif, instance=None, parent_n=None):
     if a.device.type != "cuda":
         raise ValueError(f"no ftp_dense kernel for device {a.device}")
     M, K = a.shape
@@ -218,7 +218,10 @@ def _dense_launch(a, b, T, v_th, tau, fuse_lif, instance=None):
                          f"aligned base and N * 2 % 16 == 0, got {b.dtype}, N={N}")
     elif instance not in ("tc", "simt"):
         raise ValueError(f"no ftp_dense instance {instance!r}")
-    shape = dense_tc_shape(M, K, N, T) if instance == "tc" else None
+    # a column slab sums in its parent's order: the launch shape of the
+    # whole weight's N (splits and k_split depend on (K, N) alone)
+    shape = (dense_tc_shape(M, K, N if parent_n is None else parent_n, T)
+             if instance == "tc" else None)
     bm = shape["bm"] if shape else pick_bm(M, T)
     if min(M, K, N) < 1 or -(-M // bm) > _MAX_ROW_TILES:
         raise ValueError(f"the kernel takes 1 <= M <= {_MAX_ROW_TILES} row "
@@ -232,18 +235,21 @@ def _dense_launch(a, b, T, v_th, tau, fuse_lif, instance=None):
     stream = torch.cuda.current_stream(a.device).cuda_stream
     lib = _kernel_lib("ftp_dense")
     u_ptr = None if u is None else u.data_ptr()
-    if instance == "tc":
-        a_vec = a.data_ptr() % 16 == 0 and K % 4 == 0
-        rc = lib.ftp_dense_tc_launch(
-            a.data_ptr(), M, K, int(a_vec), b.data_ptr(), N, T, shape["rows"],
-            bm, shape["splits"], shape["k_split"], float(v_th), float(tau),
-            int(fuse_lif), out.data_ptr(), u_ptr, stream)
-    else:
-        vec_ok = aligned and (N * b.element_size()) % 16 == 0
-        rc = lib.ftp_dense_launch(
-            a.data_ptr(), M, K, b.data_ptr(), int(b.dtype == torch.bfloat16), N,
-            int(vec_ok), bm // 4, T, float(v_th), float(tau), int(fuse_lif),
-            out.data_ptr(), u_ptr, stream)
+    with _build.on_card(a.device):  # launch on the tensors' card
+        if instance == "tc":
+            a_vec = a.data_ptr() % 16 == 0 and K % 4 == 0
+            rc = lib.ftp_dense_tc_launch(
+                a.data_ptr(), M, K, int(a_vec), b.data_ptr(), N, T,
+                shape["rows"], bm, shape["splits"], shape["k_split"],
+                float(v_th), float(tau), int(fuse_lif), out.data_ptr(), u_ptr,
+                stream)
+        else:
+            vec_ok = aligned and (N * b.element_size()) % 16 == 0
+            rc = lib.ftp_dense_launch(
+                a.data_ptr(), M, K, b.data_ptr(),
+                int(b.dtype == torch.bfloat16), N, int(vec_ok), bm // 4, T,
+                float(v_th), float(tau), int(fuse_lif), out.data_ptr(), u_ptr,
+                stream)
     _raise_on(rc, "ftp_dense")
     global DENSE_TC_LAUNCHES, DENSE_SIMT_LAUNCHES
     if instance == "tc":
@@ -263,15 +269,20 @@ def _dense_work(name: str, fuse_lif: bool):
 
 @counted_kernel(_dense_work("ftp_spmm", False))
 def ftp_spmm(a: torch.Tensor, b: torch.Tensor, T: int, *,
-             instance: str | None = None) -> torch.Tensor:
+             instance: str | None = None,
+             parent_n: int | None = None) -> torch.Tensor:
     """(M, K) int32 packed spikes x (K, N) bf16/f32 dense weights -> (T, M,
     N) f32 full sums (kernel 1).  ``instance`` ("tc" or "simt") overrides
     `dense_instance`'s choice, to measure one instance against the other;
-    an instance the weights do not fit raises."""
+    an instance the weights do not fit raises.  ``parent_n``: when ``b`` is
+    a column slab of a wider weight (a model shard), that weight's column
+    count; the tc instance then launches with the whole weight's shape, so
+    every element is summed in the order the unsharded call sums it."""
     _check_dense(a, b, T)
     if a.device.type == "cpu":
         return ftp_spmm_plain(a, b, T)
-    out, _ = _dense_launch(a, b, T, DEFAULT_VTH, DEFAULT_TAU, False, instance)
+    out, _ = _dense_launch(a, b, T, DEFAULT_VTH, DEFAULT_TAU, False, instance,
+                           parent_n)
     global SPMM_LAUNCHES
     SPMM_LAUNCHES += 1
     return out
@@ -374,7 +385,8 @@ def bsr_tc_shape(nnb: int, bn: int, jmax: int, T: int, bm: int) -> dict[str, int
 
 
 def _bsr_work(a, payload, kidx, vidx, cnt, act, n_out, T, v_th=DEFAULT_VTH,
-              tau=DEFAULT_TAU, *, bm, fuse_lif=True, tmap=None, instance=None):
+              tau=DEFAULT_TAU, *, bm, fuse_lif=True, tmap=None, instance=None,
+              parent=None):
     kernel_work.check_values(a, "ftp_spmm_bsr")
     nbytes, ops = kernel_work.bsr_work(a, payload, kidx, vidx, cnt, act, n_out,
                                        T, bm=bm, fuse_lif=fuse_lif, tmap=tmap)
@@ -399,6 +411,7 @@ def ftp_spmm_bsr(
     fuse_lif: bool = True,
     tmap: torch.Tensor | None = None,
     instance: str | None = None,
+    parent: tuple[int, int] | None = None,
 ):
     """Dual-sparse FTP spMspM over a load-time weight join plan.
 
@@ -414,6 +427,10 @@ def ftp_spmm_bsr(
     instance: "tc" or "simt" overrides `bsr_instance`'s choice, to measure
              one instance against the other; an instance the payload does
              not fit raises.
+    parent:  (nnb, jmax) of the whole plan when this plan is one of its
+             column slabs (`join_plan.shard_plan`): the tc instance then
+             launches with the whole plan's splits and slots per rank, so
+             every element is summed in the order of the unsharded call.
 
     Returns (packed spikes (M, n_out) int32, final U (M, n_out) f32) when
     ``fuse_lif``, else ((T, M, n_out) f32 full sums, zeros (M, n_out))."""
@@ -454,23 +471,29 @@ def ftp_spmm_bsr(
     lib = _kernel_lib("ftp_bsr")
     tmap_ptr = None if tmap is None else tmap.data_ptr()
     jmax = kidx.shape[1]
-    if instance == "tc":
-        shape = bsr_tc_shape(nnb, bn, jmax, T, bm)
-        a_vec = a.data_ptr() % 16 == 0 and K % 4 == 0
-        rc = lib.ftp_bsr_tc_launch(
-            a.data_ptr(), M, K, int(a_vec), payload.data_ptr(), bk, bn,
-            kidx.data_ptr(), vidx.data_ptr(), cnt.data_ptr(), nnb, jmax,
-            act.data_ptr(), act.shape[1], tmap_ptr, T, shape["rows"], bm,
-            shape["splits"], shape["slots_per_rank"], n_out, float(v_th),
-            float(tau), int(fuse_lif), out.data_ptr(), u.data_ptr(), stream)
-    else:
-        rc = lib.ftp_bsr_launch(
-            a.data_ptr(), M, K, payload.data_ptr(),
-            int(payload.dtype == torch.bfloat16), bk, bn,
-            kidx.data_ptr(), vidx.data_ptr(), cnt.data_ptr(), nnb, jmax,
-            act.data_ptr(), act.shape[1], tmap_ptr, bm // 4, n_out, T,
-            float(v_th), float(tau), int(fuse_lif), out.data_ptr(),
-            u.data_ptr(), stream)
+    if parent is not None and (parent[1] < jmax or parent[0] < nnb):
+        raise ValueError(f"a column slab ({nnb}, {jmax}) cannot be wider "
+                         f"than its parent plan {tuple(parent)}")
+    with _build.on_card(a.device):  # launch on the tensors' card
+        if instance == "tc":
+            p_nnb, p_jmax = (nnb, jmax) if parent is None else parent
+            shape = bsr_tc_shape(p_nnb, bn, p_jmax, T, bm)
+            a_vec = a.data_ptr() % 16 == 0 and K % 4 == 0
+            rc = lib.ftp_bsr_tc_launch(
+                a.data_ptr(), M, K, int(a_vec), payload.data_ptr(), bk, bn,
+                kidx.data_ptr(), vidx.data_ptr(), cnt.data_ptr(), nnb, jmax,
+                act.data_ptr(), act.shape[1], tmap_ptr, T, shape["rows"], bm,
+                shape["splits"], shape["slots_per_rank"], n_out, float(v_th),
+                float(tau), int(fuse_lif), out.data_ptr(), u.data_ptr(),
+                stream)
+        else:
+            rc = lib.ftp_bsr_launch(
+                a.data_ptr(), M, K, payload.data_ptr(),
+                int(payload.dtype == torch.bfloat16), bk, bn,
+                kidx.data_ptr(), vidx.data_ptr(), cnt.data_ptr(), nnb, jmax,
+                act.data_ptr(), act.shape[1], tmap_ptr, bm // 4, n_out, T,
+                float(v_th), float(tau), int(fuse_lif), out.data_ptr(),
+                u.data_ptr(), stream)
     _raise_on(rc, "ftp_bsr")
     global LAUNCHES, ADAPTIVE_LAUNCHES, BSR_TC_LAUNCHES, BSR_SIMT_LAUNCHES
     if tmap is None:

@@ -26,6 +26,15 @@ keeps the sampled tokens on the device behind a window of D steps;
 with radix prefix reuse (max_len is rounded up to a multiple of N).
 ``--batch-align`` pads prefill batches to a multiple of it.
 
+Mesh serving: ``--mesh data,model`` (or ``data=4,model=2``, ``4,2``)
+serves on a (data, model) mesh of logical devices under the bitwise
+(reduction-free) placement: the same tokens as the unsharded serve.
+``--fake-devices N`` makes N logical devices, mapped round-robin onto the
+process's physical devices (the CPU with ``--device cpu``, else the
+cards), as the reference's fake XLA host devices do:
+
+    ... --device cpu --mesh data,model --fake-devices 8 --batch 4 --gen 6
+
 Speculative decoding: ``--speculation draft --k K`` has a cheaper draft
 policy over the same weights propose K tokens a round (the packed target's
 own policy, unless ``--draft-weight-density D`` prunes its FFNs harder or
@@ -85,11 +94,13 @@ def build_config(arch: str, *, smoke: bool, spiking: bool,
     return cfg
 
 
-def build_policy(args, cfg):
-    """The `ExecutionPolicy` the flags name."""
+def build_policy(args, cfg, device=None):
+    """The `ExecutionPolicy` the flags name (``--mesh`` over the logical
+    devices on ``device``)."""
     from repro_torch.serve import (
         ExecutionPolicy,
         Paging,
+        Placement,
         Temporal,
         adaptive_t,
         approximate,
@@ -117,6 +128,7 @@ def build_policy(args, cfg):
     return ExecutionPolicy.for_arch(
         cfg, spike_format=args.spike_format,
         weight_sparsity=args.weight_sparsity,
+        placement=Placement.from_spec(args.mesh, device=device),
         exactness=(approximate(args.tol) if args.exactness == "approximate"
                    else bitwise()),
         execution=args.execution,
@@ -345,6 +357,14 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain versions)")
+    ap.add_argument("--mesh", default=None,
+                    help="policy.placement mesh spec, e.g. 'data,model' "
+                         "(auto sizes), 'data=4,model=2' or '4,2'; omitted "
+                         "= unsharded; one device serves unsharded")
+    ap.add_argument("--fake-devices", type=int, default=0,
+                    help="make this many logical devices, mapped "
+                         "round-robin onto the physical ones (mesh serving "
+                         "on one card or on the CPU)")
     args = ap.parse_args(argv)
     if args.stream and (args.handoff_path or args.resume):
         raise SystemExit(
@@ -364,8 +384,18 @@ def main(argv=None) -> int:
     if not cfg.supports_decode:
         raise SystemExit(f"{cfg.name} is encoder-only; no decode path")
     device = resolve_device(args.device)
-    policy = build_policy(args, cfg)
+    if args.fake_devices:
+        from repro_torch.launch.mesh import force_fake_devices
+
+        force_fake_devices(args.fake_devices)
+    policy = build_policy(args, cfg, device)
     print(f"policy: {policy.describe()}  device: {device}")
+    mesh = policy.mesh
+    if args.mesh and mesh is None:
+        print("mesh: single device — auto fallback to unsharded serving")
+    elif mesh is not None:
+        print(f"mesh: {mesh.shape} over {mesh.size} logical devices on "
+              f"{len(mesh.physical_devices())} physical ({mesh.lead.type})")
     max_len = args.prompt_len + args.gen
     if policy.speculation.enabled:
         # a verify window may pass a row's budget by up to k positions

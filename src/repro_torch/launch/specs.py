@@ -1,5 +1,5 @@
 """Cell builder (port of `repro.launch.specs`): (arch x shape) -> the step
-function and its inputs, on one device (the mesh is ROADMAP item 12).
+function and its inputs, on one device (the train mesh is ROADMAP item 12c).
 
 Training cells run the port's `make_train_step`; prefill cells
 `Model.prefill`; decode cells (decode_32k, long_500k) `Model.decode`, one

@@ -8,8 +8,8 @@ CUDA device by default.
 ``--smoke`` shrinks the arch to the CPU test size; ``--device cpu`` runs on
 the CPU.  Params come from seed 0 (a torch generator on the device).  The
 reference's flags, plus ``--device``; ``--mesh host`` (multi-host data
-parallelism) waits for the multi-device slice.  There is no spiking flag,
-as in the reference: the spiking LM trains through a config with
+parallelism) waits for the train mesh, ROADMAP item 12c.  There is no
+spiking flag, as in the reference: the spiking LM trains through a config with
 ``spiking_ffn=True`` (`dataclasses.replace`).
 """
 from __future__ import annotations
@@ -35,8 +35,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.mesh != "none":
         raise NotImplementedError(
-            "--mesh host is the multi-device slice of the port (ROADMAP "
-            "item 12); this launcher trains on one device")
+            "--mesh host is the train mesh of the port (ROADMAP item 12c); "
+            "this launcher trains on one device")
 
     from repro_torch import resolve_device
     from repro_torch.ckpt import CheckpointManager

@@ -33,6 +33,13 @@ Q_BLOCK = 32
 # alone (B x KV = 1) took another algorithm than a batch of 4 did, and its
 # logits moved in their last bits (PERF.md has the measurement).
 B_BLOCK = 4
+# Column blocks of the serving unembedding (`vocab_blocks`; fewer when the
+# vocab does not divide): one device and every serve mesh make the same
+# (ROW_BLOCK, D) x (D, V / VOCAB_BLOCKS) library products, so a model axis
+# that divides the count shards the vocab without changing a bit.  On the
+# card a product over a column slab sums in another order than the whole
+# product at some widths (chip_smoke phase 17e measures it).
+VOCAB_BLOCKS = 8
 
 
 def _dt(cfg: ArchConfig) -> torch.dtype:
@@ -85,6 +92,73 @@ def batch_blocks(fn, args, fills) -> tuple:
                 for a, f in zip(args, fills)]
     outs = [fn(*(a[i:i + B_BLOCK] for a in args)) for i in range(0, nb, B_BLOCK)]
     return tuple((o[0] if len(o) == 1 else torch.cat(o))[:n] for o in zip(*outs))
+
+
+def vocab_blocks(w: torch.Tensor) -> torch.Tensor:
+    """A (D, V) unembedding as its (n, D, V / n) contiguous column blocks,
+    n the largest halving of `VOCAB_BLOCKS` that divides V."""
+    D, V = w.shape
+    n = VOCAB_BLOCKS
+    while V % n:
+        n //= 2
+    return w.reshape(D, n, V // n).permute(1, 0, 2).contiguous()
+
+
+def _vocab_mm(x: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
+    """(R, D) rows x (n, D, Vb) column blocks -> (R, n * Vb), one library
+    product per block."""
+    return torch.cat([x @ w for w in blocks], dim=-1)
+
+
+class VocabSlabs:
+    """An unembedding's column blocks dealt over a serve mesh's model axis
+    (`serve.sharding.shard_vocab`): slab j, blocks [j n / shards, (j + 1) n
+    / shards), runs on logical device (i, j) for data group i.  On the
+    blocks' own device a slab is a view; on another, a copy made once."""
+
+    def __init__(self, blocks: torch.Tensor, shards: int):
+        if blocks.shape[0] % shards:
+            raise ValueError(f"{blocks.shape[0]} vocab blocks do not divide "
+                             f"into {shards} slabs")
+        self.blocks, self.shards = blocks, shards
+        self._placed: dict = {}
+
+    def slab(self, j: int, device=None) -> torch.Tensor:
+        per = self.blocks.shape[0] // self.shards
+        home = self.blocks[j * per:(j + 1) * per]
+        if device is None or torch.device(device) == self.blocks.device:
+            return home
+        key = (j, str(torch.device(device)))
+        if key not in self._placed:
+            self._placed[key] = home.to(device)
+        return self._placed[key]
+
+
+def vocab_logits(x: torch.Tensor, w) -> torch.Tensor:
+    """(R, D) f32 rows x the unembedding's column blocks -> (R, V) f32
+    logits, over fixed blocks of rows and of columns.  ``w`` is the (n, D,
+    Vb) blocks, or `VocabSlabs` under the serve mesh: the rows split into
+    its data groups and slab j of group i runs on device (i, j), with the
+    products of the unsharded call, concatenated in order."""
+    if not isinstance(w, VocabSlabs):
+        return row_blocks(_vocab_mm, x, w)
+    from repro_torch.kernels.ops import get_serve_mesh
+    from repro_torch.launch.mesh import data_groups
+
+    mesh = get_serve_mesh()
+    if mesh is None or mesh.shape["model"] != w.shards:
+        raise ValueError(
+            f"vocab slabs over {w.shards} model shards need a serve mesh with "
+            f"that model axis (ops.serve_mesh_scope); got {mesh}")
+    out = []
+    for i, rows in data_groups(mesh, x.shape[0]):
+        parts = []
+        for j in range(w.shards):
+            dev = mesh.physical(i, j)
+            parts.append(row_blocks(_vocab_mm, x[rows].to(dev),
+                                    w.slab(j, dev)).to(x.device))
+        out.append(torch.cat(parts, dim=-1))
+    return torch.cat(out)
 
 
 def _mean_square(x: torch.Tensor) -> torch.Tensor:
@@ -244,8 +318,8 @@ def attn_apply(p, x, cfg: ArchConfig, *, positions, cache=None):
     vector and ``pos`` a host int."""
     if cfg.expand_kv:
         raise NotImplementedError(
-            "expand_kv (KV heads replicated for tensor parallelism) is the "
-            "multi-device slice; see ROADMAP.md item 12"
+            "expand_kv (KV heads replicated for tensor parallelism) belongs "
+            "to approximate-TP serving, ROADMAP.md item 12b"
         )
     B, S, D = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
@@ -328,25 +402,40 @@ def mlp_init(gen: torch.Generator, cfg: ArchConfig, d_ff=None) -> dict:
     return p
 
 
-def attach_spiking_ffn_plans(params: dict, cfg: ArchConfig) -> dict:
+def attach_spiking_ffn_plans(params: dict, cfg: ArchConfig,
+                             model_shards: int = 1) -> dict:
     """Load-time step of the dual-sparse serving path: assert the prune-once
     density contract and attach one `WeightJoinPlan` per GEMM per layer
     (``plan_in`` / ``plan_out``, payload in the compute dtype, on the
-    weights' device).  Returns a new tree; host work happens once here."""
+    weights' device).  Returns a new tree; host work happens once here.
+
+    ``model_shards > 1`` (mesh serving): each plan is split into that many
+    column slabs (`join_plan.shard_plan`), which `serve.sharding.place_plans`
+    deals out over the mesh's model axis."""
     if not cfg.spiking_ffn:
         return params
     from repro_torch.core.snn_layers import assert_weight_density
-    from repro_torch.kernels.join_plan import build_weight_plan
+    from repro_torch.kernels.join_plan import (
+        build_sharded_weight_plan,
+        build_weight_plan,
+        shard_plan,
+    )
 
     ct = _ct(cfg)
+
+    def build_weight_plan_for(w):
+        if model_shards > 1:
+            return shard_plan(build_sharded_weight_plan(w, model_shards),
+                              model_shards)
+        return build_weight_plan(w)
 
     def prepare(mlp):
         if cfg.spiking_weight_density < 1.0:
             assert_weight_density(mlp["wu"], cfg.spiking_weight_density)
             assert_weight_density(mlp["wd"], cfg.spiking_weight_density)
         # the payload carries the compute-dtype cast the apply path uses
-        return dict(mlp, plan_in=build_weight_plan(mlp["wu"].to(ct)),
-                    plan_out=build_weight_plan(mlp["wd"].to(ct)))
+        return dict(mlp, plan_in=build_weight_plan_for(mlp["wu"].to(ct)),
+                    plan_out=build_weight_plan_for(mlp["wd"].to(ct)))
 
     def walk(node):
         # every spiking-FFN weight pair (a dict with wu and wd, no gate),

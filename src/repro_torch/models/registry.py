@@ -1,7 +1,8 @@
 """Uniform Model interface (port of `repro.models.registry`: the
 transformer families ``dense``, ``moe``, ``audio`` and ``vlm``, RWKV6
-(``ssm``) and Zamba2 (``hybrid``); ``axes`` waits for the multi-device
-slice).
+(``ssm``) and Zamba2 (``hybrid``); ``axes`` waits for the train mesh,
+ROADMAP.md item 12c: the serve mesh shards only the join plans and the
+unembedding's column blocks, which it finds by name).
 
     init(seed=0, *, device=None) -> params      (seeded torch.Generator)
     loss(params, batch) -> scalar loss          (the training forward)

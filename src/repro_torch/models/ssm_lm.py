@@ -28,11 +28,11 @@ from repro_torch.configs.base import ArchConfig
 from . import mamba2, rwkv6
 from .layers import _ct, _dt, dense_init, rmsnorm
 from .transformer import (
-    _unembed_weight,
     cast_matrices,
     ce_loss,
     embed_tokens,
     unembed,
+    unembed_blocks,
 )
 
 
@@ -70,12 +70,13 @@ def rwkv_init(cfg: ArchConfig, gen: torch.Generator) -> dict:
 def rwkv_prepare(cfg: ArchConfig, params: dict) -> dict:
     """Load-time casts the forward repeats on every call: each layer's
     projections and mixing factors in the compute dtype, the unembedding as
-    the f32 values of its compute-dtype cast.  Every forward sees the same
-    values; only the per-call casts go."""
+    the f32 column blocks (`layers.vocab_blocks`) of its compute-dtype
+    cast.  Every forward sees the same values; only the per-call casts
+    go."""
     ct = _ct(cfg)
     return dict(params,
                 layers=[_cast(lp, rwkv6.CAST_KEYS, ct) for lp in params["layers"]],
-                unembed=_unembed_weight(params, cfg))
+                unembed=unembed_blocks(params, cfg))
 
 
 def _rwkv_stack(p, x, cfg: ArchConfig, states=None):
@@ -155,7 +156,7 @@ def zamba_prepare(cfg: ArchConfig, params: dict) -> dict:
                   mlp=cast_matrices(sh["mlp"], ct))
     return dict(params,
                 mamba=[_cast(lp, mamba2.CAST_KEYS, ct) for lp in params["mamba"]],
-                shared=shared, unembed=_unembed_weight(params, cfg))
+                shared=shared, unembed=unembed_blocks(params, cfg))
 
 
 def _zamba_stack(p, x, cfg: ArchConfig, x0, positions, states=None,

@@ -35,7 +35,8 @@ from .layers import (
     moe_apply,
     moe_init,
     rmsnorm,
-    row_blocks,
+    vocab_blocks,
+    vocab_logits,
 )
 
 
@@ -101,7 +102,8 @@ def prepare_params(cfg: ArchConfig, params: dict) -> dict:
     attention and FFN matrices, the experts' (E, ., .) weights and the VLM
     projector in the compute dtype, and the unembedding (the tied embedding
     transposed once, the untied ``lm_head`` or the encoder's ``head``) as
-    the f32 values of its compute-dtype cast.  The values every forward
+    the f32 column blocks (`layers.vocab_blocks`) of its compute-dtype
+    cast.  The values every forward
     sees are unchanged; only the per-call casts go.  The MoE router stays
     f32 (the reference routes in f32: a rounded router would pick other
     experts), the f32 embedding stays for the token lookup (`embed_tokens`
@@ -116,7 +118,7 @@ def prepare_params(cfg: ArchConfig, params: dict) -> dict:
         else:
             lp["mlp"] = cast_matrices(lp["mlp"], ct)
         layers.append(lp)
-    out = dict(params, layers=layers, unembed=_unembed_weight(params, cfg))
+    out = dict(params, layers=layers, unembed=unembed_blocks(params, cfg))
     if "mm_proj" in params:
         out["mm_proj"] = params["mm_proj"].to(ct)
     return out
@@ -150,8 +152,6 @@ def _unembed_weight(p, cfg: ArchConfig) -> torch.Tensor:
     of the encoder's ``head``, the tied embedding (transposed) or the
     untied ``lm_head``, so an f32 product equals the reference's bf16 x
     bf16 contraction with f32 accumulation."""
-    if "unembed" in p:
-        return p["unembed"]
     if cfg.encoder_only:
         return p["head"].to(_ct(cfg)).float()
     if not cfg.tie_embeddings:
@@ -159,13 +159,23 @@ def _unembed_weight(p, cfg: ArchConfig) -> torch.Tensor:
     return p["embed"].to(_ct(cfg)).float().T.contiguous()
 
 
+def unembed_blocks(p, cfg: ArchConfig):
+    """The serving unembedding: prepared params' ``unembed`` (column blocks,
+    or `layers.VocabSlabs` on a serve mesh), else the column blocks of
+    `_unembed_weight`."""
+    if "unembed" in p:
+        return p["unembed"]
+    return vocab_blocks(_unembed_weight(p, cfg))
+
+
 def unembed(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """(B, S, D) -> (B, S, V) f32 logits of the serving forward: the
-    product over fixed blocks of rows (`layers.row_blocks`), so a row's
-    logits do not depend on how many rows share the dispatch."""
+    product over fixed blocks of rows and of vocab columns
+    (`layers.vocab_logits`), so a row's logits do not depend on how many
+    rows share the dispatch nor on how the vocab is sharded."""
     B, S, D = x.shape
     xf = x.to(_ct(cfg)).float().reshape(B * S, D)
-    return row_blocks(torch.matmul, xf, _unembed_weight(p, cfg)).reshape(B, S, -1)
+    return vocab_logits(xf, unembed_blocks(p, cfg)).reshape(B, S, -1)
 
 
 def embed_batch(p, cfg: ArchConfig, batch: dict) -> torch.Tensor:

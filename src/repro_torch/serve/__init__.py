@@ -1,11 +1,13 @@
 """Serving: continuous-batching engine, scheduler, step executors, paged
 cache storage, speculative decoding, event-stream prompts, the preemption
-handoff and execution policy (port of `repro.serve`, one device)."""
+handoff, execution policy and the (data, model) serve mesh (port of
+`repro.serve`)."""
 from .batching import (
     CacheOps,
     DenseCacheOps,
     PackedSpikeCache,
     bucket_key,
+    cache_pad_rows,
     pad_batch,
 )
 from .engine import Cohort, Engine
@@ -33,6 +35,7 @@ from .policy import (
     ExecutionPolicy,
     Paging,
     ParityError,
+    Placement,
     Speculation,
     Temporal,
     acceptance_lengths,
@@ -51,7 +54,9 @@ from .scheduler import (
     Request,
     RequestState,
     Scheduler,
+    rebalance_pad,
 )
+from .sharding import make_serve_mesh, mesh_summary, parse_mesh_spec
 from .streaming import Backpressure, EventStream, Frame, StreamSession
 
 __all__ = [
@@ -62,10 +67,13 @@ __all__ = [
     "PACKED_DENSE", "PACKED_DUAL", "PACKED_DUAL_ADAPTIVE", "PackedSpikeCache",
     "PageLayout", "PagePoolExhausted", "PagedCache", "PagedCacheOps",
     "PagedSpikeCache", "Paging", "ParityError", "PendingStep",
-    "PipelinedExecutor", "PrefixEntry", "RadixPrefixIndex", "Request",
+    "PipelinedExecutor", "Placement", "PrefixEntry", "RadixPrefixIndex",
+    "Request",
     "RequestMetrics", "RequestState", "Scheduler", "Speculation",
     "SpikeSlotPool", "StreamSession", "SyncExecutor", "Temporal",
     "acceptance_lengths", "adaptive_t", "approximate", "bitwise",
-    "bucket_key", "capture_handoff", "check_parity", "draft", "drift_report", "make_executor",
-    "max_logit_drift", "pad_batch", "paged", "propose_chain",
+    "bucket_key", "cache_pad_rows", "capture_handoff", "check_parity",
+    "draft", "drift_report", "make_executor", "make_serve_mesh",
+    "max_logit_drift", "mesh_summary", "pad_batch", "paged",
+    "parse_mesh_spec", "propose_chain", "rebalance_pad",
 ]

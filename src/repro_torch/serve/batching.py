@@ -61,6 +61,10 @@ class CacheOps:
         """Keep only rows ``idx`` (host ints); other rows are discarded."""
         raise NotImplementedError
 
+    def pad_rows(self, cache, n: int):
+        """Append ``n`` dummy (zero) rows: the mesh's load-skew re-pack."""
+        raise NotImplementedError
+
 
 class DenseCacheOps(CacheOps):
     """Dense backend: cohort caches are plain dicts of tensors; batch-axis
@@ -105,6 +109,26 @@ class DenseCacheOps(CacheOps):
                 leaf = leaf.index_select(b, rows)
             out[k] = leaf
         return out
+
+    def pad_rows(self, cache: dict, n: int) -> dict:
+        return cache_pad_rows(cache, self.axes, n)
+
+
+def cache_pad_rows(cache: dict, axes: dict, n: int) -> dict:
+    """``cache`` with ``n`` zero rows appended along every batch axis
+    (position-like leaves as they are): dummy rows whose outputs are
+    discarded, as `pad_batch`'s."""
+    if n <= 0:
+        return cache
+    out = {}
+    for k, ax in axes.items():
+        leaf, b = cache[k], _batch_axis(ax)
+        if b is not None:
+            shape = list(leaf.shape)
+            shape[b] = n
+            leaf = torch.cat([leaf, leaf.new_zeros(shape)], dim=b)
+        out[k] = leaf
+    return out
 
 
 def pad_batch(tokens: np.ndarray, align: int) -> tuple[np.ndarray, int]:

@@ -1,6 +1,7 @@
 """Continuous-batching serving engine (port of `repro.serve.engine`: one
-device; sync or pipelined execution; dense or paged cache storage with
-radix prefix reuse; speculative decoding; event-stream prompts).
+device or a (data, model) serve mesh; sync or pipelined execution; dense or
+paged cache storage with radix prefix reuse; speculative decoding;
+event-stream prompts).
 
 Each `step()` runs the staged executor (`serve/executor.py`) the policy's
 ``execution`` axis selects:
@@ -59,6 +60,18 @@ Preemption: with ``preemption=PreemptionHandler()`` a SIGTERM (or
 `serve.handoff.Handoff`, from which `Engine.resume` builds a successor that
 finishes every request token-identically.
 
+Placement (``ExecutionPolicy.placement``): under a serve mesh
+(`serve.sharding`) every model call of a cohort runs in ``data`` row
+groups when its rows divide the axis (admission pads prefill batches up to
+it, and the pipelined executor re-packs a cohort that retirement skews),
+each group on its mesh row's lead device with the mesh row installed as
+the kernels' serve mesh, so every spiking FFN's join plan and the
+unembedding's column blocks run as ``model`` slabs, slab j on logical
+device (i, j).  The placement is
+reduction-free: tokens and logits equal the single-device serve bit for
+bit.  `remesh` re-places a live engine onto another mesh (plans re-derive
+from the base weights; paged caches keep their pages, no page is copied).
+
 The engine runs on the CUDA device unless ``device`` names another one; it
 raises when there is no card and no device was named.
 """
@@ -72,6 +85,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.lif import direct_encode
 from repro_torch.core.packing import pack_spikes, timestep_popcount
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import data_groups, tree_to
 
 from .batching import DenseCacheOps, PackedSpikeCache, spike_sparsity, upload
 from .executor import make_executor
@@ -87,8 +102,16 @@ from .paging import (
     SpikeSlotPool,
     propose_chain,
 )
-from .policy import ExecutionPolicy, ParityError
+from .policy import ExecutionPolicy, ParityError, Placement
 from .scheduler import AdmissionTicket, Request, RequestState, Scheduler
+from .sharding import (
+    cache_sharding,
+    mesh_summary,
+    place_cache,
+    place_plans,
+    place_tokens,
+    shard_vocab,
+)
 
 
 @dataclass
@@ -122,14 +145,6 @@ class Cohort:
     stream: object | None = None
     draft_cache: object | None = None
     draft_behind: int = 0
-
-
-def _to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_device(v, device) for v in tree]
-    return tree.to(device)
 
 
 class Engine:
@@ -187,6 +202,7 @@ class Engine:
         # window to 1
         self.row_independent = cfg.n_experts == 0
         self.merge_cohorts = self.row_independent
+        self._user_batch_align = batch_align
         self.batch_align = batch_align if self.row_independent else 1
         self._axes = model.cache_axes()
         # -- speculative decoding (ExecutionPolicy.speculation) --------------
@@ -262,18 +278,70 @@ class Engine:
         self.spiking_dual_sparse = policy.weight_sparsity == "dual_sparse"
         self.spiking_mode = "infer" if self.spiking_packed else "train"
         self._last_spike_words: torch.Tensor | None = None
-        base = _to_device(params, self.device)
-        params = base
-        if self.spiking_dual_sparse:
-            from repro_torch.models.layers import attach_spiking_ffn_plans
-
-            params = attach_spiking_ffn_plans(params, cfg)
-        self.params = model.prepare(params)
-        if self.speculative:
-            self._configure_draft(base)
+        self._base_params = tree_to(params, self.device)
+        self._configure_placement(self.policy)
         self.executor = make_executor(self, self.policy, depth=pipeline_depth)
 
-    def _configure_draft(self, base: dict) -> None:
+    def _configure_placement(self, policy: ExecutionPolicy) -> None:
+        """(Re)derive everything the placement decides, always from the
+        base weights (so `remesh` is idempotent): admission alignment (up
+        to the data axis, so fresh cohorts split evenly from their first
+        step), the join plans split into the model axis's column slabs and
+        dealt out with the vocab's column blocks (`_place`), the params on
+        each mesh row's device (`_by_device`), and the draft's params
+        beside them."""
+        self.policy = policy
+        mesh = policy.mesh
+        self.mesh = mesh
+        if mesh is not None and mesh.lead.type != self.device.type:
+            raise ValueError(
+                f"the serve mesh's devices are {mesh.lead.type}, the engine "
+                f"runs on {self.device}")
+        self.batch_align = self._user_batch_align if self.row_independent else 1
+        if mesh is not None and self.row_independent:
+            self.batch_align = max(self.batch_align, mesh.shape["data"])
+        base = self._base_params
+        shards = 1 if mesh is None else mesh.shape["model"]
+        if mesh is not None and self.store is not None:
+            self.store.place(mesh)
+        self.params = self._prepare(base, self.spiking_dual_sparse, shards)
+        self._params_on = self._by_device(self.params)
+        if self.speculative:
+            self._configure_draft(base, shards)
+
+    def _prepare(self, base: dict, plans: bool, shards: int) -> dict:
+        """``model.prepare`` of ``base``, with join plans (column slabs
+        over ``shards`` model shards, placed on the mesh) when ``plans``."""
+        params = base
+        if plans:
+            from repro_torch.models.layers import attach_spiking_ffn_plans
+
+            params = attach_spiking_ffn_plans(params, self.cfg,
+                                              model_shards=shards)
+        return self._place(self.model.prepare(params))
+
+    def _place(self, params: dict) -> dict:
+        """Prepared params on the mesh: the plans' slabs and the vocab's
+        column blocks dealt over the model axis (`place_plans`,
+        `shard_vocab`)."""
+        if self.mesh is None:
+            return params
+        return shard_vocab(place_plans(params, self.mesh), self.mesh,
+                           self.policy.model_sharded_dims())
+
+    def _by_device(self, params: dict) -> dict:
+        """{physical device: ``params`` there} for the devices the data
+        groups run on (one tree per card; the plans' slabs place
+        themselves)."""
+        out = {self.device if self.mesh is None else self.mesh.lead: params}
+        if self.mesh is not None:
+            for i in range(self.mesh.shape["data"]):
+                dev = self.mesh.physical(i, 0)
+                if dev not in out:
+                    out[dev] = tree_to(params, dev)
+        return out
+
+    def _configure_draft(self, base: dict, shards: int = 1) -> None:
         """The draft policy's params next to the target's: the same tensors
         everywhere but the FFNs, which carry what the draft's policy runs.
         A float draft runs the float surrogate path (``spiking_mode
@@ -291,11 +359,11 @@ class Engine:
         d = spec.draft
         if spec.draft_weight_density is not None:
             tree = derive_draft_params(base, self.cfg, spec.draft_weight_density)
-            mlps = [lp["mlp"] for lp in
-                    attach_spiking_ffn_plans(tree, self.cfg)["layers"]]
+            mlps = [lp["mlp"] for lp in attach_spiking_ffn_plans(
+                tree, self.cfg, model_shards=shards)["layers"]]
         elif d.weight_sparsity == "dual_sparse" and not self.spiking_dual_sparse:
-            mlps = [lp["mlp"] for lp in
-                    attach_spiking_ffn_plans(base, self.cfg)["layers"]]
+            mlps = [lp["mlp"] for lp in attach_spiking_ffn_plans(
+                base, self.cfg, model_shards=shards)["layers"]]
         else:
             mlps = [lp["mlp"] for lp in self.params["layers"]]
         if d.weight_sparsity != "dual_sparse":
@@ -303,8 +371,10 @@ class Engine:
                      if k not in ("plan_in", "plan_out")} for m in mlps]
         elif d.temporal.enabled:
             mlps = [dict(m, ffn_policy=d) for m in mlps]
-        self.draft_params = self.model.prepare(dict(self.params, layers=[
-            dict(lp, mlp=m) for lp, m in zip(self.params["layers"], mlps)]))
+        self.draft_params = self._place(self.model.prepare(dict(
+            self.params, layers=[dict(lp, mlp=m) for lp, m
+                                 in zip(self.params["layers"], mlps)])))
+        self._draft_on = self._by_device(self.draft_params)
         self.draft_mode = "infer" if d.spike_format == "packed" else "train"
 
     # -- request API --------------------------------------------------------
@@ -452,6 +522,59 @@ class Engine:
                 eng._resume_expect[hr.rid] = np.asarray(hr.generated, np.int32)
         return eng
 
+    # -- elastic re-mesh (ft/elastic.py) -------------------------------------
+    def remesh(self, devices=None, *, mesh=None,
+               model_parallel: int | None = None) -> dict:
+        """Re-plan the serve mesh for a changed device set and re-place the
+        LIVE engine on it: params and the plans' column slabs re-derive
+        from the base weights through the same rules as construction, dense
+        cohort caches move to the new lead device, and paged caches keep
+        every page (the pools re-place; tables and refcounts are host
+        state): ``n_page_moves`` does not change.  Bitwise policies stay
+        token-identical across the re-mesh.
+
+        Pass the surviving ``devices`` (`launch.mesh.LogicalDevice`s,
+        planned by `ft.elastic.plan_serve_mesh` at the current model axis,
+        or ``model_parallel``), or an explicit ``mesh``.  One usable device
+        is the unsharded engine.  Returns the new mesh's summary."""
+        if mesh is None and devices is not None:
+            from repro_torch.ft.elastic import plan_serve_mesh
+
+            mp = model_parallel
+            if mp is None:
+                mp = self.mesh.shape["model"] if self.mesh is not None else 1
+            mesh = plan_serve_mesh(list(devices), model_parallel=mp)
+        elif mesh is None and devices is None:
+            raise ValueError("remesh needs devices=... or mesh=...")
+        if mesh == self.mesh:
+            return {"remeshed": False, **mesh_summary(mesh)}
+        import dataclasses
+
+        new_policy = dataclasses.replace(
+            self.policy,
+            placement=Placement(mesh=mesh,
+                                model_dims=self.policy.placement.model_dims),
+        ).validate_for(self.cfg)
+        # land every deferred device value before the placement flips
+        self.flush()
+        lead = self.device if mesh is None else mesh.lead
+        for cohort in self.cohorts:
+            cohort.next_tokens = None  # rebuilt from host state next decode
+            self.release_draft(cohort)  # rebuilt from host history
+            if self.paged:
+                cohort.cache.locals = tree_to(cohort.cache.locals, lead)
+            else:
+                cohort.cache = tree_to(cohort.cache, lead)
+        moves = self.metrics.n_page_moves
+        self._configure_placement(new_policy)
+        if self.paged and mesh is None:
+            self.store.pools = tree_to(self.store.pools, self.device)
+            self.store.device = self.device
+        if self.metrics.n_page_moves != moves:
+            raise AssertionError("remesh must not copy cache pages")
+        self.metrics.n_remeshes += 1
+        return {"remeshed": True, **mesh_summary(mesh)}
+
     # -- executor services --------------------------------------------------
     @torch.no_grad()
     def _encode_pack(self, params, tokens: torch.Tensor) -> torch.Tensor:
@@ -498,23 +621,104 @@ class Engine:
             cohort.draft_cache = self.cache_ops.take(cohort.draft_cache, idx)
         return self.cache_ops.take(cohort.cache, idx)
 
+    # -- placement: the data groups of a model call -------------------------
+    def _groups(self, n_rows: int):
+        """(mesh row, row slice) of each data group of a cohort call, None
+        without a mesh.  Row-coupled archs (MoE) never split."""
+        if self.mesh is None:
+            return None
+        if not self.row_independent:
+            return [(0, slice(0, n_rows))]
+        return data_groups(self.mesh, n_rows)
+
+    def _dense_call(self, call, trees: dict, tokens: torch.Tensor, cache: dict):
+        """``call(params, tokens, cache) -> (out, cache)`` over the cohort's
+        data groups: group i runs on its mesh row's lead device with that
+        row installed as the kernels' serve mesh, on its own cache rows (a
+        view of the cohort's cache on the same device: the model writes
+        its k/v rows in place).  Outputs concatenate in row order."""
+        groups = self._groups(tokens.shape[0])
+        if groups is None:
+            return call(trees[self.device], tokens, cache)
+        lead = self.mesh.lead
+        cache = place_cache(cache, self._axes, self.mesh)
+        tokens = place_tokens(tokens, self.mesh)
+        data_dim = {}  # each leaf's dim on the data axis, None: replicated
+        for k, leaf in cache.items():
+            spec = (cache_sharding(leaf, self._axes[k], self.mesh)
+                    if isinstance(leaf, torch.Tensor) else ())
+            data_dim[k] = spec.index("data") if "data" in spec else None
+        outs, parts = [], []
+        for i, rows in groups:
+            dev = self.mesh.physical(i, 0)
+            part = {}
+            for k, leaf in cache.items():
+                b = data_dim[k]
+                if isinstance(leaf, torch.Tensor):
+                    if b is not None:
+                        leaf = leaf.narrow(b, rows.start, rows.stop - rows.start)
+                    leaf = leaf.to(dev)
+                part[k] = leaf
+            with ops.serve_mesh_scope(self.mesh.row(i)):
+                out, new = call(trees[dev], tokens[rows].to(dev), part)
+            outs.append(out.to(lead))
+            parts.append((part, new))
+        merged = {}
+        for k in self._axes:
+            b = data_dim[k]
+            news = [new[k] for _, new in parts]
+            if b is None:
+                leaf = news[-1]
+                merged[k] = leaf.to(lead) if isinstance(leaf, torch.Tensor) else leaf
+            elif all(new[k] is part[k] and part[k].device == lead
+                     for part, new in parts):
+                merged[k] = cache[k]  # written in place through the views
+            else:
+                merged[k] = torch.cat([x.to(lead) for x in news], dim=b)
+        return torch.cat(outs), merged
+
+    def _paged_call(self, fn, trees: dict, tokens: torch.Tensor, tables,
+                    *rest):
+        """A paged model call ``fn(params, tokens, pools, seq, state,
+        *rest) -> (out, locals)`` over the cohort's data groups, each on
+        its rows of the page tables (pages are whole-row fragments in the
+        pools on the mesh's lead device, written in place).  The locals are
+        position-like, equal for every group."""
+        groups = self._groups(tokens.shape[0])
+        if groups is None:
+            return fn(trees[self.device], tokens, self.store.pools, *tables,
+                      *rest)
+        lead = self.mesh.lead
+        tokens = place_tokens(tokens, self.mesh)
+        outs, locals_ = [], None
+        for i, rows in groups:
+            with ops.serve_mesh_scope(self.mesh.row(i)):
+                out, locals_ = fn(trees[lead], tokens[rows], self.store.pools,
+                                  *(t[rows] for t in tables), *rest)
+            outs.append(out)
+        return torch.cat(outs), locals_
+
     # -- model dispatch (cache-backend aware) -------------------------------
     @torch.no_grad()
     def dispatch_prefill(self, tokens: np.ndarray):
         """One batched prefill over host tokens (B, P); returns (device
         logits, cohort cache): a fresh dict of tensors, or a `PagedCache`
         whose freshly allocated pages the prefill wrote in full."""
+        return self._prefill(tokens, self._params_on, self.spiking_mode)
+
+    def _prefill(self, tokens: np.ndarray, trees: dict, mode: str):
         tokens_dev = upload(tokens, torch.long, self.device)
         if not self.paged:
             cache = self.model.init_cache(tokens.shape[0], self.max_len,
                                           device=self.device)
-            return self.model.prefill(self.params, {"tokens": tokens_dev},
-                                      cache, spiking_mode=self.spiking_mode)
+            return self._dense_call(
+                lambda p, t, c: self.model.prefill(
+                    p, {"tokens": t}, c, spiking_mode=mode),
+                trees, tokens_dev, cache)
         seq_t, state_t = self.store.alloc_rows(tokens.shape[0])
         cache = PagedCache(self.store, seq_t, state_t, {})
-        logits, cache.locals = self._paged_prefill(
-            self.params, tokens_dev, self.store.pools, *cache.tables_dev(),
-            self.spiking_mode)
+        logits, cache.locals = self._paged_call(
+            self._paged_prefill, trees, tokens_dev, cache.tables_dev(), mode)
         return logits, cache
 
     @torch.no_grad()
@@ -523,11 +727,13 @@ class Engine:
         Under paging the step gathers the cohort's pages into a dense view,
         runs the model on it and writes back the pages it touched."""
         if not self.paged:
-            return self.model.decode(self.params, tokens.long(), cache,
-                                     spiking_mode=self.spiking_mode)
-        logits, cache.locals = self._paged_decode(
-            self.params, tokens.long(), self.store.pools, *cache.tables_dev(),
-            cache.locals, self.spiking_mode)
+            return self._dense_call(
+                lambda p, t, c: self.model.decode(
+                    p, t, c, spiking_mode=self.spiking_mode),
+                self._params_on, tokens.long(), cache)
+        logits, cache.locals = self._paged_call(
+            self._paged_decode, self._params_on, tokens.long(),
+            cache.tables_dev(), cache.locals, self.spiking_mode)
         return logits, cache
 
     # -- speculative dispatch (ExecutionPolicy.speculation) ------------------
@@ -539,12 +745,14 @@ class Engine:
         The ``catchup - 1`` feed positions and the k chained greedy steps
         keep their argmax feedback on the device: nothing here reads it."""
         if not self.paged:
-            return propose_chain(self.model, self.draft_params, chunk,
-                                 draft_cache, k, self.draft_mode)
+            return self._dense_call(
+                lambda p, t, c: propose_chain(self.model, p, t, c, k,
+                                              self.draft_mode),
+                self._draft_on, chunk, draft_cache)
         fn = self._page_layout.make_propose(self.model, k, chunk.shape[1])
-        toks, draft_cache.locals = fn(
-            self.draft_params, chunk, self.store.pools,
-            *draft_cache.tables_dev(), draft_cache.locals, self.draft_mode)
+        toks, draft_cache.locals = self._paged_call(
+            fn, self._draft_on, chunk, draft_cache.tables_dev(),
+            draft_cache.locals, self.draft_mode)
         return toks, draft_cache
 
     @torch.no_grad()
@@ -552,20 +760,7 @@ class Engine:
         """A draft cache from a prefill of host-known history (B, L) under
         the draft's params and mode; the prefill's logits are not used."""
         self.metrics.n_draft_prefills += 1
-        tokens_dev = upload(tokens, torch.long, self.device)
-        if not self.paged:
-            cache = self.model.init_cache(tokens.shape[0], self.max_len,
-                                          device=self.device)
-            _, cache = self.model.prefill(
-                self.draft_params, {"tokens": tokens_dev}, cache,
-                spiking_mode=self.draft_mode)
-            return cache
-        seq_t, state_t = self.store.alloc_rows(tokens.shape[0])
-        cache = PagedCache(self.store, seq_t, state_t, {})
-        _, cache.locals = self._paged_prefill(
-            self.draft_params, tokens_dev, self.store.pools,
-            *cache.tables_dev(), self.draft_mode)
-        return cache
+        return self._prefill(tokens, self._draft_on, self.draft_mode)[1]
 
     def rewind_cache(self, cache, steps: int):
         """Roll a cache's positions back by ``steps``: the rejected writes
@@ -724,6 +919,7 @@ class Engine:
         s["execution"] = self.policy.execution
         s["pipeline_depth"] = getattr(self.executor, "depth", None)
         s["token_identical"] = self.policy.token_identical
+        s.update(mesh_summary(self.mesh))
         s["paging"] = self.policy.paging.describe()
         if self.paged:
             s["page_pool"] = self.store.summary()

@@ -1,5 +1,4 @@
-"""The engine's step, in stages (port of `repro.serve.executor`, one device;
-the mesh's load-skew rebalancing is ROADMAP item 12):
+"""The engine's step, in stages (port of `repro.serve.executor`):
 
     admit -> prefill -> ingest -> merge -> decode -> sample -> encode -> retire
 
@@ -61,7 +60,7 @@ from repro_torch.ft.straggler import StepTimer
 
 from .batching import bucket_key, pad_batch, upload
 from .policy import acceptance_lengths
-from .scheduler import Request, RequestState
+from .scheduler import Request, RequestState, rebalance_pad
 
 
 class _StageClock:
@@ -537,8 +536,9 @@ class SyncExecutor:
         e.cohorts = kept
 
     def rebalance(self, cohort) -> None:
-        """Load-skew hook: re-packs mesh cohorts in the reference; one
-        device has no data axis to balance, so it does nothing here."""
+        """Load-skew hook: a no-op under sync (a cohort whose rows stop
+        dividing the data axis runs whole on mesh row 0, the replicated
+        fallback); the pipelined executor re-packs."""
 
     # -- pipelining hooks (no-ops here) -------------------------------------
     def flush(self, cohort) -> None:
@@ -594,8 +594,8 @@ class PipelinedExecutor(SyncExecutor):
 
     def repack(self) -> None:
         """Straggler response: flush every cohort and re-pack it through the
-        rebalance path (row placement only, so tokens are untouched; on one
-        device the re-pack drops alignment rows and nothing else)."""
+        rebalance path (row placement only: dummy rows re-pad to the data
+        axis, so the next decode splits rows evenly; tokens are untouched)."""
         e = self.engine
         for cohort in e.cohorts:
             if cohort.stream is not None:
@@ -685,6 +685,27 @@ class PipelinedExecutor(SyncExecutor):
     def drain(self) -> None:
         for cohort in self.engine.cohorts:
             self.flush(cohort)
+
+
+    def rebalance(self, cohort) -> None:
+        """Re-pack a mesh cohort whose surviving rows stopped dividing the
+        data axis: pad dummy rows (zero cache rows, outputs discarded) up
+        to the next multiple, so its decodes keep splitting into data
+        groups instead of running whole on mesh row 0."""
+        e = self.engine
+        if e.mesh is None or not e.row_independent:
+            return
+        pad = rebalance_pad(len(cohort.slots), e.mesh.shape["data"])
+        if pad == 0:
+            return
+        cohort.cache = e.cache_ops.pad_rows(cohort.cache, pad)
+        if cohort.draft_cache is not None:
+            # the draft mirrors the target's rows (dummy rows propose
+            # tokens nobody emits)
+            cohort.draft_cache = e.cache_ops.pad_rows(cohort.draft_cache, pad)
+        cohort.n_dummy = pad
+        e.metrics.n_rebalances += 1
+        e.metrics.n_padded_rows += pad
 
 
 def make_executor(engine, policy, *, depth: int = 2) -> SyncExecutor:

@@ -39,7 +39,7 @@ class EngineMetrics:
     n_decode_rows: int = 0        # sum of cohort batch sizes over decode calls
     n_merges: int = 0
     n_padded_rows: int = 0        # dummy rows added for batch alignment
-    n_rebalances: int = 0         # mesh cohorts re-packed (none on one device)
+    n_rebalances: int = 0         # mesh cohorts re-packed on load skew
     # paging='paged' counters.  n_page_moves counts page-granular COPIES
     # (prefix publish snapshots + copy-on-write at the divergence page);
     # cohort merge and retire are page-table edits and must add 0.
@@ -47,6 +47,7 @@ class EngineMetrics:
     n_prefix_hits: int = 0        # requests admitted from the radix index
     n_prefix_tokens_reused: int = 0   # prompt tokens whose prefill was skipped
     n_straggler_events: int = 0   # StepTimer detections fed from stage_s
+    n_remeshes: int = 0           # live serve-mesh re-plans (Engine.remesh)
     n_drained: int = 0            # requests handed off unfinished at drain
     # event streams (serve/streaming.py): sessions admitted through the
     # scheduler's stream lane, frames ingested, and each frame's wait from
@@ -127,6 +128,7 @@ class EngineMetrics:
             "prefix_tokens_reused": self.n_prefix_tokens_reused,
             "drained_requests": self.n_drained,
             "straggler_events": self.n_straggler_events,
+            "remeshes": self.n_remeshes,
             "speculative_rounds": self.n_speculative_rounds,
             "draft_batches": self.n_draft_batches,
             "draft_prefills": self.n_draft_prefills,

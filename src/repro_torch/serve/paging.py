@@ -305,6 +305,17 @@ class CacheStore:
         self._seq_free = list(range(self.n_seq_pages - 1, -1, -1))
         self._state_free = list(range(self.n_state_pages - 1, -1, -1))
 
+    def place(self, mesh) -> None:
+        """Place the pools on a serve mesh (`sharding.place_pool`: its lead
+        device; None keeps the device).  Tables, refcounts and free lists
+        are host state: no page is copied, and on the same device no byte
+        moves."""
+        from .sharding import place_pool
+
+        self.pools = {k: place_pool(v, mesh) for k, v in self.pools.items()}
+        if mesh is not None:
+            self.device = mesh.lead
+
     # -- allocation ---------------------------------------------------------
     def _alloc(self, free: list, ref: np.ndarray, n: int, kind: str):
         while len(free) < n:
@@ -493,6 +504,16 @@ class PagedCacheOps(CacheOps):
             self.store.decref_state(cache.state_table[r: r + 1])
         return PagedCache(self.store, cache.seq_table[idx],
                           cache.state_table[idx], cache.locals)
+
+    def pad_rows(self, cache: PagedCache, n: int) -> PagedCache:
+        """Append ``n`` dummy rows on zeroed pages: table edits, no copy."""
+        if n <= 0:
+            return cache
+        seq, state = self.store.alloc_rows_zeroed(n)
+        return PagedCache(self.store,
+                          np.concatenate([cache.seq_table, seq], axis=0),
+                          np.concatenate([cache.state_table, state], axis=0),
+                          cache.locals)
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,12 @@ lossy temporal skipping needs it), ``execution`` (sync | pipelined),
 ``paging`` (none | paged(page_size)), ``temporal``
 (full | adaptive(min_spikes)) and ``speculation`` (none | draft(policy, k):
 a cheaper draft policy over the same weights proposes k tokens a round, the
-target verifies all k + 1 positions in one decode).  The reference's
-placement axis (the mesh, and the psum-TP approximation it enables) is a
-later slice of the port: asking for it raises `NotImplementedError`.
+target verifies all k + 1 positions in one decode) and ``placement`` (a
+(data, model) serve mesh of logical devices under the reduction-free
+rules, `serve.sharding`).  The psum-TP approximation a model axis enables
+in the reference (``exactness=approximate`` without lossy temporal
+skipping) is approximate-TP serving, ROADMAP item 12b: asking for it
+raises `NotImplementedError`.
 
 Also here, as in the reference: `acceptance_lengths` (the speculative
 round's longest verified prefix), and `check_parity`, `max_logit_drift`
@@ -30,7 +33,7 @@ EXECUTION_MODES = ("sync", "pipelined")
 PAGING_MODES = ("none", "paged")
 SPECULATION_MODES = ("none", "draft")
 
-_LATER = "not ported yet; see the port's queue in ROADMAP.md"
+_ITEM_12B = "approximate-TP serving, ROADMAP.md item 12b"
 
 
 # ---------------------------------------------------------------------------
@@ -74,6 +77,46 @@ def bitwise() -> Exactness:
 def approximate(tol: float = 0.05) -> Exactness:
     """Relaxed contract: logit drift <= tol instead of token identity."""
     return Exactness("approximate", tol)
+
+
+@dataclass(frozen=True)
+class Placement:
+    """Where a policy runs: a (data, model) serve mesh (`launch.mesh.Mesh`,
+    or None = one device) and the logical weight dims placed on its model
+    axis.  ``model_dims`` None derives them from the exactness
+    (`serve.sharding.MODEL_SHARDED_DIMS` under bitwise); an explicit tuple
+    overrides and is checked against the exactness contract."""
+
+    mesh: object | None = None
+    model_dims: tuple[str, ...] | None = None
+
+    def __post_init__(self):
+        if self.model_dims is not None:
+            object.__setattr__(self, "model_dims", tuple(self.model_dims))
+
+    @classmethod
+    def from_spec(cls, spec: str | None, *, devices=None, device=None,
+                  model_dims=None) -> "Placement":
+        """From a ``--mesh`` spec (``data,model``, ``data=4,model=2``,
+        ``4,2``) over ``devices`` (default: the logical devices on
+        ``device``); None or one device = no mesh."""
+        from .sharding import make_serve_mesh
+
+        return cls(mesh=make_serve_mesh(spec, devices=devices, device=device),
+                   model_dims=model_dims)
+
+    @property
+    def data_size(self) -> int:
+        return self.mesh.shape["data"] if self.mesh is not None else 1
+
+    @property
+    def model_size(self) -> int:
+        return self.mesh.shape["model"] if self.mesh is not None else 1
+
+    def describe(self) -> str:
+        if self.mesh is None:
+            return "single-device"
+        return self.mesh.describe()
 
 
 @dataclass(frozen=True)
@@ -272,6 +315,7 @@ class ExecutionPolicy:
 
     spike_format: str = "float"
     weight_sparsity: str = "dense"
+    placement: Placement = field(default_factory=Placement)
     exactness: Exactness = field(default_factory=bitwise)
     execution: str = "sync"
     paging: Paging = field(default_factory=Paging)
@@ -312,12 +356,11 @@ class ExecutionPolicy:
                 "(skip only all-silent planes: provably bitwise)."
             )
         if self.exactness.mode == "approximate" and not self.temporal.lossy:
-            # the reference relaxes psum-TP reductions on a model axis here;
-            # the port has no mesh yet
+            # the reference relaxes psum-TP reductions on a model axis here
             raise NotImplementedError(
                 "exactness='approximate' without lossy temporal skipping "
-                "relaxes cross-shard reductions on a model axis, and the "
-                f"mesh placement is {_LATER}"
+                "relaxes cross-shard reductions on a model axis (psum-TP): "
+                f"{_ITEM_12B}"
             )
         if self.speculation.enabled and not self.token_identical:
             # the verified stream is the target's own greedy stream: an
@@ -329,17 +372,51 @@ class ExecutionPolicy:
                 "exactness='approximate' explicitly relaxes"
             )
 
+        if (self.exactness.mode == "bitwise"
+                and self.placement.model_dims is not None):
+            from .sharding import MODEL_SHARDED_DIMS
+
+            breaking = set(self.placement.model_dims) - MODEL_SHARDED_DIMS
+            if breaking:
+                raise ValueError(
+                    f"placement.model_dims {sorted(breaking)} put float "
+                    "contractions across model shards (psum), which breaks "
+                    "the bitwise token-identity contract; use "
+                    "exactness=approximate(tol) to opt into bounded drift"
+                )
+        if self.speculation.enabled and self.speculation.draft.placement.mesh:
+            raise ValueError(
+                "draft placement is inherited from the target policy (the "
+                "draft runs on the same serve mesh); leave the draft "
+                "policy's placement unset"
+            )
+
+    @property
+    def mesh(self):
+        return self.placement.mesh
+
     @property
     def token_identical(self) -> bool:
         """Whether this policy promises bitwise token identity."""
         return self.exactness.mode == "bitwise"
+
+    def model_sharded_dims(self) -> frozenset[str]:
+        """Logical weight dims this policy places on the model axis."""
+        from .sharding import APPROX_MODEL_SHARDED_DIMS, MODEL_SHARDED_DIMS
+
+        if self.placement.model_dims is not None:
+            return frozenset(self.placement.model_dims)
+        if self.exactness.mode == "approximate":
+            return APPROX_MODEL_SHARDED_DIMS
+        return MODEL_SHARDED_DIMS
 
     def describe(self) -> str:
         ex = self.exactness.mode
         if ex == "approximate":
             ex += f"(tol={self.exactness.tol})"
         return (f"spike_format={self.spike_format!r}, "
-                f"weight_sparsity={self.weight_sparsity!r}, exactness={ex}, "
+                f"weight_sparsity={self.weight_sparsity!r}, "
+                f"placement={self.placement.describe()}, exactness={ex}, "
                 f"execution={self.execution!r}, "
                 f"paging={self.paging.describe()}, "
                 f"temporal={self.temporal.describe()}, "
@@ -392,6 +469,7 @@ class ExecutionPolicy:
     @classmethod
     def for_arch(cls, cfg, *, spike_format: str | None = None,
                  weight_sparsity: str | None = None,
+                 placement: Placement | None = None,
                  exactness: Exactness | None = None,
                  execution: str | None = None,
                  paging: Paging | None = None,
@@ -412,6 +490,7 @@ class ExecutionPolicy:
         return cls(
             spike_format=spike_format,
             weight_sparsity=weight_sparsity,
+            placement=placement if placement is not None else Placement(),
             exactness=exactness if exactness is not None else bitwise(),
             execution=execution if execution is not None else "sync",
             paging=paging if paging is not None else Paging(),

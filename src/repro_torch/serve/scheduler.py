@@ -110,6 +110,16 @@ class AdmissionTicket:
         return None if self.request is None else self.request.rid
 
 
+def rebalance_pad(n_rows: int, data_axis: int) -> int:
+    """Dummy rows that re-pack a cohort of ``n_rows`` live requests onto a
+    mesh data axis of ``data_axis``: pad to the next multiple (the cheapest
+    re-split that keeps whole rows per group), 0 when the cohort already
+    divides the axis, the axis is trivial or the cohort is empty."""
+    if data_axis <= 1 or n_rows <= 0:
+        return 0
+    return (-n_rows) % data_axis
+
+
 class AdmissionError(RuntimeError):
     """Request rejected at submit time; carries its ticket as ``.ticket``."""
 

@@ -337,7 +337,7 @@ def test_init_shapes_untied_head_and_bridge(arch):
     prepared = tm.prepare(tp)
     if not tcfg.tie_embeddings:
         np.testing.assert_array_equal(
-            prepared["unembed"].numpy(),
+            torch.cat(list(prepared["unembed"]), dim=1).numpy(),  # blocks
             np.asarray(jp["lm_head"]).astype(ml_dtypes.bfloat16).astype(np.float32))
     if tcfg.qk_norm:
         assert prepared["layers"][0]["attn"]["q_norm"].dtype == torch.float32
@@ -368,8 +368,8 @@ def test_configs_listed_with_aliases_and_others_refused():
 @pytest.mark.parametrize("arch", NEW_ARCHS + ("rwkv6_1_6b", "zamba2_7b"))
 def test_for_arch_policies_match_reference(arch, mode):
     """`ExecutionPolicy.for_arch` derives the reference's policy for each
-    arch and mode, under every execution (the reference names a placement
-    too: single-device here, the port's only one until item 12)."""
+    arch and mode, under every execution (placement single-device, the
+    default of both)."""
     (jcfg, _, _), (tcfg, _, _) = _models(arch, mode)
     for execution in EXECUTIONS:
         got = ExecutionPolicy.for_arch(tcfg, execution=execution)
@@ -378,5 +378,4 @@ def test_for_arch_policies_match_reference(arch, mode):
                 got.token_identical) == (want.spike_format,
                                          want.weight_sparsity, want.execution,
                                          want.token_identical)
-        assert got.describe() == want.describe().replace(
-            "placement=single-device, ", "")
+        assert got.describe() == want.describe()

@@ -312,7 +312,8 @@ def test_bridge_round_trip_and_own_init(arch):
     pp = tm.prepare(tp)
     head = "mm_proj" if arch.startswith("llava") else "head"
     want = (np.asarray(jp[head]).astype(jnp.bfloat16).astype(np.float32))
-    got = pp["mm_proj"] if head == "mm_proj" else pp["unembed"]
+    got = (pp["mm_proj"] if head == "mm_proj"
+           else torch.cat(list(pp["unembed"]), dim=1))  # its column blocks
     np.testing.assert_array_equal(_np(got), want)
 
 

@@ -23,7 +23,11 @@ Run the dense kernels' tests alone with ``-k dense``, the BSR tensor-core
 instance's with ``-k bsr_tc``, the flash kernels' (5-7, both instances)
 with ``-k flash``, the MoE archs' (no kernel of their own: the routing
 and a serve through mixtral's ring cache, card against CPU) with
-``-k moe``, the op counter's (card counts == CPU counts) with ``-k counted``.
+``-k moe``, the op counter's (card counts == CPU counts) with ``-k counted``,
+the serve mesh's (logical devices on the one card: slab launches with
+their parent's shape equal to the unsharded call, vocab slabs equal to the
+unembedding's whole column blocks, a meshed serve equal to the
+single-device one, bit for bit) with ``-k mesh``.
 """
 import numpy as np
 import pytest
@@ -1575,3 +1579,127 @@ def test_counted_kernel_3_on_card_equals_cpu():
             assert ftp_spmm.launch_counts()["ftp_bsr"] == 1
     assert got["cuda"] == got["cpu"]
     assert got["cpu"][0]["ftp_bsr"]["calls"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the serve mesh: logical devices on the card (launch.mesh)
+# ---------------------------------------------------------------------------
+
+def _card_mesh(spec, n=4):
+    from repro_torch.launch.mesh import LogicalDevice
+    from repro_torch.serve.sharding import make_serve_mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return make_serve_mesh(spec, devices=[LogicalDevice(i, dev)
+                                          for i in range(n)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("fuse", [True, False])
+def test_mesh_bsr_slabs_equal_unsharded_on_card(shards, fuse):
+    """llama3.2-1b's W_in geometry (2048 x 8192 bf16, 128 x 128 blocks,
+    density 0.3): the column slabs, each launched with the whole plan's
+    tensor-core shape, equal the unsharded launch bit for bit, every slab
+    launch on the tc instance, data x model launches a call."""
+    from repro_torch.core.snn_layers import prune_by_magnitude
+    from repro_torch.kernels.join_plan import (
+        build_sharded_weight_plan,
+        shard_plan,
+    )
+    from repro_torch.serve.policy import Placement
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(shards)
+    w = torch.randn(2048, 8192, generator=g, device=dev) / 45.0
+    w = prune_by_magnitude(w, 0.3, block=(128, 128)).to(torch.bfloat16)
+    a = torch.randint(0, 16, (16, 2048), generator=g, device=dev,
+                      dtype=torch.int32)
+    whole = build_weight_plan(w)
+    sp = shard_plan(build_sharded_weight_plan(w, shards), shards)
+    want = ops.dispatch(a, whole, PACKED_DUAL, 4, n_out=8192, fuse_lif=fuse)
+    mesh = _card_mesh(f"data=2,model={shards}", 2 * shards)
+    pol = ExecutionPolicy(spike_format="packed", weight_sparsity="dual_sparse",
+                          placement=Placement(mesh=mesh))
+    ftp_spmm.reset_launch_counts()
+    got = ops.dispatch(a, sp, pol, 4, n_out=8192, fuse_lif=fuse)
+    n = ftp_spmm.launch_counts()
+    assert n["ftp_bsr"] == n["ftp_bsr_tc"] == 2 * shards
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4, 8])
+def test_mesh_vocab_slabs_equal_blocks_on_card(shards):
+    """llama3.2-1b's f32 unembedding (2048 x 128256) over its fixed column
+    blocks: dealt over ``shards`` model shards (and 2 data groups) the
+    logits equal the unsharded blocks' bit for bit, since every shard makes
+    the same per-block products."""
+    from repro_torch.models import layers
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(shards)
+    blocks = layers.vocab_blocks(
+        torch.randn(2048, 128256, generator=g, device=dev) / 45.0)
+    x = torch.randn(6, 2048, generator=g, device=dev)
+    want = layers.vocab_logits(x, blocks)
+    slabs = layers.VocabSlabs(blocks, shards)
+    with ops.serve_mesh_scope(_card_mesh(f"data=2,model={shards}",
+                                         2 * shards)):
+        got = layers.vocab_logits(x, slabs)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_mesh_dense_slabs_equal_unsharded_on_card():
+    """Kernel 1 on llama3.2-1b's W_out geometry (8192 x 2048 bf16) as
+    model=2 column slabs, each launched with the whole weight's shape:
+    equal to the unsharded launch bit for bit."""
+    from repro_torch.serve.policy import Placement
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(7)
+    w = (torch.randn(8192, 2048, generator=g, device=dev) / 90.0).to(
+        torch.bfloat16)
+    a = torch.randint(0, 16, (16, 8192), generator=g, device=dev,
+                      dtype=torch.int32)
+    want = ops.dispatch(a, w, PACKED_DENSE, 4)
+    pol = ExecutionPolicy(spike_format="packed",
+                          placement=Placement(mesh=_card_mesh("data=2,model=2")))
+    ftp_spmm.reset_launch_counts()
+    got = ops.dispatch(a, w, pol, 4)
+    n = ftp_spmm.launch_counts()
+    assert n["ftp_spmm"] == n["ftp_dense_tc"] == 4
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", ["data=2,model=2", "data=4,model=1"])
+@pytest.mark.parametrize("paging", [False, True], ids=["dense", "paged"])
+def test_mesh_serve_equals_single_device_on_card(serve_model, spec, paging):
+    """The smoke main path on four logical devices of the card: tokens and
+    captured logits equal the single-device serve bit for bit (pipelined
+    over paged pages too), with data x model kernel-3 launches an FFN
+    GEMM."""
+    from repro_torch.serve import Engine, Placement, paged
+
+    cfg, model, params = serve_model
+    prompts = _serve_prompts(cfg.vocab, [8] * 4, seed=5)
+    kw = dict(max_len=16, max_slots=4, capture_logits=True)
+    single = _engine(serve_model, **kw)
+    want = single.generate_batch(prompts, 6)
+    pol = ExecutionPolicy.for_arch(
+        cfg, placement=Placement(mesh=_card_mesh(spec)),
+        execution="pipelined" if paging else "sync",
+        paging=paged(8) if paging else None)
+    eng = Engine(model, params, policy=pol,
+                 prefix_cache=False if paging else None, **kw)
+    ftp_spmm.reset_launch_counts()
+    got = eng.generate_batch(prompts, 6)
+    n = ftp_spmm.launch_counts()
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b, a)
+    _same_logits(single.drain_logit_traces(), eng.drain_logit_traces())
+    # one prefill + five decodes, two GEMMs a layer, 4 slab calls each
+    assert n["ftp_bsr"] == 6 * 2 * cfg.n_layers * 4
+    assert eng.summary()["mesh_physical_devices"] == 1

@@ -36,6 +36,18 @@ def test_port_sources_import_no_jax_and_no_reference():
     assert "examples/serve_llm_torch.py" in offenders
 
 
+def test_scan_covers_the_mesh_modules():
+    """The serve mesh's modules are in the scan (and so import neither jax
+    nor the reference)."""
+    seen = {str(p.relative_to(ROOT)) for p in _sources()}
+    for m in ("src/repro_torch/launch/mesh.py",
+              "src/repro_torch/serve/sharding.py",
+              "src/repro_torch/ft/elastic.py",
+              "src/repro_torch/kernels/join_plan.py"):
+        assert m in seen
+        assert not FORBIDDEN.findall((ROOT / m).read_text())
+
+
 def test_forbidden_pattern_tells_the_packages_apart():
     assert FORBIDDEN.search("import jax.numpy as jnp")
     assert FORBIDDEN.search("    from repro.core import lif")

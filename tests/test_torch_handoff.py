@@ -16,12 +16,16 @@ is the main path, llama3.2-1b smoke with dual-sparse spiking FFNs.  Held:
   `PreemptionHandler.restore` is idempotent, and a handoff survives a
   save/load round trip.
 
-Reference cells left out, each for item 12 of the port's queue (ROADMAP,
-multi-device): the ``meshed`` column of ``test_drain_resume_token_identity``,
+The reference's mesh cells run on a mesh of logical CPU devices
+(`launch.mesh`): the ``meshed`` column of ``test_drain_resume_token_identity``
+is ``test_drain_resume_token_identity_meshed`` (a data=2 x model=2 victim
+resumed on another mesh, data=1 x model=2), and
 ``test_plan_serve_mesh_shapes``, ``test_remesh_paged_identity_zero_page_moves``,
 ``test_remesh_to_single_device_dense_identity`` and
-``test_straggler_observation_triggers_repack_identity_kept`` (re-mesh and
-the straggler-fed repack need a mesh).
+``test_straggler_observation_triggers_repack_identity_kept`` are ported
+under their names.  The reference's engine is not run on a mesh (it aborts
+in JAX's CPU gather): the meshed port is held to its single-device serve
+and to the reference's single-device drain -> resume.
 """
 import dataclasses
 import os
@@ -42,6 +46,8 @@ from repro.serve import Handoff as JHandoff
 from repro.serve import paged as j_paged
 from repro_torch import bridge
 from repro_torch.ft import PreemptionHandler
+from repro_torch.ft.elastic import plan_serve_mesh
+from repro_torch.launch.mesh import LogicalDevice
 from repro_torch.launch.serve import build_config
 from repro_torch.models.registry import build_model as t_build
 from repro_torch.serve import (
@@ -51,7 +57,9 @@ from repro_torch.serve import (
     Handoff,
     HandoffRequest,
     ParityError,
+    Placement,
     Scheduler,
+    make_serve_mesh,
     paged,
 )
 
@@ -80,9 +88,15 @@ def _prompts(vocab, n=N_PROMPTS, length=8, seed=0):
             for _ in range(n)]
 
 
-def _policy(cfg, execution="sync", paging=False):
+CPU8 = [LogicalDevice(i, torch.device("cpu")) for i in range(8)]
+
+
+def _policy(cfg, execution="sync", paging=False, mesh=None):
+    placement = Placement(mesh=make_serve_mesh(mesh, devices=CPU8)
+                          if mesh else None)
     return ExecutionPolicy.for_arch(cfg, execution=execution,
-                                    paging=paged(8) if paging else None)
+                                    paging=paged(8) if paging else None,
+                                    placement=placement)
 
 
 def _jpolicy(cfg, execution="sync", paging=False):
@@ -179,6 +193,134 @@ def test_drain_resume_token_identity(models, tmp_path, execution, paging):
     assert c == ref_handoff.counts()
     assert ([(r.rid, r.state) for r in handoff.requests]
             == [(r.rid, r.state) for r in ref_handoff.requests])
+
+
+@pytest.mark.parametrize("execution", ["sync", "pipelined"])
+@pytest.mark.parametrize("paging", [False, True], ids=["dense", "paged"])
+def test_drain_resume_token_identity_meshed(models, tmp_path, execution,
+                                            paging):
+    """The reference's ``meshed`` column: a victim serving on a data=2 x
+    model=2 mesh drains, and its successor resumes on another mesh
+    (data=1 x model=2); the results equal the undisturbed single-device
+    serve and the reference's drain -> resume, token for token."""
+    tcfg, tm, tp = models[1]
+    prompts = _prompts(tcfg.vocab)
+    want = Engine(tm, tp, max_len=16, max_slots=2, device="cpu",
+                  policy=_policy(tcfg, execution, paging)
+                  ).generate_batch(prompts, GEN)
+    victim_policy = _policy(tcfg, execution, paging, mesh="data=2,model=2")
+    successor_policy = _policy(tcfg, execution, paging, mesh="data=1,model=2")
+
+    def victim():
+        h = PreemptionHandler(signals=())
+        return Engine(tm, tp, max_len=16, max_slots=2, policy=victim_policy,
+                      preemption=h, device="cpu"), h
+
+    def successor(loaded):
+        eng = Engine.resume(tm, tp, loaded, policy=successor_policy,
+                            device="cpu")
+        assert eng.summary()["mesh"] == "data=1xmodel=2"
+        return eng
+
+    out, handoff = _cycle(tmp_path / "port", victim, successor, Handoff,
+                          prompts)
+    ref_out, _ = _reference_cycle(models, tmp_path / "ref", execution, paging)
+    for rid, w in enumerate(want):
+        np.testing.assert_array_equal(out[rid], w)
+        np.testing.assert_array_equal(out[rid], ref_out[rid])
+    assert handoff.counts()["tokens_in_flight"] > 0
+
+
+def test_plan_serve_mesh_shapes():
+    from repro.ft.elastic import plan_serve_mesh as j_plan_serve_mesh
+
+    jdevs = jax.devices()
+    for n, mp in ((8, 2), (6, 2), (5, 2), (3, 4), (1, 1), (8, 1)):
+        got = plan_serve_mesh(CPU8[:n], model_parallel=mp)
+        want = j_plan_serve_mesh(jdevs[:n], model_parallel=mp)
+        if want is None:
+            assert got is None
+        else:
+            assert got.shape == dict(want.shape)
+            assert [d.id for d in got.devices.flat] == \
+                [d.id for d in want.devices.flat]
+    assert plan_serve_mesh(CPU8, model_parallel=2).shape == \
+        {"data": 4, "model": 2}
+    assert plan_serve_mesh(CPU8[:5], model_parallel=2).shape == \
+        {"data": 2, "model": 2}  # idles the fifth
+    assert plan_serve_mesh(CPU8[:1]) is None
+    with pytest.raises(ValueError):
+        plan_serve_mesh([])
+
+
+def _remesh_run(models, policy, remesh_to, n=4):
+    tcfg, tm, tp = models[1]
+    prompts = _prompts(tcfg.vocab, n=n)
+    want = Engine(tm, tp, max_len=16, max_slots=4, device="cpu",
+                  policy=_policy(tcfg)).generate_batch(prompts, GEN)
+    eng = Engine(tm, tp, max_len=16, max_slots=4, policy=policy,
+                 device="cpu")
+    tickets = [eng.submit(p, GEN) for p in prompts]
+    for _ in range(3):
+        eng.step()
+    moves = eng.metrics.n_page_moves
+    rep = eng.remesh(devices=remesh_to)
+    assert eng.metrics.n_page_moves == moves
+    out = eng.run()
+    for t, w in zip(tickets, want):
+        np.testing.assert_array_equal(out[t.rid], w)
+    return rep, eng
+
+
+def test_remesh_paged_identity_zero_page_moves(models):
+    """Device loss mid-serve: re-plan to 6 survivors, re-place params and
+    plan slabs live and keep serving: tokens stay those of the
+    single-device serve, and not one cache page is copied."""
+    tcfg = models[1][0]
+    rep, eng = _remesh_run(models, _policy(tcfg, paging=True,
+                                           mesh="data=4,model=2"), CPU8[:6])
+    assert rep["remeshed"] and rep["mesh"] == "data=3xmodel=2"
+    assert eng.metrics.n_remeshes == 1
+    assert eng.summary()["remeshes"] == 1
+    plan = eng.params["layers"][0]["mlp"]["plan_in"]
+    assert plan.shards == 2
+
+
+def test_remesh_to_single_device_dense_identity(models):
+    """Total mesh loss: fold back to single-device serving mid-flight."""
+    tcfg, tm, tp = models[1]
+    rep, eng = _remesh_run(models, _policy(tcfg, mesh="data=4,model=2"),
+                           CPU8[:1])
+    assert rep["remeshed"] and rep["mesh"] is None and eng.mesh is None
+    # the same survivors again: a no-op
+    assert not eng.remesh(devices=CPU8[:1])["remeshed"]
+    assert "plan_in" in eng.params["layers"][0]["mlp"]
+    assert eng.params["layers"][0]["mlp"]["plan_in"].payload.ndim == 3
+
+
+def test_straggler_observation_triggers_repack_identity_kept(models):
+    """Feeding the pipelined executor's `StepTimer` a straggling decode
+    sample forces a re-pack on the next step (on a data=4 x model=2 mesh:
+    the three live rows re-pad to four); served tokens are unchanged."""
+    tcfg, tm, tp = models[1]
+    prompts = _prompts(tcfg.vocab, n=3)
+    want = Engine(tm, tp, max_len=16, max_slots=4, device="cpu",
+                  policy=_policy(tcfg)).generate_batch(prompts, GEN)
+    eng = Engine(tm, tp, max_len=16, max_slots=4, device="cpu",
+                 policy=_policy(tcfg, "pipelined", mesh="data=4,model=2"))
+    tickets = [eng.submit(p, GEN) for p in prompts]
+    eng.step()
+    for _ in range(6):                           # build the timing window
+        eng.executor.step_timer.observe(0.01)
+    eng.executor.step_timer.observe(0.5)         # 50x the median
+    assert eng.metrics.n_straggler_events == 1
+    assert eng.executor._force_repack
+    eng.step()                                   # the re-pack takes the flag
+    assert not eng.executor._force_repack
+    assert eng.metrics.n_rebalances >= 1
+    out = eng.run()
+    for t, w in zip(tickets, want):
+        np.testing.assert_array_equal(out[t.rid], w)
 
 
 def test_resume_parity_ledger_detects_lost_tokens(models, tmp_path):

@@ -10,11 +10,14 @@ Both packages get the reference's params (`repro_torch.bridge`).  Held:
   jitted reference (the bound `tests/test_torch_models.py` states and
   explains).
 
-Reference cases left out, each for an item of the port's queue (ROADMAP):
-``test_rebalance_pad_policy``, ``test_cache_pad_rows_appends_zero_rows``,
+The reference's mesh cases run on a mesh of logical CPU devices
+(`launch.mesh`): ``test_rebalance_pad_policy``,
+``test_cache_pad_rows_appends_zero_rows``,
 ``test_pipelined_mesh_rebalance_repacks_skewed_cohorts`` and
-``test_rebalanced_cohort_cache_shards_down_data_axis`` (the mesh, item
-12).  The reference's ``test_pipelined_moe_clamps_window_and_keeps_identity``
+``test_rebalanced_cohort_cache_shards_down_data_axis`` (the port's cache
+sits on the mesh's lead device, so "shards down the data axis" is: the
+re-packed rows divide the axis and the next decode runs in data groups).
+The reference's ``test_pipelined_moe_clamps_window_and_keeps_identity``
 is ported in `tests/test_torch_moe.py`; here the window clamp and the
 engine's other row-coupling rules (no cohort merge, no batch padding) are
 held on an engine marked row-coupled.
@@ -37,12 +40,18 @@ from repro_torch import bridge
 from repro_torch.kernels import ops
 from repro_torch.launch.serve import build_config, generate
 from repro_torch.models.registry import build_model as t_build
+from repro_torch.launch.mesh import LogicalDevice
 from repro_torch.serve import (
+    DenseCacheOps,
     Engine,
     ExecutionPolicy,
     PackedSpikeCache,
     PipelinedExecutor,
+    Placement,
     SyncExecutor,
+    cache_pad_rows,
+    make_serve_mesh,
+    rebalance_pad,
 )
 from repro_torch.serve.policy import PACKED_DUAL
 
@@ -469,3 +478,97 @@ def test_no_plan_or_kernel_build_after_first_step(dual, execution,
     engine.run()
     engine.generate_batch(_prompts(dual[0][0].vocab, [12] * 3, seed=11), 6)
     assert builds == seen
+
+
+# ---------------------------------------------------------------------------
+# the mesh's load-skew re-pack
+# ---------------------------------------------------------------------------
+
+def _mesh42():
+    return make_serve_mesh("data=4,model=2", devices=[
+        LogicalDevice(i, torch.device("cpu")) for i in range(8)])
+
+
+def test_rebalance_pad_policy():
+    from repro.serve.scheduler import rebalance_pad as j_rebalance_pad
+
+    for n, d in ((4, 4), (3, 4), (5, 4), (1, 8), (3, 1), (0, 4)):
+        assert rebalance_pad(n, d) == j_rebalance_pad(n, d)
+    assert rebalance_pad(3, 4) == 1 and rebalance_pad(5, 4) == 3
+    assert rebalance_pad(3, 1) == 0 and rebalance_pad(0, 4) == 0
+
+
+def test_cache_pad_rows_appends_zero_rows(dense):
+    tm = dense[1][1]
+    axes = tm.cache_axes()
+    cache = tm.init_cache(3, 16, device="cpu")
+    cache["k"].normal_()
+    padded = DenseCacheOps(axes).pad_rows(cache, 2)
+    assert DenseCacheOps(axes).batch_size(padded) == 5
+    assert torch.equal(padded["k"][:, :3], cache["k"])
+    assert not padded["k"][:, 3:].any()
+    assert torch.equal(padded["kv_pos"], cache["kv_pos"])
+    assert cache_pad_rows(cache, axes, 0) is cache
+
+
+def _skewed(models, execution, gens, seed):
+    tcfg, tm, tp = models[1]
+    prompts = _prompts(tcfg.vocab, [10] * 4, seed=seed)
+    refs = []
+    for p, g in zip(prompts, gens):
+        params = Engine(tm, tp, max_len=20, device="cpu",
+                        policy=ExecutionPolicy.for_arch(tcfg)).params
+        cache = tm.init_cache(1, 20, device="cpu")
+        refs.append(generate(tm, params, torch.from_numpy(p)[None].long(),
+                             cache, g, spiking_mode="infer")[0].numpy())
+    engine = Engine(tm, tp, max_len=20, max_slots=4, device="cpu",
+                    policy=ExecutionPolicy.for_arch(
+                        tcfg, execution=execution,
+                        placement=Placement(mesh=_mesh42())))
+    reqs = [engine.submit(p, g) for p, g in zip(prompts, gens)]
+    return engine, reqs, refs
+
+
+def test_pipelined_mesh_rebalance_repacks_skewed_cohorts(dual):
+    """Uneven budgets shrink the cohort 4 -> 3 -> 2 on a data=4 mesh: the
+    pipelined executor re-packs with dummy rows (sync keeps the whole-row
+    fallback on mesh row 0), and the tokens stay those of solo runs."""
+    engine, reqs, refs = _skewed(dual, "pipelined", [3, 5, 7, 7], seed=8)
+    engine.run()
+    for r, w in zip(reqs, refs):
+        np.testing.assert_array_equal(
+            w, np.asarray(engine.results[r.rid].generated, np.int32))
+    s = engine.summary()
+    assert s["rebalances"] >= 2          # 3 -> pad 1, 2 -> pad 2
+    assert s["padded_rows"] >= 3
+    sync, sreqs, refs = _skewed(dual, "sync", [3, 5, 7, 7], seed=8)
+    sync.run()
+    for r, w in zip(sreqs, refs):
+        np.testing.assert_array_equal(
+            w, np.asarray(sync.results[r.rid].generated, np.int32))
+    assert sync.summary()["rebalances"] == 0
+
+
+def test_rebalanced_cohort_cache_shards_down_data_axis(dual, monkeypatch):
+    """After a re-pack the cohort's rows divide the data axis again, and
+    its next decode runs in four data groups (the point of rebalancing
+    against the whole-row fallback)."""
+    engine, _, _ = _skewed(dual, "pipelined", [2, 8, 8, 8], seed=9)
+    group_rows = []
+    real = engine._dense_call
+
+    def spy(call, trees, tokens, cache):
+        group_rows.append((tokens.shape[0], len(engine._groups(tokens.shape[0]))))
+        return real(call, trees, tokens, cache)
+
+    monkeypatch.setattr(engine, "_dense_call", spy)
+    seen_repack = False
+    while not engine.idle:
+        engine.step()
+        for c in engine.cohorts:
+            if c.n_dummy > 0 and len(c.slots) == 3:
+                assert (len(c.slots) + c.n_dummy) % 4 == 0
+                seen_repack = True
+    assert engine.metrics.n_rebalances >= 1 and seen_repack
+    assert all(groups == 4 for rows, groups in group_rows if rows % 4 == 0)
+    assert (4, 4) in group_rows

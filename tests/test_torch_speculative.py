@@ -22,8 +22,10 @@ Both packages get the reference's params (`repro_torch.bridge`).  Held:
   3.052 vs 3.033 the other way in the port, which the reference run op by
   op under ``jax.disable_jit`` reproduces).
 
-Reference cases left out: the ``mesh`` cells of
-``test_speculative_token_identity_matrix`` (the mesh, ROADMAP item 12).
+The ``mesh`` cells of ``test_speculative_token_identity_matrix`` are
+``test_speculative_token_identity_matrix_mesh``, on a data=4 x model=2
+mesh of logical CPU devices (`launch.mesh`): the draft and its target
+share the mesh.
 """
 import dataclasses
 
@@ -51,16 +53,19 @@ from repro_torch.kernels.join_plan import build_weight_plan, prune_to_density
 from repro_torch.launch.serve import build_config
 from repro_torch.models.layers import derive_draft_params
 from repro_torch.models.registry import build_model as t_build
+from repro_torch.launch.mesh import LogicalDevice
 from repro_torch.serve import (
     DenseCacheOps,
     Engine,
     EngineMetrics,
     ExecutionPolicy,
     Speculation,
+    Placement,
     acceptance_lengths,
     adaptive_t,
     approximate,
     draft,
+    make_serve_mesh,
     paged,
 )
 from repro_torch.serve.policy import PACKED_DUAL, PACKED_DUAL_ADAPTIVE
@@ -440,6 +445,42 @@ def test_speculative_token_identity_matrix(models, execution, paging_mode,
     assert s["acceptance_rate"] > 0
     assert s["draft_batches"] >= s["speculative_rounds"]
     assert "propose" in s["stage_s"]
+
+
+@pytest.mark.parametrize("execution", ["sync", "pipelined"])
+@pytest.mark.parametrize("paging_mode", ["dense", "paged"])
+def test_speculative_token_identity_matrix_mesh(models, execution,
+                                                paging_mode, port_plain,
+                                                reference_tokens):
+    """The matrix's ``mesh`` cells: target and float draft on one data=4 x
+    model=2 mesh; the verified stream is the single-device plain serve's."""
+    tcfg = models[1][0]
+    mesh = make_serve_mesh("data=4,model=2", devices=[
+        LogicalDevice(i, torch.device("cpu")) for i in range(8)])
+    kw = {"speculation": draft(_float_draft(tcfg), k=4),
+          "execution": execution, "placement": Placement(mesh=mesh)}
+    if paging_mode == "paged":
+        kw["paging"] = paged(page_size=8)
+    out, s, eng = _run(models, ExecutionPolicy.for_arch(tcfg, **kw))
+    for plain, got in zip(port_plain, out):
+        np.testing.assert_array_equal(got, plain)
+    assert _hold_to_reference(out, *reference_tokens) <= 1
+    assert s["speculative_rounds"] > 0 and s["tokens_proposed"] > 0
+    assert s["tokens_proposed"] == s["tokens_accepted"] + s["tokens_rejected"]
+    assert s["mesh"] == "data=4xmodel=2"
+
+
+def test_draft_on_its_own_mesh_refused(models):
+    """The draft inherits the target's placement: a draft policy with a
+    mesh of its own is refused, as in the reference."""
+    tcfg = models[1][0]
+    mesh = make_serve_mesh("data=2,model=2", devices=[
+        LogicalDevice(i, torch.device("cpu")) for i in range(4)])
+    d = ExecutionPolicy.for_arch(tcfg, spike_format="float",
+                                 weight_sparsity="dense",
+                                 placement=Placement(mesh=mesh))
+    with pytest.raises(ValueError, match="inherited from the target"):
+        ExecutionPolicy.for_arch(tcfg, speculation=draft(d, k=2))
 
 
 def test_partial_acceptance_still_token_identical(models):

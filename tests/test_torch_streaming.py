@@ -22,8 +22,9 @@ Held:
 
 The reference's zero-retrace check becomes: after the first session, a
 second one builds no join plan and no kernel (the port does not trace).
-Reference cases left out: the ``mesh`` cells of
-``test_stream_token_identity_matrix`` (the mesh, ROADMAP item 12).
+The ``mesh`` cells of ``test_stream_token_identity_matrix`` are
+``test_stream_token_identity_matrix_mesh``, on a data=4 x model=2 mesh of
+logical CPU devices (`launch.mesh`).
 """
 import dataclasses
 
@@ -44,6 +45,7 @@ from repro_torch import bridge
 from repro_torch.core.packing import encode_event_window, timestep_popcount
 from repro_torch.data import events as t_events
 from repro_torch.data.events import moving_blob_events, split_into_windows
+from repro_torch.launch.mesh import LogicalDevice
 from repro_torch.launch.serve import build_config
 from repro_torch.models.registry import build_model as t_build
 from repro_torch.serve import (
@@ -52,8 +54,10 @@ from repro_torch.serve import (
     Engine,
     EventStream,
     ExecutionPolicy,
+    Placement,
     StreamSession,
     adaptive_t,
+    make_serve_mesh,
     paged,
 )
 from repro_torch.serve import streaming as t_streaming
@@ -450,6 +454,36 @@ def test_stream_token_identity_matrix(models, execution, paging, temporal,
     if temporal == "adaptive":
         # the silent window's frame is all-silent: every plane skipped
         assert int(m.timesteps_skipped) > 0
+
+
+@pytest.mark.parametrize("temporal", ["full", "adaptive"])
+@pytest.mark.parametrize("paging", ["dense", "paged"])
+@pytest.mark.parametrize("execution", ["sync", "pipelined"])
+def test_stream_token_identity_matrix_mesh(models, execution, paging,
+                                           temporal, monkeypatch):
+    """The matrix's ``mesh`` cells: a stream served on a data=4 x model=2
+    mesh (its one-row cohort padded to the data axis, each row a data
+    group, every FFN plan in two column slabs) gives the one-prompt
+    tokens, and a second session builds no plan and no kernel."""
+    from repro_torch.kernels import _build, join_plan
+
+    mesh = make_serve_mesh("data=4,model=2", devices=[
+        LogicalDevice(i, torch.device("cpu")) for i in range(8)])
+    engine = _engine(models, execution=execution,
+                     paging=paged(8) if paging == "paged" else None,
+                     temporal=adaptive_t() if temporal == "adaptive" else None,
+                     placement=Placement(mesh=mesh))
+    _drive_stream(engine, seed=1, silent=(2,))
+    builds = []
+    monkeypatch.setattr(join_plan, "build_weight_plan",
+                        lambda *a, **kw: builds.append("plan"))
+    monkeypatch.setattr(_build, "load", lambda *a, **kw: builds.append("kernel"))
+    ticket, session, got = _drive_stream(engine, seed=2, silent=(1,))
+    assert builds == []
+    assert ticket.outcome == "admitted"
+    np.testing.assert_array_equal(
+        got, _monolithic(models, session.prompt_tokens()))
+    assert engine.summary()["mesh"] == "data=4xmodel=2"
 
 
 def test_stream_logits_equal_the_monolithic_prompt(models):

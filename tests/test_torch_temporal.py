@@ -375,6 +375,35 @@ def test_engine_adaptive_tokens_and_skips_match_reference(
     assert len(traces) == (3 if lossy else 0) and engine.logit_traces == {}
 
 
+@pytest.mark.parametrize("execution", ["sync", "pipelined"])
+@pytest.mark.parametrize("paging", ["dense", "paged"])
+def test_adaptive_token_identity_matrix_mesh(slice_models, execution, paging):
+    """The ``placement=mesh`` cells of the reference's adaptive matrix:
+    adaptive(min_spikes=1) on a data=4 x model=2 mesh of logical CPU
+    devices (each data group scores its own rows' planes) emits the
+    full-temporal single-device engine's tokens."""
+    from repro_torch.launch.mesh import LogicalDevice
+    from repro_torch.serve import Placement, make_serve_mesh, paged
+
+    (jcfg, jm, jp), (tcfg, tm, tp) = slice_models
+    mesh = make_serve_mesh("data=4,model=2", devices=[
+        LogicalDevice(i, torch.device("cpu")) for i in range(8)])
+    prompts = _x_prompts(tcfg.vocab)
+    full = Engine(tm, tp, max_len=24, max_slots=4, device="cpu",
+                  policy=ExecutionPolicy.for_arch(tcfg)
+                  ).generate_batch(prompts, 6)
+    engine = Engine(tm, tp, max_len=24, max_slots=4, device="cpu",
+                    policy=ExecutionPolicy.for_arch(
+                        tcfg, temporal=adaptive_t(), execution=execution,
+                        paging=paged(8) if paging == "paged" else None,
+                        placement=Placement(mesh=mesh)))
+    got = engine.generate_batch(prompts, 6)
+    for a, b in zip(full, got):
+        np.testing.assert_array_equal(a, b)
+    assert engine.metrics.timesteps_skipped > 0
+    assert engine.summary()["temporal"] == "adaptive(min_spikes=1)"
+
+
 def test_record_timestep_skips_counts_planes(slice_models):
     """With T=4 and words whose only set bit is t0, exactly the 3 silent
     planes count; a full-temporal engine counts nothing."""
