@@ -193,10 +193,10 @@ causal; dh 160 padded to 192.
              same tokens, logits within LOGIT_TOL.
 
 13. the recurrent families, after phase 12: (a) rwkv6-1.6b at its
-             published width and depth (24 layers, d_model 2048, 32 heads x
-             64, d_ff 7168, vocab 65536) and (b) zamba2-7b likewise (81
-             Mamba2 layers, d_model 3584, 112 SSM heads x 64, state 64;
-             the shared attention + MLP block every 6 layers, vocab 32000),
+             published width (d_model 2048, 32 heads x 64, d_ff 7168, vocab
+             65536), 8 of its 24 layers, and (b) zamba2-7b likewise (d_model
+             3584, 112 SSM heads x 64, state 64; the shared attention + MLP
+             block every 6 layers, vocab 32000), 12 of its 81 Mamba2 layers,
              float, random weights from a seed: phase 12a's schedule (8 x
              128 prompt, 16 generated, two stop early, 4 slots; zamba2's
              sixth prompt is 100 tokens: the per-step SSD scan) under
@@ -207,11 +207,12 @@ causal; dh 160 padded to 192.
              flash kernel launched.  Timed: 3 serves of 4 x 128 + 16 (tok/s,
              TTFT, decode step), one profiled serve (idle share, top device
              ops), the device launches of one prefill and one decode step.
-             Card vs CPU on copies at the same width cut to 6 (rwkv6) and
-             3 (zamba2) layers, 4 requests teacher-forced, and zamba2 at 15
-             layers in f32 compute (prefills of a 128- and a 100-token
-             prompt; its bf16 drift there is logged, not gated: at random
-             init the model amplifies rounding differences with depth), the
+             Card vs CPU on copies at the same width cut to 4 (rwkv6, bf16)
+             and 9 (zamba2, f32 compute: prefills of a 128- and a 100-token
+             prompt; its bf16 copy held to the CPU's own bf16 distance from
+             the f32 run, P13_BF16_FACTOR: at random init the model
+             amplifies rounding differences with depth) layers, 4 requests
+             teacher-forced, the
              CPU side in a spawned process beside the card's serves: logits
              within LOGIT_TOL, greedy tokens equal but at near ties; the
              card's own drift under other row / batch blocks logged beside
@@ -325,10 +326,27 @@ causal; dh 160 padded to 192.
              and the f32 unembed over vocab column slabs against the whole
              product (why the unembed runs over fixed column blocks); (f)
              with more than one card, (a) on distinct cards.
+18. approximate-TP serving (item 12b), after phase 17: psum tensor
+             parallelism on the model axis of MESH_LOGICAL logical devices,
+             each approximate serve held to max logit drift <= LOGIT_TOL
+             against the bitwise serve on one device.  (a) float
+             llama3.2-1b (full width, LLAMA_LAYERS layers) at data=1 x
+             model=2, data=2 x model=2 and data=1 x model=4: 2 x 2 == 1 x 2,
+             a second 2 x 2 serve == the first and pipelined == sync, bit
+             for bit; (b) phase 5's dual-sparse main path at 2 x 2: every
+             kernel-3 launch a plan slab on `tc` at phase 17's count, a
+             sample held against the plain version, kernel 4 at min_spikes
+             1 == (b) bit for bit; (c) the dense-weight route (kernels 1 /
+             2) at 2 x 2; (d) gemma-2b (expand_kv off and on), phi3.5-moe,
+             rwkv6-1.6b and zamba2-7b (f32) at model = 2, full width, depth
+             cut (TP_FAMILIES); (e) with more than one card, (a)'s 2 x 2 on
+             distinct cards.  Drift, token match, first flip, decode step
+             and tok/s per mesh, TP weights dealt.
 
 Prints a JSON line of phase 13's measurements, one of phase 14's, one of
-phase 15's, one of phase 16's (``{"roofline": ...}``) and one of phase
-17's (``{"mesh": ...}``), then a JSON line
+phase 15's, one of phase 16's (``{"roofline": ...}``), one of phase
+17's (``{"mesh": ...}``) and one of phase 18's (``{"tp": ...}``), then a
+JSON line
 of per-kernel measurements (the headline numbers are each kernel's mean
 launch on its path), and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -3765,24 +3783,32 @@ def _smoke_new_archs():
 P13_SHORT_PROMPT, P13_SHORT_AT = 100, 5
 # Card vs CPU at the published width, on depth-cut copies (the CPU's time):
 # (arch, layers, compute dtype, teacher-forced decode steps), each over 4
-# requests, prefill + 15 decodes.  rwkv6 24 -> 6 layers, bf16, within
-# LOGIT_TOL.  zamba2 81 -> 15 layers (2 groups of 6, each followed by the
-# shared block, its attention decoding through its KV cache, then the tail
-# of 3), a 128- and a 100-token prompt (both SSD forms): in f32 compute
+# requests, prefill + 15 decodes.  rwkv6 24 -> 4 layers, bf16, within
+# LOGIT_TOL.  zamba2 81 -> 9 layers (a group of 6 followed by the shared
+# block, its attention decoding through its KV cache, then a tail of 3), a
+# 128- and a 100-token prompt (both SSD forms): in f32 compute
 # within LOGIT_TOL, and in bf16 held against that f32 run on the CPU (see
 # P13_BF16_FACTOR).  At random init zamba2 turns the devices' bf16
 # last-bit differences into a card-vs-CPU bf16 drift that grows with depth
-# (PERF.md §6 has every depth's readings).
+# (PERF.md §6 has every depth's readings).  The CPU side is phase 13's
+# longest path (one worker, ~360 s of host work at 6 / 15 / 15 layers, the
+# bf16 copy ~200 s of it), so its depths are the run's time: 4 / 9 / 9.
 P13_CPU_CASES = {
-    "rwkv6_1_6b": ("rwkv6_1_6b", 6, "bfloat16", GEN - 1),
-    "zamba2_7b f32": ("zamba2_7b", 15, "float32", GEN - 1),
-    "zamba2_7b bf16": ("zamba2_7b", 15, "bfloat16", GEN - 1),
+    "rwkv6_1_6b": ("rwkv6_1_6b", 4, "bfloat16", GEN - 1),
+    "zamba2_7b f32": ("zamba2_7b", 9, "float32", GEN - 1),
+    "zamba2_7b bf16": ("zamba2_7b", 9, "bfloat16", GEN - 1),
 }
 # zamba2's bf16 gate: the card's bf16 logits lie no further from the CPU's
 # f32 run of the same copy than the CPU's own bf16 run does, by more than
 # this factor (max and mean |difference|): a device fault in a bf16 path
 # would show as the card alone leaving the f32 run
 P13_BF16_FACTOR = 2.0
+# 13a / 13b serve depth cuts (the run's time: on a slow host the serves at
+# full depth, 24 and 81 layers, took 450 s of the script's 1200 s; every
+# gate holds layer by layer): rwkv6-1.6b 8 of 24, zamba2-7b 12 of 81 (two
+# shared-attention groups of 6).  The card-vs-CPU copies have their own
+# cuts (P13_CPU_CASES).
+P13_LAYERS = {"rwkv6_1_6b": 8, "zamba2_7b": 12}
 P13_LONE = 1                 # the request served alone for the row gate
 
 
@@ -3971,7 +3997,7 @@ def _p13_card_vs_cpu(key, cpu_future):
 
 
 def _p13_bf16_vs_f32(futures):
-    """zamba2 at 15 layers in bf16: the card's logits and the CPU's, each
+    """zamba2 at 9 layers in bf16: the card's logits and the CPU's, each
     against the CPU's f32 run of the same copy (params, prompts, fed
     tokens).  Gated: the card's distance is at most P13_BF16_FACTOR times
     the CPU's, in max and in mean; the card-vs-CPU bf16 drift is logged."""
@@ -4076,8 +4102,10 @@ def _p13_profile(engine, prompts, unprofiled_wall, gen=GEN, host_ops=True):
 
 
 def _p13_arch(arch, futures):
-    """13a / 13b: one recurrent arch at its published width and depth, then
-    its card-vs-CPU checks (their CPU sides running in ``futures``)."""
+    """13a / 13b: one recurrent arch at its published width, depth cut to
+    P13_LAYERS, then its card-vs-CPU checks (their CPU sides running in
+    ``futures``)."""
+    import dataclasses
     import tempfile
 
     import numpy as np
@@ -4088,7 +4116,9 @@ def _p13_arch(arch, futures):
     from repro_torch.serve import Engine, ExecutionPolicy, draft, paged
 
     tag = "13a" if arch == "rwkv6_1_6b" else "13b"
-    cfg = build_config(arch, smoke=False, spiking=False, weight_density=1.0)
+    cfg = dataclasses.replace(
+        build_config(arch, smoke=False, spiking=False, weight_density=1.0),
+        n_layers=P13_LAYERS[arch])
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.prepare(model.init(SEED, device="cuda"))
@@ -4256,9 +4286,10 @@ def _hold_dense_calls(calls, label):
 
 
 def phase_recurrent():
-    """13: rwkv6-1.6b and zamba2-7b at their published widths and depths,
-    then the smoke cells.  The card-vs-CPU checks' CPU side runs in one
-    spawned worker process from the start, beside the card's serves."""
+    """13: rwkv6-1.6b and zamba2-7b at their published widths (depth cut to
+    P13_LAYERS), then the smoke cells.  The card-vs-CPU checks' CPU side
+    runs in one spawned worker process from the start, beside the card's
+    serves."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -5789,6 +5820,285 @@ def phase_mesh(smi):
     return res
 
 
+TP_SPECS = ("data=1,model=2", "data=2,model=2", "data=1,model=4")
+# (d): the other families at model = 2, published width, depth cut
+TP_FAMILIES = (("gemma_2b", 2, {}), ("gemma_2b", 2, {"expand_kv": True}),
+               ("phi3_5_moe", 2, {}), ("rwkv6_1_6b", 2, {}),
+               ("zamba2_7b", 6, {"compute_dtype": "float32"}))
+TP_FAMILY_GEN = 8
+
+
+def _tp_drift(outs, logits, want_outs, want_logits):
+    """Drift of a TP serve from the single-device bitwise one: the max
+    logit drift (`serve.policy.drift_report`: compared up to each request's
+    first token flip, that step included), the token-match fraction, the
+    first flip (request, step) or None, and each step's max drift over the
+    requests."""
+    import numpy as np
+
+    from repro_torch.serve.policy import drift_report
+
+    flip = None
+    for r, (a, b) in enumerate(zip(want_outs, outs)):
+        diff = [i for i, (x, y) in enumerate(zip(a, b)) if int(x) != int(y)]
+        if diff and (flip is None or diff[0] < flip[1]):
+            flip = (r, diff[0])
+    steps = [float(max(np.abs(np.asarray(a[i], np.float32)
+                              - np.asarray(b[i], np.float32)).max()
+                       for a, b in zip(want_logits, logits)))
+             for i in range(min(len(x) for x in logits))]
+    rep = drift_report(want_outs, outs, want_logits, logits)
+    return {"max_logit_drift": rep["max_logit_drift"],
+            "token_match_fraction": rep["token_match_fraction"],
+            "first_flip": flip, "step_drift": steps}
+
+
+def _tp_engine(model, params, cfg, spec, *, gen=GEN, distinct=False,
+               **kw):
+    """An engine under the arch's policy, logits captured: bitwise on one
+    device (``spec`` None), else approximate(LOGIT_TOL) on the mesh
+    ``spec`` (its logical devices on distinct cards with ``distinct``)."""
+    from repro_torch.serve import Engine, ExecutionPolicy, Placement, approximate
+
+    pol = dict(kw.pop("policy", {}))
+    if spec is not None:
+        pol["placement"] = Placement(mesh=_mesh_of(spec, distinct))
+        pol["exactness"] = approximate(LOGIT_TOL)
+    return Engine(model, params, max_len=PROMPT + gen, max_slots=REQUESTS,
+                  policy=ExecutionPolicy.for_arch(cfg, **pol),
+                  capture_logits=True, **kw)
+
+
+def _engine_bytes(make):
+    """(``make()``, the card memory its construction kept): what an
+    engine's placement holds beyond the params it was given."""
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    eng = make()
+    torch.cuda.synchronize()
+    return eng, torch.cuda.memory_allocated() - before
+
+
+def _tp_family(arch, n_layers, over, prompts):
+    """(d): one family at published width, depth cut to ``n_layers``, its
+    TP_FAMILY_GEN-token serve at data=1 x model=2 under approximate held
+    to drift <= LOGIT_TOL against its single-device bitwise serve."""
+    import dataclasses
+
+    from repro_torch.launch.serve import build_config
+    from repro_torch.models.registry import build_model
+
+    cfg = dataclasses.replace(
+        build_config(arch, smoke=False, spiking=False, weight_density=1.0),
+        n_layers=n_layers, **over)
+    model = build_model(cfg)
+    params = model.init(SEED, device="cuda")
+    prompts = [p % cfg.vocab for p in prompts]
+    label = f"18d {arch}{' ' + json.dumps(over) if over else ''}"
+
+    def serve(eng):
+        eng.generate_batch([prompts[0][:8]], 2)  # warm-up
+        eng.logit_traces = {}
+        routes = []
+        restore = _record_routes(routes)
+        try:
+            outs, counts = _counted(label, lambda: eng.generate_batch(
+                prompts, TP_FAMILY_GEN))
+        finally:
+            restore()
+        _no_kernels(counts, label)
+        return outs, eng.drain_logit_traces(), eng.summary(), routes
+
+    one, one_bytes = _engine_bytes(lambda: _tp_engine(
+        model, params, cfg, None, gen=TP_FAMILY_GEN))
+    want, want_l, _, want_r = serve(one)
+    del one
+    eng, eng_bytes = _engine_bytes(lambda: _tp_engine(
+        model, params, cfg, "data=1,model=2", gen=TP_FAMILY_GEN))
+    outs, logits, s, routes = serve(eng)
+    del eng
+    d = _tp_drift(outs, logits, want, want_l)
+    res = dict(d, layers=n_layers, tp_weights_dealt=s["tp_weights_dealt"],
+               tp_weights_whole=s["tp_weights_whole"],
+               engine_bytes_over_one_device=eng_bytes - one_bytes, **over)
+    if cfg.n_experts:
+        # row-coupled: attention stays whole (wq wk wv wo), experts dealt
+        assert s["tp_weights_whole"] == 4 * n_layers, (label, s)
+        # per routing call: the (token, k) expert choices and the kept
+        # pairs that differ from one device's
+        res["route_diffs"] = [
+            [int((e0 != e1).sum()), int((k0 != k1).sum())]
+            for (e0, k0), (e1, k1) in zip(want_r, routes)
+            if e0.shape == e1.shape]
+    log(f"{label}: {json.dumps(res)}")
+    assert d["max_logit_drift"] <= LOGIT_TOL, (label, d)
+    assert s["tp_weights_dealt"] > 0, (label, s)
+    del model, params
+    _free()
+    return res
+
+
+def phase_tp(smi):
+    """Phase 18: approximate-TP serving (item 12b) on logical devices of
+    the card, the port against itself: every approximate serve against the
+    bitwise serve on one device, max logit drift <= LOGIT_TOL.  (a) float
+    llama3.2-1b (LLAMA_LAYERS layers, full width) at data=1 x model=2,
+    data=2 x model=2 and data=1 x model=4, with 2 x 2 == 1 x 2, a second
+    2 x 2 serve == the first and pipelined == sync, bit for bit; (b) the
+    main path (phase 5's dual-sparse model and params) at 2 x 2: every
+    kernel-3 launch a plan slab on `tc` at phase 17's count, a sample held
+    against the plain version, kernel 4 at min_spikes 1 == (b); (c) the
+    dense-weight route at 2 x 2; (d) gemma-2b (expand_kv off and on),
+    phi3.5-moe (attention whole: its rows couple), rwkv6-1.6b and
+    zamba2-7b (f32) at model = 2; (e) with more than one card, (a)'s 2 x 2
+    on distinct cards.  Each mesh's decode step and tok/s are timed after
+    a warm-up, and (a) reads the card memory each engine's placement
+    keeps (TP slabs are views of the prepared weights on one card)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import build_config
+    from repro_torch.models.layers import TPSlabs
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.policy import PACKED_DUAL_ADAPTIVE
+
+    t0 = time.perf_counter()
+    res = {"physical_devices": torch.cuda.device_count(),
+           "logical_devices": MESH_LOGICAL, "smi": smi, "float_llama": {}}
+    rng = np.random.default_rng(SEED)
+    rng.integers(0, 128256, size=(8,))  # phase 5's warm-up draw
+    prompts = [rng.integers(0, 128256, size=(PROMPT,)).astype(np.int32)
+               for _ in range(REQUESTS)]
+
+    def counted(eng, label, gens=None):
+        eng.generate_batch([prompts[0][:8]], 2)  # warm-up
+        return _mesh_serve(eng, prompts, label, gens)
+
+    # (a) float llama
+    full = build_config("llama3_2_1b", smoke=False, spiking=False,
+                        weight_density=1.0)
+    cfg = dataclasses.replace(full, n_layers=LLAMA_LAYERS)
+    model = build_model(cfg)
+    params = model.init(SEED, device="cuda")
+    single, one_bytes = _engine_bytes(
+        lambda: _tp_engine(model, params, cfg, None))
+    want, want_l, counts, _, _ = counted(single, "18a single-device float")
+    _no_kernels(counts, "18a single-device float")
+    res["float_llama"]["single_device"] = dict(
+        _mesh_speed(single, prompts, want), engine_bytes=one_bytes)
+    del single
+    served = {}
+    for spec in TP_SPECS:
+        eng, eng_bytes = _engine_bytes(
+            lambda: _tp_engine(model, params, cfg, spec))
+        outs, logits, counts, _, _ = counted(eng, f"18a {spec}")
+        _no_kernels(counts, f"18a {spec}")
+        d = _tp_drift(outs, logits, want, want_l)
+        assert d["max_logit_drift"] <= LOGIT_TOL, (spec, d)
+        attn = eng.params["layers"][0]["attn"]
+        assert isinstance(attn["wq"], TPSlabs), spec
+        s = eng.summary()
+        served[spec] = (outs, logits)
+        if spec == "data=2,model=2":
+            _mesh_same("18a 2x2 == 1x2", outs, logits,
+                       *served["data=1,model=2"])
+            again = _mesh_serve(eng, prompts, "18a 2x2 again")
+            _mesh_same("18a 2x2 again", again[0], again[1], outs, logits)
+        res["float_llama"][spec] = dict(
+            d, tp_weights_dealt=s["tp_weights_dealt"],
+            tp_weights_whole=s["tp_weights_whole"], engine_bytes=eng_bytes,
+            engine_bytes_over_one_device=eng_bytes - one_bytes,
+            **_mesh_speed(eng, prompts, outs))
+        log(f"18a {spec}: {json.dumps(res['float_llama'][spec])}")
+        del eng
+        gc.collect()
+    eng = _tp_engine(model, params, cfg, "data=2,model=2",
+                     policy={"execution": "pipelined"})
+    outs, logits, _, _, _ = counted(eng, "18a 2x2 pipelined")
+    _mesh_same("18a pipelined == sync", outs, logits,
+               *served["data=2,model=2"])
+    del eng
+    if torch.cuda.device_count() > 1:
+        eng = _tp_engine(model, params, cfg, "data=2,model=2", distinct=True)
+        outs, logits, _, _, _ = counted(eng, "18e cards")
+        d = _tp_drift(outs, logits, want, want_l)
+        assert d["max_logit_drift"] <= LOGIT_TOL, d
+        res["multi_card"] = dict(d, cards=eng.summary()["mesh_physical_devices"])
+        del eng
+    else:
+        res["multi_card"] = ("no multi-card run: one card; every logical "
+                             "device of this phase shared it")
+    del model, params, served
+    _free()
+    # (b) the main path, dual-sparse, phase 5's params
+    full = build_config("llama3_2_1b", smoke=False, spiking=True,
+                        weight_density=0.3)
+    cfg = dataclasses.replace(full, n_layers=LLAMA_LAYERS)
+    model = build_model(cfg)
+    params = model.init(SEED, device="cuda")
+    L = cfg.n_layers
+    single = _tp_engine(model, params, cfg, None)
+    want, want_l, _, _, _ = counted(single, "18b single-device dual")
+    del single
+    eng = _tp_engine(model, params, cfg, "data=2,model=2")
+    outs, logits, counts, calls, fwd = counted(eng, "18b dual 2x2")
+    d = _tp_drift(outs, logits, want, want_l)
+    assert d["max_logit_drift"] <= LOGIT_TOL, d
+    n = 2 * L * fwd * 4
+    assert counts["ftp_bsr"] == counts["ftp_bsr_tc"] == n, (n, counts)
+    assert counts["ftp_bsr_simt"] == 0 and counts["ftp_spmm"] == 0
+    assert all(c[2].get("parent") is not None for c in calls)
+    err, flips = _parity_all(_sample(calls, 2), "18b")
+    s = eng.summary()
+    res["dual"] = dict(d, ftp_bsr_launches=counts["ftp_bsr"],
+                       ftp_bsr_launches_per_decode_step=2 * L * 4,
+                       all_tc=True, max_abs_err=err, flips=flips,
+                       tp_weights_dealt=s["tp_weights_dealt"],
+                       **_mesh_speed(eng, prompts, outs))
+    for lp in eng.params["layers"]:
+        lp["mlp"]["ffn_policy"] = PACKED_DUAL_ADAPTIVE
+    a_outs, a_logits, a_counts, _, _ = _mesh_serve(eng, prompts,
+                                                   "18b adaptive 2x2")
+    _mesh_same("18b adaptive == dual", a_outs, a_logits, outs, logits)
+    assert a_counts["ftp_bsr_adaptive"] == a_counts["ftp_bsr_tc"] == n
+    assert a_counts["ftp_bsr"] == 0, a_counts
+    res["dual"]["ftp_bsr_adaptive_launches"] = a_counts["ftp_bsr_adaptive"]
+    log(f"18b: {json.dumps(res['dual'])}")
+    del eng
+    gc.collect()
+    # (c) the dense-weight route
+    dense = {"weight_sparsity": "dense"}
+    single = _tp_engine(model, params, cfg, None, policy=dense)
+    d_want, d_want_l, _, _, _ = counted(single, "18c single-device dense")
+    del single
+    eng = _tp_engine(model, params, cfg, "data=2,model=2", policy=dense)
+    outs, logits, counts, _, fwd = counted(eng, "18c dense 2x2")
+    d = _tp_drift(outs, logits, d_want, d_want_l)
+    assert d["max_logit_drift"] <= LOGIT_TOL, d
+    assert counts["ftp_spmm"] == L * fwd * 4, counts
+    assert counts["ftp_spmm_fused_lif"] == L * fwd * 2 and counts["ftp_bsr"] == 0
+    res["dense"] = dict(d, ftp_spmm_launches=counts["ftp_spmm"],
+                        ftp_spmm_fused_lif_launches=counts["ftp_spmm_fused_lif"])
+    log(f"18c: {json.dumps(res['dense'])}")
+    del eng, model, params
+    _free()
+    # (d) the other families
+    res["families"] = [_tp_family(arch, n_layers, over, prompts)
+                       for arch, n_layers, over in TP_FAMILIES]
+    res["note"] = (f"{MESH_LOGICAL} logical devices on "
+                   f"{torch.cuda.device_count()} card(s): the times are those "
+                   "of one card running every shard's launches; no "
+                   "multi-card speed is claimed")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 18: {json.dumps(res)}")
+    return res
+
+
 def _flash_entries(flash):
     """The kernels-line entries of kernels 5-7: headline numbers from the
     train step's own attention inputs (layer 0; `tc`, with the SIMT
@@ -5955,6 +6265,8 @@ def main() -> int:
     log(f"phase 16 done at {time.perf_counter() - t0:.1f}s")
     mesh = phase_mesh(smi)
     log(f"phase 17 done at {time.perf_counter() - t0:.1f}s")
+    tp = phase_tp(smi)
+    log(f"phase 18 done at {time.perf_counter() - t0:.1f}s")
     by_name = {k["name"]: k for k in kernels}
     for name, key in (("ftp_bsr", "k3"), ("ftp_bsr_adaptive", "k4"),
                       ("ftp_spmm", "k1"), ("ftp_spmm_fused_lif", "k2")):
@@ -5986,13 +6298,21 @@ def main() -> int:
     by_name["ftp_spmm_fused_lif"]["mesh"] = {
         "launches": mesh["dense"]["ftp_spmm_fused_lif_launches"]}
     by_name["ftp_bsr"]["max_abs_err"] = max(by_name["ftp_bsr"]["max_abs_err"],
-                                            mesh["kernel3"]["max_abs_err"])
+                                            mesh["kernel3"]["max_abs_err"],
+                                            tp["dual"]["max_abs_err"])
+    for name, part, key in (
+            ("ftp_bsr", "dual", "ftp_bsr_launches"),
+            ("ftp_bsr_adaptive", "dual", "ftp_bsr_adaptive_launches"),
+            ("ftp_spmm", "dense", "ftp_spmm_launches"),
+            ("ftp_spmm_fused_lif", "dense", "ftp_spmm_fused_lif_launches")):
+        by_name[name]["tp"] = {"launches": tp[part][key]}
     assert all(k["launches"] > 0 for k in kernels), [k["launches"] for k in kernels]
     print(json.dumps({"recurrent": recurrent}), flush=True)
     print(json.dumps({"moe_frontends": moe_frontends}), flush=True)
     print(json.dumps({"snn_track": snn}), flush=True)
     print(json.dumps({"roofline": roofline}), flush=True)
     print(json.dumps({"mesh": mesh}), flush=True)
+    print(json.dumps({"tp": tp}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {

@@ -115,14 +115,15 @@ def _preprocess(packed: torch.Tensor, cfg: SpikingConfig) -> torch.Tensor:
 
 
 def spiking_linear_train(
-    spikes: torch.Tensor, w: torch.Tensor, cfg: SpikingConfig
+    spikes: torch.Tensor, w: torch.Tensor, cfg: SpikingConfig,
+    mm=ftp_spmspm_unpacked,
 ) -> torch.Tensor:
     """(T, M, K) float spikes x (K, N) -> (T, M, N) float spikes: the
-    differentiable training path (surrogate-gradient BPTT)."""
+    differentiable training path (surrogate-gradient BPTT), the
+    contraction by ``mm``."""
     if cfg.preprocess_min_spikes > 0:
         spikes = mask_low_activity_spikes(spikes, cfg.preprocess_min_spikes)
-    out, _ = lif_forward(ftp_spmspm_unpacked(spikes, w), v_th=cfg.v_th,
-                         tau=cfg.tau)
+    out, _ = lif_forward(mm(spikes, w), v_th=cfg.v_th, tau=cfg.tau)
     return out
 
 
@@ -256,6 +257,7 @@ def spiking_ffn_apply(
     mode: str = "train",
     plans: tuple | None = None,
     policy=None,
+    over=None,
 ) -> torch.Tensor:
     """x: (..., d_model) analog activations -> (..., d_model).
 
@@ -264,7 +266,12 @@ def spiking_ffn_apply(
     or attached by `attach_join_plans`) runs both GEMMs through the
     dual-sparse BSR kernel (under ``policy``, default PACKED_DUAL); without
     plans they run against the dense weights: the dense-weight kernels on
-    the card, the plain FTP path on the CPU."""
+    the card, the plain FTP path on the CPU.  In ``train`` mode ``over``,
+    when given, runs the two GEMMs another way: it is called with
+    ``ffn(w_in, w_out, device, mm)``, the path from the encoded spikes to
+    the (T, M, N) full sums with contractions ``mm``, and returns the full
+    sums (tensor-parallel serving runs it per weight slab and adds the
+    partials, `models.layers.mlp_apply`)."""
     w_in, w_out = params["w_in"], params["w_out"]
     if plans is None:
         plans = (params.get("plan_in"), params.get("plan_out"))
@@ -273,10 +280,13 @@ def spiking_ffn_apply(
     xm = x.reshape(-1, x.shape[-1])
     spikes_in = direct_encode(xm, cfg.T, v_th=cfg.v_th, tau=cfg.tau)
     if mode == "train":
-        if cfg.weight_density < 1.0:
-            w_in, w_out = freeze_pruned(w_in), freeze_pruned(w_out)
-        hidden = spiking_linear_train(spikes_in, w_in, cfg)
-        o = ftp_spmspm_unpacked(hidden, w_out)
+        def ffn(w_in, w_out, device=xm.device, mm=ftp_spmspm_unpacked):
+            if cfg.weight_density < 1.0:
+                w_in, w_out = freeze_pruned(w_in), freeze_pruned(w_out)
+            hidden = spiking_linear_train(spikes_in.to(device), w_in, cfg, mm)
+            return mm(hidden, w_out)
+
+        o = ffn(w_in, w_out) if over is None else over(ffn)
     elif mode == "infer":
         packed_in = _preprocess(pack_spikes(spikes_in), cfg)
         if plan_in is not None:

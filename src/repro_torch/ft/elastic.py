@@ -13,7 +13,10 @@ def plan_serve_mesh(devices, model_parallel: int = 1) -> Mesh | None:
     (`launch.mesh.LogicalDevice`s) at up to ``model_parallel`` model
     shards (reference rule): the model axis halves until the survivors
     hold one row of it, trailing devices that fill no data row stay idle,
-    and one usable device gives None (the engine's unsharded mode)."""
+    and one usable device gives None (the engine's unsharded mode).  The
+    model axis is kept where the survivors allow it, so an approximate-TP
+    engine's `Engine.remesh` re-deals its TP slabs over it (an approximate
+    policy left without a model axis is refused, as at construction)."""
     devices = list(devices)
     if not devices:
         raise ValueError("no surviving devices to plan a serve mesh over")

@@ -35,6 +35,15 @@ cards), as the reference's fake XLA host devices do:
 
     ... --device cpu --mesh data,model --fake-devices 8 --batch 4 --gen 6
 
+With ``--exactness approximate --tol X`` the mesh's model axis runs psum
+tensor parallelism instead (attention, MLPs, MoE experts and the recurrent
+blocks column- and row-parallel, `serve.sharding.shard_params`); the
+launcher then serves a bitwise single-device engine too and prints the
+measured logit drift against the bound:
+
+    ... --device cpu --mesh data,model --fake-devices 8 \
+        --exactness approximate --tol 0.25 --batch 4 --gen 6
+
 Speculative decoding: ``--speculation draft --k K`` has a cheaper draft
 policy over the same weights propose K tokens a round (the packed target's
 own policy, unless ``--draft-weight-density D`` prunes its FFNs harder or
@@ -266,8 +275,9 @@ def main(argv=None) -> int:
                          "packed + LTH-pruned archs)")
     ap.add_argument("--exactness", choices=("bitwise", "approximate"),
                     default="bitwise",
-                    help="policy.exactness: approximate bounds the logit "
-                         "drift of a lossy --temporal by --tol")
+                    help="policy.exactness: approximate bounds by --tol the "
+                         "logit drift of psum-TP on the --mesh model axis "
+                         "and of a lossy --temporal")
     ap.add_argument("--tol", type=float, default=0.05,
                     help="max logit drift allowed under --exactness "
                          "approximate")
@@ -377,7 +387,13 @@ def main(argv=None) -> int:
     from repro_torch import resolve_device
     from repro_torch.kernels import ftp_spmm
     from repro_torch.models.registry import build_model
-    from repro_torch.serve import Engine, Temporal, bitwise, check_parity
+    from repro_torch.serve import (
+        Engine,
+        Placement,
+        Temporal,
+        bitwise,
+        check_parity,
+    )
 
     cfg = build_config(args.arch, smoke=args.smoke, spiking=args.spiking,
                        weight_density=args.weight_density)
@@ -441,10 +457,12 @@ def main(argv=None) -> int:
     s["kernel_launches"] = {k: n - before[k]
                             for k, n in ftp_spmm.launch_counts().items()}
     if not policy.token_identical:
-        # drift against a bitwise run of the same prompts with the same
-        # spike format and weight sparsity: what --tol bounds is the lossy
-        # timestep skipping alone
-        ref_policy = dataclasses.replace(policy, exactness=bitwise(),
+        # drift against a bitwise single-device run of the same prompts with
+        # the same spike format and weight sparsity: what --tol bounds is the
+        # psum-TP reassociation and the lossy timestep skipping the policy
+        # opted into
+        ref_policy = dataclasses.replace(policy, placement=Placement(),
+                                         exactness=bitwise(),
                                          temporal=Temporal())
         ref = Engine(model, params, max_len=max_len,
                      max_slots=args.max_slots or args.batch,

@@ -134,6 +134,115 @@ class VocabSlabs:
         return self._placed[key]
 
 
+class TPSlabs:
+    """A weight dealt over a serve mesh's model axis for psum tensor
+    parallelism (`serve.sharding.shard_params`).  ``kind`` "col" cuts the
+    last dim (a column-parallel projection: whole heads, whole ``d_ff`` or
+    ``d_inner`` blocks), "row" the second last (a row-parallel one: its
+    contraction, whose shard products are partials of one sum).  Slab j is
+    placed on each torch device of ``devices[j]`` (default: the weight's
+    own) when the slabs are dealt, and `slab` only looks it up.  When every
+    slab stays on the weight's own device (one card, or the CPU) each is a
+    view of the weight: no copy.  When they spread over several devices,
+    each device gets a contiguous copy of its own slabs alone and no
+    reference to the whole is kept, so a load-time cast of the weight is
+    freed once the slabs are made."""
+
+    def __init__(self, w: torch.Tensor, shards: int, kind: str, devices=None):
+        dim = {"col": w.ndim - 1, "row": w.ndim - 2}[kind]
+        n = w.shape[dim]
+        if n % shards:
+            raise ValueError(f"dim {dim} of {tuple(w.shape)} does not divide "
+                             f"into {shards} slabs")
+        width = n // shards
+        devices = [[torch.device(d) for d in ds]
+                   for ds in (devices or [[w.device]] * shards)]
+        spread = any(d != w.device for ds in devices for d in ds)
+        self.shards, self.kind, self.device = shards, kind, w.device
+        self._slabs: dict = {}
+        for j, ds in enumerate(devices):
+            view = w.narrow(dim, j * width, width)
+            for d in ds:
+                if (j, d) not in self._slabs:
+                    self._slabs[(j, d)] = (
+                        torch.empty(view.shape, dtype=w.dtype, device=d
+                                    ).copy_(view) if spread else view)
+
+    def slab(self, j: int, device=None) -> torch.Tensor:
+        key = (j, self.device if device is None else torch.device(device))
+        if key not in self._slabs:
+            raise ValueError(f"TP slab {j} was not dealt to {key[1]}")
+        return self._slabs[key]
+
+
+def tp_devices(shards: int) -> list:
+    """Shard j's torch device, for each j, from the installed serve mesh
+    (`kernels.ops.serve_mesh_scope`), whose row 0 holds the calling data
+    group's devices."""
+    from repro_torch.kernels.ops import get_serve_mesh
+
+    mesh = get_serve_mesh()
+    if mesh is None or mesh.shape["model"] != shards:
+        raise ValueError(
+            f"TP slabs over {shards} model shards need a serve mesh with that "
+            f"model axis (ops.serve_mesh_scope); got {mesh}")
+    return [mesh.physical(0, j) for j in range(shards)]
+
+
+def tp_sum(p: dict, names, body, *, ct, lead, down, partial=None,
+           dtype=None) -> torch.Tensor:
+    """One block body over the serve mesh's model shards.  ``body(ws, j, m,
+    dev, down)`` computes shard j of m on torch device ``dev`` from its
+    weights ``ws`` (``p[n]`` for each of ``names``, None where ``p`` has no
+    ``n``), its row-parallel product by ``down``.  With ``p[names[0]]`` a
+    tensor (the unsharded block) it runs once, on the whole weights in
+    ``ct`` on ``lead`` with ``down``.  Dealt as `TPSlabs`, it runs once per
+    shard on that shard's slabs and device with ``partial`` (default
+    `partial_matmul`), and the f32 partials add in `psum`, rounded once to
+    ``dtype`` (default ``ct``)."""
+    if not isinstance(p[names[0]], TPSlabs):
+        ws = tuple(p[n].to(ct) if n in p else None for n in names)
+        return body(ws, 0, 1, lead, down)
+    m = p[names[0]].shards
+    parts = [body(tuple(p[n].slab(j, dev) if n in p else None for n in names),
+                  j, m, dev, partial or partial_matmul)
+             for j, dev in enumerate(tp_devices(m))]
+    return psum(parts, lead, ct if dtype is None else dtype)
+
+
+def psum(parts, device, dtype) -> torch.Tensor:
+    """The model shards' f32 partial products of one row-parallel
+    contraction (`partial_matmul`), moved to ``device`` (the mesh row's
+    lead) and added there in f32 in shard order 0 .. m-1, rounded once to
+    ``dtype``: a fixed order, so the result repeats bit for bit from run to
+    run."""
+    acc = parts[0].to(device, torch.float32)
+    for part in parts[1:]:
+        acc = acc + part.to(device, torch.float32)
+    return acc.to(dtype)
+
+
+def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` (2-D, or batched 3-D) with an f32 result: the library's
+    f32 accumulation, not rounded to the inputs' dtype (on the card
+    cuBLAS's ``out_dtype``; elsewhere the same exact products of the
+    values upcast)."""
+    if a.dtype == w.dtype == torch.float32:
+        return a @ w
+    if a.is_cuda:
+        fn = torch.bmm if a.ndim == 3 else torch.mm
+        return fn(a, w, out_dtype=torch.float32)
+    return a.float() @ w.float()
+
+
+def partial_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One model shard's partial of a row-parallel product, ``x (..., K/m)
+    @ w (K/m, N)`` in f32 over fixed row blocks (`row_blocks`), for
+    `psum`."""
+    out = row_blocks(_mm_f32, x.reshape(-1, x.shape[-1]), w)
+    return out.reshape(tuple(x.shape[:-1]) + (-1,))
+
+
 def vocab_logits(x: torch.Tensor, w) -> torch.Tensor:
     """(R, D) f32 rows x the unembedding's column blocks -> (R, V) f32
     logits, over fixed blocks of rows and of columns.  ``w`` is the (n, D,
@@ -315,46 +424,102 @@ def attn_apply(p, x, cfg: ArchConfig, *, positions, cache=None):
     pos): k/v (B, S_cache, KV, dh) are written IN PLACE at the rows from
     `cache_slot` (the cohort owns its cache; the reference returns an
     updated copy instead), ``kv_pos`` is the already-updated slot-position
-    vector and ``pos`` a host int."""
-    if cfg.expand_kv:
-        raise NotImplementedError(
-            "expand_kv (KV heads replicated for tensor parallelism) belongs "
-            "to approximate-TP serving, ROADMAP.md item 12b"
-        )
+    vector and ``pos`` a host int.
+
+    ``cfg.expand_kv`` repeats k and v to H heads at attention time, after
+    the cache write (the cache keeps KV heads), as the reference does.
+
+    With ``wq`` / ``wo`` dealt as `TPSlabs` (approximate serving on a serve
+    mesh) the block runs tensor-parallel through `tp_sum`: shard j projects
+    q for heads [j H / m, (j + 1) H / m), attends on them and multiplies by
+    ``wo``'s row slab j.  It projects k / v for its own KV heads when
+    ``wk`` / ``wv`` are slabs too (m divides KV), else every shard reads
+    the KV heads its q heads map to from the k / v the lead projects once.
+    The cache stays on the lead, each shard writing and reading its KV
+    heads as a view along the head dim."""
     B, S, D = x.shape
-    H, KV, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    H, dh = cfg.n_heads, cfg.head_dim
     ct = _ct(cfg)
-    # every projection is a contiguous 2-D (B*S, D) product; a serving
-    # forward (with a cache) runs it over fixed row blocks, so a position's
-    # values do not depend on B and S (`row_blocks`)
+    serving = cache is not None
+    lead = x.device
+    # every projection is a contiguous 2-D (B*S, D) product; a serving or
+    # tensor-parallel forward runs it over fixed row blocks, so a
+    # position's values do not depend on B and S (`row_blocks`)
     xc = x.to(ct).reshape(B * S, D)
-    proj = _row_invariant_matmul if cache is not None else torch.matmul
-    q = proj(xc, p["wq"].to(ct)).reshape(B, S, H, dh)
-    k = proj(xc, p["wk"].to(ct)).reshape(B, S, KV, dh)
-    v = proj(xc, p["wv"].to(ct)).reshape(B, S, KV, dh)
-    if cfg.qk_norm:
-        # per-head rmsnorm before RoPE; a serving forward takes its row
-        # means over fixed row blocks, as the block norms do
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps, row_invariant=cache is not None)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps, row_invariant=cache is not None)
-    if cfg.attn != "bidir":
-        q = rope_apply(q, positions, cfg.rope_theta)
-        k = rope_apply(k, positions, cfg.rope_theta)
-    if cache is None:
-        o = multihead_attention(q, k, v, cfg, q_offset=0,
-                                kv_positions=torch.arange(S, device=x.device))
-        out = o.reshape(B * S, H * dh) @ p["wo"].to(ct)
-        return out.reshape(B, S, D).to(x.dtype)
-    pos = cache["pos"]
-    slot = cache_slot(pos, S, cache["k"].shape[1], cfg.attn)
-    cache["k"][:, slot:slot + S] = k.to(cache["k"].dtype)
-    cache["v"][:, slot:slot + S] = v.to(cache["v"].dtype)
-    o = multihead_attention(
-        q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), cfg,
-        q_offset=pos, kv_positions=cache["kv_pos"], q_block=Q_BLOCK,
-    )
-    out = proj(o.reshape(B * S, H * dh), p["wo"].to(ct))
+    proj = (_row_invariant_matmul if serving or isinstance(p["wq"], TPSlabs)
+            else torch.matmul)
+    if serving:
+        pos = cache["pos"]
+        slot = cache_slot(pos, S, cache["k"].shape[1], cfg.attn)
+        kv_positions = cache["kv_pos"]
+    else:
+        pos, kv_positions = 0, torch.arange(S, device=lead)
+
+    def heads(t, norm, dev):
+        """(B S, n dh) projections as (B, S, n, dh) heads: per-head rmsnorm
+        (a serving forward takes its row means over fixed row blocks, as
+        the block norms do), then RoPE."""
+        t = t.reshape(B, S, -1, dh)
+        if cfg.qk_norm:
+            t = rmsnorm(t, p[norm].to(dev), cfg.norm_eps, row_invariant=serving)
+        if cfg.attn != "bidir":
+            t = rope_apply(t, positions.to(dev), cfg.rope_theta)
+        return t
+
+    def kv_heads(wk, wv, j, dev):
+        """k and v of KV-head block j (``wk``'s columns wide); a serving
+        forward writes them into the lead's cache and reads back that
+        block of heads."""
+        xd = xc.to(dev)
+        k = heads(proj(xd, wk), "k_norm", dev)
+        n = k.shape[2]
+        v = proj(xd, wv).reshape(B, S, n, dh)
+        if not serving:
+            return k, v
+        hs = slice(j * n, (j + 1) * n)
+        cache["k"][:, slot:slot + S, hs] = k.to(lead, cache["k"].dtype)
+        cache["v"][:, slot:slot + S, hs] = v.to(lead, cache["v"].dtype)
+        return cache["k"][:, :, hs], cache["v"][:, :, hs]
+
+    kv_split = isinstance(p["wk"], TPSlabs)
+    kv = None if kv_split else kv_heads(p["wk"].to(ct), p["wv"].to(ct), 0, lead)
+
+    def body(ws, j, m, dev, down):
+        wq, wo = ws
+        hl = H // m
+        q = heads(proj(xc.to(dev), wq), "q_norm", dev)
+        k, v = (kv_heads(p["wk"].slab(j, dev), p["wv"].slab(j, dev), j, dev)
+                if kv_split else kv)
+        kv0 = j * cfg.n_kv // m if kv_split else 0
+        k, v = (_shard_kv(t.to(dev, q.dtype), cfg, j, hl, kv0) for t in (k, v))
+        o = multihead_attention(q, k, v, cfg, q_offset=pos,
+                                kv_positions=kv_positions.to(dev),
+                                q_block=Q_BLOCK if serving else None)
+        return down(o.reshape(B * S, hl * dh), wo)
+
+    out = tp_sum(p, ("wq", "wo"), body, ct=ct, lead=lead, down=proj)
     return out.reshape(B, S, D).to(x.dtype)
+
+
+def _shard_kv(t: torch.Tensor, cfg: ArchConfig, j: int, hl: int,
+              kv0: int) -> torch.Tensor:
+    """The KV heads q heads [j hl, (j + 1) hl) attend with, from ``t`` (B,
+    S, n, dh) holding KV heads kv0 .. kv0 + n - 1 (q head h reads KV head
+    h // (H / KV)): the GQA groups as they are when the q heads cover
+    whole groups or one group covers them, repeated to one KV head per q
+    head under ``cfg.expand_kv``; otherwise one head per q head."""
+    G = cfg.n_heads // cfg.n_kv
+    lo = j * hl // G - kv0
+    if hl % G == 0:
+        t, rep = t[:, :, lo:lo + hl // G], G
+    elif G % hl == 0:
+        t, rep = t[:, :, lo:lo + 1], hl
+    else:
+        heads = torch.arange(j * hl, (j + 1) * hl, device=t.device) // G - kv0
+        return t.index_select(2, heads)
+    if cfg.expand_kv and rep > 1:
+        return torch.repeat_interleave(t, rep, dim=2)
+    return t
 
 
 def _row_invariant_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -505,42 +670,66 @@ def mlp_apply(p, x, cfg: ArchConfig, spiking_mode: str = "train", *,
     under that policy, so its timestep gate reaches the kernel.  Dense:
     swiglu / geglu / sq_relu / gelu in the compute dtype, whatever the
     mode; ``row_invariant`` (zamba's shared block in a serving forward)
-    runs its products over fixed row blocks (`project`)."""
+    runs its products over fixed row blocks (`project`).
+
+    With ``wu`` / ``wd`` dealt as `TPSlabs` (approximate serving on a serve
+    mesh; under packed spikes the FFN shards as plan or dense column slabs
+    instead, `kernels.ops`) the products run tensor-parallel through
+    `tp_sum`, over fixed row blocks: shard j runs the up (and gate)
+    column slab j, the activation on its ``d_ff / m`` hidden units and the
+    down row slab j.  The spiking FFN's float path runs so in f32: its
+    hidden LIF neurons are per unit, so shard j fires its own, and the
+    partial full sums (T, M, D) add before the rate decode."""
     if spiking_mode not in SPIKING_MODES:
         raise ValueError(f"unknown spiking FFN mode {spiking_mode!r}")
     ct = _ct(cfg)
     xc = x.to(ct)
+    tp = isinstance(p["wu"], TPSlabs)
     if not cfg.spiking_ffn:
         def mm(a, w):
-            if row_invariant:
-                return project(a, w.to(ct), row_invariant=True)
-            return a @ w.to(ct)
+            if row_invariant or tp:
+                return project(a, w, row_invariant=True)
+            return a @ w
 
-        up = mm(xc, p["wu"])
-        if cfg.act == "swiglu":
-            g = mm(xc, p["wg"])
-            h = g * _sigmoid(g) * up
-        elif cfg.act == "geglu":
-            h = _gelu(mm(xc, p["wg"])) * up
-        elif cfg.act == "sq_relu":
-            h = torch.square(torch.relu(up))
-        elif cfg.act == "gelu":
-            h = _gelu(up)
-        else:
-            raise ValueError(cfg.act)
-        return mm(h, p["wd"]).to(x.dtype)
+        def body(ws, j, m, dev, down):
+            wu, wg, wd = ws
+            a = xc.to(dev)
+            gate = mm(a, wg) if cfg.act in ("swiglu", "geglu") else None
+            return down(_dense_act(cfg, mm(a, wu), gate), wd)
+
+        y = tp_sum(p, ("wu", "wg", "wd"), body, ct=ct, lead=x.device, down=mm)
+        return y.to(x.dtype)
     from repro_torch.core.snn_layers import SpikingConfig, spiking_ffn_apply
 
     scfg = SpikingConfig(T=cfg.spiking_T, weight_density=cfg.spiking_weight_density)
     weights = {"w_in": p["wu"], "w_out": p["wd"]}
-    plans = None
+    plans = over = None
     if spiking_mode == "infer" and "plan_in" in p:
         plans = (p["plan_in"], p["plan_out"])  # the kernel reads only these
+    elif tp:
+        def over(ffn):
+            def body(ws, j, m, dev, down):
+                return ffn(*ws, dev, lambda a, w: down(a.float(), w.float()))
+            return tp_sum(p, ("wu", "wd"), body, ct=ct, lead=x.device,
+                          down=None, dtype=torch.float32)
     else:  # the float and dense paths contract the compute-dtype values
         weights = {k: w.to(ct) for k, w in weights.items()}
     y = spiking_ffn_apply(weights, xc, scfg, mode=spiking_mode, plans=plans,
-                          policy=p.get("ffn_policy"))
+                          policy=p.get("ffn_policy"), over=over)
     return y.to(x.dtype)
+
+
+def _dense_act(cfg: ArchConfig, up: torch.Tensor, gate) -> torch.Tensor:
+    """The dense MLP's hidden activation of the up (and gate) products."""
+    if cfg.act == "swiglu":
+        return gate * _sigmoid(gate) * up
+    if cfg.act == "geglu":
+        return _gelu(gate) * up
+    if cfg.act == "sq_relu":
+        return torch.square(torch.relu(up))
+    if cfg.act == "gelu":
+        return _gelu(up)
+    raise ValueError(cfg.act)
 
 
 # ---------------------------------------------------------------------------
@@ -613,13 +802,12 @@ def moe_apply(p, x, cfg: ArchConfig):
     disp.index_copy_(0, slot, xt[:, None, :].expand(T, K, D).reshape(T * K, D))
     ct = _ct(cfg)
     disp = disp[:E * C].reshape(E, C, D).to(ct)
-    h_u = torch.bmm(disp, p["wu"].to(ct))
-    if "wg" in p:
-        g = torch.bmm(disp, p["wg"].to(ct))
-        h = (g * _sigmoid(g) if cfg.act == "swiglu" else _gelu(g)) * h_u
-    else:
-        h = torch.square(torch.relu(h_u)) if cfg.act == "sq_relu" else _gelu(h_u)
-    y_e = torch.bmm(h, p["wd"].to(ct))                 # (E, C, D)
+    # (E, C, D); with the experts' d_ff dealt as `TPSlabs` (approximate
+    # serving on a serve mesh), over its m blocks, the router whole before
+    y_e = tp_sum(p, ("wu", "wg", "wd"),
+                 lambda ws, j, m, dev, down: _experts(*ws, disp.to(dev), cfg,
+                                                      down=down),
+                 ct=ct, lead=disp.device, down=torch.bmm, partial=_mm_f32)
 
     zero = torch.zeros_like(eidx)
     y_tk = y_e[torch.where(keep, eidx, zero), torch.where(keep, pos, zero)]
@@ -627,3 +815,16 @@ def moe_apply(p, x, cfg: ArchConfig):
     top1 = torch.nn.functional.one_hot(eidx[:, 0], E).float()
     aux = E * torch.sum(top1.mean(0) * probs.mean(0))
     return y.reshape(B, S, D).to(x.dtype), aux
+
+
+def _experts(wu, wg, wd, disp, cfg: ArchConfig, down=torch.bmm) -> torch.Tensor:
+    """The experts' products on their (E, C, D) dispatch buffer: one
+    ``bmm`` each in the compute dtype (the down product by ``down``), the
+    activation op by op."""
+    h_u = torch.bmm(disp, wu)
+    if wg is not None:
+        g = torch.bmm(disp, wg)
+        h = (g * _sigmoid(g) if cfg.act == "swiglu" else _gelu(g)) * h_u
+    else:
+        h = torch.square(torch.relu(h_u)) if cfg.act == "sq_relu" else _gelu(h_u)
+    return down(h, wd)

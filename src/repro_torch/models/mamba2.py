@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 
 from .layers import (
+    TPSlabs,
     _ct,
     _dt,
     _sigmoid,
@@ -35,8 +36,11 @@ from .layers import (
     dense_init,
     mlp_apply,
     mlp_init,
+    partial_matmul,
     project,
+    psum,
     rmsnorm,
+    tp_devices,
 )
 from .scan_utils import chunked_seq_scan
 
@@ -164,19 +168,9 @@ def mamba_apply(p, x, cfg: ArchConfig, state=None):
         return project(a, w.to(ct), row_invariant=serving)
 
     xn = rmsnorm(x, p["ln"], cfg.norm_eps, row_invariant=serving).to(ct)
-    xc = mm(xn, p["in_x"])                                # (B, S, d_in)
-    z = mm(xn, p["in_z"])
     bc = mm(xn, p["in_bc"])                               # (B, S, 2 St)
-    b_t, c_t = bc[..., :St], bc[..., St:]
+    b_t, c_t = bc[..., :St].float(), bc[..., St:].float()
     dt = _softplus(mm(xn, p["in_dt"]).float() + p["dt_bias"].float())  # (B,S,H)
-
-    xc, conv_new = _causal_conv(xc, p["conv"].to(ct),
-                                state["conv"] if serving else None)
-    xh = _silu(xc).reshape(B, S, H, dh).float()
-    a = -torch.exp(p["a_log"])                            # (H,)
-    decay = torch.exp(a[None, None] * dt)                 # (B, S, H)
-    ssm0 = (state["ssm"] if serving else
-            torch.zeros((B, H, dh, St), dtype=torch.float32, device=x.device))
     chunk = cfg.ssm_chunk
     if S > 1 and chunk and S % chunk == 0:
         def core(*a):
@@ -184,15 +178,56 @@ def mamba_apply(p, x, cfg: ArchConfig, state=None):
     else:
         def core(*a):
             return _ssm_steps(*a, chunk)
-    args = (xh, b_t.float(), c_t.float(), decay, dt, ssm0)
-    if serving:
-        # padding rows: x, B, C, dt 0 and decay 1 (log 0), so all finite
-        ssm_new, y = batch_blocks(core, args, (0.0, 0.0, 0.0, 1.0, 0.0, 0.0))
+
+    def heads(in_x, in_z, conv, out, hs, conv0, ssm0, dev=x.device, down=mm):
+        """Heads ``hs`` (a slice) of the block, from the in / conv / out
+        weights of their d_inner channels: (``down(y, out)``, conv state,
+        ssm state)."""
+        xd = xn.to(dev)
+        xc = mm(xd, in_x)                                 # (B, S, n dh)
+        z = mm(xd, in_z)
+        n = xc.shape[-1] // dh
+        xc, conv_new = _causal_conv(xc, conv, conv0)
+        xh = _silu(xc).reshape(B, S, n, dh).float()
+        dth = dt[..., hs].to(dev)
+        a = -torch.exp(p["a_log"][hs].to(dev))            # (n,)
+        decay = torch.exp(a[None, None] * dth)            # (B, S, n)
+        if ssm0 is None:
+            ssm0 = torch.zeros((B, n, dh, St), dtype=torch.float32, device=dev)
+        args = (xh, b_t.to(dev), c_t.to(dev), decay, dth, ssm0)
+        if serving:
+            # padding rows: x, B, C, dt 0 and decay 1 (log 0), so all finite
+            ssm_new, y = batch_blocks(core, args, (0.0, 0.0, 0.0, 1.0, 0.0, 0.0))
+        else:
+            ssm_new, y = core(*args)
+        y = y + p["d_skip"][hs].to(dev).float()[None, None, :, None] * xh
+        y = y.reshape(B, S, n * dh).to(ct) * _silu(z)
+        return down(y, out), conv_new, ssm_new
+
+    names = ("in_x", "in_z", "conv", "out")
+    if isinstance(p["in_x"], TPSlabs):
+        # whole SSD heads on each shard: its d_inner channels of in_x /
+        # in_z / conv, the conv and SSM state of its channels and heads;
+        # out is row-parallel, the states concatenate (exact)
+        m = p["in_x"].shards
+        hl, cl = H // m, d_in // m
+        outs = []
+        for j, dev in enumerate(tp_devices(m)):
+            hs, cs = slice(j * hl, (j + 1) * hl), slice(j * cl, (j + 1) * cl)
+            outs.append(heads(
+                *(p[n].slab(j, dev) for n in names), hs,
+                state["conv"][..., cs].to(dev) if serving else None,
+                state["ssm"][:, hs].to(dev) if serving else None, dev,
+                partial_matmul))
+        y = psum([o[0] for o in outs], x.device, ct)
+        conv_new, ssm_new = (torch.cat([o[i].to(x.device) for o in outs], dim=d)
+                             for i, d in ((1, -1), (2, 1)))
     else:
-        ssm_new, y = core(*args)
-    y = y + p["d_skip"].float()[None, None, :, None] * xh
-    y = y.reshape(B, S, d_in).to(ct) * _silu(z)
-    x = x + mm(y, p["out"]).to(x.dtype)
+        y, conv_new, ssm_new = heads(
+            *(p[n].to(ct) for n in names), slice(None),
+            state["conv"] if serving else None,
+            state["ssm"] if serving else None)
+    x = x + y.to(x.dtype)
     return x, ({"conv": conv_new, "ssm": ssm_new} if serving else None)
 
 

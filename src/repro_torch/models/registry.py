@@ -1,8 +1,9 @@
 """Uniform Model interface (port of `repro.models.registry`: the
 transformer families ``dense``, ``moe``, ``audio`` and ``vlm``, RWKV6
 (``ssm``) and Zamba2 (``hybrid``); ``axes`` waits for the train mesh,
-ROADMAP.md item 12c: the serve mesh shards only the join plans and the
-unembedding's column blocks, which it finds by name).
+ROADMAP.md item 12c: the serve mesh finds what it shards by name, the
+join plans, the unembedding's column blocks and, under approximate
+exactness, the TP weights).
 
     init(seed=0, *, device=None) -> params      (seeded torch.Generator)
     loss(params, batch) -> scalar loss          (the training forward)

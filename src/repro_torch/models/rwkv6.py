@@ -15,7 +15,20 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 
-from .layers import _ct, _dt, _sigmoid, batch_blocks, dense_init, project, rmsnorm
+from .layers import (
+    TPSlabs,
+    _ct,
+    _dt,
+    _sigmoid,
+    batch_blocks,
+    dense_init,
+    partial_matmul,
+    project,
+    psum,
+    rmsnorm,
+    tp_devices,
+    tp_sum,
+)
 from .scan_utils import chunked_seq_scan, token_shift
 
 DECAY_RANK = 64
@@ -111,18 +124,39 @@ def block_apply(p, x, cfg: ArchConfig, state=None):
     def mix(i):
         return (xn + (shifted - xn) * mu[i]).to(ct)
 
-    r = mm(mix(0), p["wr"]).reshape(B, S, H, dh)
-    k = mm(mix(1), p["wk"]).reshape(B, S, H, dh)
-    v = mm(mix(2), p["wv"]).reshape(B, S, H, dh)
-    g = mm(mix(3), p["wg"])
-    g = g * _sigmoid(g)
+    mixes = [mix(i) for i in range(5)]
     # data-dependent decay in (0, 1): exp(-exp(w0 + tanh(x a) b))
-    dd = mm(torch.tanh(mm(mix(4), p["wa"])), p["wb"])
-    w = torch.exp(-torch.exp(p["w0"].float() + dd.float())).reshape(B, S, H, dh)
-    out, wkv = _wkv(r.float(), k.float(), v.float(), w, p["u"].float(),
-                    state["wkv"], cfg.ssm_chunk, row_invariant=serving)
+    da = torch.tanh(mm(mixes[4], p["wa"]))
+
+    def heads(r, k, v, g, wb, w0, u, wkv, dev=x.device):
+        """The WKV of the heads whose projections are given."""
+        r = mm(mixes[0].to(dev), r)
+        n = r.shape[-1] // dh
+        k = mm(mixes[1].to(dev), k)
+        v = mm(mixes[2].to(dev), v)
+        g = mm(mixes[3].to(dev), g)
+        dd = mm(da.to(dev), wb)
+        w = torch.exp(-torch.exp(w0.float() + dd.float())).reshape(B, S, n, dh)
+        out, wkv = _wkv(*(t.float().reshape(B, S, n, dh) for t in (r, k, v)),
+                        w, u.float(), wkv, cfg.ssm_chunk, row_invariant=serving)
+        return out, g * _sigmoid(g), wkv
+
+    names = ("wr", "wk", "wv", "wg", "wb", "w0")
+    if isinstance(p["wr"], TPSlabs):
+        # heads [j H / m, (j + 1) H / m) on shard j; the WKV outputs, gates
+        # and states concatenate (exact), ln_x needs the whole vector
+        m = p["wr"].shards
+        hl = H // m
+        outs = [heads(*(p[n].slab(j, dev) for n in names),
+                      p["u"][j * hl:(j + 1) * hl].to(dev),
+                      state["wkv"][:, j * hl:(j + 1) * hl].to(dev), dev)
+                for j, dev in enumerate(tp_devices(m))]
+        out, g, wkv = (torch.cat([o[i].to(x.device) for o in outs], dim=d)
+                       for i, d in ((0, 2), (1, -1), (2, 1)))
+    else:
+        out, g, wkv = heads(*(p[n] for n in names), p["u"], state["wkv"])
     out = norm(out.reshape(B, S, D).to(x.dtype), p["ln_x"])
-    x = x + mm(out.to(ct) * g, p["wo"])
+    x = x + _row_parallel(out.to(ct) * g, p["wo"], mm)
 
     # ---- channel mix ----
     xn2 = norm(x, p["ln2"])
@@ -130,10 +164,27 @@ def block_apply(p, x, cfg: ArchConfig, state=None):
     cmu = p["cm_mu"].to(ct)
     xk = (xn2 + (shifted2 - xn2) * cmu[0]).to(ct)
     xr = (xn2 + (shifted2 - xn2) * cmu[1]).to(ct)
-    kk = torch.square(torch.relu(mm(xk, p["cm_k"])))
     rr = _sigmoid(mm(xr, p["cm_r"]))
-    x = x + rr * mm(kk, p["cm_v"])
+
+    def channel(ws, j, m, dev, down):
+        ck, cv = ws
+        return down(torch.square(torch.relu(mm(xk.to(dev), ck))), cv)
+
+    x = x + rr * tp_sum(p, ("cm_k", "cm_v"), channel, ct=ct, lead=x.device,
+                        down=mm)
     return x, {"tm_prev": tm_prev, "cm_prev": cm_prev, "wkv": wkv}
+
+
+def _row_parallel(a: torch.Tensor, w, mm) -> torch.Tensor:
+    """``mm(a, w)``; for `TPSlabs` row slabs, shard j's f32 partial of a's
+    column block j by slab j (`partial_matmul`), the partials added in
+    `psum`."""
+    if not isinstance(w, TPSlabs):
+        return mm(a, w)
+    kl = a.shape[-1] // w.shards
+    parts = [partial_matmul(a[..., j * kl:(j + 1) * kl].to(dev), w.slab(j, dev))
+             for j, dev in enumerate(tp_devices(w.shards))]
+    return psum(parts, a.device, a.dtype)
 
 
 def state_init(cfg: ArchConfig, batch: int, *, device) -> dict:

@@ -67,10 +67,15 @@ it, and the pipelined executor re-packs a cohort that retirement skews),
 each group on its mesh row's lead device with the mesh row installed as
 the kernels' serve mesh, so every spiking FFN's join plan and the
 unembedding's column blocks run as ``model`` slabs, slab j on logical
-device (i, j).  The placement is
-reduction-free: tokens and logits equal the single-device serve bit for
-bit.  `remesh` re-places a live engine onto another mesh (plans re-derive
-from the base weights; paged caches keep their pages, no page is copied).
+device (i, j).  Under a bitwise policy the placement is reduction-free:
+tokens and logits equal the single-device serve bit for bit.  Under
+``exactness=approximate(tol)`` attention, the MLPs, the MoE experts and
+the recurrent blocks also run psum tensor-parallel on the model axis
+(`serve.sharding.shard_params`): logits drift from one device within
+``tol``, logit traces are captured by default, and ``bucket_align > 1``
+may pad ragged prompts to a shared bucket (token 0).  `remesh` re-places
+a live engine onto another mesh (plans and TP slabs re-derive from the
+base weights; paged caches keep their pages, no page is copied).
 
 The engine runs on the CUDA device unless ``device`` names another one; it
 raises when there is no card and no device was named.
@@ -110,6 +115,7 @@ from .sharding import (
     place_cache,
     place_plans,
     place_tokens,
+    shard_params,
     shard_vocab,
 )
 
@@ -157,9 +163,10 @@ class Engine:
         max_slots: int = 8,
         max_queue: int = 256,
         batch_align: int = 1,
+        bucket_align: int = 1,
         eos_id: int | None = None,
         policy: ExecutionPolicy | None = None,
-        capture_logits: bool = False,
+        capture_logits: bool | None = None,
         logit_trace_window: int | None = None,
         pipeline_depth: int = 2,
         page_pool_rows: int | None = None,   # paging='paged': pool capacity
@@ -177,7 +184,12 @@ class Engine:
         self.cfg = cfg
         self.max_len = max_len
         self.eos_id = eos_id
-        self.capture_logits = capture_logits
+        # logit traces are on by default under approximate exactness, where
+        # the drift against a bitwise run is the contract `check_parity`
+        # bounds
+        self.capture_logits = (not self.policy.token_identical
+                               if capture_logits is None
+                               else bool(capture_logits))
         if logit_trace_window is not None and logit_trace_window < 1:
             raise ValueError(
                 f"logit_trace_window must be >= 1 (got {logit_trace_window});"
@@ -240,16 +252,17 @@ class Engine:
                                     device=self.device, metrics=self.metrics)
             self.cache_ops = PagedCacheOps(self.store)
             # prefix reuse needs deterministic tokens (the entry caches the
-            # first greedy token), independent rows and no logit capture (a
-            # hit emits its first token with no logits row)
+            # first greedy token), independent rows, exact-length buckets (a
+            # bucket-padded row's cache holds pad-token state) and no logit
+            # capture (a hit emits its first token with no logits row)
             auto_prefix = (self.policy.token_identical and self.row_independent
-                           and not capture_logits)
+                           and bucket_align == 1 and not self.capture_logits)
             if prefix_cache is True and not auto_prefix:
                 raise ValueError(
                     "prefix_cache=True needs a bitwise policy with "
-                    "independent rows and capture_logits off: the hit path "
-                    "re-emits a cached greedy first token and skips its "
-                    "prefill (no logits to capture)"
+                    "independent rows, bucket_align=1 and capture_logits "
+                    "off: the hit path re-emits a cached greedy first token "
+                    "and skips its prefill (no logits to capture)"
                 )
             want_prefix = auto_prefix if prefix_cache is None else prefix_cache
             if want_prefix:
@@ -268,7 +281,7 @@ class Engine:
             self.cache_ops = DenseCacheOps(self._axes)
         self.scheduler = Scheduler(
             max_slots=max_slots, max_queue=max_queue, max_len=max_len,
-            prefix_index=self.prefix_index,
+            bucket_align=bucket_align, prefix_index=self.prefix_index,
             speculation_slack=(self.policy.speculation.k
                                if self.speculative else 0),
         )
@@ -321,13 +334,17 @@ class Engine:
         return self._place(self.model.prepare(params))
 
     def _place(self, params: dict) -> dict:
-        """Prepared params on the mesh: the plans' slabs and the vocab's
-        column blocks dealt over the model axis (`place_plans`,
-        `shard_vocab`)."""
+        """Prepared params on the mesh: the psum-TP weights (under
+        approximate exactness, `shard_params`: its placement log becomes
+        ``tp_log``), the plans' slabs and the vocab's column blocks dealt
+        over the model axis (`place_plans`, `shard_vocab`)."""
         if self.mesh is None:
+            self.tp_log = []
             return params
-        return shard_vocab(place_plans(params, self.mesh), self.mesh,
-                           self.policy.model_sharded_dims())
+        dims = self.policy.model_sharded_dims()
+        params, self.tp_log = shard_params(params, self.mesh, dims, self.cfg,
+                                           ffn_tp=not self.spiking_packed)
+        return shard_vocab(place_plans(params, self.mesh), self.mesh, dims)
 
     def _by_device(self, params: dict) -> dict:
         """{physical device: ``params`` there} for the devices the data
@@ -489,18 +506,18 @@ class Engine:
     def resume(cls, model, params, handoff, **engine_kwargs) -> "Engine":
         """A successor engine from a drain handoff.
 
-        The geometry (max_len, max_slots, max_queue, eos_id) defaults to the
-        predecessor's, from ``handoff.meta``; ``policy`` and any override
-        ride ``engine_kwargs``.  (``bucket_align`` is recorded too; the
-        port's engine buckets by exact length, as the predecessor did.)
-        Finished results are preloaded and not counted again in this
-        engine's metrics; waiting and in-flight requests are re-queued under
-        their original rids with their whole budgets: a replay that, under
-        a bitwise policy, reproduces the predecessor's tokens.  Each
+        The geometry (max_len, max_slots, max_queue, bucket_align, eos_id)
+        defaults to the predecessor's, from ``handoff.meta``; ``policy`` and
+        any override ride ``engine_kwargs``.  Finished results are preloaded
+        and not counted again in this engine's metrics; waiting and
+        in-flight requests are re-queued under their original rids with
+        their whole budgets: a replay that, under a bitwise policy,
+        reproduces the predecessor's tokens.  Each
         in-flight request's handed-off progress is held against its replay
         at finish (`_finish`), so a lost token raises."""
         meta = handoff.meta
-        for key in ("max_len", "max_slots", "max_queue", "eos_id"):
+        for key in ("max_len", "max_slots", "max_queue", "bucket_align",
+                    "eos_id"):
             engine_kwargs.setdefault(key, meta[key])
         eng = cls(model, params, **engine_kwargs)
         eng.handoff_prefix_keys = [np.asarray(k, np.int32)
@@ -919,7 +936,9 @@ class Engine:
         s["execution"] = self.policy.execution
         s["pipeline_depth"] = getattr(self.executor, "depth", None)
         s["token_identical"] = self.policy.token_identical
-        s.update(mesh_summary(self.mesh))
+        s.update(mesh_summary(self.mesh, self.tp_log))
+        if not self.policy.token_identical:
+            s["drift_tol"] = self.policy.exactness.tol
         s["paging"] = self.policy.paging.describe()
         if self.paged:
             s["page_pool"] = self.store.summary()

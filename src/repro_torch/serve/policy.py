@@ -1,18 +1,20 @@
 """`ExecutionPolicy`: one declarative serve/kernel execution policy (port of
-`repro.serve.policy`, the single-device axes).
+`repro.serve.policy`).
 
-Ported axes: ``spike_format`` (float | packed), ``weight_sparsity``
-(dense | dual_sparse), ``exactness`` (bitwise, or approximate(tol) as far as
-lossy temporal skipping needs it), ``execution`` (sync | pipelined),
+Axes: ``spike_format`` (float | packed), ``weight_sparsity``
+(dense | dual_sparse), ``exactness`` (bitwise | approximate(tol)),
+``execution`` (sync | pipelined),
 ``paging`` (none | paged(page_size)), ``temporal``
 (full | adaptive(min_spikes)) and ``speculation`` (none | draft(policy, k):
 a cheaper draft policy over the same weights proposes k tokens a round, the
 target verifies all k + 1 positions in one decode) and ``placement`` (a
-(data, model) serve mesh of logical devices under the reduction-free
-rules, `serve.sharding`).  The psum-TP approximation a model axis enables
-in the reference (``exactness=approximate`` without lossy temporal
-skipping) is approximate-TP serving, ROADMAP item 12b: asking for it
-raises `NotImplementedError`.
+(data, model) serve mesh of logical devices, `serve.sharding`: under the
+reduction-free rules of a bitwise policy, or, under
+``exactness=approximate(tol)``, psum tensor parallelism of attention, the
+MLPs, the MoE experts and the recurrent blocks on the model axis).
+Approximate exactness needs one of its two sources of approximation: a
+model axis >= 2 (psum-TP) or lossy temporal skipping; without either it
+raises `ValueError`, as in the reference.
 
 Also here, as in the reference: `acceptance_lengths` (the speculative
 round's longest verified prefix), and `check_parity`, `max_logit_drift`
@@ -32,8 +34,6 @@ TEMPORAL_MODES = ("full", "adaptive")
 EXECUTION_MODES = ("sync", "pipelined")
 PAGING_MODES = ("none", "paged")
 SPECULATION_MODES = ("none", "draft")
-
-_ITEM_12B = "approximate-TP serving, ROADMAP.md item 12b"
 
 
 # ---------------------------------------------------------------------------
@@ -355,12 +355,19 @@ class ExecutionPolicy:
                 "the drift is measured and bounded, or use min_spikes=1 "
                 "(skip only all-silent planes: provably bitwise)."
             )
-        if self.exactness.mode == "approximate" and not self.temporal.lossy:
-            # the reference relaxes psum-TP reductions on a model axis here
-            raise NotImplementedError(
-                "exactness='approximate' without lossy temporal skipping "
-                "relaxes cross-shard reductions on a model axis (psum-TP): "
-                f"{_ITEM_12B}"
+        if (self.exactness.mode == "approximate"
+                and self.placement.model_size < 2
+                and not self.temporal.lossy):
+            # lossy temporal skipping is the one single-device source of
+            # approximation; without it, approximate needs psum-TP to relax
+            raise ValueError(
+                "exactness='approximate' relaxes cross-shard reductions "
+                "(psum-TP on the model axis); it needs a placement whose "
+                "mesh has a model axis >= 2 — got "
+                f"{self.placement.describe()}.  For single-device serving "
+                "use exactness=bitwise (it is both exact and free here), "
+                "unless temporal=adaptive_t(min_spikes>1) supplies the "
+                "approximation being bounded."
             )
         if self.speculation.enabled and not self.token_identical:
             # the verified stream is the target's own greedy stream: an

@@ -1,5 +1,6 @@
-"""Mesh placement for the serving engine (port of `repro.serve.sharding`,
-the reduction-free rules of bitwise serving).
+"""Mesh placement for the serving engine (port of `repro.serve.sharding`:
+the reduction-free rules of bitwise serving and the psum tensor
+parallelism of approximate serving).
 
 Layout::
 
@@ -34,8 +35,14 @@ As in the reference the default rule is REDUCTION-FREE: a dim goes on the
 model axis only when no float sum crosses a shard (a plan slab keeps each
 output column's full-K contraction in one shard, and a vocab slab each
 logit's), so a sharded serve equals the single-device serve token for
-token.  The psum-TP dims (`APPROX_MODEL_SHARDED_DIMS`) belong to
-approximate-TP serving, ROADMAP.md item 12b.
+token.  Under ``exactness=approximate(tol)`` the psum-TP dims
+(`APPROX_MODEL_SHARDED_DIMS`) go on the model axis too (`shard_params`):
+attention, the dense MLPs, the MoE experts and the recurrent blocks run
+Megatron-style, the column-parallel half at whole heads or ``d_ff`` /
+``d_inner`` blocks on each shard, the row-parallel half's f32 partials
+added on the mesh row's lead in shard order and rounded once
+(`models.layers.psum`): the drift from one device is bounded by ``tol``
+and repeats bit for bit from run to run.
 
 The mesh is one process's grid of logical devices (`launch.mesh`), not
 `torch.distributed`.  Two logical devices on one physical device share the
@@ -55,8 +62,9 @@ from repro_torch.models.layers import VocabSlabs
 # a bitwise policy (reduction-free; see the module docstring).
 MODEL_SHARDED_DIMS = frozenset({"vocab"})
 
-# The psum-TP set (Megatron column/row-parallel attention and MLP):
-# reachable only through exactness=approximate(tol), item 12b.
+# The psum-TP set (Megatron column/row-parallel attention, MLPs, MoE
+# experts, recurrent blocks): reachable only through
+# exactness=approximate(tol).
 APPROX_MODEL_SHARDED_DIMS = MODEL_SHARDED_DIMS | frozenset(
     {"heads_flat", "kv_flat", "d_ff", "d_inner"}
 )
@@ -120,31 +128,116 @@ def make_serve_mesh(spec: str | None = "data,model", *, devices=None,
     return Mesh([devices[i * mn:(i + 1) * mn] for i in range(dn)])
 
 
-def mesh_summary(mesh: Mesh | None) -> dict:
-    """The reference's ``mesh`` / ``mesh_devices`` keys, and
-    ``mesh_physical_devices``: how many distinct torch devices the logical
-    devices map onto."""
+def mesh_summary(mesh: Mesh | None, tp_log=None) -> dict:
+    """The reference's ``mesh`` / ``mesh_devices`` keys,
+    ``mesh_physical_devices`` (how many distinct torch devices the logical
+    devices map onto) and, given `shard_params`' placement log, the TP
+    weights dealt over the model axis and those kept whole."""
     if mesh is None:
-        return {"mesh": None, "mesh_devices": 1, "mesh_physical_devices": 1}
-    return {
-        "mesh": mesh.describe(),
-        "mesh_devices": mesh.size,
-        "mesh_physical_devices": len(mesh.physical_devices()),
-    }
+        s = {"mesh": None, "mesh_devices": 1, "mesh_physical_devices": 1}
+    else:
+        s = {"mesh": mesh.describe(), "mesh_devices": mesh.size,
+             "mesh_physical_devices": len(mesh.physical_devices())}
+    if tp_log is not None:
+        whole = sum(1 for _, kind, _ in tp_log if kind == "whole")
+        s.update(tp_weights_dealt=len(tp_log) - whole, tp_weights_whole=whole)
+    return s
 
 
 # ---------------------------------------------------------------------------
 # placement: params / plans / caches / token batches
 # ---------------------------------------------------------------------------
 
-def check_model_dims(model_dims) -> None:
-    """Refuse model dims that shard a float contraction (psum-TP): they
-    need the column- and row-parallel model code of item 12b."""
-    psum = set(model_dims) - MODEL_SHARDED_DIMS
-    if psum:
-        raise NotImplementedError(
-            f"model dims {sorted(psum)} shard float contractions (psum-TP): "
-            "approximate-TP serving, ROADMAP.md item 12b")
+def _tp_rules(node: dict, cfg, ffn_tp: bool):
+    """The TP weights of one param dict, found by name, as [(dim, unit
+    count, {weight: "col" | "row"})]: a group deals out only when its dim
+    is on the model axis and the model axis divides its unit count (whole
+    heads, whole ``d_ff`` / ``d_inner`` blocks; a count of 0 keeps the
+    group whole)."""
+    if {"wr", "cm_k"} <= node.keys():  # rwkv6: time mix by heads, channel mix
+        return [("heads_flat", cfg.ssm_heads,
+                 dict.fromkeys(("wr", "wk", "wv", "wg", "w0", "wb"), "col")
+                 | {"wo": "row"}),
+                ("d_ff", cfg.d_ff, {"cm_k": "col", "cm_v": "row"})]
+    if "in_x" in node:  # mamba2: whole SSD heads
+        return [("d_inner", cfg.ssm_heads,
+                 {"in_x": "col", "in_z": "col", "conv": "col", "out": "row"})]
+    if "wq" in node:  # attention: q heads with wo, KV heads when they divide
+        # a row-coupled arch (MoE capacity routing) keeps attention whole
+        units = 0 if cfg.n_experts else cfg.n_heads
+        return [("heads_flat", units, {"wq": "col", "wo": "row"}),
+                ("kv_flat", cfg.n_kv, {"wk": "col", "wv": "col"})]
+    if "router" in node:  # MoE experts (E, D, F) / (E, F, D): d_ff blocks
+        return [("d_ff", cfg.d_ff, {k: ("row" if k == "wd" else "col")
+                                    for k in ("wu", "wg", "wd") if k in node})]
+    if {"wu", "wd"} <= node.keys() and (ffn_tp or not cfg.spiking_ffn):
+        return [("d_ff", node["wu"].shape[-1],
+                 {k: ("row" if k == "wd" else "col")
+                  for k in ("wu", "wg", "wd") if k in node})]
+    return []
+
+
+def shard_params(params: dict, mesh: Mesh, model_dims, cfg, *,
+                 ffn_tp: bool = True) -> tuple[dict, list]:
+    """``params`` (prepared) with its psum-TP weights dealt over the model
+    axis as `models.layers.TPSlabs` when their dims are in ``model_dims``
+    (`APPROX_MODEL_SHARDED_DIMS` under approximate exactness), slab j
+    placed on every logical device (i, j); and the placement log, one
+    (weight path, "col" | "row" | "whole", dim) entry per TP weight.
+
+    Found by name: attention's ``wq`` / ``wo`` (heads) and ``wk`` / ``wv``
+    (KV heads; kept whole when the model axis does not divide them, and
+    then every shard reads the KV heads its q heads map to), the dense
+    MLPs' and MoE experts' ``wg`` / ``wu`` / ``wd`` (``d_ff``), rwkv6's
+    ``wr`` / ``wk`` / ``wv`` / ``wg`` / ``wo`` / ``w0`` / ``wb`` (heads)
+    and ``cm_k`` / ``cm_v`` (``d_ff``), mamba2's ``in_x`` / ``in_z`` /
+    ``conv`` / ``out`` (whole SSD heads of ``d_inner``).  A spiking FFN's
+    weights deal out only with ``ffn_tp`` (its float path): under packed
+    spikes its GEMMs shard as join-plan or dense column slabs instead
+    (`kernels.ops`), which keep every contraction in one shard.
+
+    An arch whose batch rows couple (MoE capacity routing, ``n_experts``)
+    keeps its attention whole and deals only its experts' ``d_ff``: a
+    token that flips at a near tie in one request changes the routed batch
+    of every row from that step on, so each added source of drift puts
+    every request's parity at stake, not only its own."""
+    from repro_torch.models.layers import TPSlabs
+
+    mp = mesh.shape["model"]
+    log: list = []
+    if mp == 1 or not set(model_dims) - MODEL_SHARDED_DIMS:
+        return params, log
+
+    devices = [[mesh.physical(i, j) for i in range(mesh.shape["data"])]
+               for j in range(mp)]
+
+    def deal(node: dict, path: str) -> dict:
+        out = dict(node)
+        for dim, units, kinds in _tp_rules(node, cfg, ffn_tp):
+            if dim not in model_dims:
+                continue
+            ok = units > 0 and units % mp == 0
+            if dim == "kv_flat" and not isinstance(out.get("wq"), TPSlabs):
+                ok = False  # KV heads deal out with the q heads only
+            for name, kind in kinds.items():
+                w = node[name]
+                if isinstance(w, TPSlabs):
+                    continue
+                if ok:
+                    out[name] = TPSlabs(w, mp, kind, devices)
+                log.append((f"{path}.{name}", kind if ok else "whole", dim))
+        return out
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            node = {k: walk(v, f"{path}.{k}" if path else k)
+                    for k, v in node.items()}
+            return deal(node, path) if _tp_rules(node, cfg, ffn_tp) else node
+        if isinstance(node, list):
+            return [walk(v, f"{path}[{i}]") for i, v in enumerate(node)]
+        return node
+
+    return walk(params, ""), log
 
 
 def shard_vocab(params: dict, mesh: Mesh, model_dims) -> dict:
@@ -153,7 +246,6 @@ def shard_vocab(params: dict, mesh: Mesh, model_dims) -> dict:
     (i, j)) when ``vocab`` is in ``model_dims`` and the axis divides the
     block count; otherwise as they are: the unembedding whole on every mesh
     row, a placement change, never a numerics change."""
-    check_model_dims(model_dims)
     w = params.get("unembed")
     mp = mesh.shape["model"]
     if (not isinstance(w, torch.Tensor) or mp == 1

@@ -27,7 +27,9 @@ and a serve through mixtral's ring cache, card against CPU) with
 the serve mesh's (logical devices on the one card: slab launches with
 their parent's shape equal to the unsharded call, vocab slabs equal to the
 unembedding's whole column blocks, a meshed serve equal to the
-single-device one, bit for bit) with ``-k mesh``.
+single-device one, bit for bit) with ``-k mesh``, approximate-TP serving's
+(drift within 0.25 of one device; 2 x 2 == 1 x 2 and pipelined == sync bit
+for bit) with ``-k approximate_tp``.
 """
 import numpy as np
 import pytest
@@ -1703,3 +1705,85 @@ def test_mesh_serve_equals_single_device_on_card(serve_model, spec, paging):
     # one prefill + five decodes, two GEMMs a layer, 4 slab calls each
     assert n["ftp_bsr"] == 6 * 2 * cfg.n_layers * 4
     assert eng.summary()["mesh_physical_devices"] == 1
+
+
+# ---------------------------------------------------------------------------
+# approximate-TP serving: psum tensor parallelism on the mesh's model axis
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_approximate_tp_float_serve_on_card():
+    """The smoke float llama under approximate(0.25) on logical devices of
+    the card: drift <= 0.25 from the bitwise single-device serve at 1 x 2
+    and 2 x 2, and 2 x 2 == 1 x 2 and pipelined == sync bit for bit
+    (tokens and captured logits)."""
+    from repro_torch.launch.serve import build_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import Engine, Placement, drift_report
+
+    dev = _cuda()
+    cfg = build_config("llama3_2_1b", smoke=True, spiking=False,
+                       weight_density=1.0)
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    prompts = _serve_prompts(cfg.vocab, [8] * 4, seed=5)
+    kw = dict(max_len=16, max_slots=4, capture_logits=True)
+
+    def serve(spec=None, **over):
+        pol = ExecutionPolicy.for_arch(cfg, **over) if spec is None else \
+            ExecutionPolicy.for_arch(
+                cfg, placement=Placement(mesh=_card_mesh(spec)),
+                exactness=approximate(0.25), **over)
+        eng = Engine(model, params, policy=pol, **kw)
+        return eng, eng.generate_batch(prompts, 6)
+
+    single, want = serve()
+    runs = {spec: serve(spec) for spec in ("data=1,model=2", "data=2,model=2")}
+    runs["pipelined"] = serve("data=2,model=2", execution="pipelined")
+    traces = {k: e.drain_logit_traces() for k, (e, _) in runs.items()}
+    for key in ("data=2,model=2", "pipelined"):
+        for a, b in zip(runs["data=1,model=2"][1], runs[key][1]):
+            np.testing.assert_array_equal(b, a)
+        _same_logits(traces["data=1,model=2"], traces[key])
+    rep = drift_report(want, runs["data=2,model=2"][1],
+                       single.drain_logit_traces(), traces["data=2,model=2"])
+    assert rep["max_logit_drift"] <= 0.25
+
+
+@pytest.mark.gpu
+def test_approximate_tp_dual_serve_on_card(serve_model):
+    """The smoke main path at 2 x 2 under approximate(0.25): attention
+    psum-TP, the vocab and the FFN plans column slabs (4 launches a GEMM),
+    drift <= 0.25 from the bitwise single-device serve.  Each slab launch
+    runs the instance `bsr_instance` picks from its slab's payload: at
+    smoke width some slabs' column blocks are too narrow for `tc`."""
+    from repro_torch.kernels.ftp_spmm import bsr_instance
+    from repro_torch.serve import Engine, Placement, drift_report
+
+    cfg, model, params = serve_model
+    prompts = _serve_prompts(cfg.vocab, [8] * 4, seed=5)
+    kw = dict(max_len=16, max_slots=4, capture_logits=True)
+    single = _engine(serve_model, **kw)
+    want = single.generate_batch(prompts, 6)
+    pol = ExecutionPolicy.for_arch(
+        cfg, placement=Placement(mesh=_card_mesh("data=2,model=2")),
+        exactness=approximate(0.25))
+    eng = Engine(model, params, policy=pol, **kw)
+    ftp_spmm.reset_launch_counts()
+    got = eng.generate_batch(prompts, 6)
+    n = ftp_spmm.launch_counts()
+    # one prefill + five decodes, two GEMMs a layer, 4 slab calls each
+    assert n["ftp_bsr"] == 6 * 2 * cfg.n_layers * 4
+    per_step = {"tc": 0, "simt": 0}
+    for lp in eng.params["layers"]:
+        for key in ("plan_in", "plan_out"):
+            for j in range(2):
+                pay = lp["mlp"][key].slab(j).payload
+                per_step[bsr_instance(pay.dtype, pay.shape[1], pay.shape[2],
+                                      pay.data_ptr() % 16 == 0)] += 2
+    assert n["ftp_bsr_tc"] == 6 * per_step["tc"] > 0, (n, per_step)
+    assert n["ftp_bsr_simt"] == 6 * per_step["simt"], (n, per_step)
+    rep = drift_report(want, got, single.drain_logit_traces(),
+                       eng.drain_logit_traces())
+    assert rep["max_logit_drift"] <= 0.25
+    assert eng.summary()["tp_weights_dealt"] == 4 * cfg.n_layers

@@ -377,19 +377,19 @@ def test_attention_query_chunks_match_reference():
 
 
 def test_policy_refuses_unported_axes_and_bad_combinations(slice_models):
-    """Pipelined execution constructs (ported); later-slice axes raise
-    NotImplementedError pointing at the queue; arch-dependent misuse raises
-    ValueError, as in the reference."""
+    """Pipelined execution constructs (ported); approximate exactness
+    without a model axis or lossy temporal skipping, and arch-dependent
+    misuse, raise ValueError, as in the reference."""
     from repro_torch.serve import approximate
 
     _, (tcfg, _, _) = slice_models
     pol = ExecutionPolicy(spike_format="packed", weight_sparsity="dual_sparse",
                           execution="pipelined")
     assert pol.execution == "pipelined" and pol.token_identical
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="model axis"):
         # approximate without lossy temporal skipping needs a model axis
         ExecutionPolicy(spike_format="packed", exactness=approximate(0.1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="model axis"):
         ExecutionPolicy.for_arch(tcfg, exactness=approximate(0.1))
     with pytest.raises(ValueError, match="packed"):
         ExecutionPolicy(weight_sparsity="dual_sparse")

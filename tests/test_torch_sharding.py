@@ -642,32 +642,41 @@ def test_bitwise_refuses_psum_model_dims():
 
 
 def test_refusals_name_their_items():
-    """What stays refused names the queue item that lifts it: psum-TP
-    serving and expand_kv (12b), the train mesh (12c)."""
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    """What stays refused names the queue item that lifts it: the train
+    mesh (12c).  The 12b cases serve now: approximate without a model axis
+    raises the reference's ValueError, expand_kv serves, and the psum dims
+    deal out as TP slabs beside the vocab's."""
+    with pytest.raises(ValueError, match="model axis"):
         ExecutionPolicy(spike_format="packed", weight_sparsity="dual_sparse",
                         exactness=approximate(0.05))
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        ExecutionPolicy(exactness=approximate(0.05),
-                        placement=Placement(mesh=_mesh("data=4,model=2")))
+    pol = ExecutionPolicy(exactness=approximate(0.05),
+                          placement=Placement(mesh=_mesh("data=4,model=2")))
+    assert not pol.token_identical
     cfg = dataclasses.replace(
         build_config("llama3_2_1b", smoke=True, spiking=False,
                      weight_density=1.0), expand_kv=True)
     model = t_build(cfg)
     params = model.init(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        Engine(model, params, max_len=16, device="cpu").generate_batch(
-            [np.zeros(4, np.int32)], 2)
+    out = Engine(model, params, max_len=16, device="cpu").generate_batch(
+        [np.zeros(4, np.int32)], 2)
+    assert len(out[0]) == 2
     from repro_torch.launch import train
 
     with pytest.raises(NotImplementedError, match="item 12c"):
         train.main(["--arch", "llama3_2_1b", "--smoke", "--mesh", "host",
                     "--device", "cpu"])
-    from repro_torch.serve.sharding import APPROX_MODEL_SHARDED_DIMS
+    from repro_torch.serve.sharding import (
+        APPROX_MODEL_SHARDED_DIMS,
+        shard_params,
+    )
 
     mesh = _mesh("data=4,model=2")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        shard_vocab(model.prepare(params), mesh, APPROX_MODEL_SHARDED_DIMS)
+    tp, log = shard_params(model.prepare(params), mesh,
+                           APPROX_MODEL_SHARDED_DIMS, cfg)
+    placed = shard_vocab(tp, mesh, APPROX_MODEL_SHARDED_DIMS)
+    assert isinstance(placed["unembed"], model_layers.VocabSlabs)
+    assert isinstance(placed["layers"][0]["attn"]["wq"], model_layers.TPSlabs)
+    assert len(log) == 7 * cfg.n_layers
 
 
 def test_engine_mesh_device_must_match():

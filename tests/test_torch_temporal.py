@@ -159,13 +159,14 @@ def test_lossy_requires_approximate_contract():
 
 
 def test_approximate_without_lossy_temporal_needs_the_mesh_slice():
-    """The reference refuses this single-device combination (it needs a
-    model axis); the port refuses it as not yet ported."""
-    with pytest.raises(ValueError):
+    """Both packages refuse this single-device combination with a
+    ValueError: approximate needs a model axis (psum-TP) or lossy temporal
+    skipping."""
+    with pytest.raises(ValueError, match="model axis"):
         j_policy.ExecutionPolicy(spike_format="packed",
                                  weight_sparsity="dual_sparse",
                                  exactness=j_policy.approximate(0.05))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="model axis"):
         ExecutionPolicy(spike_format="packed", weight_sparsity="dual_sparse",
                         exactness=approximate(0.05))
 
