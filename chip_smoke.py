@@ -157,6 +157,9 @@ Phases, each asserted; a failed phase ends the run with a non-zero exit:
              {sync, pipelined} x {dense, paged(16)} x {full, adaptive}:
              gated as above, frame-to-first-token p50 and p99 printed.
 
+Every profiler pass records the device's activity alone: the host ops'
+events took the profiler ~10 s a pass to list.
+
 Phase 9 also runs the flash kernels at dh 192 and 256 (the SIMT instance,
 which bf16 takes above dh 128): bf16 at BH 8 x S 4096, causal and window
 1024, timed against SDPA and the bound, two runs equal; f32 (4, 512)
@@ -183,8 +186,8 @@ causal; dh 160 padded to 192.
              every in-flight request; tokens and every captured logit vector
              equal to the undisturbed serve's bit for bit.  (b) qwen3-14b
              at its published width (d_model 5120, 40 heads, kv 8, d_ff
-             17408, vocab 151936, qk-norm, untied head), depth cut to 2
-             layers: a PACKED_DUAL serve of 4 x 128 + 16 (kernel 3 on the
+             17408, vocab 151936, qk-norm, untied head), depth cut to
+             QWEN_LAYERS: a PACKED_DUAL serve of 4 x 128 + 16 (kernel 3 on the
              17408-wide plans, every call held, a sample timed), card vs
              CPU, and a speculative (float draft, k 4) and a 120-frame
              streamed serve equal to the single-position serve bit for bit.
@@ -208,11 +211,11 @@ causal; dh 160 padded to 192.
              TTFT, decode step), one profiled serve (idle share, top device
              ops), the device launches of one prefill and one decode step.
              Card vs CPU on copies at the same width cut to 4 (rwkv6, bf16)
-             and 9 (zamba2, f32 compute: prefills of a 128- and a 100-token
+             and 7 (zamba2, f32 compute: prefills of a 128- and a 100-token
              prompt; its bf16 copy held to the CPU's own bf16 distance from
              the f32 run, P13_BF16_FACTOR: at random init the model
-             amplifies rounding differences with depth) layers, 4 requests
-             teacher-forced, the
+             amplifies rounding differences with depth) layers, 2 requests
+             teacher-forced (P13_CPU_CASES: the run's time), the
              CPU side in a spawned process beside the card's serves: logits
              within LOGIT_TOL, greedy tokens equal but at near ties; the
              card's own drift under other row / batch blocks logged beside
@@ -342,11 +345,32 @@ causal; dh 160 padded to 192.
              cut (TP_FAMILIES); (e) with more than one card, (a)'s 2 x 2 on
              distinct cards.  Drift, token match, first flip, decode step
              and tok/s per mesh, TP weights dealt.
+19. the train mesh (item 12c), after phase 18, its time logged against
+             ``P19_BUDGET_S``: `train.make_train_step(mesh=)` on logical
+             devices of the card.  (a) phase 8's llama3.2-1b (full width and
+             depth, spiking, T 4, density 0.3, batch 8 x 128) at data=2 x
+             model=2 for P19_STEPS steps, each against the one-device step
+             from the same state (loss within TRAIN_LOSS_RTOL, grad norm
+             within TRAIN_GNORM_RTOL), pruned FFN weights 0 in every shard,
+             a repeat of the meshed run bit for bit, the state's card
+             memory beyond one device's (0 B: the parts are views), both
+             step times (median of P19_STEPS) and the idle share of a
+             profiled meshed step; (b) elastic, cut to P19_ELASTIC_LAYERS
+             layers (its checkpoint is written to disk): the state to the
+             host, `ft.elastic.reshard_state` onto plan_mesh(2, 2) (1 x 2),
+             one step, EQUAL to the same step after a restore with
+             ``shardings=``; (c) phi3.5-moe (full width, 1 of 32 layers):
+             fsdp, EP and Adafactor, one step at 2 x 2 against one device
+             with phase 8's bounds, the dropped (token, k) pairs of the
+             whole-batch routing EQUAL to one device's; (d)
+             `compressed_psum` over the data axis against the exact mean,
+             within max|mean| / 100; (e) with more than one card, (a)'s
+             step on distinct cards.
 
 Prints a JSON line of phase 13's measurements, one of phase 14's, one of
 phase 15's, one of phase 16's (``{"roofline": ...}``), one of phase
-17's (``{"mesh": ...}``) and one of phase 18's (``{"tp": ...}``), then a
-JSON line
+17's (``{"mesh": ...}``), one of phase 18's (``{"tp": ...}``) and one of
+phase 19's (``{"train_mesh": ...}``), then a JSON line
 of per-kernel measurements (the headline numbers are each kernel's mean
 launch on its path), and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -393,11 +417,13 @@ KERNELS = {
 # the port to against the jitted JAX reference, whose excess precision on
 # bf16 residual adds flips FFN spikes the same way other GEMM orders do.
 LOGIT_TOL = 0.25
-# llama3.2-1b's depth in the serve phases (5-7, 10, 11; 16 layers at full
-# depth, which the train step of phase 8 keeps): with phase 13 the whole
-# run took 1139.2 s of its 1200 on a slow host (PERF.md §6).  Every gate
-# of those phases holds layer by layer; kernel times are per launch.
-LLAMA_LAYERS = 8
+# llama3.2-1b's depth in the serve phases (5-7, 10, 11, 16c-18; 16 layers
+# at full depth, which the train steps of phases 8 and 19 keep): at 8 the
+# whole run took 1139.2 s of its 1200 on a slow host (PERF.md §6), and
+# later passed 1200 s on one, a host 1.4x slower than another between
+# calls.  Every gate of those phases holds layer by layer; kernel times
+# are per launch.
+LLAMA_LAYERS = 4
 TIMED_SERVES = 3
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 8, 128  # launch/train.py's batch, seq
 # Random-init CE: logits of unit variance give ln V + 1/2 on average; the
@@ -1318,7 +1344,7 @@ def _profile(engine, prompts, unprofiled_wall):
     from repro_torch.kernels import ftp_spmm
 
     n0 = sum(ftp_spmm.launch_counts()[k] for k in ftp_spmm.KERNEL_NAMES)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.generate_batch(prompts, GEN)
         torch.cuda.synchronize()
@@ -1532,7 +1558,7 @@ def _device_busy(fn):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3311,9 +3337,10 @@ PREEMPT_AFTER, DRAIN_GRACE = 6, 2
 P12_CPU_REQUESTS = (0, 1, 5, 7)
 QWEN_LAYERS = 2             # qwen3-14b's depth cut (40 at full depth)
 # gemma-2b's depth cut (18 at full depth): phase 13 took the whole run past
-# 800 s at full depth (929.1 s on one H100, PERF.md §6); every gate of 12a
-# holds layer by layer, and its kernel times are per launch
-GEMMA_LAYERS = 6
+# 800 s at full depth (929.1 s on one H100, PERF.md §6), and 6 layers past
+# 1200 s on a slow host (its card-vs-CPU reference was 34 s of host work);
+# every gate of 12a holds layer by layer, and its kernel times are per launch
+GEMMA_LAYERS = 3
 
 
 def _budget_serve(engine, prompts, gens, label):
@@ -3782,21 +3809,22 @@ def _smoke_new_archs():
 # takes the per-step SSD scan while the 128-token ones take the chunked form
 P13_SHORT_PROMPT, P13_SHORT_AT = 100, 5
 # Card vs CPU at the published width, on depth-cut copies (the CPU's time):
-# (arch, layers, compute dtype, teacher-forced decode steps), each over 4
-# requests, prefill + 15 decodes.  rwkv6 24 -> 4 layers, bf16, within
-# LOGIT_TOL.  zamba2 81 -> 9 layers (a group of 6 followed by the shared
-# block, its attention decoding through its KV cache, then a tail of 3), a
+# (arch, layers, compute dtype, teacher-forced decode steps, requests),
+# each request a prefill + 15 decodes.  rwkv6 24 -> 4 layers, bf16, within
+# LOGIT_TOL.  zamba2 81 -> 7 layers (a group of 6 followed by the shared
+# block, its attention decoding through its KV cache, then a tail of 1), a
 # 128- and a 100-token prompt (both SSD forms): in f32 compute
 # within LOGIT_TOL, and in bf16 held against that f32 run on the CPU (see
 # P13_BF16_FACTOR).  At random init zamba2 turns the devices' bf16
 # last-bit differences into a card-vs-CPU bf16 drift that grows with depth
 # (PERF.md §6 has every depth's readings).  The CPU side is phase 13's
-# longest path (one worker, ~360 s of host work at 6 / 15 / 15 layers, the
-# bf16 copy ~200 s of it), so its depths are the run's time: 4 / 9 / 9.
+# longest path (one worker, ~190 s of host work at 4 / 9 / 9 layers and 4
+# requests, the bf16 copy ~100 s of it; a slow host doubles it), so its
+# depths and requests are the run's time: 4 / 7 / 7 layers, 2 requests.
 P13_CPU_CASES = {
-    "rwkv6_1_6b": ("rwkv6_1_6b", 4, "bfloat16", GEN - 1),
-    "zamba2_7b f32": ("zamba2_7b", 9, "float32", GEN - 1),
-    "zamba2_7b bf16": ("zamba2_7b", 9, "bfloat16", GEN - 1),
+    "rwkv6_1_6b": ("rwkv6_1_6b", 4, "bfloat16", GEN - 1, 2),
+    "zamba2_7b f32": ("zamba2_7b", 7, "float32", GEN - 1, 2),
+    "zamba2_7b bf16": ("zamba2_7b", 7, "bfloat16", GEN - 1, 2),
 }
 # zamba2's bf16 gate: the card's bf16 logits lie no further from the CPU's
 # f32 run of the same copy than the CPU's own bf16 run does, by more than
@@ -3858,12 +3886,12 @@ def _same_serve(label, got, want):
             "differ")
 
 
-def _p13_cut(arch, n_layers, compute_dtype, steps):
+def _p13_cut(arch, n_layers, compute_dtype, steps, requests):
     """A card-vs-CPU copy of an arch (a `P13_CPU_CASES` entry): its
-    published width, depth cut to ``n_layers``, in ``compute_dtype``; 4
-    prompts (zamba2's last one of P13_SHORT_PROMPT tokens: the per-step SSD
-    scan) and the ``steps`` tokens each is teacher-forced with.  Returns
-    (full cfg, cut cfg, prompts, fed)."""
+    published width, depth cut to ``n_layers``, in ``compute_dtype``; the
+    last ``requests`` of 4 prompts (zamba2's last one of P13_SHORT_PROMPT
+    tokens: the per-step SSD scan) and the ``steps`` tokens each is
+    teacher-forced with.  Returns (full cfg, cut cfg, prompts, fed)."""
     import dataclasses
 
     import numpy as np
@@ -3876,7 +3904,7 @@ def _p13_cut(arch, n_layers, compute_dtype, steps):
     lens = [PROMPT] * 3 + [P13_SHORT_PROMPT if cfg.family == "hybrid" else PROMPT]
     prompts = [rng.integers(0, cfg.vocab, size=(n,)) for n in lens]
     fed = [rng.integers(0, cfg.vocab, size=(steps,)) for _ in lens]
-    return full, cfg, prompts, fed
+    return full, cfg, prompts[-requests:], fed[-requests:]
 
 
 def _teacher_forced(model, params, prompts, fed, device):
@@ -3997,7 +4025,7 @@ def _p13_card_vs_cpu(key, cpu_future):
 
 
 def _p13_bf16_vs_f32(futures):
-    """zamba2 at 9 layers in bf16: the card's logits and the CPU's, each
+    """zamba2's cut copy in bf16: the card's logits and the CPU's, each
     against the CPU's f32 run of the same copy (params, prompts, fed
     tokens).  Gated: the card's distance is at most P13_BF16_FACTOR times
     the CPU's, in max and in mean; the card-vs-CPU bf16 drift is logged."""
@@ -4049,8 +4077,7 @@ def _launches_per_call(model, params, cfg):
     with torch.no_grad():
         cache = model.init_cache(REQUESTS, PROMPT + GEN, device="cuda")
         for name in ("prefill", "decode"):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 if name == "prefill":
                     logits, cache = model.prefill(params, {"tokens": toks}, cache)
                 else:
@@ -4062,20 +4089,16 @@ def _launches_per_call(model, params, cfg):
     return out
 
 
-def _p13_profile(engine, prompts, unprofiled_wall, gen=GEN, host_ops=True):
+def _p13_profile(engine, prompts, unprofiled_wall, gen=GEN):
     """One serve of ``gen`` new tokens under torch.profiler: device busy
-    time against the host wall, and the five largest device ops by time.
-    ``host_ops=False`` records the device's activity alone (the host ops'
-    events take the profiler tens of seconds to list on a long serve)."""
+    time against the host wall, and the five largest device ops by time."""
     from collections import Counter
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops
-                                            else [])
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.generate_batch(prompts, gen)
         torch.cuda.synchronize()
@@ -4588,8 +4611,7 @@ def _p14_timed(model, params, cfg, prompts, gen, max_len, tag):
         f"{res['decode_step_ms']:.2f} ms ({len(prompts)} one-row cohorts), "
         f"{res['decode_call_ms']:.2f} ms a cohort's decode; stages "
         f"{json.dumps(s['stage_s'])}")
-    res["profile"] = _p13_profile(engine, prompts, s["wall_s"], gen=gen,
-                                  host_ops=False)
+    res["profile"] = _p13_profile(engine, prompts, s["wall_s"], gen=gen)
     del engine
     gc.collect()
     return res
@@ -6099,6 +6121,277 @@ def phase_tp(smi):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the train mesh on logical devices of the card (item 12c)
+# ---------------------------------------------------------------------------
+
+P19_BUDGET_S = 120
+P19_STEPS = 3
+P19_ELASTIC_LAYERS = 2
+
+
+def _train_mesh(n, mp, distinct=False):
+    """`ft.elastic.plan_mesh` over ``n`` logical devices at model ``mp``:
+    all on cuda:0, or (``distinct``) round-robin over the cards."""
+    import torch
+
+    from repro_torch.ft.elastic import plan_mesh
+    from repro_torch.launch.mesh import LogicalDevice
+
+    k = torch.cuda.device_count() if distinct else 1
+    return plan_mesh(n, mp, devices=[LogicalDevice(i, torch.device("cuda", i % k))
+                                     for i in range(n)])
+
+
+def _rel(a, b) -> float:
+    return abs(float(a) - float(b)) / abs(float(b))
+
+
+def _synced_ms(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def _beyond_one_device(tree, shardings) -> int:
+    """Bytes of the devices' parts of ``tree`` that are not views of its
+    leaves (what the placement holds beyond one device's state)."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    extra = 0
+    for leaf, sh in zip(tree_leaves(tree), tree_leaves(shardings)):
+        if not isinstance(leaf, torch.Tensor):
+            continue
+        base = leaf.untyped_storage().data_ptr()
+        for part in sh.parts(leaf).values():
+            if part.untyped_storage().data_ptr() != base:
+                extra += part.numel() * part.element_size()
+    return extra
+
+
+def _mesh_vs_one(model, state, batches, mesh, label, optimizer=None):
+    """Each of ``batches`` through the meshed step, and from the same state
+    the one-device step: the per-step losses, grad norms, relative gaps and
+    step times, and the meshed run's last state (no other state is kept:
+    a full-depth llama state is 15 GB)."""
+    from repro_torch.train import make_train_step
+
+    one = make_train_step(model, optimizer)
+    meshed = make_train_step(model, optimizer, mesh=mesh)
+    rows = []
+    for i, batch in enumerate(batches):
+        out, one_ms = _synced_ms(lambda: one(state, batch))
+        m1 = out[1]
+        del out
+        (state, mm), mesh_ms = _synced_ms(lambda: meshed(state, batch))
+        row = {"loss": float(mm["loss"]), "loss_one_device": float(m1["loss"]),
+               "grad_norm": float(mm["grad_norm"]),
+               "grad_norm_one_device": float(m1["grad_norm"]),
+               "loss_rel": _rel(mm["loss"], m1["loss"]),
+               "grad_norm_rel": _rel(mm["grad_norm"], m1["grad_norm"]),
+               "step_ms": mesh_ms, "one_device_step_ms": one_ms}
+        log(f"{label} step {i}: loss {row['loss']:.6f} vs {row['loss_one_device']:.6f} "
+            f"(rel {row['loss_rel']:.2e} <= {TRAIN_LOSS_RTOL}), grad norm "
+            f"{row['grad_norm']:.4f} vs {row['grad_norm_one_device']:.4f} (rel "
+            f"{row['grad_norm_rel']:.2e} <= {TRAIN_GNORM_RTOL}); meshed "
+            f"{mesh_ms:.1f} ms, one device {one_ms:.1f} ms")
+        assert row["loss_rel"] <= TRAIN_LOSS_RTOL, (label, i, row)
+        assert row["grad_norm_rel"] <= TRAIN_GNORM_RTOL, (label, i, row)
+        rows.append(row)
+    return rows, state
+
+
+def phase_train_mesh(smi):
+    """Phase 19 (see the module docstring): the train mesh on logical
+    devices of the card, the port against its one-device step."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.data import SyntheticLMData, batch_to_torch
+    from repro_torch.ft.elastic import reshard_state
+    from repro_torch.models.layers import record_moe_routing
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.compress import compressed_psum
+    from repro_torch.sharding import base_rules, tree_shardings
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.step import meshed_loss_and_grads, train_state_axes
+    from repro_torch.tree import tree_leaves, tree_map, tree_paths
+
+    t0 = time.perf_counter()
+    res = {"physical_devices": torch.cuda.device_count(), "smi": smi}
+    # (a) llama3.2-1b, phase 8's model, data=2 x model=2
+    cfg = _train_cfg()
+    model = build_model(cfg)
+    data = SyntheticLMData(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    batches = [batch_to_torch(data.batch(i), "cuda") for i in range(P19_STEPS)]
+    rules = base_rules(cfg.fsdp)
+    axes = train_state_axes(model)
+    mesh = _train_mesh(4, 2)
+    state0 = init_train_state(model, SEED, device="cuda")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    placed = reshard_state(state0, axes, mesh, rules)
+    torch.cuda.synchronize()
+    placed_bytes = torch.cuda.memory_allocated() - before
+    sh = tree_shardings(placed, axes, mesh, rules)
+    beyond = {k: _beyond_one_device(placed[k], sh[k]) for k in ("params", "opt")}
+    assert placed_bytes == 0 and not any(beyond.values()), (placed_bytes, beyond)
+    log(f"19a: state placed on {mesh.describe()}: {placed_bytes} B allocated, "
+        f"parts beyond one device's {beyond}")
+    rows, final = _mesh_vs_one(model, placed, batches, mesh, "19a")
+    final = final["params"]  # the optimizer state goes: 10 GB
+    # pruned FFN weights stay 0 in every device's part
+    pruned_ok = 0
+    first = dict(tree_paths(placed["params"]))
+    last = dict(tree_paths(final))
+    sh_p = dict(zip([p for p, _ in tree_paths(final)],
+                    tree_leaves(sh["params"])))
+    for p, w0 in first.items():
+        if not p.endswith(("mlp/wu", "mlp/wd")):
+            continue
+        zero = w0 == 0
+        for idx, part in sh_p[p].parts(last[p]).items():
+            z = zero[sh_p[p].index(idx, w0.shape)]
+            assert torch.equal(part[z], torch.zeros_like(part[z])), (p, idx)
+            pruned_ok += 1
+    # a repeat of the meshed run, bit for bit (its steps timed, warm)
+    meshed = make_train_step(model, mesh=mesh)
+    state, again_ms = placed, []
+    for i, batch in enumerate(batches):
+        (state, m), ms = _synced_ms(lambda: meshed(state, batch))
+        again_ms.append(ms)
+        assert float(m["loss"]) == rows[i]["loss"], (i, float(m["loss"]), rows[i])
+        assert float(m["grad_norm"]) == rows[i]["grad_norm"], i
+    for a, b in zip(tree_leaves(state["params"]), tree_leaves(final)):
+        assert torch.equal(a, b)
+    del state, final
+    one = make_train_step(model)
+    one_ms = [_synced_ms(lambda: one(placed, batches[0]))[1] for _ in range(P19_STEPS)]
+    wall, busy, top = _device_busy(lambda: meshed(placed, batches[0]))
+    res["llama"] = {
+        "mesh": mesh.describe(), "layers": cfg.n_layers, "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "steps": rows,
+        "meshed_step_ms_median": statistics.median(again_ms),
+        "meshed_step_ms_runs": again_ms,
+        "one_device_step_ms_median": statistics.median(one_ms),
+        "one_device_step_ms_runs": one_ms,
+        "profiled_meshed_step_s": wall, "device_busy_s": busy,
+        "idle_share_profiled": 1.0 - busy / wall if busy else None,
+        "top_device": [(n, s) for n, s in top[:5]],
+        "state_bytes_allocated_by_placement": placed_bytes,
+        "state_parts_bytes_beyond_one_device": beyond,
+        "pruned_parts_checked": pruned_ok, "repeat_bitwise": True}
+    log(f"19a: meshed step {res['llama']['meshed_step_ms_median']:.1f} ms, one "
+        f"device {res['llama']['one_device_step_ms_median']:.1f} ms (medians of "
+        f"{P19_STEPS}); idle {res['llama']['idle_share_profiled']:.3f} of a "
+        f"profiled meshed step; {pruned_ok} pruned FFN parts zero")
+    del placed, state0, one, meshed
+    _free()
+    # (b) elastic at P19_ELASTIC_LAYERS layers: the host -> 1 x 2, restore
+    cfg2 = _train_cfg(P19_ELASTIC_LAYERS)
+    model2 = build_model(cfg2)
+    axes2 = train_state_axes(model2)
+    s2 = reshard_state(init_train_state(model2, SEED, device="cuda"), axes2,
+                       mesh, rules)
+    s2, _ = make_train_step(model2, mesh=mesh)(s2, batches[0])
+    host = tree_map(lambda t: t.detach().cpu().clone(), s2)
+    del s2
+    mesh12 = _train_mesh(2, 2)
+    sh12 = tree_shardings(host, axes2, mesh12, rules)
+    step12 = make_train_step(model2, mesh=mesh12)
+    a_state, a_m = step12(reshard_state(host, axes2, mesh12, rules), batches[1])
+    tmp = tempfile.mkdtemp(prefix="p19_ckpt_")
+    try:
+        save_checkpoint(tmp, 1, host)
+        restored = restore_checkpoint(tmp, 1, host, shardings=sh12)
+        b_state, b_m = step12(restored, batches[1])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert torch.equal(a_m["loss"], b_m["loss"]), (a_m, b_m)
+    assert torch.equal(a_m["grad_norm"], b_m["grad_norm"])
+    for a, b in zip(tree_leaves(a_state), tree_leaves(b_state)):
+        assert torch.equal(a, b)
+    res["elastic"] = {"layers": P19_ELASTIC_LAYERS, "from": mesh.describe(),
+                      "to": mesh12.describe(), "loss": float(a_m["loss"]),
+                      "restore_bitwise": True}
+    log(f"19b: {json.dumps(res['elastic'])}")
+    del a_state, b_state, restored, host, model2
+    _free()
+    # (c) phi3.5-moe: fsdp + EP + Adafactor at 2 x 2, one of 32 layers
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    mcfg = dataclasses.replace(get_config("phi3_5_moe"), n_layers=1)
+    moe = build_model(mcfg)
+    mdata = SyntheticLMData(mcfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    mb = batch_to_torch(mdata.batch(0), "cuda")
+    maxes = train_state_axes(moe)
+    mrules = base_rules(mcfg.fsdp)
+    mstate = reshard_state(init_train_state(moe, SEED, device="cuda"), maxes,
+                           mesh, mrules)
+    with torch.no_grad():
+        with record_moe_routing() as one_keep:
+            moe.loss(mstate["params"], mb)
+        with record_moe_routing() as mesh_keep:
+            meshed_loss_and_grads(moe, mstate["params"], mb, mesh,
+                                  need_grads=False)
+    assert len(one_keep) == len(mesh_keep) == mcfg.n_layers
+    assert all(torch.equal(a, b) for a, b in zip(one_keep, mesh_keep))
+    mrows, _ = _mesh_vs_one(moe, mstate, [mb], mesh, "19c")
+    specs = tree_shardings(mstate["params"], maxes["params"], mesh, mrules)
+    res["moe"] = {"arch": "phi3_5_moe", "layers": 1, "mesh": mesh.describe(),
+                  "optimizer": mcfg.optimizer, "step": mrows[0],
+                  "pairs": int(one_keep[0].numel()),
+                  "dropped_pairs_one_device": int((~one_keep[0]).sum()),
+                  "dropped_pairs_meshed": int((~mesh_keep[0]).sum()),
+                  "expert_wu_spec": list(specs["layers"][0]["moe"]["wu"].spec),
+                  "router_spec": list(specs["layers"][0]["moe"]["router"].spec)}
+    log(f"19c: {json.dumps(res['moe'])}")
+    del mstate, moe
+    _free()
+    # (d) compressed_psum over the data axis of the mesh
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gs = [torch.randn(1 << 20, generator=gen, device=mesh.physical(i, 0))
+          for i in range(mesh.shape["data"])]
+    got = compressed_psum(gs)
+    exact = torch.stack([g.to(mesh.lead) for g in gs]).mean(0)
+    err = max(float((g.to(mesh.lead) - exact).abs().max()) for g in got)
+    atol = float(exact.abs().max()) / 100
+    assert err <= atol, (err, atol)
+    res["compressed_psum"] = {"devices": len(gs), "elements": gs[0].numel(),
+                              "max_abs_err": err, "atol": atol}
+    log(f"19d: {json.dumps(res['compressed_psum'])}")
+    # (e) across cards
+    if torch.cuda.device_count() > 1:
+        dmesh = _train_mesh(4, 2, distinct=True)
+        s = reshard_state(init_train_state(model, SEED, device="cuda"), axes,
+                          dmesh, rules)
+        erows, _ = _mesh_vs_one(model, s, batches[:1], dmesh, "19e")
+        res["multi_card"] = {"cards": len(dmesh.physical_devices()), "step": erows[0]}
+        del s
+    else:
+        res["multi_card"] = ("no multi-card run: one card; every logical device "
+                             "of this phase shared it")
+    _free()
+    res["note"] = (f"{mesh.size} logical devices on {torch.cuda.device_count()} "
+                   "card(s): the times are those of one card running every "
+                   "group's and shard's launches; no multi-card speed is claimed")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 19 in {res['seconds']:.1f}s (budget {P19_BUDGET_S}s"
+        f"{'' if res['seconds'] <= P19_BUDGET_S else ': OVER'})")
+    return res
+
+
 def _flash_entries(flash):
     """The kernels-line entries of kernels 5-7: headline numbers from the
     train step's own attention inputs (layer 0; `tc`, with the SIMT
@@ -6267,6 +6560,8 @@ def main() -> int:
     log(f"phase 17 done at {time.perf_counter() - t0:.1f}s")
     tp = phase_tp(smi)
     log(f"phase 18 done at {time.perf_counter() - t0:.1f}s")
+    train_mesh = phase_train_mesh(smi)
+    log(f"phase 19 done at {time.perf_counter() - t0:.1f}s")
     by_name = {k["name"]: k for k in kernels}
     for name, key in (("ftp_bsr", "k3"), ("ftp_bsr_adaptive", "k4"),
                       ("ftp_spmm", "k1"), ("ftp_spmm_fused_lif", "k2")):
@@ -6313,6 +6608,7 @@ def main() -> int:
     print(json.dumps({"roofline": roofline}), flush=True)
     print(json.dumps({"mesh": mesh}), flush=True)
     print(json.dumps({"tp": tp}), flush=True)
+    print(json.dumps({"train_mesh": train_mesh}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {

@@ -84,9 +84,12 @@ def latest_step(directory: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(directory: str, step: int, like):
+def restore_checkpoint(directory: str, step: int, like, shardings=None):
     """Restore into the structure of ``like`` (a tree of tensors): each leaf
-    on the device and in the dtype of the matching leaf of ``like``."""
+    in the dtype of the matching leaf of ``like``, on its device, or with
+    ``shardings`` (a matching tree of `sharding.NamedSharding`s, the
+    current mesh's: the elastic path) placed as `sharding.place` places
+    it."""
     path = os.path.join(directory, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -104,7 +107,12 @@ def restore_checkpoint(directory: str, step: int, like):
         if meta["dtype"] == "bfloat16":
             t = t.view(torch.int16).view(torch.bfloat16)
         out.append(t.to(device=lk.device, dtype=lk.dtype))
-    return tree_unflatten(like, out)
+    tree = tree_unflatten(like, out)
+    if shardings is not None:
+        from repro_torch.sharding import place
+
+        tree = place(tree, shardings)
+    return tree
 
 
 @dataclass
@@ -151,10 +159,11 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def restore_latest(self, like):
-        """(state restored into ``like``, its step), or (None, None) when
-        the directory holds no checkpoint."""
+    def restore_latest(self, like, shardings=None):
+        """(state restored into ``like``, placed by ``shardings`` when given,
+        its step), or (None, None) when the directory holds no
+        checkpoint."""
         step = latest_step(self.directory)
         if step is None:
             return None, None
-        return restore_checkpoint(self.directory, step, like), step
+        return restore_checkpoint(self.directory, step, like, shardings), step

@@ -1,6 +1,6 @@
 """Fault tolerance (port of `repro.ft`: preemption, straggler detection,
-and the serve half of elastic re-meshing, `elastic.plan_serve_mesh`; the
-trainer's re-mesh is ROADMAP item 12c)."""
+and elastic re-meshing: the trainer's `elastic.plan_mesh` /
+`elastic.reshard_state`, the serve engine's `elastic.plan_serve_mesh`)."""
 from .preemption import PreemptionHandler
 from .straggler import StepTimer
 

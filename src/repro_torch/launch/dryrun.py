@@ -8,8 +8,22 @@ and its record gives the memory the step would hold, its flops and bytes
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
     PYTHONPATH=src python -m repro_torch.launch.dryrun --manifest   # list cells
 
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
+
 Records go to experiments/dryrun_torch/<arch>__<shape>__h100.json; a cell
 that fails is recorded with the exception text.
+
+``--mesh single|multi|both`` records the cell on the reference's production
+train meshes instead, 16x16 (data, model) and 2x16x16 (pod, data, model),
+as <arch>__<shape>__<mesh>.json (``--mesh none``, the default, is the
+one-device record above).  A mesh record holds each input's bytes on one
+device (every leaf's part under its spec, `repro_torch.sharding`), the
+fallback log, the work of one data group's step counted on meta tensors
+(its rows: the batch over pod x data) and that work split evenly over the
+model axis as the per-device work and temporaries, and whether one device
+fits (its inputs' parts and its share of the temporaries within 90% of the
+card).  ``--no-work`` skips the count (the fit then reads the inputs
+alone).
 
 The port's loops are Python loops that run every iteration: the layer
 stack, the serving forward's 64-row blocks (`layers.row_blocks`), its
@@ -31,6 +45,7 @@ axis: an estimate, since a peak is a maximum, not a polynomial.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import math
@@ -44,6 +59,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig, ShapeCell, applicable_shapes
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.specs import build_cell, runnable_cells, skipped_cells
 from repro_torch.models.layers import B_BLOCK, Q_BLOCK, ROW_BLOCK
 from repro_torch.roofline.op_stats import OpCounter, OpStats
@@ -312,6 +328,80 @@ def run_cell(arch: str, shape: str, out_dir: str = OUT_DIR, *, cfg=None,
     return rec
 
 
+MESHES = {"single": (False,), "multi": (True,), "both": (False, True)}
+
+
+def mesh_name(multi_pod: bool) -> str:
+    return "2x16x16" if multi_pod else "16x16"
+
+
+def mesh_memory(arch: str, shape: str, mesh) -> tuple[dict, list]:
+    """({input name: its bytes on one device of ``mesh``}, the fallback log)
+    of the cell's placed inputs (`specs.build_cell(mesh=)`)."""
+    from repro_torch.sharding import device_bytes
+
+    c = build_cell(arch, shape, mesh)
+    return ({k: device_bytes(tree, sh) for k, (tree, sh) in c.placed.items()},
+            c.fallback_log)
+
+
+def run_mesh_cell(arch: str, shape: str, multi_pod: bool, out_dir: str = OUT_DIR,
+                  *, work: bool = True, device: str = H100, pool=None) -> dict:
+    """One cell's record on a production train mesh (see the module
+    docstring): write it and return it."""
+    t0 = time.time()
+    name = mesh_name(multi_pod)
+    rec = {"arch": arch, "shape": shape, "mesh": name, "device": device,
+           "ok": False}
+    try:
+        mesh = make_production_mesh(multi_pod=multi_pod, device="meta")
+        rec["n_devices"] = mesh.size
+        per, log = mesh_memory(arch, shape, mesh)
+        state = sum(per.values())
+        rec["memory"] = {"per_device_bytes": per, "per_device_input_bytes": state}
+        rec["fallback_log"] = sorted(set(log))
+        total = state
+        if work:
+            cfg = get_config(arch)
+            cell = applicable_shapes(cfg)[shape]
+            rows = mesh.n_rows
+            B = cell.global_batch
+            gb = B // rows if B % rows == 0 else B
+            res = count_cell(arch, shape, cfg=cfg, cell=dataclasses.replace(
+                cell, global_batch=gb))
+            m = mesh.shape["model"]
+            st = res["stats"]
+            temp = res["memory"]["temp_bytes"]
+            rec["group_work"] = {"rows": gb, "flops": st.flops,
+                                 "bytes_accessed": st.bytes_accessed,
+                                 "temp_bytes": temp}
+            rec["per_device_work"] = {
+                "flops": st.flops / m, "bytes_accessed": st.bytes_accessed / m,
+                "temp_bytes": temp / m,
+                "basis": "one data group's counted step split evenly over "
+                         f"the model axis ({m})"}
+            total = state + temp / m
+        cap = device_peaks(device)["memory_bytes"]
+        rec["memory"]["per_device_total_bytes"] = total
+        rec.update(ok=True, fits=total <= FIT_SHARE * cap,
+                   fits_basis="inputs + temporaries" if work else "inputs",
+                   count_s=round(time.time() - t0, 2))
+        print(f"[ok] {arch} x {shape} x {name}: "
+              f"inputs/device={state / 2**30:.3f} GiB "
+              f"total/device={total / 2**30:.3f} GiB fits={rec['fits']} "
+              f"fallbacks={len(rec['fallback_log'])}", flush=True)
+    except Exception as e:  # noqa: BLE001 — failures are data here
+        rec.update(error=f"{type(e).__name__}: {e}",
+                   traceback=traceback.format_exc()[-2000:])
+        print(f"[FAIL] {arch} x {shape} x {name}: {type(e).__name__}: {e}",
+              flush=True)
+    finally:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, f"{arch}__{shape}__{name}.json"), "w") as f:
+            json.dump(rec, f, indent=1)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -319,6 +409,10 @@ def main(argv=None) -> int:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--manifest", action="store_true")
     ap.add_argument("--out", default=OUT_DIR)
+    ap.add_argument("--mesh", default="none",
+                    choices=["none", "single", "multi", "both"])
+    ap.add_argument("--no-work", action="store_true",
+                    help="mesh records: skip counting the data group's step")
     args = ap.parse_args(argv)
 
     if args.manifest:
@@ -334,7 +428,11 @@ def main(argv=None) -> int:
         cells = [(a, s) for a, s in cells if s == args.shape]
     if not (cells and (args.all or args.arch or args.shape)):
         raise SystemExit("no cells matched (name --arch / --shape, or --all)")
-    results = [run_cell(a, s, args.out) for a, s in cells]
+    if args.mesh != "none":
+        results = [run_mesh_cell(a, s, mp, args.out, work=not args.no_work)
+                   for a, s in cells for mp in MESHES[args.mesh]]
+    else:
+        results = [run_cell(a, s, args.out) for a, s in cells]
     n_ok = sum(r["ok"] for r in results)
     print(f"\n{n_ok}/{len(results)} cells counted")
     return 0 if n_ok == len(results) else 1

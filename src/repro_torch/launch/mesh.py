@@ -1,17 +1,20 @@
 """Device meshes of logical devices in one process (port of
-`repro.launch.mesh`, the serving half).
+`repro.launch.mesh`).
 
 The reference's mesh is single-controller: one process drives every device
-of a `jax.sharding.Mesh`.  The port keeps that: a `Mesh` is a (data, model)
-grid of `LogicalDevice`s, each mapped to a physical `torch.device`, driven
-by the one process that holds it (not `torch.distributed`).
+of a `jax.sharding.Mesh`.  The port keeps that: a `Mesh` is a grid of
+`LogicalDevice`s, each mapped to a physical `torch.device`, driven by the
+one process that holds it (not `torch.distributed`).
 ``force_fake_devices(n)`` sets how many logical devices there are: n of
 them map round-robin onto the process's physical devices (the CUDA cards,
 or the CPU), as the reference's fake XLA host devices let one CPU stand in
 for a pod.  Without it there is one logical device per physical device.
 
-`make_production_mesh` (the training mesh) belongs to the train mesh, a
-later slice of the port.
+A serve mesh is a (data, model) grid (`serve.sharding.make_serve_mesh`).
+A train mesh may lead with a ``pod`` axis, (pod, data, model)
+(`make_production_mesh`, `ft.elastic.plan_mesh`), whose batch runs in pod
+x data groups (`data_groups`); the train mesh's placement rules are
+`repro_torch.sharding`'s.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 AXES = ("data", "model")
+TRAIN_AXES = ("pod", "data", "model")
 
 _FAKE_DEVICES = 0
 
@@ -74,42 +78,46 @@ def logical_devices(device=None) -> list[LogicalDevice]:
 
 
 class Mesh:
-    """A (data, model) grid of logical devices.  ``shape`` is the dict
-    {"data": dn, "model": mp}, as a jax mesh's; ``devices`` the (dn, mp)
-    object array of `LogicalDevice`s."""
+    """A grid of logical devices over ``axis_names``: (data, model), or
+    (pod, data, model) for a multi-pod train mesh.  ``shape`` is the dict
+    {axis: size}, as a jax mesh's; ``devices`` the object array of
+    `LogicalDevice`s (``devices`` may be given as nested lists)."""
 
-    axis_names = AXES
-
-    def __init__(self, devices):
-        grid = np.empty((len(devices), len(devices[0])), dtype=object)
-        for i, row in enumerate(devices):
-            if len(row) != grid.shape[1]:
-                raise ValueError("mesh rows must have one length")
-            for j, d in enumerate(row):
-                grid[i, j] = d
+    def __init__(self, devices, axis_names=AXES):
+        grid = np.empty(_nested_shape(devices), dtype=object)
+        for idx in np.ndindex(*grid.shape):
+            node = devices
+            for i in idx:
+                node = node[i]
+            grid[idx] = node
+        if grid.ndim != len(axis_names):
+            raise ValueError(f"a {grid.ndim}-d device grid cannot carry axes "
+                             f"{axis_names}")
         ids = [d.id for d in grid.flat]
         if len(set(ids)) != len(ids):
             raise ValueError(
                 f"a logical device appears twice in the mesh: {ids}")
         self.devices = grid
+        self.axis_names = tuple(axis_names)
 
     @property
     def shape(self) -> dict[str, int]:
-        return dict(zip(AXES, self.devices.shape))
+        return dict(zip(self.axis_names, self.devices.shape))
 
     @property
     def size(self) -> int:
         return self.devices.size
 
-    def physical(self, i: int, j: int) -> torch.device:
-        """The torch device of logical device (i, j)."""
-        return self.devices[i, j].physical
+    def physical(self, *idx: int) -> torch.device:
+        """The torch device of the logical device at mesh index ``idx``."""
+        return self.devices[idx].physical
 
     @property
     def lead(self) -> torch.device:
-        """The physical device of logical device (0, 0): where a cohort's
-        cache, its tokens and the gathered outputs live."""
-        return self.physical(0, 0)
+        """The physical device of the mesh's first logical device: where a
+        cohort's cache, its tokens and the gathered outputs live (and a
+        train state's leaves)."""
+        return self.devices.flat[0].physical
 
     def physical_devices(self) -> list[torch.device]:
         """The distinct physical devices of the mesh, in mesh order."""
@@ -120,15 +128,22 @@ class Mesh:
         return out
 
     def row(self, i: int) -> "Mesh":
-        """Mesh row ``i`` as a (1, model) mesh: the devices one data group
-        of rows runs on."""
-        return Mesh([list(self.devices[i])])
+        """Row ``i`` of the mesh's leading axes (pod x data, in that order)
+        as a (1, model) mesh: the devices one data group of rows runs on."""
+        rows = self.devices.reshape(-1, self.devices.shape[-1])
+        return Mesh([list(rows[i])])
+
+    @property
+    def n_rows(self) -> int:
+        """The rows of `row`: the product of every axis but ``model``."""
+        return self.size // self.devices.shape[-1]
 
     def describe(self) -> str:
         return "x".join(f"{k}={v}" for k, v in self.shape.items())
 
     def __eq__(self, other) -> bool:
         return (isinstance(other, Mesh)
+                and self.axis_names == other.axis_names
                 and self.devices.shape == other.devices.shape
                 and all(a == b for a, b in zip(self.devices.flat,
                                                other.devices.flat)))
@@ -141,12 +156,28 @@ class Mesh:
         return f"Mesh({self.describe()}, devices={ids})"
 
 
+def _nested_shape(devices) -> tuple:
+    """The grid shape of nested lists (or an array) of devices; rows of one
+    level must have one length."""
+    if isinstance(devices, np.ndarray):
+        return devices.shape
+    shape, level = [], [devices]
+    while isinstance(level[0], (list, tuple)):
+        n = len(level[0])
+        if any(len(x) != n for x in level):
+            raise ValueError("mesh rows must have one length")
+        shape.append(n)
+        level = [y for x in level for y in x]
+    return tuple(shape)
+
+
 def data_groups(mesh: Mesh | None, n_rows: int) -> list[tuple[int, slice]]:
-    """The (mesh row, row slice) groups ``n_rows`` rows run as: ``data``
-    contiguous groups when the rows divide the axis (the reference's
-    ``_row_axis``), else the whole rows on mesh row 0 (its replicated
-    fallback: a placement change, never a numerics change)."""
-    dn = 1 if mesh is None else mesh.shape["data"]
+    """The (mesh row, row slice) groups ``n_rows`` rows run as: one
+    contiguous group per `Mesh.row` (``data``, or pod x data on a train
+    mesh: ``batch`` goes on both) when the rows divide them (the
+    reference's ``_row_axis``), else the whole rows on mesh row 0 (its
+    replicated fallback: a placement change, never a numerics change)."""
+    dn = 1 if mesh is None else mesh.n_rows
     if dn <= 1 or n_rows % dn:
         return [(0, slice(0, n_rows))]
     per = n_rows // dn
@@ -177,3 +208,18 @@ def make_mesh_for(n_devices: int, model_parallel: int | None = None, *,
     grid = np.asarray(devs[:n_devices], dtype=object).reshape(
         n_devices // mp, mp)
     return Mesh(grid.tolist())
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """The training mesh (reference shapes): 16 x 16 (data, model), or 2 x
+    16 x 16 (pod, data, model) with ``multi_pod``, over 256 / 512 logical
+    devices on ``device`` (the CUDA cards by default; ``"meta"`` for the dry
+    run, which needs no memory; ``"cpu"``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = TRAIN_AXES if multi_pod else AXES
+    phys = physical_devices(device)
+    n = int(np.prod(shape))
+    devs = np.empty(n, dtype=object)
+    for i in range(n):
+        devs[i] = LogicalDevice(i, phys[i % len(phys)])
+    return Mesh(devs.reshape(shape), axes)

@@ -7,10 +7,12 @@ CUDA device by default.
 
 ``--smoke`` shrinks the arch to the CPU test size; ``--device cpu`` runs on
 the CPU.  Params come from seed 0 (a torch generator on the device).  The
-reference's flags, plus ``--device``; ``--mesh host`` (multi-host data
-parallelism) waits for the train mesh, ROADMAP item 12c.  There is no
-spiking flag, as in the reference: the spiking LM trains through a config with
-``spiking_ffn=True`` (`dataclasses.replace`).
+reference's flags, plus ``--device``.  ``--mesh host`` is accepted as the
+reference accepts it: the reference parses the flag and never reads it (on
+a pod each host runs this entry point), so training proceeds as with
+``--mesh none``; the train mesh itself is `train.make_train_step(mesh=)`.
+There is no spiking flag, as in the reference: the spiking LM trains
+through a config with ``spiking_ffn=True`` (`dataclasses.replace`).
 """
 from __future__ import annotations
 
@@ -33,10 +35,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
     args = ap.parse_args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError(
-            "--mesh host is the train mesh of the port (ROADMAP item 12c); "
-            "this launcher trains on one device")
 
     from repro_torch import resolve_device
     from repro_torch.ckpt import CheckpointManager

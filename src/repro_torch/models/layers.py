@@ -13,6 +13,7 @@ setting.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -40,6 +41,22 @@ B_BLOCK = 4
 # card a product over a column slab sums in another order than the whole
 # product at some widths (chip_smoke phase 17e measures it).
 VOCAB_BLOCKS = 8
+
+
+# Constraint hook for (B, S, H, dh) attention tensors, installed by the
+# train mesh (`sharding.make_qkv_hook`); the identity off a mesh.
+_qkv_hook = lambda t: t
+
+
+def set_qkv_hook(fn) -> None:
+    """Install ``fn`` (a tensor -> the tensor) as the attention-tensor hook;
+    `reset_qkv_hook` puts the identity back."""
+    global _qkv_hook
+    _qkv_hook = fn
+
+
+def reset_qkv_hook() -> None:
+    set_qkv_hook(lambda t: t)
 
 
 def _dt(cfg: ArchConfig) -> torch.dtype:
@@ -176,9 +193,9 @@ class TPSlabs:
 
 
 def tp_devices(shards: int) -> list:
-    """Shard j's torch device, for each j, from the installed serve mesh
-    (`kernels.ops.serve_mesh_scope`), whose row 0 holds the calling data
-    group's devices."""
+    """Shard j's torch device, for each j, from the installed mesh
+    (`kernels.ops.serve_mesh_scope`: the serve engine's, or the train
+    step's), whose row 0 holds the calling data group's devices."""
     from repro_torch.kernels.ops import get_serve_mesh
 
     mesh = get_serve_mesh()
@@ -225,21 +242,44 @@ def psum(parts, device, dtype) -> torch.Tensor:
 def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``a @ w`` (2-D, or batched 3-D) with an f32 result: the library's
     f32 accumulation, not rounded to the inputs' dtype (on the card
-    cuBLAS's ``out_dtype``; elsewhere the same exact products of the
-    values upcast)."""
+    cuBLAS's ``out_dtype``; elsewhere, and where autograd records (a train
+    mesh's TP: the ``out_dtype`` product has no derivative), the same exact
+    products of the values upcast)."""
     if a.dtype == w.dtype == torch.float32:
         return a @ w
-    if a.is_cuda:
+    grad = torch.is_grad_enabled() and (a.requires_grad or w.requires_grad)
+    if a.is_cuda and not grad:
         fn = torch.bmm if a.ndim == 3 else torch.mm
         return fn(a, w, out_dtype=torch.float32)
     return a.float() @ w.float()
 
 
+# whether TP shard products run over fixed row blocks (a serve's, for row
+# invariance) or as one library call each (`plain_tp_products`)
+_TP_ROW_BLOCKS = True
+
+
+@contextlib.contextmanager
+def plain_tp_products():
+    """Within: the TP shard products (`partial_matmul`, the column-parallel
+    projections of attention and the dense MLPs) run as one library call
+    each instead of over fixed row blocks.  A train step's data group uses
+    it: training needs no row invariance (a serve does), and the blocks
+    would cost its forward and backward a launch per 64 rows."""
+    global _TP_ROW_BLOCKS
+    prev, _TP_ROW_BLOCKS = _TP_ROW_BLOCKS, False
+    try:
+        yield
+    finally:
+        _TP_ROW_BLOCKS = prev
+
+
 def partial_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """One model shard's partial of a row-parallel product, ``x (..., K/m)
-    @ w (K/m, N)`` in f32 over fixed row blocks (`row_blocks`), for
-    `psum`."""
-    out = row_blocks(_mm_f32, x.reshape(-1, x.shape[-1]), w)
+    @ w (K/m, N)`` in f32 over fixed row blocks (`row_blocks`; one call
+    under `plain_tp_products`), for `psum`."""
+    x2 = x.reshape(-1, x.shape[-1])
+    out = row_blocks(_mm_f32, x2, w) if _TP_ROW_BLOCKS else _mm_f32(x2, w)
     return out.reshape(tuple(x.shape[:-1]) + (-1,))
 
 
@@ -317,6 +357,20 @@ def attn_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
         p["q_norm"] = torch.zeros((dh,), dtype=_dt(cfg), device=gen.device)
         p["k_norm"] = torch.zeros((dh,), dtype=_dt(cfg), device=gen.device)
     return p
+
+
+def attn_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of `attn_init`'s leaves (`repro_torch.sharding`)."""
+    ax = {
+        "wq": ("d_model", "heads_flat"),
+        "wk": ("d_model", "kv_flat"),
+        "wv": ("d_model", "kv_flat"),
+        "wo": ("heads_flat", "d_model"),
+    }
+    if cfg.qk_norm:
+        ax["q_norm"] = (None,)
+        ax["k_norm"] = (None,)
+    return ax
 
 
 ATTN_MODES = ("causal", "swa", "bidir")
@@ -446,8 +500,8 @@ def attn_apply(p, x, cfg: ArchConfig, *, positions, cache=None):
     # tensor-parallel forward runs it over fixed row blocks, so a
     # position's values do not depend on B and S (`row_blocks`)
     xc = x.to(ct).reshape(B * S, D)
-    proj = (_row_invariant_matmul if serving or isinstance(p["wq"], TPSlabs)
-            else torch.matmul)
+    proj = (_row_invariant_matmul if serving or (
+        isinstance(p["wq"], TPSlabs) and _TP_ROW_BLOCKS) else torch.matmul)
     if serving:
         pos = cache["pos"]
         slot = cache_slot(pos, S, cache["k"].shape[1], cfg.attn)
@@ -474,8 +528,8 @@ def attn_apply(p, x, cfg: ArchConfig, *, positions, cache=None):
         k = heads(proj(xd, wk), "k_norm", dev)
         n = k.shape[2]
         v = proj(xd, wv).reshape(B, S, n, dh)
-        if not serving:
-            return k, v
+        if not serving:  # fresh k / v only: a cache keeps its own layout
+            return _qkv_hook(k), _qkv_hook(v)
         hs = slice(j * n, (j + 1) * n)
         cache["k"][:, slot:slot + S, hs] = k.to(lead, cache["k"].dtype)
         cache["v"][:, slot:slot + S, hs] = v.to(lead, cache["v"].dtype)
@@ -487,7 +541,7 @@ def attn_apply(p, x, cfg: ArchConfig, *, positions, cache=None):
     def body(ws, j, m, dev, down):
         wq, wo = ws
         hl = H // m
-        q = heads(proj(xc.to(dev), wq), "q_norm", dev)
+        q = _qkv_hook(heads(proj(xc.to(dev), wq), "q_norm", dev))
         k, v = (kv_heads(p["wk"].slab(j, dev), p["wv"].slab(j, dev), j, dev)
                 if kv_split else kv)
         kv0 = j * cfg.n_kv // m if kv_split else 0
@@ -537,6 +591,17 @@ def project(x: torch.Tensor, w: torch.Tensor, *, row_invariant: bool) -> torch.T
 # ---------------------------------------------------------------------------
 # MLP: the spiking dual-sparse FFN and the dense MLPs
 # ---------------------------------------------------------------------------
+
+def mlp_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of `mlp_init`'s leaves."""
+    if cfg.act in ("swiglu", "geglu") and not cfg.spiking_ffn:
+        return {
+            "wg": ("d_model", "d_ff"),
+            "wu": ("d_model", "d_ff"),
+            "wd": ("d_ff", "d_model"),
+        }
+    return {"wu": ("d_model", "d_ff"), "wd": ("d_ff", "d_model")}
+
 
 def mlp_init(gen: torch.Generator, cfg: ArchConfig, d_ff=None) -> dict:
     """FFN weights.  Spiking: two GEMMs, no gate, LTH-pruned ONCE here to
@@ -687,7 +752,7 @@ def mlp_apply(p, x, cfg: ArchConfig, spiking_mode: str = "train", *,
     tp = isinstance(p["wu"], TPSlabs)
     if not cfg.spiking_ffn:
         def mm(a, w):
-            if row_invariant or tp:
+            if row_invariant or (tp and _TP_ROW_BLOCKS):
                 return project(a, w, row_invariant=True)
             return a @ w
 
@@ -754,6 +819,18 @@ def moe_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
     return p
 
 
+def moe_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of `moe_init`'s leaves: experts on ``data`` (EP)."""
+    ax = {
+        "router": ("d_model", None),
+        "wu": ("experts", "d_model", "d_ff"),
+        "wd": ("experts", "d_ff", "d_model"),
+    }
+    if cfg.act in ("swiglu", "geglu"):
+        ax["wg"] = ("experts", "d_model", "d_ff")
+    return ax
+
+
 def moe_route(router: torch.Tensor, xt: torch.Tensor, cfg: ArchConfig):
     """The routing of T tokens ``xt`` (T, D): (probs (T, E) f32, gates
     (T, K) f32 renormalised over the top K, expert ids (T, K), capacity
@@ -779,7 +856,7 @@ def moe_route(router: torch.Tensor, xt: torch.Tensor, cfg: ArchConfig):
     return probs, gate, eidx, pos, pos < C, C
 
 
-def moe_apply(p, x, cfg: ArchConfig):
+def moe_apply(p, x, cfg: ArchConfig, route=None):
     """Top-k MoE with capacity-based dispatch; x (B, S, D) -> (y (B, S, D)
     in x's dtype, the Switch load-balancing loss E sum_e f_e p_e (f32)).
 
@@ -790,12 +867,39 @@ def moe_apply(p, x, cfg: ArchConfig):
     extra row, which is cut off.  The expert products are one ``bmm`` each
     in the compute dtype on every device, the activation runs op by op
     (`_sigmoid`, `_gelu`), the combine sum_k y_tk (gate keep) in the
-    compute dtype."""
+    compute dtype.
+
+    ``route`` (one data group of a train mesh, `moe_route_groups`) gives
+    the whole batch's routing of these rows: their experts, slots, kept
+    mask and capacity, f_e and the batch's token count.  The group keeps
+    and drops the pairs the batch's routing does and runs its kept pairs
+    through the experts in a buffer of its own; the gates are this group's
+    own probabilities at those experts, and the load-balancing term is this
+    group's share of the batch's, E sum_e f_e (sum of its rows' p_e) / T:
+    the groups' shares add up to the batch's term."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
     xt = x.reshape(T, D)
-    probs, gate, eidx, pos, keep, C = moe_route(p["router"], xt, cfg)
+    if route is None:
+        probs, gate, eidx, pos, keep, C = moe_route(p["router"], xt, cfg)
+        _log_routing(keep)
+        top1 = torch.nn.functional.one_hot(eidx[:, 0], E).float()
+        aux = E * torch.sum(top1.mean(0) * probs.mean(0))
+    else:
+        eidx, _, keep, _, f, n_all = route
+        probs = torch.softmax(xt.float() @ p["router"].float(), dim=-1)
+        gate = probs.gather(-1, eidx)
+        gate = gate / gate.sum(-1, keepdim=True)
+        aux = E * torch.sum(f * (probs.sum(0) / n_all))
+        # this group's kept pairs only, in a buffer of its own: each pair's
+        # rank among them in its expert (token-major, as the batch's slots
+        # order them), C its largest expert's count; the expert products
+        # are row by row, so no value changes
+        onehot = torch.nn.functional.one_hot(eidx, E) * keep[..., None]
+        flat = onehot.reshape(T * K, E)
+        pos = ((flat.cumsum(0) - flat).reshape(T, K, E) * onehot).sum(-1)
+        C = max(1, int(flat.sum(0).max()))
 
     slot = torch.where(keep, eidx * C + pos, E * C).reshape(T * K)
     disp = x.new_zeros((E * C + 1, D))
@@ -803,7 +907,8 @@ def moe_apply(p, x, cfg: ArchConfig):
     ct = _ct(cfg)
     disp = disp[:E * C].reshape(E, C, D).to(ct)
     # (E, C, D); with the experts' d_ff dealt as `TPSlabs` (approximate
-    # serving on a serve mesh), over its m blocks, the router whole before
+    # serving on a serve mesh, or a train mesh's model axis), over its m
+    # blocks, the router whole before
     y_e = tp_sum(p, ("wu", "wg", "wd"),
                  lambda ws, j, m, dev, down: _experts(*ws, disp.to(dev), cfg,
                                                       down=down),
@@ -812,9 +917,55 @@ def moe_apply(p, x, cfg: ArchConfig):
     zero = torch.zeros_like(eidx)
     y_tk = y_e[torch.where(keep, eidx, zero), torch.where(keep, pos, zero)]
     y = (y_tk * (gate * keep).to(y_tk.dtype)[..., None]).sum(1)
-    top1 = torch.nn.functional.one_hot(eidx[:, 0], E).float()
-    aux = E * torch.sum(top1.mean(0) * probs.mean(0))
     return y.reshape(B, S, D).to(x.dtype), aux
+
+
+def moe_route_groups(router: torch.Tensor, xts: list, cfg: ArchConfig) -> list:
+    """The routing of the whole batch, whose token rows are the data
+    groups' ``xts`` (T_i, D) in group order, computed once with no
+    gradient (it picks slots: nothing to differentiate) and split into each
+    group's ``route`` for `moe_apply`: (expert ids, slots, kept mask,
+    capacity C, f_e, T).  C comes from the batch's token count T, as on one
+    device, so every group keeps and drops the (token, k) pairs one device
+    does."""
+    E = cfg.n_experts
+    lead = xts[0].device
+    with torch.no_grad():
+        xt = torch.cat([x.detach().to(lead) for x in xts])
+        _, _, eidx, pos, keep, C = moe_route(router.detach().to(lead), xt, cfg)
+        _log_routing(keep)
+        f = torch.nn.functional.one_hot(eidx[:, 0], E).float().mean(0)
+    out, lo = [], 0
+    for x in xts:
+        n, dev = x.shape[0], x.device
+        out.append((eidx[lo:lo + n].to(dev), pos[lo:lo + n].to(dev),
+                    keep[lo:lo + n].to(dev), C, f.to(dev), xt.shape[0]))
+        lo += n
+    return out
+
+
+_ROUTING_LOG = None
+
+
+def _log_routing(keep: torch.Tensor) -> None:
+    if _ROUTING_LOG is not None:
+        _ROUTING_LOG.append(keep.detach().cpu())
+
+
+class record_moe_routing:
+    """``with record_moe_routing() as log:`` — each routing of the block
+    (one per MoE layer and call) appends its (T, K) kept mask to ``log``;
+    the dropped (token, k) pairs are its False entries.  Meant for a
+    no-grad forward: a remat'd layer routes again in its backward."""
+
+    def __enter__(self) -> list:
+        global _ROUTING_LOG
+        self._prev, _ROUTING_LOG = _ROUTING_LOG, []
+        return _ROUTING_LOG
+
+    def __exit__(self, *exc) -> None:
+        global _ROUTING_LOG
+        _ROUTING_LOG = self._prev
 
 
 def _experts(wu, wg, wd, disp, cfg: ArchConfig, down=torch.bmm) -> torch.Tensor:

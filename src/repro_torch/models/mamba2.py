@@ -79,6 +79,29 @@ def mamba_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
     }
 
 
+def mamba_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of one layer's `mamba_init` leaves: dt / A / D are
+    head-sharded, so the SSD recurrence is TP-local."""
+    return {
+        "ln": (None,),
+        "in_x": ("d_model", "d_inner"), "in_z": ("d_model", "d_inner"),
+        "in_bc": ("d_model", None), "in_dt": ("d_model", "heads"),
+        "dt_bias": ("heads",), "a_log": ("heads",), "d_skip": ("heads",),
+        "conv": (None, "d_inner"), "out": ("d_inner", "d_model"),
+    }
+
+
+def shared_block_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of `shared_block_init`'s leaves."""
+    from .layers import attn_axes, mlp_axes
+
+    return {
+        "in_proj": ("d_model2", "d_model"),
+        "ln1": (None,), "attn": attn_axes(cfg), "ln2": (None,),
+        "mlp": mlp_axes(cfg), "out_proj": ("d_model", "d_model"),
+    }
+
+
 def _causal_conv(x, w, prev=None):
     """Depthwise causal conv of width W.  x (B, S, C); w (W, C); prev
     (B, W-1, C) carry or None (zeros).  The taps add in Python order from
@@ -227,7 +250,9 @@ def mamba_apply(p, x, cfg: ArchConfig, state=None):
             *(p[n].to(ct) for n in names), slice(None),
             state["conv"] if serving else None,
             state["ssm"] if serving else None)
-    x = x + y.to(x.dtype)
+    from .transformer import _shard_hook
+
+    x = _shard_hook(x + y.to(x.dtype), "residual")  # SP on the residual carry
     return x, ({"conv": conv_new, "ssm": ssm_new} if serving else None)
 
 

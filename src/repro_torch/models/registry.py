@@ -1,12 +1,11 @@
 """Uniform Model interface (port of `repro.models.registry`: the
 transformer families ``dense``, ``moe``, ``audio`` and ``vlm``, RWKV6
-(``ssm``) and Zamba2 (``hybrid``); ``axes`` waits for the train mesh,
-ROADMAP.md item 12c: the serve mesh finds what it shards by name, the
-join plans, the unembedding's column blocks and, under approximate
-exactness, the TP weights).
+(``ssm``) and Zamba2 (``hybrid``)).
 
     init(seed=0, *, device=None) -> params      (seeded torch.Generator)
+    axes() -> logical-axes tree (the params' structure; `repro_torch.sharding`)
     loss(params, batch) -> scalar loss          (the training forward)
+    loss_parts(params, batch) -> (CE sum, token count, MoE aux sum)
     prepare(params) -> params                   (load-time casts for serving)
     prefill(params, batch, cache, *, spiking_mode) -> (logits, cache)
     decode(params, tokens, cache, *, spiking_mode) -> (logits, cache)
@@ -34,7 +33,9 @@ from . import rwkv6, ssm_lm, transformer
 class Model:
     cfg: ArchConfig
     init: Callable
+    axes: Callable
     loss: Callable
+    loss_parts: Callable
     prepare: Callable
     prefill: Callable
     decode: Callable
@@ -44,8 +45,9 @@ class Model:
 
 def build_model(cfg: ArchConfig) -> Model:
     if cfg.family in ("dense", "moe", "audio", "vlm"):
-        init_params = transformer.init_params
+        init_params, axes = transformer.init_params, transformer.logical_axes
         loss, prepare = transformer.loss_fn, transformer.prepare_params
+        loss_parts = transformer.loss_parts
         prefill, decode = transformer.prefill, transformer.decode_step
 
         def init_cache(batch, max_len, device, full=False):
@@ -54,8 +56,9 @@ def build_model(cfg: ArchConfig) -> Model:
 
         cache_axes = transformer.cache_axes
     elif cfg.family == "ssm":
-        init_params = ssm_lm.rwkv_init
+        init_params, axes = ssm_lm.rwkv_init, ssm_lm.rwkv_axes
         loss, prepare = ssm_lm.rwkv_loss, ssm_lm.rwkv_prepare
+        loss_parts = ssm_lm.rwkv_loss_parts
         prefill, decode = ssm_lm.rwkv_prefill, ssm_lm.rwkv_decode
 
         def init_cache(batch, max_len, device):
@@ -63,8 +66,9 @@ def build_model(cfg: ArchConfig) -> Model:
 
         cache_axes = rwkv6.state_axes
     elif cfg.family == "hybrid":
-        init_params = ssm_lm.zamba_init
+        init_params, axes = ssm_lm.zamba_init, ssm_lm.zamba_axes
         loss, prepare = ssm_lm.zamba_loss, ssm_lm.zamba_prepare
+        loss_parts = ssm_lm.zamba_loss_parts
         prefill, decode = ssm_lm.zamba_prefill, ssm_lm.zamba_decode
 
         def init_cache(batch, max_len, device):
@@ -82,7 +86,9 @@ def build_model(cfg: ArchConfig) -> Model:
     return Model(
         cfg=cfg,
         init=init,
+        axes=lambda: axes(cfg),
         loss=lambda p, b: loss(p, cfg, b),
+        loss_parts=lambda p, b: loss_parts(p, cfg, b),
         prepare=lambda p: prepare(cfg, p),
         prefill=lambda p, b, c, **kw: prefill(p, cfg, b, c, **kw),
         decode=lambda p, t, c, **kw: decode(p, cfg, t, c, **kw),

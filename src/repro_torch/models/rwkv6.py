@@ -70,6 +70,22 @@ def block_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
     }
 
 
+def block_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of one layer's `block_init` leaves: the decay path is
+    head-sharded like r / k / v, so the WKV recurrence is TP-local."""
+    return {
+        "ln1": (None,), "ln2": (None,), "mu": (None, "d_model"),
+        "wr": ("d_model", "heads_flat"), "wk": ("d_model", "heads_flat"),
+        "wv": ("d_model", "heads_flat"), "wg": ("d_model", "heads_flat"),
+        "wo": ("heads_flat", "d_model"),
+        "w0": ("heads_flat",), "wa": ("d_model", None), "wb": (None, "heads_flat"),
+        "u": ("heads", None), "ln_x": (None,),
+        "cm_mu": (None, "d_model"),
+        "cm_k": ("d_model", "d_ff"), "cm_v": ("d_ff", "d_model"),
+        "cm_r": ("d_model", "d_model"),
+    }
+
+
 def _wkv_scan(r, k, v, w, u, state, chunk: int):
     def step(state, inp):
         r_t, k_t, v_t, w_t = inp                          # (B, H, dh)
@@ -172,6 +188,9 @@ def block_apply(p, x, cfg: ArchConfig, state=None):
 
     x = x + rr * tp_sum(p, ("cm_k", "cm_v"), channel, ct=ct, lead=x.device,
                         down=mm)
+    from .transformer import _shard_hook
+
+    x = _shard_hook(x, "residual")  # SP: residual carry (batch, seq->model)
     return x, {"tm_prev": tm_prev, "cm_prev": cm_prev, "wkv": wkv}
 
 

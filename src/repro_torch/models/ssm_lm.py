@@ -27,9 +27,10 @@ from repro_torch.configs.base import ArchConfig
 
 from . import mamba2, rwkv6
 from .layers import _ct, _dt, dense_init, rmsnorm
+from . import transformer
 from .transformer import (
     cast_matrices,
-    ce_loss,
+    ce_sums,
     embed_tokens,
     unembed,
     unembed_blocks,
@@ -67,6 +68,16 @@ def rwkv_init(cfg: ArchConfig, gen: torch.Generator) -> dict:
     }
 
 
+def rwkv_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of `rwkv_init`'s tree (``layers`` a per-layer list)."""
+    return {
+        "embed": ("vocab", "d_model"),
+        "layers": [rwkv6.block_axes(cfg) for _ in range(cfg.n_layers)],
+        "final_norm": (None,),
+        "lm_head": ("d_model", "vocab"),
+    }
+
+
 def rwkv_prepare(cfg: ArchConfig, params: dict) -> dict:
     """Load-time casts the forward repeats on every call: each layer's
     projections and mixing factors in the compute dtype, the unembedding as
@@ -100,10 +111,22 @@ def _rwkv_stack(p, x, cfg: ArchConfig, states=None):
     return x, out
 
 
+def _hooked_embed(p, cfg: ArchConfig, tokens):
+    return transformer._shard_hook(embed_tokens(p, cfg, tokens), "residual")
+
+
+def rwkv_loss_parts(p, cfg: ArchConfig, batch: dict):
+    """(cross-entropy sum, token count, 0.0): `transformer.loss_parts` of
+    the RWKV6 stack."""
+    x, _ = _rwkv_stack(p, _hooked_embed(p, cfg, batch["tokens"]), cfg)
+    total, count = ce_sums(p, cfg, rmsnorm(x, p["final_norm"], cfg.norm_eps),
+                           batch["labels"])
+    return total, count, 0.0
+
+
 def rwkv_loss(p, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    x, _ = _rwkv_stack(p, embed_tokens(p, cfg, batch["tokens"]), cfg)
-    return ce_loss(p, cfg, rmsnorm(x, p["final_norm"], cfg.norm_eps),
-                   batch["labels"])
+    total, count, _ = rwkv_loss_parts(p, cfg, batch)
+    return total / torch.clamp(count, min=1.0)
 
 
 def rwkv_prefill(p, cfg: ArchConfig, batch: dict, states, *,
@@ -111,7 +134,7 @@ def rwkv_prefill(p, cfg: ArchConfig, batch: dict, states, *,
     """The prompt through the stack from ``states``: last-position logits
     (B, 1, V) and the new states (``pos`` advanced by S).  ``spiking_mode``
     is the engine's; no FFN of this family reads it."""
-    x, new = _rwkv_stack(p, embed_tokens(p, cfg, batch["tokens"]), cfg, states)
+    x, new = _rwkv_stack(p, _hooked_embed(p, cfg, batch["tokens"]), cfg, states)
     x = rmsnorm(x, p["final_norm"], cfg.norm_eps, row_invariant=True)
     return unembed(p, cfg, x[:, -1:]), new
 
@@ -142,6 +165,17 @@ def zamba_init(cfg: ArchConfig, gen: torch.Generator) -> dict:
         "shared": mamba2.shared_block_init(gen, cfg),
         "final_norm": final_norm,
         "lm_head": dense_init(gen, (cfg.d_model, cfg.vocab), _dt(cfg)),
+    }
+
+
+def zamba_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of `zamba_init`'s tree (``mamba`` a per-layer list)."""
+    return {
+        "embed": ("vocab", "d_model"),
+        "mamba": [mamba2.mamba_axes(cfg) for _ in range(cfg.n_layers)],
+        "shared": mamba2.shared_block_axes(cfg),
+        "final_norm": (None,),
+        "lm_head": ("d_model", "vocab"),
     }
 
 
@@ -214,13 +248,20 @@ def _zamba_stack(p, x, cfg: ArchConfig, x0, positions, states=None,
                "kv_pos": kv_pos, "pos": pos + S}
 
 
-def zamba_loss(p, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    x0 = embed_tokens(p, cfg, batch["tokens"])
+def zamba_loss_parts(p, cfg: ArchConfig, batch: dict):
+    """(cross-entropy sum, token count, 0.0) of the Zamba2 stack."""
+    x0 = _hooked_embed(p, cfg, batch["tokens"])
     B, S = x0.shape[:2]
     positions = torch.arange(S, device=x0.device)[None].expand(B, S)
     x, _ = _zamba_stack(p, x0, cfg, x0, positions)
-    return ce_loss(p, cfg, rmsnorm(x, p["final_norm"], cfg.norm_eps),
-                   batch["labels"])
+    total, count = ce_sums(p, cfg, rmsnorm(x, p["final_norm"], cfg.norm_eps),
+                           batch["labels"])
+    return total, count, 0.0
+
+
+def zamba_loss(p, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    total, count, _ = zamba_loss_parts(p, cfg, batch)
+    return total / torch.clamp(count, min=1.0)
 
 
 def zamba_state_init(cfg: ArchConfig, batch: int, max_len: int, *, device) -> dict:
@@ -255,7 +296,7 @@ def zamba_prefill(p, cfg: ArchConfig, batch: dict, states, *,
                   spiking_mode: str = "train"):
     """The prompt at positions 0..S-1 whatever the state's ``pos`` (as the
     reference); last-position logits (B, 1, V) and the new state."""
-    x0 = embed_tokens(p, cfg, batch["tokens"])
+    x0 = _hooked_embed(p, cfg, batch["tokens"])
     B, S = x0.shape[:2]
     positions = torch.arange(S, device=x0.device)[None].expand(B, S)
     x, new = _zamba_stack(p, x0, cfg, x0, positions, states, spiking_mode)

@@ -24,20 +24,41 @@ from repro_torch.configs.base import ArchConfig
 
 from .layers import (
     EXPERT_WEIGHTS,
+    TPSlabs,
     _ct,
     _dt,
     attn_apply,
+    attn_axes,
     attn_init,
     cache_slot,
     dense_init,
     mlp_apply,
+    mlp_axes,
     mlp_init,
     moe_apply,
+    moe_axes,
     moe_init,
+    moe_route_groups,
     rmsnorm,
     vocab_blocks,
     vocab_logits,
 )
+
+# The residual-stream hook of the train mesh (`sharding.make_shard_hook`),
+# called as hook(x, "residual") where the reference calls it; the identity
+# off a mesh.
+_shard_hook = lambda x, name: x
+
+
+def set_shard_hook(fn) -> None:
+    """Install ``fn`` ((tensor, name) -> the tensor) as the residual hook;
+    `reset_shard_hook` puts the identity back."""
+    global _shard_hook
+    _shard_hook = fn
+
+
+def reset_shard_hook() -> None:
+    set_shard_hook(lambda x, name: x)
 
 
 def block_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -54,22 +75,39 @@ def block_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
     return p
 
 
+def block_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of one layer's `block_init` leaves."""
+    ax = {"ln1": (None,), "attn": attn_axes(cfg), "ln2": (None,)}
+    if cfg.n_experts:
+        ax["moe"] = moe_axes(cfg)
+    else:
+        ax["mlp"] = mlp_axes(cfg)
+    return ax
+
+
+def _attention_half(p, x, cfg: ArchConfig, *, positions, cache=None):
+    """A block's attention and its residual add: (the new residual stream,
+    its ln2 norm, the FFN's input).  A serving forward (with a cache) takes
+    its norms' row means row-invariant (`layers.row_blocks`)."""
+    serving = cache is not None
+    h = attn_apply(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps,
+                                      row_invariant=serving),
+                   cfg, positions=positions, cache=cache)
+    x = _shard_hook(x + h, "residual")
+    return x, rmsnorm(x, p["ln2"], cfg.norm_eps, row_invariant=serving)
+
+
 def block_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
                 spiking_mode: str = "train"):
     """Pre-norm transformer block; returns (the new residual stream, the
     MoE load-balancing term or 0.0).  A serving forward (with a cache)
     takes its norms' row means row-invariant (`layers.row_blocks`)."""
-    serving = cache is not None
-    h = attn_apply(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps,
-                                      row_invariant=serving),
-                   cfg, positions=positions, cache=cache)
-    x = x + h
-    h2 = rmsnorm(x, p["ln2"], cfg.norm_eps, row_invariant=serving)
+    x, h2 = _attention_half(p, x, cfg, positions=positions, cache=cache)
     if cfg.n_experts:
         h2, aux = moe_apply(p["moe"], h2, cfg)
     else:
         h2, aux = mlp_apply(p["mlp"], h2, cfg, spiking_mode=spiking_mode), 0.0
-    return x + h2, aux
+    return _shard_hook(x + h2, "residual"), aux
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
@@ -95,6 +133,26 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
     if not cfg.embed_inputs:
         p["in_norm"] = torch.zeros((cfg.d_model,), dtype=_dt(cfg), device=dev)
     return p
+
+
+def logical_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of `init_params`' tree: ``layers`` is a list of
+    per-layer dicts (the reference stacks them under a ``layers`` dim, which
+    its rules replicate, so every spec is the same without it)."""
+    ax: dict = {}
+    if cfg.embed_inputs:
+        ax["embed"] = ("vocab", "d_model")
+    ax["layers"] = [block_axes(cfg) for _ in range(cfg.n_layers)]
+    ax["final_norm"] = (None,)
+    if cfg.encoder_only:
+        ax["head"] = ("d_model", "vocab")
+    elif not cfg.tie_embeddings:
+        ax["lm_head"] = ("d_model", "vocab")
+    if cfg.n_img_tokens:
+        ax["mm_proj"] = ("d_model", "d_model")
+    if not cfg.embed_inputs:
+        ax["in_norm"] = (None,)
+    return ax
 
 
 def prepare_params(cfg: ArchConfig, params: dict) -> dict:
@@ -222,7 +280,7 @@ def forward(p, cfg: ArchConfig, batch: dict):
     """Training/eval forward: ``batch`` holds tokens (B, S), or frames
     (B, S, D) (audio), or tokens and img_embed (VLM) -> (final-normed hidden
     states (B, S, D) in the compute dtype, the MoE load-balancing term)."""
-    x = embed_batch(p, cfg, batch)
+    x = _shard_hook(embed_batch(p, cfg, batch), "residual")
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     x, aux = _stack_forward(p["layers"], x, cfg, positions)
@@ -231,17 +289,35 @@ def forward(p, cfg: ArchConfig, batch: dict):
 
 def ce_loss(p, cfg: ArchConfig, x, labels) -> torch.Tensor:
     """Token-mean cross entropy of the f32 logits of final hidden states;
-    label -1 is masked out.  With ``cfg.loss_chunk`` dividing B * S (and
-    smaller), the logits exist ``loss_chunk`` tokens at a time, each chunk
-    recomputed in the backward (the reference's remat'd map)."""
+    label -1 is masked out (`ce_sums` over the count)."""
+    total, count = ce_sums(p, cfg, x, labels)
+    return total / torch.clamp(count, min=1.0)
+
+
+def ce_sums(p, cfg: ArchConfig, x, labels):
+    """(sum of the unmasked tokens' cross entropies, their count), f32: a
+    train mesh adds its data groups' sums and divides by the batch's count.
+    With ``cfg.loss_chunk`` dividing B * S (and smaller), the logits exist
+    ``loss_chunk`` tokens at a time, each chunk recomputed in the backward
+    (the reference's remat'd map).  Under a mesh whose model axis divides
+    the vocab (a train step's data group, `kernels.ops.serve_mesh_scope`)
+    the logits run over vocab slabs, column slab j of the unembedding on
+    shard j's device: each slab's logsumexp, the label's logit from the slab
+    that holds it, the slabs' logsumexps combined in shard order on the
+    group's lead (Megatron's vocab-parallel cross entropy)."""
     B, S = labels.shape
     xt = x.reshape(B * S, -1)
     lt = labels.reshape(B * S).long()
     mask = (lt >= 0).float()
     lt = torch.clamp(lt, min=0)
+    w = _unembed_weight(p, cfg)
+    shards = _vocab_shards(w.shape[1])
 
     def ce(xc, lc):
-        logits = xc.to(_ct(cfg)).float() @ _unembed_weight(p, cfg)  # (c, V)
+        if shards > 1:
+            return _ce_vocab_slabs(xc.to(_ct(cfg)).float(),
+                                   TPSlabs(w, shards, "col"), lc)
+        logits = xc.to(_ct(cfg)).float() @ w                        # (c, V)
         lse = torch.logsumexp(logits, dim=-1)
         return lse - logits.gather(-1, lc[:, None])[:, 0]
 
@@ -253,17 +329,107 @@ def ce_loss(p, cfg: ArchConfig, x, labels) -> torch.Tensor:
                             for i in range(0, B * S, c)])
     else:
         losses = ce(xt, lt)
-    return torch.sum(losses * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(losses * mask), torch.sum(mask)
+
+
+def _vocab_shards(V: int) -> int:
+    """The model shards the logits run over: the installed mesh's model
+    axis when it divides V, else 1 (whole)."""
+    from repro_torch.kernels.ops import get_serve_mesh
+
+    mesh = get_serve_mesh()
+    m = 1 if mesh is None else mesh.shape["model"]
+    return m if m > 1 and V % m == 0 else 1
+
+
+def _ce_vocab_slabs(xf: torch.Tensor, w: TPSlabs, lc: torch.Tensor):
+    """Per-token cross entropy of f32 rows ``xf`` over the unembedding's
+    column slabs (see `ce_sums`)."""
+    from .layers import tp_devices
+
+    lead = xf.device
+    lses, picked = [], 0.0
+    for j, dev in enumerate(tp_devices(w.shards)):
+        slab = w.slab(j, w.device)
+        width = slab.shape[1]
+        logits = xf.to(dev) @ slab.to(dev)                       # (c, V / m)
+        lses.append(torch.logsumexp(logits, dim=-1).to(lead))
+        ld = lc.to(dev) - j * width
+        hit = (ld >= 0) & (ld < width)
+        mine = logits.gather(-1, ld.clamp(0, width - 1)[:, None])[:, 0]
+        picked = picked + torch.where(hit, mine, torch.zeros_like(mine)).to(lead)
+    return torch.logsumexp(torch.stack(lses), dim=0) - picked
+
+
+def loss_parts(p, cfg: ArchConfig, batch: dict):
+    """(cross-entropy sum, unmasked token count, summed load-balancing
+    terms) of one batch: `loss_fn`'s pieces, which a train mesh's data
+    groups add."""
+    x, aux = forward(p, cfg, batch)
+    total, count = ce_sums(p, cfg, x, batch["labels"])
+    return total, count, aux
 
 
 def loss_fn(p, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     """Cross entropy, plus 0.01 x the load-balancing term per layer for an
     MoE arch."""
-    x, aux = forward(p, cfg, batch)
-    loss = ce_loss(p, cfg, x, batch["labels"])
+    total, count, aux = loss_parts(p, cfg, batch)
+    loss = total / torch.clamp(count, min=1.0)
     if cfg.n_experts:
         loss = loss + 0.01 * aux / cfg.n_layers
     return loss
+
+
+def loss_parts_groups(ps: list, cfg: ArchConfig, batches: list, scope) -> list:
+    """`loss_parts` of a train mesh's data groups (group i: params ``ps[i]``
+    placed on its mesh row, rows ``batches[i]``, its ops under
+    ``scope(i)``), run layer by layer in lockstep: an MoE layer routes the
+    whole batch's tokens at once (`layers.moe_route_groups`), so capacity
+    and drops are one device's, and each group then runs the experts on its
+    own rows.  Each group's graph stays its own (the routing is chosen
+    without a gradient), so its backward can run alone."""
+    n = len(ps)
+    xs, pos = [], []
+    for i in range(n):
+        with scope(i):
+            x = _shard_hook(embed_batch(ps[i], cfg, batches[i]), "residual")
+        B, S = x.shape[:2]
+        xs.append(x)
+        pos.append(torch.arange(S, device=x.device)[None].expand(B, S))
+
+    def attn_half(lp, x, positions):
+        return _attention_half(lp, x, cfg, positions=positions)
+
+    def moe_half(mp, x, h2, route):
+        y, aux = moe_apply(mp, h2, cfg, route=route)
+        return _shard_hook(x + y, "residual"), aux
+
+    def run(fn, *args):
+        if cfg.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    aux = [0.0] * n
+    for li in range(cfg.n_layers):
+        h2s = []
+        for i in range(n):
+            with scope(i):
+                xs[i], h2 = run(attn_half, ps[i]["layers"][li], xs[i], pos[i])
+            h2s.append(h2)
+        routes = moe_route_groups(ps[0]["layers"][li]["moe"]["router"],
+                                  [h.reshape(-1, h.shape[-1]) for h in h2s], cfg)
+        for i in range(n):
+            with scope(i):
+                xs[i], a = run(moe_half, ps[i]["layers"][li]["moe"], xs[i],
+                               h2s[i], routes[i])
+            aux[i] = aux[i] + a
+    out = []
+    for i in range(n):
+        with scope(i):
+            x = rmsnorm(xs[i], ps[i]["final_norm"], cfg.norm_eps)
+            total, count = ce_sums(ps[i], cfg, x, batches[i]["labels"])
+        out.append((total, count, aux[i]))
+    return out
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
@@ -322,7 +488,7 @@ def prefill(p, cfg: ArchConfig, batch: dict, cache, *,
     if cfg.encoder_only:
         x, _ = forward(p, cfg, batch)
         return unembed(p, cfg, x[:, -1:]), cache
-    x = embed_batch(p, cfg, batch)
+    x = _shard_hook(embed_batch(p, cfg, batch), "residual")
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     w = cache["k"].shape[2]

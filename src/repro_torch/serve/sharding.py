@@ -148,12 +148,13 @@ def mesh_summary(mesh: Mesh | None, tp_log=None) -> dict:
 # placement: params / plans / caches / token batches
 # ---------------------------------------------------------------------------
 
-def _tp_rules(node: dict, cfg, ffn_tp: bool):
+def _tp_rules(node: dict, cfg, ffn_tp: bool, train: bool = False):
     """The TP weights of one param dict, found by name, as [(dim, unit
     count, {weight: "col" | "row"})]: a group deals out only when its dim
     is on the model axis and the model axis divides its unit count (whole
     heads, whole ``d_ff`` / ``d_inner`` blocks; a count of 0 keeps the
-    group whole)."""
+    group whole).  ``train``: an MoE arch's attention deals out too (the
+    serving drift concern below does not apply to a train step)."""
     if {"wr", "cm_k"} <= node.keys():  # rwkv6: time mix by heads, channel mix
         return [("heads_flat", cfg.ssm_heads,
                  dict.fromkeys(("wr", "wk", "wv", "wg", "w0", "wb"), "col")
@@ -164,7 +165,7 @@ def _tp_rules(node: dict, cfg, ffn_tp: bool):
                  {"in_x": "col", "in_z": "col", "conv": "col", "out": "row"})]
     if "wq" in node:  # attention: q heads with wo, KV heads when they divide
         # a row-coupled arch (MoE capacity routing) keeps attention whole
-        units = 0 if cfg.n_experts else cfg.n_heads
+        units = 0 if cfg.n_experts and not train else cfg.n_heads
         return [("heads_flat", units, {"wq": "col", "wo": "row"}),
                 ("kv_flat", cfg.n_kv, {"wk": "col", "wv": "col"})]
     if "router" in node:  # MoE experts (E, D, F) / (E, F, D): d_ff blocks
@@ -177,8 +178,13 @@ def _tp_rules(node: dict, cfg, ffn_tp: bool):
     return []
 
 
+# TP weights a forward reads in f32 (rwkv6's decay base); every other one
+# it casts to the compute dtype first
+_F32_TP_WEIGHTS = frozenset({"w0"})
+
+
 def shard_params(params: dict, mesh: Mesh, model_dims, cfg, *,
-                 ffn_tp: bool = True) -> tuple[dict, list]:
+                 ffn_tp: bool = True, train: bool = False) -> tuple[dict, list]:
     """``params`` (prepared) with its psum-TP weights dealt over the model
     axis as `models.layers.TPSlabs` when their dims are in ``model_dims``
     (`APPROX_MODEL_SHARDED_DIMS` under approximate exactness), slab j
@@ -200,8 +206,16 @@ def shard_params(params: dict, mesh: Mesh, model_dims, cfg, *,
     keeps its attention whole and deals only its experts' ``d_ff``: a
     token that flips at a near tie in one request changes the routed batch
     of every row from that step on, so each added source of drift puts
-    every request's parity at stake, not only its own."""
-    from repro_torch.models.layers import TPSlabs
+    every request's parity at stake, not only its own.
+
+    ``train`` (a train step's data group, `train.step`): ``params`` are the
+    raw params that require grad, and each dealt weight is first cast to
+    the compute dtype as `Model.prepare` casts it (a differentiable cast, so
+    the slabs' gradients reach the whole leaf); an MoE arch's attention
+    deals out too."""
+    from repro_torch.models.layers import TPSlabs, _ct
+
+    ct = _ct(cfg)
 
     mp = mesh.shape["model"]
     log: list = []
@@ -213,7 +227,7 @@ def shard_params(params: dict, mesh: Mesh, model_dims, cfg, *,
 
     def deal(node: dict, path: str) -> dict:
         out = dict(node)
-        for dim, units, kinds in _tp_rules(node, cfg, ffn_tp):
+        for dim, units, kinds in _tp_rules(node, cfg, ffn_tp, train):
             if dim not in model_dims:
                 continue
             ok = units > 0 and units % mp == 0
@@ -224,6 +238,8 @@ def shard_params(params: dict, mesh: Mesh, model_dims, cfg, *,
                 if isinstance(w, TPSlabs):
                     continue
                 if ok:
+                    if train and name not in _F32_TP_WEIGHTS:
+                        w = w.to(ct)
                     out[name] = TPSlabs(w, mp, kind, devices)
                 log.append((f"{path}.{name}", kind if ok else "whole", dim))
         return out
@@ -232,7 +248,8 @@ def shard_params(params: dict, mesh: Mesh, model_dims, cfg, *,
         if isinstance(node, dict):
             node = {k: walk(v, f"{path}.{k}" if path else k)
                     for k, v in node.items()}
-            return deal(node, path) if _tp_rules(node, cfg, ffn_tp) else node
+            return (deal(node, path) if _tp_rules(node, cfg, ffn_tp, train)
+                    else node)
         if isinstance(node, list):
             return [walk(v, f"{path}[{i}]") for i, v in enumerate(node)]
         return node

@@ -29,7 +29,10 @@ their parent's shape equal to the unsharded call, vocab slabs equal to the
 unembedding's whole column blocks, a meshed serve equal to the
 single-device one, bit for bit) with ``-k mesh``, approximate-TP serving's
 (drift within 0.25 of one device; 2 x 2 == 1 x 2 and pipelined == sync bit
-for bit) with ``-k approximate_tp``.
+for bit) with ``-k approximate_tp``, the train mesh's (the meshed step on
+logical devices of the card against the one-device step, a repeat bit for
+bit, whole-batch MoE routing, a restore with shardings) with
+``-k train_mesh``.
 """
 import numpy as np
 import pytest
@@ -1787,3 +1790,112 @@ def test_approximate_tp_dual_serve_on_card(serve_model):
                        eng.drain_logit_traces())
     assert rep["max_logit_drift"] <= 0.25
     assert eng.summary()["tp_weights_dealt"] == 4 * cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# the train mesh: `make_train_step(mesh=)` on logical devices of the card
+# ---------------------------------------------------------------------------
+
+def _card_train_mesh(n, mp):
+    from repro_torch.ft.elastic import plan_mesh
+    from repro_torch.launch.mesh import LogicalDevice
+
+    dev = _cuda()
+    return plan_mesh(n, mp, devices=[LogicalDevice(i, dev) for i in range(n)])
+
+
+def _train_setup(arch, **over):
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.data import SyntheticLMData, batch_to_torch
+    from repro_torch.models.registry import build_model
+
+    _cuda()
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)), **over)
+    data = SyntheticLMData(cfg, seq_len=32, global_batch=8)
+    return cfg, build_model(cfg), [batch_to_torch(data.batch(i), "cuda")
+                                   for i in range(3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["dense", "spiking"])
+def test_train_mesh_step_on_card(kind):
+    """The smoke llama at data=2 x model=2 on four logical devices of the
+    card: each step within 2e-3 (loss) and 5e-2 (grad norm) of the
+    one-device step from the same state (phase 8's card-vs-CPU bounds), a
+    repeat bit for bit, pruned FFN weights 0."""
+    from repro_torch.ft.elastic import reshard_state
+    from repro_torch.sharding import base_rules
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.step import train_state_axes
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    over = dict(spiking_ffn=True, spiking_T=4, spiking_weight_density=0.3) \
+        if kind == "spiking" else {}
+    cfg, model, batches = _train_setup("llama3_2_1b", **over)
+    mesh = _card_train_mesh(4, 2)
+    state0 = reshard_state(init_train_state(model, 0, device="cuda"),
+                           train_state_axes(model), mesh, base_rules())
+    one, meshed = make_train_step(model), make_train_step(model, mesh=mesh)
+    runs = []
+    for _ in range(2):
+        state, metrics = state0, []
+        for b in batches:
+            _, m1 = one(state, b)
+            state, m = meshed(state, b)
+            assert abs(float(m["loss"]) / float(m1["loss"]) - 1) <= 2e-3
+            assert abs(float(m["grad_norm"]) / float(m1["grad_norm"]) - 1) <= 5e-2
+            metrics.append(m)
+        runs.append((state, metrics))
+    (a, ma), (b, mb) = runs
+    for x, y in zip(ma, mb):
+        assert torch.equal(x["loss"], y["loss"])
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        assert torch.equal(x, y)
+    if kind == "spiking":
+        after = dict(tree_paths(a["params"]))
+        for p, w0 in tree_paths(state0["params"]):
+            if p.endswith(("mlp/wu", "mlp/wd")):
+                z = w0 == 0
+                assert torch.equal(after[p][z], torch.zeros_like(after[p][z]))
+
+
+@pytest.mark.gpu
+def test_train_mesh_moe_routing_and_restore_on_card(tmp_path):
+    """phi3.5-moe (smoke) at 2 x 2: the meshed routing drops one device's
+    (token, k) pairs; a checkpoint restored with the 1 x 2 mesh's
+    shardings steps like the resharded host state, bit for bit."""
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.ft.elastic import reshard_state
+    from repro_torch.models.layers import record_moe_routing
+    from repro_torch.sharding import base_rules, tree_shardings
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.step import meshed_loss_and_grads, train_state_axes
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg, model, batches = _train_setup("phi3_5_moe", capacity_factor=0.5)
+    mesh = _card_train_mesh(4, 2)
+    rules, axes = base_rules(cfg.fsdp), train_state_axes(model)
+    state = reshard_state(init_train_state(model, 0, device="cuda"), axes,
+                          mesh, rules)
+    with torch.no_grad():
+        with record_moe_routing() as one:
+            model.loss(state["params"], batches[0])
+        with record_moe_routing() as meshed:
+            meshed_loss_and_grads(model, state["params"], batches[0], mesh,
+                                  need_grads=False)
+    assert sum(int((~k).sum()) for k in one) > 0
+    assert all(torch.equal(x, y) for x, y in zip(one, meshed))
+    state, _ = make_train_step(model, mesh=mesh)(state, batches[0])
+    host = tree_map(lambda t: t.detach().cpu().clone(), state)
+    mesh12 = _card_train_mesh(2, 2)
+    step = make_train_step(model, mesh=mesh12)
+    a, ma = step(reshard_state(host, axes, mesh12, rules), batches[1])
+    save_checkpoint(str(tmp_path), 1, host)
+    restored = restore_checkpoint(str(tmp_path), 1, host, shardings=tree_shardings(
+        host, axes, mesh12, rules))
+    b, mb = step(restored, batches[1])
+    assert torch.equal(ma["loss"], mb["loss"])
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        assert torch.equal(x, y)

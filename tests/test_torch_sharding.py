@@ -19,7 +19,9 @@ devices (`tests/conftest.py`).  Held:
 * no join-plan or kernel build after the first step (the port's
   counterpart of "no retrace").
 """
+import contextlib
 import dataclasses
+import io
 
 import jax
 import jax.numpy as jnp
@@ -642,10 +644,11 @@ def test_bitwise_refuses_psum_model_dims():
 
 
 def test_refusals_name_their_items():
-    """What stays refused names the queue item that lifts it: the train
-    mesh (12c).  The 12b cases serve now: approximate without a model axis
-    raises the reference's ValueError, expand_kv serves, and the psum dims
-    deal out as TP slabs beside the vocab's."""
+    """Nothing of the port's queue stays refused: the 12b cases serve
+    (approximate without a model axis raises the reference's ValueError,
+    expand_kv serves, and the psum dims deal out as TP slabs beside the
+    vocab's), and the train CLI's ``--mesh host`` (12c) trains as the
+    reference's does."""
     with pytest.raises(ValueError, match="model axis"):
         ExecutionPolicy(spike_format="packed", weight_sparsity="dual_sparse",
                         exactness=approximate(0.05))
@@ -662,9 +665,17 @@ def test_refusals_name_their_items():
     assert len(out[0]) == 2
     from repro_torch.launch import train
 
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        train.main(["--arch", "llama3_2_1b", "--smoke", "--mesh", "host",
-                    "--device", "cpu"])
+    # --mesh host trains as the reference's does (parsed, never read): the
+    # same losses as --mesh none
+    args = ["--arch", "llama3_2_1b", "--smoke", "--device", "cpu", "--steps",
+            "1", "--batch", "2", "--seq", "8", "--log-every", "1"]
+    losses = []
+    for flag in ("host", "none"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert train.main(args + ["--mesh", flag]) == 0
+        losses.append(buf.getvalue())
+    assert "final loss" in losses[0] and losses[0] == losses[1]
     from repro_torch.serve.sharding import (
         APPROX_MODEL_SHARDED_DIMS,
         shard_params,

@@ -543,13 +543,20 @@ def test_train_cli_runs_and_resumes(tmp_path, capsys):
     assert "step     3 loss" in second and "step     2 loss" not in second
 
 
-def test_train_cli_refuses_without_a_card_and_on_a_mesh(monkeypatch):
+def test_train_cli_refuses_without_a_card_and_on_a_mesh(monkeypatch, capsys):
+    """Without a card and without --device the CLI raises; ``--mesh host``
+    trains as the reference's does (it parses the flag and never reads
+    it): the same losses as ``--mesh none``."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--arch", "llama3_2_1b", "--smoke", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        train_cli.main(["--arch", "llama3_2_1b", "--smoke", "--mesh", "host",
-                        "--device", "cpu"])
+    args = ["--arch", "llama3_2_1b", "--smoke", "--device", "cpu", "--steps", "2",
+            "--batch", "2", "--seq", "16", "--log-every", "1"]
+    capsys.readouterr()
+    assert train_cli.main(args + ["--mesh", "host"]) == 0
+    host = capsys.readouterr().out
+    assert train_cli.main(args + ["--mesh", "none"]) == 0
+    assert "step     1 loss" in host and capsys.readouterr().out == host
 
 
 def test_bridge_train_state_keeps_values():
