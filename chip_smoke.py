@@ -98,7 +98,8 @@ Phases, each asserted; a failed phase ends the run with a non-zero exit:
              through the model's plain attention.  Then BH = 32, S = 4096
              bf16 causal and window 1024 (two runs of the window case equal
              bit for bit), a padded head dim (dh 80 -> 128, bf16), and the
-             reference test's f32 cases (SIMT).  Every bf16 case runs `tc`,
+             reference test's f32 cases (SIMT), and dh 160-256 (below).
+             Every bf16 case runs `tc`,
              held against the plain versions and against the SIMT instance
              on the same inputs by the same gates (o and gradients 1e-2,
              lse 3e-4).  Each kernel timed (CUDA events, L2 flushed) on
@@ -160,10 +161,13 @@ Phases, each asserted; a failed phase ends the run with a non-zero exit:
 Every profiler pass records the device's activity alone: the host ops'
 events took the profiler ~10 s a pass to list.
 
-Phase 9 also runs the flash kernels at dh 192 and 256 (the SIMT instance,
-which bf16 takes above dh 128): bf16 at BH 8 x S 4096, causal and window
-1024, timed against SDPA and the bound, two runs equal; f32 (4, 512)
-causal; dh 160 padded to 192.
+Phase 9 also runs the flash kernels at dh 192 and 256: bf16 on the wide
+`tc` kernels (two warpgroups a tile) at BH 8 x S 4096, causal and window
+1024, held against the plain versions and SIMT, timed on both against SDPA
+and the bound (`tc` faster), two runs of the window case equal, the
+gradients' share of the gate against the plain chain logged; dh 160 padded
+to 192; f32 (4, 512) causal on SIMT.  The build asserts that ptxas spills
+nothing in any of the 15 `tc` instances (dh 32 to 256).
 
 12. the slice's path, after phase 9:
              (a) gemma-2b at its published width (d_model 2048, 8 heads,
@@ -380,6 +384,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -482,9 +487,31 @@ def phase_build():
     for name, b in built.items():
         log(f"built {name} in {b['seconds']:.1f}s -> {b['path']}")
         for ln in b["log"].splitlines():
-            if "registers" in ln or "spill" in ln:
+            if "registers" in ln or "spill" in ln or "entry function" in ln:
                 log(f"  ptxas: {ln.strip()}")
+    # every tc flash kernel (dh 32 to 256, fwd, dq, dk/dv) holds its
+    # accumulators without spilling; the build's ptxas log (kept beside a
+    # cached library) names each kernel
+    spills = _ptxas_spills(built["flash_mha"]["log"])
+    tc = {f: b for f, b in spills.items() if "_tc_kernel" in f}
+    assert len(tc) == 15, sorted(spills)
+    assert all(b == (0, 0) for b in tc.values()), tc
     log(f"build wall {time.perf_counter() - t0:.1f}s")
+
+
+def _ptxas_spills(text):
+    """{kernel: (spill store bytes, spill load bytes)} from nvcc's -Xptxas -v
+    output."""
+    out, entry = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and entry:
+            out[entry] = (int(m.group(1)), int(m.group(2)))
+            entry = None
+    return out
 
 
 def _counted(path, fn):
@@ -2005,8 +2032,6 @@ def phase_flash(captured, cfg):
     # do)) and lse.  The chain holds o to its last bit: each o element that
     # rounds to the other bf16 neighbour moves a dq row by ulp(o) * do *
     # scale * mean(k).  |diff| / gate of each is logged.
-    over = lambda a, b, t: float(((a.float() - b.float()).abs()
-                                  / (t * (1 + b.float().abs()))).max())
     names = ("o", "lse", "dq", "dk", "dv")
     worst = dict.fromkeys(names, 0.0)
     chain = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
@@ -2022,19 +2047,19 @@ def phase_flash(captured, cfg):
         off["f64"] += int((o64 != o_p).sum())
         for name, a, b in zip(witness, ref.flash_mha_bwd_plain(
                 q, k, v, o64, lse_p, do, True, 0), plain_chain):
-            witness[name] = max(witness[name], over(a, b, FLASH_TOL_BF16))
+            witness[name] = max(witness[name], _over_gate(a, b, FLASH_TOL_BF16))
         _, lse = fm.flash_mha_fwd(q, k, v)  # the backward kernels' lse (uncounted)
         want = (o_p, lse_p, *ref.flash_mha_bwd_plain(q, k, v, o, lse, do, True, 0))
         for a, b, name, t in zip((o, lse, dq, dk, dv), want, names,
                                  (FLASH_TOL_BF16, 3e-4, *[FLASH_TOL_BF16] * 3)):
             torch.testing.assert_close(a.float(), b.float(), rtol=t, atol=t,
                                        msg=lambda m: f"flash {name}: {m}")
-            worst[name] = max(worst[name], over(a, b, t))
+            worst[name] = max(worst[name], _over_gate(a, b, t))
         for name, a, b in zip(chain, (dq, dk, dv), plain_chain):
             torch.testing.assert_close(a.float(), b.float(), rtol=FLASH_TOL_BF16,
                                        atol=FLASH_TOL_BF16,
                                        msg=lambda m: f"flash {name} vs the plain chain: {m}")
-            chain[name] = max(chain[name], over(a, b, FLASH_TOL_BF16))
+            chain[name] = max(chain[name], _over_gate(a, b, FLASH_TOL_BF16))
     log(f"flash on all {n} layers' attention inputs (BH {inputs[0][0].shape[0]}, "
         f"S {S}, dh {cfg.head_dim}, bf16, causal): == plain versions within "
         f"{FLASH_TOL_BF16}, lse 3e-4; |diff| / gate per kernel "
@@ -2084,60 +2109,87 @@ def phase_flash(captured, cfg):
     o, _ = fm.flash_mha_fwd(q, k, v, bq=64, bk=64)
     torch.testing.assert_close(o[:, 0], v[:, 0], rtol=1e-4, atol=1e-4)
     log("flash: the first causal row == v[:, 0] within 1e-4")
-    wide_rows, wide_counts = _flash_wide(gen, flush)
+    wide_rows, wide_counts, wide_chain = _flash_wide(gen, flush)
     for name, r in wide_rows.items():
         rows[name] += r
     return {"launches": counts, "rows": rows, "vs_model_attention": vs_model,
             "over_gate": worst, "vs_plain_chain_over_gate": chain,
             "f64_o_witness_over_gate": witness, "o_off_plain": off,
-            "wide_launches": wide_counts}
+            "wide_launches": wide_counts,
+            "wide_vs_plain_chain_over_gate": wide_chain}
 
 
 def _flash_wide(gen, flush):
-    """The head dims above 128 (nemotron's 192, gemma's 256; the SIMT
-    instance, which bf16 takes there too): bf16 at BH 8 x S 4096, causal
-    and window 1024, held against the plain versions (1e-2, lse 3e-4) and
-    timed against SDPA and the bound; two runs of each window case equal
-    bit for bit; f32 at the reference test's (4, 512) causal case (3e-4,
-    gradients 3e-3), and dh 160 padded to 192.  Returns ({kernel: rows},
-    the launches of these cases by kernel and instance)."""
+    """The head dims above 128 (nemotron's 192, gemma's 256).  bf16 on the
+    wide `tc` kernels: BH 8 x S 4096, causal and window 1024, held against
+    the plain versions (1e-2, lse 3e-4) and against SIMT on the same inputs,
+    timed on both against SDPA and the bound (`tc` must be faster); two
+    runs of each window case equal bit for bit; the gradients' |diff| /
+    gate against the plain chain (the plain backward fed the plain
+    forward's o) logged, not gated; dh 160 padded to 192.  f32 on SIMT at
+    the reference test's (4, 512) causal case (3e-4, gradients 3e-3).
+    Returns ({kernel: rows}, the launches of these cases by kernel and
+    instance, {case: chain |diff| / gate})."""
     import torch
 
     from repro_torch.kernels import flash_mha as fm
+    from repro_torch.kernels import ref
 
     rows = {name: [] for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                                   "flash_mha")}
+    chain = {}
 
-    def cases():
+    def add(case_rows):
+        for name, r in case_rows.items():
+            rows[name].append(r)
+
+    def bf16_cases():
         for dh in (192, 256):
-            assert fm.flash_instance(torch.bfloat16, dh) == "simt"
+            assert fm.flash_instance(torch.bfloat16, dh) == "tc"
             for label, window in ((f"BH=8 S=4096 dh={dh} causal", 0),
                                   (f"BH=8 S=4096 dh={dh} window=1024", 1024)):
                 q, k, v, g = _flash_inputs(gen, 8, 4096, dh, torch.bfloat16)
-                for name, r in _flash_case(label, q, k, v, g, True, window,
-                                           FLASH_TOL_BF16, flush=flush, reps=3,
-                                           B=1).items():
-                    rows[name].append(r)
-            runs = []
-            for _ in range(2):
-                o, lse = fm.flash_mha_fwd(q, k, v, window=1024)
-                runs.append((o, lse, *fm.flash_mha_bwd(q, k, v, o, lse, g,
-                                                       window=1024)))
+                add(_flash_case(label, q, k, v, g, True, window, FLASH_TOL_BF16,
+                                flush=flush, reps=3, B=1))
+                o_p, lse_p = ref.flash_mha_fwd_plain(q, k, v, True, window)
+                plain = ref.flash_mha_bwd_plain(q, k, v, o_p, lse_p, g, True,
+                                                window)
+                runs = []
+                for _ in range(2 if window else 1):
+                    o, lse = fm.flash_mha_fwd(q, k, v, window=window)
+                    runs.append((o, lse, *fm.flash_mha_bwd(q, k, v, o, lse, g,
+                                                           window=window)))
+                chain[label] = {name: round(_over_gate(a, b, FLASH_TOL_BF16), 3)
+                                for name, a, b in zip(("dq", "dk", "dv"),
+                                                      runs[0][2:], plain)}
+                log(f"flash {label}: |diff| / gate against the plain chain "
+                    f"{json.dumps(chain[label])}")
             assert all(torch.equal(a, b) for a, b in zip(*runs)), dh
-            log(f"flash dh {dh}: two runs of the S=4096 window case equal bit "
-                "for bit")
-            q, k, v, g = _flash_inputs(gen, 4, 512, dh, torch.float32)
-            for name, r in _flash_case(f"f32 (4,512,{dh}) causal", q, k, v, g,
-                                       True, 0, 3e-4, grad_tol=3e-3).items():
-                rows[name].append(r)
+            log(f"flash dh {dh}: two runs of the S=4096 window case (tc) equal "
+                "bit for bit")
         q, k, v, g = _flash_inputs(gen, 8, 1024, 160, torch.bfloat16)
-        for name, r in _flash_case("BH=8 S=1024 dh=160 (padded to 192) causal",
-                                   q, k, v, g, True, 0, FLASH_TOL_BF16).items():
-            rows[name].append(r)
+        add(_flash_case("BH=8 S=1024 dh=160 (padded to 192) causal", q, k, v, g,
+                        True, 0, FLASH_TOL_BF16))
 
-    _, counts = _counted("flash at head dims 160-256", cases)
-    assert counts["flash_fwd_simt"] > 0 and counts["flash_fwd_tc"] == 0, counts
-    return rows, counts
+    def f32_cases():
+        for dh in (192, 256):
+            q, k, v, g = _flash_inputs(gen, 4, 512, dh, torch.float32)
+            add(_flash_case(f"f32 (4,512,{dh}) causal", q, k, v, g, True, 0, 3e-4,
+                            grad_tol=3e-3))
+
+    _, counts = _counted("flash at head dims 160-256, bf16", bf16_cases)
+    _, f32 = _counted("flash at head dims 192-256, f32", f32_cases)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        # each of the 5 bf16 cases on `tc`, SIMT beside it; f32 on SIMT only
+        assert counts[f"{name}_tc"] >= 5, counts
+        assert f32[f"{name}_simt"] == 2 and f32[f"{name}_tc"] == 0, f32
+    return rows, {n: c + f32[n] for n, c in counts.items()}, chain
+
+
+def _over_gate(a, b, tol):
+    """max |a - b| / (tol (1 + |b|)): the share of an rtol = atol = tol gate
+    the worst element takes."""
+    return float(((a.float() - b.float()).abs() / (tol * (1 + b.float().abs()))).max())
 
 
 def _o_f64(q, k, v):
@@ -6418,7 +6470,8 @@ def _flash_entries(flash):
             "simt_ms": main["simt_ms"], "cases": rows})
     entries[-1]["vs_model_attention"] = flash["vs_model_attention"]
     entries[-1]["over_gate"] = flash["over_gate"]
-    for key in ("vs_plain_chain_over_gate", "f64_o_witness_over_gate", "o_off_plain"):
+    for key in ("vs_plain_chain_over_gate", "f64_o_witness_over_gate",
+                "o_off_plain", "wide_vs_plain_chain_over_gate"):
         entries[-1][key] = flash[key]
     return entries
 

@@ -6,7 +6,10 @@ The builds happen at first use, from the checkout's sources only, into
 ``<repo>/build/kernels/`` (listed in .gitignore), one ``nvcc`` process per
 source, all started together.  A library's name carries a hash of its
 source, the shared headers and the flags, so a second run with the same
-sources loads the library it finds instead of building again.
+sources loads the library it finds instead of building again.  nvcc's
+output (``-Xptxas -v``: each kernel's registers, shared memory and spill
+bytes) is kept beside the library, so a run that finds it built still
+reads what ptxas said.
 """
 from __future__ import annotations
 
@@ -56,15 +59,17 @@ def library_path(name: str) -> Path:
 def build() -> dict[str, dict]:
     """Build every kernel library that is missing, one ``nvcc`` per source,
     in parallel.  Returns {name: {"path", "seconds", "log"}} (log = nvcc's
-    output, with ``-Xptxas -v``'s registers, shared memory and spills;
-    empty when the library was already built)."""
+    output, with ``-Xptxas -v``'s registers, shared memory and spills, from
+    this build or the one that made the library; seconds 0 when it was
+    already built)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     out, running = {}, {}
     for name, src in sources().items():
         lib = library_path(name)
-        if lib.exists():
-            out[name] = {"path": str(lib), "seconds": 0.0, "log": ""}
+        if lib.exists() and _log_path(lib).exists():
+            out[name] = {"path": str(lib), "seconds": 0.0,
+                         "log": _log_path(lib).read_text()}
             continue
         nvcc = nvcc or _nvcc()
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
@@ -79,12 +84,18 @@ def build() -> dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
+        _log_path(tmp).write_text(log)
+        os.replace(_log_path(tmp), _log_path(lib))
         os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
         out[name] = {"path": str(lib), "seconds": time.perf_counter() - t0,
                      "log": log}
     if failed:
         raise RuntimeError("\n".join(failed))
     return out
+
+
+def _log_path(lib: Path) -> Path:
+    return lib.with_suffix(".log")
 
 
 @functools.cache

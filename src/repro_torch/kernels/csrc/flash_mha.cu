@@ -65,10 +65,15 @@
 // 192 and 256 the tiles are 32 rows (`Simt`; each thread a 2 x 2 score
 // block and 2 rows x dh / 16 output columns): four 64-row tiles at dh 256
 // would take 263 KB of the 227 KB a block may have; at 32 rows and dh 256,
-// forward 101 KB, dq 133 KB, dk/dv 137 KB.  Those head dims have no tc
-// instance yet: bf16 runs SIMT there (kernels/flash_mha.py::flash_instance).
-// tc: see the section's own note below (bf16 tiles through a cp.async
-// ring: forward 45 / 85 KB at dh 64 / 128, dq 54 / 102 KB, dk/dv 55 / 103 KB).
+// forward 101 KB, dq 133 KB, dk/dv 137 KB.  SIMT f32 FMA peaks at 67
+// TFLOP/s, so even at that peak its forward at dh 256 (BH 8 x S 4096,
+// causal) could not beat ~1 ms: only the tensor cores close the gap to the
+// bound, and bf16 takes `tc` at every dh (kernels/flash_mha.py::
+// flash_instance).
+// tc: see the section's own notes below (bf16 tiles through a cp.async
+// ring: forward 45 / 85 KB at dh 64 / 128, dq 54 / 102 KB, dk/dv 55 / 103
+// KB; at dh 192 and 256 two warpgroups a tile, because a warp's
+// accumulators for all DH columns would pass 255 registers: `Split`).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -511,7 +516,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 // the tensor-core instance (`tc`): bf16 q, k, v, do
 // ---------------------------------------------------------------------------
 // FA2 on mma.sync: 4 warps, each owning 16 rows of the block's 64-row tile
-// (q rows in the forward and dq kernels, kv rows in the dk/dv kernel).
+// (q rows in the forward and dq kernels, kv rows in the dk/dv kernel); at
+// dh 192 and 256 two such warpgroups, each owning half the output columns
+// (`Split`).
 // Tiles are bf16 in shared memory, rows padded to DH + 8 elements (ldmatrix
 // conflict-free), and the walked operands come through a 2-stage cp.async
 // ring, zero-filled past S or Skv.  Every product is mma.m16n8k16 bf16
@@ -537,8 +544,7 @@ using ftp::tc::ldmatrix_x4_trans;
 using ftp::tc::mma_bf16;
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 128;  // 4 warps x 16 rows
-constexpr int kChunk = 32;     // backward: score columns per pass
+constexpr int kChunk = 32;  // backward: score columns per pass
 
 template <int DH>
 struct Geom {
@@ -553,12 +559,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Rows [row0, row0 + kTile) of a (rows, DH) bf16 matrix into a padded
-// shared tile, 16 bytes per cp.async; rows past ``rows`` are zero-filled.
-template <int DH>
+// shared tile, 16 bytes per cp.async, by the block's NTHR threads; rows
+// past ``rows`` are zero-filled.
+template <int DH, int NTHR>
 __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
                                                 int row0, int rows) {
   constexpr int kPieces = DH / 8;
-  for (int i = threadIdx.x; i < kTile * kPieces; i += kThreads) {
+  for (int i = threadIdx.x; i < kTile * kPieces; i += NTHR) {
     const int r = i / kPieces, c = (i % kPieces) * 8, gr = row0 + r;
     const bool in = gr < rows;
     cp_async16(dst + r * Geom<DH>::kPitch + c,
@@ -605,14 +612,16 @@ __device__ __forceinline__ void mma_rows(float (&acc)[2 * NP][4],
     mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
   }
 }
-template <int DH>
-__device__ __forceinline__ void mma_cols(float (&acc)[DH / 8][4],
+// acc[W / 8][4] += A times the tile's rows from k0, columns [n0, n0 + W)
+// (B = tile, e.g. k for ds k).
+template <int DH, int W>
+__device__ __forceinline__ void mma_cols(float (&acc)[W / 8][4],
                                          const uint32_t (&a)[4], const bf16* t,
-                                         int k0, int lane) {
+                                         int k0, int lane, int n0) {
 #pragma unroll
-  for (int p = 0; p < DH / 16; ++p) {
+  for (int p = 0; p < W / 16; ++p) {
     uint32_t b[4];
-    b_frag_cols<DH>(b, t, k0, 16 * p, lane);
+    b_frag_cols<DH>(b, t, k0, n0 + 16 * p, lane);
     mma_bf16(acc[2 * p], a, b[0], b[1]);
     mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
   }
@@ -666,19 +675,21 @@ __device__ __forceinline__ void score_frag3(uint32_t (&a)[3][4],
     }
 }
 
-// acc[DH / 8][4] += (a[0] + a[1] + a[2]) times the tile's rows from k0 (B =
-// tile, e.g. v for p v).  The three products of each n8 tile go into a
-// zeroed accumulator that is added to acc in f32: adding them into the
-// running total inside the mma left over twice as many o elements on the
-// other bf16 neighbour of the f64 result (the train step's inputs).
-template <int DH>
-__device__ __forceinline__ void mma_cols3(float (&acc)[DH / 8][4],
+// acc[W / 8][4] += (a[0] + a[1] + a[2]) times the tile's rows from k0,
+// columns [n0, n0 + W) (B = tile, e.g. v for p v).  The three products of
+// each n8 tile go into a zeroed accumulator that is added to acc in f32:
+// adding them into the running total inside the mma left over twice as
+// many o elements on the other bf16 neighbour of the f64 result (the train
+// step's inputs).
+template <int DH, int W>
+__device__ __forceinline__ void mma_cols3(float (&acc)[W / 8][4],
                                           const uint32_t (&a)[3][4],
-                                          const bf16* t, int k0, int lane) {
+                                          const bf16* t, int k0, int lane,
+                                          int n0) {
 #pragma unroll
-  for (int p = 0; p < DH / 16; ++p) {
+  for (int p = 0; p < W / 16; ++p) {
     uint32_t b[4];
-    b_frag_cols<DH>(b, t, k0, 16 * p, lane);
+    b_frag_cols<DH>(b, t, k0, n0 + 16 * p, lane);
     float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
@@ -731,24 +742,191 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// The rows [r0, r0 + 16) of a warp's f32 accumulator fragments (DH
-// columns), divided by ``div`` per row half, as bf16 rows of ``out`` below
-// ``rows``.
-template <int DH>
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[DH / 8][4],
+// One pass of the forward's online softmax over a warp's score fragments
+// (NT n8 tiles; rows iq and iq + 8, key jk + 8 nt + (e & 1)): the scores
+// scaled, masked on an Edge tile (keys past Skv out of the max); m moved
+// to the new row max, alpha = exp(m_old - m); s becomes p = exp(s - m), 0
+// past Skv; l = alpha l + the lane's sum of p (the quad shares m and
+// alpha, so l stays this lane's partial sum).
+template <typename Kind, int NT>
+__device__ __forceinline__ void softmax_pass(float (&s)[NT][4], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             float scale, int iq, int jk,
+                                             int Skv, int causal, int window) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1, j = jk + 8 * nt + (e & 1);
+      if constexpr (Kind::value) {
+        s[nt][e] *= scale;
+        mx[h] = fmaxf(mx[h], s[nt][e]);
+      } else {
+        s[nt][e] = masked_score(s[nt][e], scale, iq + 8 * h, j, causal, window);
+        if (j < Skv) mx[h] = fmaxf(mx[h], s[nt][e]);
+      }
+    }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = quad_max(mx[h]);
+    alpha[h] = __expf(m[h] - mx[h]);
+    m[h] = mx[h];
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1, j = jk + 8 * nt + (e & 1);
+      s[nt][e] = __expf(s[nt][e] - m[h]);
+      if constexpr (!Kind::value)
+        if (j >= Skv) s[nt][e] = 0.f;
+      rs[h] += s[nt][e];
+    }
+  l[0] = alpha[0] * l[0] + rs[0];
+  l[1] = alpha[1] * l[1] + rs[1];
+}
+
+// The dq kernel's pass over a warp's s and dp fragments (rows iq and iq +
+// 8 with their lse and delta, key jk + 8 nt + (e & 1)): s becomes ds = p
+// (dp - delta) scale, p = exp(s scale - lse); masked and 0 past Skv on an
+// Edge tile.
+template <typename Kind, int NT>
+__device__ __forceinline__ void dq_pass(float (&s)[NT][4],
+                                        const float (&dp)[NT][4],
+                                        const float (&lse_r)[2],
+                                        const float (&delta_r)[2], float scale,
+                                        int iq, int jk, int Skv, int causal,
+                                        int window) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1, j = jk + 8 * nt + (e & 1);
+      float x = s[nt][e] * scale;
+      if constexpr (!Kind::value)
+        x = masked_score(s[nt][e], scale, iq + 8 * h, j, causal, window);
+      const float p = __expf(x - lse_r[h]);
+      s[nt][e] = p * (dp[nt][e] - delta_r[h]) * scale;
+      if constexpr (!Kind::value)
+        if (j >= Skv) s[nt][e] = 0.f;
+    }
+}
+
+// The dk/dv kernel's pass over a warp's transposed fragments (kv rows jk
+// and jk + 8, q column rr + 8 nt + (e & 1) of the tile from q0, whose lse
+// and delta are in shared memory): st becomes p^T, dpt ds^T; masked and 0
+// past S or Skv on an Edge tile.
+template <typename Kind, int NT>
+__device__ __forceinline__ void dkv_pass(float (&st)[NT][4], float (&dpt)[NT][4],
+                                         const float* lse_t,
+                                         const float* delta_t, float scale,
+                                         int q0, int rr, int jk, int S, int Skv,
+                                         int causal, int window) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = jk + 8 * (e >> 1);
+      const int r = rr + 8 * nt + (e & 1), iq = q0 + r;
+      float x = st[nt][e] * scale;
+      if constexpr (!Kind::value)
+        x = masked_score(st[nt][e], scale, iq, j, causal, window);
+      float p = __expf(x - lse_t[r]);
+      if constexpr (!Kind::value)
+        if (iq >= S || j >= Skv) p = 0.f;
+      st[nt][e] = p;
+      dpt[nt][e] = p * (dpt[nt][e] - delta_t[r]) * scale;
+    }
+}
+
+// The rows [r0, r0 + 16) of a warp's f32 accumulator fragments (columns
+// [n0, n0 + W) of DH), divided by ``div`` per row half, as bf16 rows of
+// ``out`` below ``rows``.
+template <int DH, int W>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[W / 8][4],
                                            int r0, int rows, int lane,
-                                           float div0, float div1) {
+                                           float div0, float div1, int n0) {
   const int g = lane >> 2, c = lane & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + g + 8 * h;
     if (r >= rows) continue;
     const float div = h ? div1 : div0;
-    bf16* row = out + (size_t)r * DH + 2 * c;
+    bf16* row = out + (size_t)r * DH + n0 + 2 * c;
 #pragma unroll
-    for (int nt = 0; nt < DH / 8; ++nt)
+    for (int nt = 0; nt < W / 8; ++nt)
       *reinterpret_cast<uint32_t*>(row + 8 * nt) =
           pack_bf16(acc[nt][2 * h] / div, acc[nt][2 * h + 1] / div);
+  }
+}
+
+// How a block's threads split its tile.  Up to dh 128 one warpgroup: warp
+// i owns rows [16 i, 16 i + 16) and all DH output columns.  At dh 192 and
+// 256 that would bound the kernels: a warp's f32 accumulators for all DH
+// columns are 128 registers a thread for o or dq at dh 256, and 256 for dk
+// + dv, over the 255 a thread may have before any score or fragment
+// register.  So two warpgroups (256 threads) share the 64-row tile there:
+// warp i of warpgroup w owns rows [16 i, 16 i + 16) and the output columns
+// [w DH / 2, (w + 1) DH / 2) of o, dq, or dk and dv (64 accumulators a
+// thread for o and dq at dh 256, 128 for dk + dv).  A score-shaped tile
+// (S = Q K^T, dP = dO V^T, their transposes in dk/dv) needs the whole dh:
+// each warp computes the partial over its warpgroup's dh half, and the two
+// warps over the same 16 rows (a pair) swap their partials through shared
+// memory (`pair_sum`, 64-thread named barriers) and both add part0 +
+// part1, so both hold the same f32 tile bit for bit and agree on the
+// softmax, p and ds.  Shared memory at dh 256: forward 181 KB, dq 214 KB,
+// dk/dv 207 KB (192: 141 / 166 / 167 KB), one block of 8 warps an SM.
+template <int DH>
+struct Split {
+  static constexpr int kGroups = DH > 128 ? 2 : 1;  // warpgroups a block
+  static constexpr int kThreads = 128 * kGroups;     // 4 warps x 16 rows each
+  static constexpr int kCols = DH / kGroups;  // output columns a warpgroup owns
+  static constexpr int kSteps = kCols / 16;   // k16 steps over its dh part
+  // dk/dv: a warp holding 2 x 64 accumulators (dh 128, or 256 split in
+  // two) halves the chunk to stay under 255 registers without spills
+  static constexpr int kDkvChunk = kCols == 128 ? kChunk / 2 : kChunk;
+  // The first row and output column of a warp (0 for every warp of one
+  // warpgroup: constant, so the narrow kernels' addresses fold).
+  __device__ static int row0(int warp) {
+    return (kGroups > 1 ? warp & 3 : warp) * 16;
+  }
+  __device__ static int col0(int warp) {
+    return kGroups > 1 ? (warp >> 2) * kCols : 0;
+  }
+  // Bytes of the pair exchange for NT n8 tiles of score columns: one
+  // float4 per (warp, n8 tile, lane); none for one warpgroup.
+  static constexpr size_t xchg_bytes(int nt) {
+    return kGroups > 1 ? (size_t)(kThreads / 32) * nt * 32 * sizeof(float4) : 0;
+  }
+};
+
+__device__ __forceinline__ void pair_barrier(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 1) : "memory");
+}
+
+// The sum of a pair's two partial score fragments, part0 + part1 in both
+// warps: warp i of warpgroup w writes its slot, the pair meets, each reads
+// the other's (the first barrier keeps a slot until its reader is done).
+template <int NT>
+__device__ __forceinline__ void pair_sum(float (&s)[NT][4], float4* xb,
+                                         int warp, int lane) {
+  const int pair = warp & 3, w = warp >> 2;
+  float4* mine = xb + (2 * pair + w) * NT * 32 + lane;
+  const float4* other = xb + (2 * pair + (w ^ 1)) * NT * 32 + lane;
+  pair_barrier(pair);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+    mine[32 * nt] = make_float4(s[nt][0], s[nt][1], s[nt][2], s[nt][3]);
+  pair_barrier(pair);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const float4 o = other[32 * nt];
+    const float x[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[nt][e] = w ? x[e] + s[nt][e] : s[nt][e] + x[e];
   }
 }
 
@@ -762,20 +940,25 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[DH / 8]
 // SM; no spills at any dh.
 constexpr int kFwdChunk = 32;
 template <int DH>
-__global__ void __launch_bounds__(kThreads, DH <= 64 ? 3 : 1) flash_fwd_tc_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, int S, int Skv, float scale, int causal,
-    int window, bf16* __restrict__ o, float* __restrict__ lse) {
-  constexpr int E = Geom<DH>::kElems, KS = Geom<DH>::kSteps, NC = kFwdChunk;
+__global__ void __launch_bounds__(Split<DH>::kThreads, DH <= 64 ? 3 : 1)
+    flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, int S, int Skv, float scale,
+                        int causal, int window, bf16* __restrict__ o,
+                        float* __restrict__ lse) {
+  using W = Split<DH>;
+  constexpr int E = Geom<DH>::kElems, KS = W::kSteps, COLS = W::kCols,
+                NC = kFwdChunk;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* ring = reinterpret_cast<bf16*>(tc_smem);  // stage s: K at 2 s E, V at (2 s + 1) E
   bf16* qs = ring + 4 * E;
+  float4* xb = reinterpret_cast<float4*>(qs + E);  // the pair exchange
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // causal: heavy first
   const int q1 = min(q0 + kTile, S);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c = lane & 3, r0 = warp * 16;
+  const int g = lane >> 2, c = lane & 3, r0 = W::row0(warp);
+  const int n0 = W::col0(warp);  // this warpgroup's columns
   const bf16* kb = k + (size_t)bh * Skv * DH;
   const bf16* vb = v + (size_t)bh * Skv * DH;
   const int nkt = (Skv + kTile - 1) / kTile;
@@ -787,17 +970,18 @@ __global__ void __launch_bounds__(kThreads, DH <= 64 ? 3 : 1) flash_fwd_tc_kerne
     return t;
   };
   auto fill = [&](int stage, int t) {
-    load_tile_async<DH>(ring + 2 * stage * E, kb, t * kTile, Skv);
-    load_tile_async<DH>(ring + (2 * stage + 1) * E, vb, t * kTile, Skv);
+    load_tile_async<DH, W::kThreads>(ring + 2 * stage * E, kb, t * kTile, Skv);
+    load_tile_async<DH, W::kThreads>(ring + (2 * stage + 1) * E, vb, t * kTile,
+                                     Skv);
   };
 
   // Q in the first stage's group: the loop's first wait covers it
-  load_tile_async<DH>(qs, q + (size_t)bh * S * DH, q0, S);
+  load_tile_async<DH, W::kThreads>(qs, q + (size_t)bh * S * DH, q0, S);
   int kt = next(0);
   if (kt < nkt) fill(0, kt);
   cp_async_commit();
 
-  float acc[DH / 8][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[COLS / 8][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   zero(acc);
   for (int stage = 0; kt < nkt; stage ^= 1) {
     const int nxt = next(kt + 1);
@@ -816,54 +1000,19 @@ __global__ void __launch_bounds__(kThreads, DH <= 64 ? 3 : 1) flash_fwd_tc_kerne
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
         uint32_t qa[4];
-        a_frag<DH>(qa, qs, r0, 16 * ks, lane);
-        mma_rows<DH, NC / 16>(s, qa, ks_t, ch, 16 * ks, lane);
+        a_frag<DH>(qa, qs, r0, n0 + 16 * ks, lane);
+        mma_rows<DH, NC / 16>(s, qa, ks_t, ch, n0 + 16 * ks, lane);
       }
-      float mx[2] = {m[0], m[1]};
-      // the scores scaled, masked on an edge tile (keys past Skv out of the
-      // max); then p = exp(s - m), 0 past Skv
-      auto scores = [&](auto full) {
+      if constexpr (W::kGroups > 1) pair_sum(s, xb, warp, lane);
+      float alpha[2];
+      if (full)
+        softmax_pass<Full>(s, m, l, alpha, scale, q0 + r0 + g, k0 + ch + 2 * c,
+                           Skv, causal, window);
+      else
+        softmax_pass<Edge>(s, m, l, alpha, scale, q0 + r0 + g, k0 + ch + 2 * c,
+                           Skv, causal, window);
 #pragma unroll
-        for (int nt = 0; nt < NC / 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int h = e >> 1, jk = k0 + ch + 8 * nt + 2 * c + (e & 1);
-            if constexpr (decltype(full)::value) {
-              s[nt][e] *= scale;
-              mx[h] = fmaxf(mx[h], s[nt][e]);
-            } else {
-              s[nt][e] = masked_score(s[nt][e], scale, q0 + r0 + g + 8 * h, jk,
-                                      causal, window);
-              if (jk < Skv) mx[h] = fmaxf(mx[h], s[nt][e]);
-            }
-          }
-      };
-      auto probs = [&](auto full, float (&rs)[2]) {
-#pragma unroll
-        for (int nt = 0; nt < NC / 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int h = e >> 1, jk = k0 + ch + 8 * nt + 2 * c + (e & 1);
-            s[nt][e] = __expf(s[nt][e] - m[h]);
-            if constexpr (!decltype(full)::value)
-              if (jk >= Skv) s[nt][e] = 0.f;
-            rs[h] += s[nt][e];
-          }
-      };
-      if (full) scores(Full{}); else scores(Edge{});
-      float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h] = quad_max(mx[h]);
-        alpha[h] = __expf(m[h] - mx[h]);
-        m[h] = mx[h];
-      }
-      if (full) probs(Full{}, rs); else probs(Edge{}, rs);
-      // l stays this lane's partial sum (the quad shares m and alpha)
-      l[0] = alpha[0] * l[0] + rs[0];
-      l[1] = alpha[1] * l[1] + rs[1];
-#pragma unroll
-      for (int nt = 0; nt < DH / 8; ++nt) {
+      for (int nt = 0; nt < COLS / 8; ++nt) {
         acc[nt][0] *= alpha[0];
         acc[nt][1] *= alpha[0];
         acc[nt][2] *= alpha[1];
@@ -873,7 +1022,7 @@ __global__ void __launch_bounds__(kThreads, DH <= 64 ? 3 : 1) flash_fwd_tc_kerne
       for (int j = 0; j < NC / 16; ++j) {
         uint32_t a[3][4];
         score_frag3(a, s, j);
-        mma_cols3<DH>(acc, a, vs_t, ch + 16 * j, lane);
+        mma_cols3<DH, COLS>(acc, a, vs_t, ch + 16 * j, lane, n0);
       }
     }
     __syncthreads();  // the stage's readers are done before it is refilled
@@ -883,8 +1032,9 @@ __global__ void __launch_bounds__(kThreads, DH <= 64 ? 3 : 1) flash_fwd_tc_kerne
 
   const float l0 = fmaxf(quad_sum(l[0]), 1e-30f);
   const float l1 = fmaxf(quad_sum(l[1]), 1e-30f);
-  store_rows<DH>(o + (size_t)bh * S * DH, acc, q0 + r0, S, lane, l0, l1);
-  if (c == 0) {
+  store_rows<DH, COLS>(o + (size_t)bh * S * DH, acc, q0 + r0, S, lane, l0, l1,
+                       n0);
+  if (warp < 4 && c == 0) {  // both warpgroups hold the same m and l
     if (q0 + r0 + g < S) lse[(size_t)bh * S + q0 + r0 + g] = m[0] + logf(l0);
     if (q0 + r0 + g + 8 < S)
       lse[(size_t)bh * S + q0 + r0 + g + 8] = m[1] + logf(l1);
@@ -893,24 +1043,30 @@ __global__ void __launch_bounds__(kThreads, DH <= 64 ? 3 : 1) flash_fwd_tc_kerne
 
 // backward dq: one block per (bh, q tile); Q and dO resident, K, V tiles
 // through the ring; kChunk keys per pass keep s and dp to 16 registers each
+// (two warpgroups: s and dp take the pair exchange in turn).  No min-blocks
+// bound here or on dk/dv: with one, ptxas gave the one-warpgroup instances
+// more registers, and dk/dv at dh 64 ran 18% slower.
 template <int DH>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_tc_kernel(
+__global__ void __launch_bounds__(Split<DH>::kThreads) flash_bwd_dq_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta, int S,
     int Skv, float scale, int causal, int window, bf16* __restrict__ dq) {
-  constexpr int E = Geom<DH>::kElems, KS = Geom<DH>::kSteps;
+  using W = Split<DH>;
+  constexpr int E = Geom<DH>::kElems, KS = W::kSteps, COLS = W::kCols;
   constexpr int NT = kChunk / 8;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* qs = reinterpret_cast<bf16*>(tc_smem);
   bf16* gs = qs + E;    // do
   bf16* ring = gs + E;  // stage s: K at 2 s E, V at (2 s + 1) E
+  float4* xb = reinterpret_cast<float4*>(ring + 4 * E);  // the pair exchange
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
   const int q1 = min(q0 + kTile, S);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c = lane & 3, r0 = warp * 16;
+  const int g = lane >> 2, c = lane & 3, r0 = W::row0(warp);
+  const int n0 = W::col0(warp);
   const bf16* kb = k + (size_t)bh * Skv * DH;
   const bf16* vb = v + (size_t)bh * Skv * DH;
   const int nkt = (Skv + kTile - 1) / kTile;
@@ -922,12 +1078,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_tc_kernel(
     return t;
   };
   auto fill = [&](int stage, int t) {
-    load_tile_async<DH>(ring + 2 * stage * E, kb, t * kTile, Skv);
-    load_tile_async<DH>(ring + (2 * stage + 1) * E, vb, t * kTile, Skv);
+    load_tile_async<DH, W::kThreads>(ring + 2 * stage * E, kb, t * kTile, Skv);
+    load_tile_async<DH, W::kThreads>(ring + (2 * stage + 1) * E, vb, t * kTile,
+                                     Skv);
   };
 
-  load_tile_async<DH>(qs, q + (size_t)bh * S * DH, q0, S);
-  load_tile_async<DH>(gs, dout + (size_t)bh * S * DH, q0, S);
+  load_tile_async<DH, W::kThreads>(qs, q + (size_t)bh * S * DH, q0, S);
+  load_tile_async<DH, W::kThreads>(gs, dout + (size_t)bh * S * DH, q0, S);
   int kt = next(0);
   if (kt < nkt) fill(0, kt);
   cp_async_commit();
@@ -939,7 +1096,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_tc_kernel(
     delta_r[h] = r < S ? delta[(size_t)bh * S + r] : 0.f;
   }
   const bool split = degenerate_rows(q1, Skv, causal, window);
-  float acc[DH / 8][4];
+  float acc[COLS / 8][4];
   zero(acc);
   for (int stage = 0; kt < nkt; stage ^= 1) {
     const int nxt = next(kt + 1);
@@ -958,39 +1115,29 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_tc_kernel(
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
         uint32_t a[4];
-        a_frag<DH>(a, qs, r0, 16 * ks, lane);
-        mma_rows<DH, NT / 2>(s, a, ks_t, ch, 16 * ks, lane);
-        a_frag<DH>(a, gs, r0, 16 * ks, lane);
-        mma_rows<DH, NT / 2>(dp, a, vs_t, ch, 16 * ks, lane);
+        a_frag<DH>(a, qs, r0, n0 + 16 * ks, lane);
+        mma_rows<DH, NT / 2>(s, a, ks_t, ch, n0 + 16 * ks, lane);
+        a_frag<DH>(a, gs, r0, n0 + 16 * ks, lane);
+        mma_rows<DH, NT / 2>(dp, a, vs_t, ch, n0 + 16 * ks, lane);
       }
-      // ds = p (dp - delta) scale, p = exp(s - lse); masked and 0 past Skv
-      // on an edge tile
-      auto grads = [&](auto full) {
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int h = e >> 1;
-            const int jk = kt * kTile + ch + 8 * nt + 2 * c + (e & 1);
-            float x = s[nt][e] * scale;
-            if constexpr (!decltype(full)::value)
-              x = masked_score(s[nt][e], scale, q0 + r0 + g + 8 * h, jk, causal,
-                               window);
-            const float p = __expf(x - lse_r[h]);
-            s[nt][e] = p * (dp[nt][e] - delta_r[h]) * scale;
-            if constexpr (!decltype(full)::value)
-              if (jk >= Skv) s[nt][e] = 0.f;
-          }
-      };
-      if (full) grads(Full{}); else grads(Edge{});
+      if constexpr (W::kGroups > 1) {
+        pair_sum(s, xb, warp, lane);
+        pair_sum(dp, xb, warp, lane);
+      }
+      if (full)
+        dq_pass<Full>(s, dp, lse_r, delta_r, scale, q0 + r0 + g,
+                      kt * kTile + ch + 2 * c, Skv, causal, window);
+      else
+        dq_pass<Edge>(s, dp, lse_r, delta_r, scale, q0 + r0 + g,
+                      kt * kTile + ch + 2 * c, Skv, causal, window);
 #pragma unroll
       for (int j = 0; j < NT / 2; ++j) {
         uint32_t a[4];
         score_frag(a, s, j);
-        mma_cols<DH>(acc, a, ks_t, ch + 16 * j, lane);
+        mma_cols<DH, COLS>(acc, a, ks_t, ch + 16 * j, lane, n0);
         if (split) {
           score_frag_lo(a, s, j);
-          mma_cols<DH>(acc, a, ks_t, ch + 16 * j, lane);
+          mma_cols<DH, COLS>(acc, a, ks_t, ch + 16 * j, lane, n0);
         }
       }
     }
@@ -998,35 +1145,38 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_tc_kernel(
     kt = nxt;
   }
   cp_async_wait<0>();  // Q and dO were never waited on if no tile was needed
-  store_rows<DH>(dq + (size_t)bh * S * DH, acc, q0 + r0, S, lane, 1.f, 1.f);
+  store_rows<DH, COLS>(dq + (size_t)bh * S * DH, acc, q0 + r0, S, lane, 1.f,
+                       1.f, n0);
 }
 
 // backward dk, dv: one block per (bh, kv tile); K and V resident, Q, dO,
 // lse and delta tiles through the ring; the scores are transposed (kv rows
-// x q columns), kChunk q columns per pass (half at dh 128)
+// x q columns), kDkvChunk q columns per pass (two warpgroups: s^T and dp^T
+// take the pair exchange in turn)
 template <int DH>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_tc_kernel(
+__global__ void __launch_bounds__(Split<DH>::kThreads) flash_bwd_dkv_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta, int S,
     int Skv, float scale, int causal, int window, bf16* __restrict__ dk,
     bf16* __restrict__ dv) {
-  constexpr int E = Geom<DH>::kElems, KS = Geom<DH>::kSteps;
-  // dh 128 holds 2 x 64 accumulators a thread: half the chunk keeps it
-  // under 255 registers without spills
-  constexpr int CH = DH == 128 ? kChunk / 2 : kChunk, NT = CH / 8;
+  using W = Split<DH>;
+  constexpr int E = Geom<DH>::kElems, KS = W::kSteps, COLS = W::kCols,
+                CH = W::kDkvChunk, NT = CH / 8;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* ks = reinterpret_cast<bf16*>(tc_smem);
   bf16* vs = ks + E;
   bf16* ring = vs + E;  // stage s: Q at 2 s E, dO at (2 s + 1) E
   float* rows_s = reinterpret_cast<float*>(ring + 4 * E);  // stage s: lse at
                                                            // 2 s kTile, delta after
+  float4* xb = reinterpret_cast<float4*>(rows_s + 4 * kTile);  // the pair exchange
 
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * kTile;  // causal: low kv tiles are the heavy ones
   const int k1 = min(k0 + kTile, Skv);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c = lane & 3, r0 = warp * 16;
+  const int g = lane >> 2, c = lane & 3, r0 = W::row0(warp);
+  const int n0 = W::col0(warp);
   const bf16* qb = q + (size_t)bh * S * DH;
   const bf16* gb = dout + (size_t)bh * S * DH;
   const int nqt = (S + kTile - 1) / kTile;
@@ -1037,20 +1187,24 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_tc_kernel(
     return t;
   };
   auto fill = [&](int stage, int t) {
-    load_tile_async<DH>(ring + 2 * stage * E, qb, t * kTile, S);
-    load_tile_async<DH>(ring + (2 * stage + 1) * E, gb, t * kTile, S);
-    const int i = threadIdx.x & (kTile - 1), r = t * kTile + i;
-    const float* src = (threadIdx.x < kTile ? lse : delta) + (size_t)bh * S;
-    cp_async4(rows_s + 2 * stage * kTile + threadIdx.x, src + (r < S ? r : 0),
-              r < S ? 4 : 0);
+    load_tile_async<DH, W::kThreads>(ring + 2 * stage * E, qb, t * kTile, S);
+    load_tile_async<DH, W::kThreads>(ring + (2 * stage + 1) * E, gb, t * kTile,
+                                     S);
+    if (W::kGroups == 1 || threadIdx.x < 2 * kTile) {  // lse by the first 64
+                                                       // threads, delta next
+      const int i = threadIdx.x & (kTile - 1), r = t * kTile + i;
+      const float* src = (threadIdx.x < kTile ? lse : delta) + (size_t)bh * S;
+      cp_async4(rows_s + 2 * stage * kTile + threadIdx.x, src + (r < S ? r : 0),
+                r < S ? 4 : 0);
+    }
   };
 
-  load_tile_async<DH>(ks, k + (size_t)bh * Skv * DH, k0, Skv);
-  load_tile_async<DH>(vs, v + (size_t)bh * Skv * DH, k0, Skv);
+  load_tile_async<DH, W::kThreads>(ks, k + (size_t)bh * Skv * DH, k0, Skv);
+  load_tile_async<DH, W::kThreads>(vs, v + (size_t)bh * Skv * DH, k0, Skv);
   int qt = next(0);
   if (qt < nqt) fill(0, qt);
   cp_async_commit();
-  float acck[DH / 8][4], accv[DH / 8][4];
+  float acck[COLS / 8][4], accv[COLS / 8][4];
   zero(acck);
   zero(accv);
   for (int stage = 0; qt < nqt; stage ^= 1) {
@@ -1074,40 +1228,31 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_tc_kernel(
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         uint32_t a[4];
-        a_frag<DH>(a, ks, r0, 16 * kk, lane);
-        mma_rows<DH, NT / 2>(st, a, qs_t, ch, 16 * kk, lane);
-        a_frag<DH>(a, vs, r0, 16 * kk, lane);
-        mma_rows<DH, NT / 2>(dpt, a, gs_t, ch, 16 * kk, lane);
+        a_frag<DH>(a, ks, r0, n0 + 16 * kk, lane);
+        mma_rows<DH, NT / 2>(st, a, qs_t, ch, n0 + 16 * kk, lane);
+        a_frag<DH>(a, vs, r0, n0 + 16 * kk, lane);
+        mma_rows<DH, NT / 2>(dpt, a, gs_t, ch, n0 + 16 * kk, lane);
       }
-      // p^T and ds^T; masked and 0 past S or Skv on an edge tile
-      auto grads = [&](auto full) {
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int jk = k0 + r0 + g + 8 * (e >> 1);
-            const int rr = ch + 8 * nt + 2 * c + (e & 1), iq = q0 + rr;
-            float x = st[nt][e] * scale;
-            if constexpr (!decltype(full)::value)
-              x = masked_score(st[nt][e], scale, iq, jk, causal, window);
-            float p = __expf(x - lse_t[rr]);
-            if constexpr (!decltype(full)::value)
-              if (iq >= S || jk >= Skv) p = 0.f;
-            st[nt][e] = p;
-            dpt[nt][e] = p * (dpt[nt][e] - delta_t[rr]) * scale;
-          }
-      };
-      if (full) grads(Full{}); else grads(Edge{});
+      if constexpr (W::kGroups > 1) {
+        pair_sum(st, xb, warp, lane);
+        pair_sum(dpt, xb, warp, lane);
+      }
+      if (full)
+        dkv_pass<Full>(st, dpt, lse_t, delta_t, scale, q0, ch + 2 * c,
+                       k0 + r0 + g, S, Skv, causal, window);
+      else
+        dkv_pass<Edge>(st, dpt, lse_t, delta_t, scale, q0, ch + 2 * c,
+                       k0 + r0 + g, S, Skv, causal, window);
 #pragma unroll
       for (int j = 0; j < NT / 2; ++j) {
         uint32_t a[4];
         score_frag(a, st, j);
-        mma_cols<DH>(accv, a, gs_t, ch + 16 * j, lane);
+        mma_cols<DH, COLS>(accv, a, gs_t, ch + 16 * j, lane, n0);
         score_frag(a, dpt, j);
-        mma_cols<DH>(acck, a, qs_t, ch + 16 * j, lane);
+        mma_cols<DH, COLS>(acck, a, qs_t, ch + 16 * j, lane, n0);
         if (split) {
           score_frag_lo(a, dpt, j);
-          mma_cols<DH>(acck, a, qs_t, ch + 16 * j, lane);
+          mma_cols<DH, COLS>(acck, a, qs_t, ch + 16 * j, lane, n0);
         }
       }
     }
@@ -1115,8 +1260,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_tc_kernel(
     qt = nxt;
   }
   cp_async_wait<0>();  // K and V were never waited on if no tile was needed
-  store_rows<DH>(dk + (size_t)bh * Skv * DH, acck, k0 + r0, Skv, lane, 1.f, 1.f);
-  store_rows<DH>(dv + (size_t)bh * Skv * DH, accv, k0 + r0, Skv, lane, 1.f, 1.f);
+  store_rows<DH, COLS>(dk + (size_t)bh * Skv * DH, acck, k0 + r0, Skv, lane,
+                       1.f, 1.f, n0);
+  store_rows<DH, COLS>(dv + (size_t)bh * Skv * DH, accv, k0 + r0, Skv, lane,
+                       1.f, 1.f, n0);
 }
 
 }  // namespace tc
@@ -1144,6 +1291,8 @@ int dispatch(int tc, int bf16, int dh, Args... args) {
     if (dh == 32) return G<32>::run(args...);
     if (dh == 64) return G<64>::run(args...);
     if (dh == 128) return G<128>::run(args...);
+    if (dh == 192) return G<192>::run(args...);
+    if (dh == 256) return G<256>::run(args...);
   } else if (bf16) {
     if (dh == 32) return F<__nv_bfloat16, 32>::run(args...);
     if (dh == 64) return F<__nv_bfloat16, 64>::run(args...);
@@ -1227,21 +1376,31 @@ struct BwdDkv {
 
 constexpr size_t tc_tile_bytes(int dh) { return (size_t)kTile * (dh + 8) * 2; }
 
+// Launches a tc kernel with its block (one warpgroup up to dh 128, two at
+// dh 192 / 256) and its dynamic shared memory.
+template <int DH, typename K, typename... A>
+int launch_tc(K kernel, size_t smem, dim3 grid, cudaStream_t s, A... args) {
+  int rc = start(kernel, smem);
+  if (rc) return rc;
+  kernel<<<grid, tc::Split<DH>::kThreads, smem, s>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 template <int DH>
 struct FwdTc {
   static int run(const void* q, const void* k, const void* v, int BH, int S,
                  int Skv, float scale, int causal, int window, void* o,
                  void* lse, cudaStream_t s) {
-    const size_t smem = 5 * tc_tile_bytes(DH);  // 2 stages of K and V, Q
-    int rc = start(tc::flash_fwd_tc_kernel<DH>, smem);
-    if (rc) return rc;
-    dim3 grid(BH, (S + kTile - 1) / kTile);
-    tc::flash_fwd_tc_kernel<DH><<<grid, tc::kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), S, Skv, scale, causal, window,
-        static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse));
-    return (int)cudaGetLastError();
+    // 2 stages of K and V, Q, the pair exchange
+    const size_t smem = 5 * tc_tile_bytes(DH) +
+                        tc::Split<DH>::xchg_bytes(tc::kFwdChunk / 8);
+    return launch_tc<DH>(tc::flash_fwd_tc_kernel<DH>, smem,
+                         dim3(BH, (S + kTile - 1) / kTile), s,
+                         static_cast<const tc::bf16*>(q),
+                         static_cast<const tc::bf16*>(k),
+                         static_cast<const tc::bf16*>(v), S, Skv, scale, causal,
+                         window, static_cast<tc::bf16*>(o),
+                         static_cast<float*>(lse));
   }
 };
 
@@ -1251,18 +1410,18 @@ struct BwdDqTc {
                  const void* dout, const void* lse, const void* delta, int BH,
                  int S, int Skv, float scale, int causal, int window,
                  void* dq, cudaStream_t s) {
-    const size_t smem = 6 * tc_tile_bytes(DH);  // Q, dO + 2 stages of K, V
-    int rc = start(tc::flash_bwd_dq_tc_kernel<DH>, smem);
-    if (rc) return rc;
-    dim3 grid(BH, (S + kTile - 1) / kTile);
-    tc::flash_bwd_dq_tc_kernel<DH><<<grid, tc::kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<const __nv_bfloat16*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta), S,
-        Skv, scale, causal, window, static_cast<__nv_bfloat16*>(dq));
-    return (int)cudaGetLastError();
+    // Q, dO + 2 stages of K, V, the pair exchange
+    const size_t smem =
+        6 * tc_tile_bytes(DH) + tc::Split<DH>::xchg_bytes(tc::kChunk / 8);
+    return launch_tc<DH>(tc::flash_bwd_dq_tc_kernel<DH>, smem,
+                         dim3(BH, (S + kTile - 1) / kTile), s,
+                         static_cast<const tc::bf16*>(q),
+                         static_cast<const tc::bf16*>(k),
+                         static_cast<const tc::bf16*>(v),
+                         static_cast<const tc::bf16*>(dout),
+                         static_cast<const float*>(lse),
+                         static_cast<const float*>(delta), S, Skv, scale,
+                         causal, window, static_cast<tc::bf16*>(dq));
   }
 };
 
@@ -1272,20 +1431,20 @@ struct BwdDkvTc {
                  const void* dout, const void* lse, const void* delta, int BH,
                  int S, int Skv, float scale, int causal, int window,
                  void* dk, void* dv, cudaStream_t s) {
-    // K, V + 2 stages of Q, dO, and of lse, delta
-    const size_t smem = 6 * tc_tile_bytes(DH) + 2 * 2 * kTile * 4;
-    int rc = start(tc::flash_bwd_dkv_tc_kernel<DH>, smem);
-    if (rc) return rc;
-    dim3 grid(BH, (Skv + kTile - 1) / kTile);
-    tc::flash_bwd_dkv_tc_kernel<DH><<<grid, tc::kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<const __nv_bfloat16*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta), S,
-        Skv, scale, causal, window, static_cast<__nv_bfloat16*>(dk),
-        static_cast<__nv_bfloat16*>(dv));
-    return (int)cudaGetLastError();
+    // K, V + 2 stages of Q, dO, and of lse, delta, the pair exchange
+    const size_t smem =
+        6 * tc_tile_bytes(DH) + 2 * 2 * kTile * 4 +
+        tc::Split<DH>::xchg_bytes(tc::Split<DH>::kDkvChunk / 8);
+    return launch_tc<DH>(tc::flash_bwd_dkv_tc_kernel<DH>, smem,
+                         dim3(BH, (Skv + kTile - 1) / kTile), s,
+                         static_cast<const tc::bf16*>(q),
+                         static_cast<const tc::bf16*>(k),
+                         static_cast<const tc::bf16*>(v),
+                         static_cast<const tc::bf16*>(dout),
+                         static_cast<const float*>(lse),
+                         static_cast<const float*>(delta), S, Skv, scale,
+                         causal, window, static_cast<tc::bf16*>(dk),
+                         static_cast<tc::bf16*>(dv));
   }
 };
 
@@ -1295,7 +1454,8 @@ extern "C" {
 
 // q: (BH, S, dh), k, v: (BH, Skv, dh), all contiguous, bf16 (bf16 = 1) or
 // f32 (0); dh in {32, 64, 128, 192, 256}; tc = 1 launches the tensor-core
-// instance (bf16 only, 16-byte aligned bases, dh <= 128), 0 the SIMT one.  o: (BH, S, dh) in
+// instance (bf16 only, 16-byte aligned bases, dh <= 256: two warpgroups a
+// block at 192 and 256), 0 the SIMT one.  o: (BH, S, dh) in
 // q's dtype, lse: (BH, S) f32.  Returns cudaGetLastError() after the launch
 // (or the error that refused it).
 int flash_fwd_launch(const void* q, const void* k, const void* v, int BH,

@@ -12,16 +12,16 @@ CUDA kernels and the autograd Function over them (port of
   reference's ``custom_vjp``).
 
 Each kernel has two instances (`flash_instance`): ``tc`` on the tensor
-cores for bf16 inputs up to dh 128, ``simt`` (SIMT f32 FMA) for f32 ones
-and, above dh 128, for bf16 ones too (the tensor-core design for dh 192 and
-256 is queued in ROADMAP.md).  Each wrapper
+cores for bf16 inputs at every dh (one warpgroup a tile up to dh 128, two
+splitting the output columns at dh 192 and 256), ``simt`` (SIMT f32 FMA)
+for f32 ones.  Each wrapper
 launches its CUDA kernel for CUDA tensors and runs its plain version
 (`ref.flash_mha_fwd_plain`, `ref.flash_mha_bwd_dq_plain`,
 `ref.flash_mha_bwd_dkv_plain`) only for tensors on the CPU, at the true dh;
 the reference's ``interpret`` switch is not ported.  There is no fallback:
 a CUDA input a kernel does not take raises, and a `tc` build or launch that
 fails raises.  The kernels are built for dh 32, 64, 128, 192 and 256
-(`HEAD_DIMS`; 192 and 256 SIMT only); any other dh up to 256 is
+(`HEAD_DIMS`, both instances); any other dh up to 256 is
 zero-padded on the last axis to the next of them (`template_dh`) and run
 with the true ``dh ** -0.5`` scale, and the outputs are sliced back
 (`at_template`; zero columns add exact +0 products).  dh > 256 raises: no
@@ -58,7 +58,6 @@ from .ref import (
 DEFAULT_BQ = 256
 DEFAULT_BK = 256
 HEAD_DIMS = (32, 64, 128, 192, 256)  # the kernels' template instances
-TC_MAX_DH = 128  # the tensor-core instance's largest template
 INSTANCES = ("tc", "simt")
 
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")  # kernels 5, 6, 6
@@ -94,13 +93,12 @@ def template_dh(dh: int) -> int:
 
 
 def flash_instance(dtype: torch.dtype, dh: int) -> str:
-    """The kernels' instance for inputs of ``dtype`` and head dim ``dh``:
-    ``tc`` (tensor cores) for bf16 up to dh 128, ``simt`` for f32 and for
-    bf16 above dh 128 (no tensor-core template there yet).  Nothing else
-    decides it."""
-    to = template_dh(dh)
+    """The kernels' instance for inputs of ``dtype`` and head dim ``dh``
+    (1 to 256): ``tc`` (tensor cores) for bf16, ``simt`` for f32.  Nothing
+    else decides it."""
+    template_dh(dh)
     if dtype == torch.bfloat16:
-        return "tc" if to <= TC_MAX_DH else "simt"
+        return "tc"
     if dtype == torch.float32:
         return "simt"
     raise ValueError(f"the kernels take bf16 or f32, got {dtype}")

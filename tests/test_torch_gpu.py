@@ -736,7 +736,7 @@ def test_flash_kernels_match_plain(causal, window, dh, dtype, instance):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [32, 64, 80, 128])
+@pytest.mark.parametrize("dh", [32, 64, 80, 128, 160, 192, 256])
 @pytest.mark.parametrize("S,skv,causal,window", [
     (256, 256, True, 0), (200, 200, True, 50), (128, 512, False, 0),
     (256, 64, True, 32)])
@@ -788,15 +788,16 @@ def test_flash_kernels_large_logits_and_first_row():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 256])
 @pytest.mark.parametrize("instance", ["tc", "simt"])
-def test_flash_kernels_deterministic_and_rows_batch_invariant(instance):
+def test_flash_kernels_deterministic_and_rows_batch_invariant(instance, dh):
     """No atomics: two runs equal bit for bit, and a slice of the BH rows
     launched alone equals those rows of the full launch (bf16 inputs, on
-    each instance)."""
+    each instance; dh 256 on the wide `tc` kernels)."""
     from repro_torch.kernels import flash_mha as fm
 
     _cuda()
-    q, k, v, do = _flash_inputs(17, 6, 384, 64, torch.bfloat16)
+    q, k, v, do = _flash_inputs(17, 6, 384, dh, torch.bfloat16)
     kw = dict(window=128, bq=128, bk=128, instance=instance)
 
     def both(q, k, v, do):
@@ -841,31 +842,36 @@ def test_flash_tc_copies_an_unaligned_base():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype,instance", [(torch.float32, "simt"),
+                                            (torch.bfloat16, "tc"),
+                                            (torch.bfloat16, "simt")])
 @pytest.mark.parametrize("dh", [160, 192, 256])
 @pytest.mark.parametrize("S,skv,causal,window", [
     (256, 256, True, 0), (200, 200, True, 50), (128, 512, False, 0),
     (256, 64, True, 32)])
-def test_flash_wide_instance_matches_plain(S, skv, causal, window, dh, dtype):
-    """The SIMT instance at dh 192 and 256 (32-row tiles), and 160 padded to
-    192: f32 and bf16 inputs (bf16 routes there above dh 128), against the
-    plain versions, counted on `simt`; two runs equal bit for bit."""
+def test_flash_wide_instance_matches_plain(S, skv, causal, window, dh, dtype,
+                                           instance):
+    """dh 192 and 256, and 160 padded to 192: bf16 on the wide `tc` kernels
+    (two warpgroups a tile) and on SIMT (32-row tiles), f32 on SIMT, against
+    the plain versions, each counted on the instance it asked for; two runs
+    equal bit for bit."""
     from repro_torch.kernels import flash_mha as fm
 
     _cuda()
     q, k, v, do = _flash_inputs(S + skv + dh, 2, S, dh, dtype, skv=skv)
-    assert fm.flash_instance(dtype, dh) == "simt"
-    o, lse, grads = _flash_hold(q, k, v, do, causal, window)
-    o2, lse2, grads2 = _flash_hold(q, k, v, do, causal, window)
+    assert fm.flash_instance(dtype, dh) == (
+        "tc" if dtype == torch.bfloat16 else "simt")
+    o, lse, grads = _flash_hold(q, k, v, do, causal, window, instance=instance)
+    o2, lse2, grads2 = _flash_hold(q, k, v, do, causal, window,
+                                   instance=instance)
     for a, b in zip((o, lse, *grads), (o2, lse2, *grads2)):
         assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
 def test_flash_kernels_refuse_what_they_do_not_take():
-    """dh 257 (above the largest template, 256) and f16 are refused; asking
-    for the tensor-core instance on f32 inputs, or on bf16 above dh 128, is
-    refused."""
+    """dh 257 (above the largest template, 256) and f16 are refused, and so
+    is the tensor-core instance on f32 inputs; bf16 at dh 192 runs it."""
     from repro_torch.kernels import flash_mha as fm
 
     _cuda()
@@ -873,8 +879,8 @@ def test_flash_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="dh=257"):
         fm.flash_mha_fwd(q, k, v)
     q, k, v, _ = _flash_inputs(1, 1, 128, 192, torch.bfloat16)
-    with pytest.raises(ValueError, match="does not take"):
-        fm.flash_mha_fwd(q, k, v, instance="tc")
+    o, _ = fm.flash_mha_fwd(q, k, v, instance="tc")
+    assert o.shape == q.shape and torch.isfinite(o.float()).all()
     q, k, v, _ = _flash_inputs(1, 1, 128, 64, torch.float16)
     with pytest.raises(ValueError, match="bf16 or f32"):
         fm.flash_mha_fwd(q, k, v)
