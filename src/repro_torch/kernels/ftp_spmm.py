@@ -161,47 +161,53 @@ def _check_dense(a: torch.Tensor, b: torch.Tensor, T: int):
     _check_T(T)
 
 
-# The tensor-core instance's launch shape (csrc/ftp_dense.cu, namespace tc)
-_TC_BN = 64            # output columns per block
+# The tensor-core instances' launch shapes (csrc/ftp_dense.cu and
+# csrc/ftp_bsr.cu, namespace tc)
+_TC_BN = 64            # BSR: output columns per block
 _TC_BK = 64            # K depth of a ring stage; split boundaries are multiples
 _TC_MAX_SPLITS = 8     # a portable thread-block cluster
-_TC_MIN_BLOCKS = 256   # ~2 blocks per SM of the H100's 132 at the smallest M
+_TC_MIN_BLOCKS = 256   # BSR: ~2 blocks per SM of the H100's 132 at the smallest M
+_DENSE_TC_BN = 128     # dense: output columns per block, m64n128k16
+_DENSE_TC_MMA = "m64n128k16"
+_DENSE_TC_MIN_BLOCKS = 64   # dense: K splits fill this many blocks at the smallest M
 
 
 def dense_instance(dtype: torch.dtype, N: int, aligned: bool) -> str:
     """The dense kernels' instance for (K, N) weights of ``dtype`` whose
     base is 16-byte ``aligned``: ``"tc"`` (tensor cores) for bf16 with a
-    16-byte aligned base and rows of a multiple of 16 bytes, else
-    ``"simt"``.  A function of these three alone, never of M or of a
+    16-byte aligned base and rows of a multiple of 16 bytes (what the tc
+    instance's TMA tensor map needs of the weight's base and row stride),
+    else ``"simt"``.  A function of these three alone, never of M or of a
     failed launch."""
     if dtype == torch.bfloat16 and aligned and (N * 2) % 16 == 0:
         return "tc"
     return "simt"
 
 
-def dense_tc_shape(M: int, K: int, N: int, T: int) -> dict[str, int]:
+def dense_tc_shape(M: int, K: int, N: int, T: int) -> dict:
     """The tensor-core instance's launch shape.
 
-    ``bn`` (columns per block), ``splits`` (the cluster's K splits, in
-    ascending rank order) and ``k_split`` (each split's depth) depend on
-    (K, N) alone, so every output element is summed in the same order for
-    any M: splits double while ``ceil(N / bn) * splits`` launches fewer than
-    ~2 blocks per SM, up to 8 and to the number of 64-deep K steps.  Only
-    the row tile grows with M: ``rows`` MMA rows (64, or 128 from M = 128
-    on) hold ``bm`` = rows / T' spike rows, T' = T rounded up to a power of
-    two, at least 4."""
-    n_cols = -(-N // _TC_BN)
+    ``bn`` (columns per block), ``mma`` (the instruction), ``splits`` (the
+    cluster's K splits, in ascending rank order) and ``k_split`` (each
+    split's depth) depend on (K, N) alone, so every output element is
+    summed in the same order for any M: splits double while
+    ``ceil(N / bn) * splits`` launches fewer than 64 blocks, up to 8 and to
+    the number of 64-deep K steps.  Only the block's rows grow with M:
+    ``rows`` MMA rows (64, one consumer warpgroup of one m64 tile, while
+    M * T' <= 64; else 256, two warpgroups of two) hold ``bm`` = rows / T'
+    spike rows, T' = T rounded up to a power of two, at least 4."""
+    n_cols = -(-N // _DENSE_TC_BN)
     k_steps = -(-K // _TC_BK)
     splits = 1
-    while (splits < _TC_MAX_SPLITS and n_cols * splits < _TC_MIN_BLOCKS
+    while (splits < _TC_MAX_SPLITS and n_cols * splits < _DENSE_TC_MIN_BLOCKS
            and 2 * splits <= k_steps):
         splits *= 2
     per_split = -(-K // splits)
     k_split = -(-per_split // _TC_BK) * _TC_BK
-    rows = 128 if M >= 128 else 64
     t_pad = max(4, 1 << (T - 1).bit_length())
-    return {"bn": _TC_BN, "splits": splits, "k_split": k_split, "rows": rows,
-            "bm": rows // t_pad}
+    rows = 64 if M * t_pad <= 64 else 256
+    return {"bn": _DENSE_TC_BN, "mma": _DENSE_TC_MMA, "splits": splits,
+            "k_split": k_split, "rows": rows, "bm": rows // t_pad}
 
 
 def _dense_launch(a, b, T, v_th, tau, fuse_lif, instance=None, parent_n=None):

@@ -128,39 +128,50 @@ def test_dense_wrappers_check_inputs_and_have_no_fallback():
 
 
 # llama3.2-1b's two FFN GEMMs, and ragged shapes (a K below one 64-deep
-# step, K tails inside a split, N off the 64-column tile)
+# step, K tails inside a split, an empty last split, N off the 128-column
+# tile)
 TC_SHAPES = [(8192, 2048), (2048, 8192), (40, 72), (203, 136), (1000, 264),
-             (320, 384), (100000, 8)]
+             (320, 384), (320, 520), (100000, 8)]
 
 
 @pytest.mark.parametrize("K,N", TC_SHAPES)
 @pytest.mark.parametrize("T", [1, 3, 4, 16, 32])
 def test_dense_tc_shape_is_independent_of_M(K, N, T):
-    """The tensor-core instance's columns per block, K splits and split
-    depth -- the order in which every output element is summed -- are the
-    same for every M from 1 to 4096; only the row tile grows with M, and it
-    always holds T planes of a power-of-two number of spike rows."""
+    """The tensor-core instance's columns per block, instruction shape, K
+    splits and split depth -- the order in which every output element is
+    summed -- are the same for every M from 1 to 4096; only the block's
+    rows (one m64 tile, or two warpgroups of two) grow with M, and they
+    always hold T planes of a power-of-two number of spike rows."""
     shapes = [ftp_spmm.dense_tc_shape(M, K, N, T) for M in range(1, 4097)]
-    order = {(s["bn"], s["splits"], s["k_split"]) for s in shapes}
+    order = {(s["bn"], s["mma"], s["splits"], s["k_split"]) for s in shapes}
     assert len(order) == 1, order
-    bn, splits, k_split = order.pop()
-    assert bn == 64 and splits in (1, 2, 4, 8)
+    bn, mma, splits, k_split = order.pop()
+    assert bn == 128 and mma == "m64n128k16" and splits in (1, 2, 4, 8)
     # 64-deep steps covering K, each split the shortest that does
     assert k_split % 64 == 0 and splits * k_split >= K
     assert k_split - 64 < -(-K // splits)
     for s in shapes:
-        assert s["rows"] in (64, 128) and s["bm"] & (s["bm"] - 1) == 0
+        assert s["rows"] in (64, 256) and s["bm"] & (s["bm"] - 1) == 0
         assert T <= s["rows"] // s["bm"] and s["bm"] <= s["rows"] // 4
-    assert {s["rows"] for s in shapes} == {64, 128}
+    assert {s["rows"] for s in shapes} == {64, 256}
+    # one warpgroup of one m64 tile exactly while it holds every row
+    t_pad = shapes[0]["rows"] // shapes[0]["bm"]
+    assert all((s["rows"] == 64) == (M * t_pad <= 64)
+               for M, s in enumerate(shapes, 1))
 
 
-def test_dense_tc_shape_fills_the_card_at_decode():
-    """At the smallest M the serve's GEMMs launch >= 256 blocks (~2 per SM
-    of 132): W_out (8192 -> 2048) over 8 splits, W_in (2048 -> 8192) over 2."""
-    for K, N, splits in ((8192, 2048, 8), (2048, 8192, 2)):
-        s = ftp_spmm.dense_tc_shape(1, K, N, 4)
-        assert s["splits"] == splits and s["k_split"] == K // splits
-        assert -(-N // s["bn"]) * s["splits"] >= 256
+@pytest.mark.parametrize("K,N,splits", [(8192, 2048, 4), (2048, 8192, 1)])
+def test_dense_tc_shape_fills_the_card_at_decode(K, N, splits):
+    """At the smallest M the serve's GEMMs split K until the grid has 64
+    blocks (each a 64-row block streaming its weight slab; more splits
+    cost prefill more in the splits' sum than they gain at decode) or the
+    cluster is 8 deep: W_out (8192 -> 2048, 16 column tiles) over 4
+    splits, W_in (2048 -> 8192, 64 column tiles) not split."""
+    s = ftp_spmm.dense_tc_shape(1, K, N, 4)
+    assert s["splits"] == splits and s["k_split"] == K // splits
+    blocks = -(-N // s["bn"]) * s["splits"]
+    assert blocks >= 64 or s["splits"] == 8
+    assert s["rows"] == 64 and s["bm"] == 16
 
 
 @pytest.mark.parametrize("dtype,N,aligned,want", [

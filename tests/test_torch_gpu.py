@@ -535,15 +535,19 @@ def test_dense_kernel_equals_bsr_on_block_pruned_weights(M, T, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("fuse", [True, False])
-@pytest.mark.parametrize("K,N", [(40, 72), (203, 136), (1000, 264)])
+@pytest.mark.parametrize("K,N", [(40, 72), (203, 136), (1000, 264),
+                                 (320, 520)])
 @pytest.mark.parametrize("T", [1, 3, 4, 16, 32])
-@pytest.mark.parametrize("M", [1, 4, 300])
+@pytest.mark.parametrize("M", [1, 4, 33, 100, 300])
 def test_dense_tc_matches_plain(M, T, K, N, fuse):
     """The tensor-core instance at ragged shapes: K below one 64-deep step
     (one split), K = 203 over 4 splits (a K tail inside the last split, and
     word rows that are not 16-byte multiples), K = 1000 over 8 splits of
-    128; N not a multiple of the 64-column tile; T from 1 (3 dead planes of
-    the 4-row minimum) to 32; M at both row tiles."""
+    128 (a tail inside the last), K = 320 over 4 splits of 128 (the last
+    one empty); N below, across and off the 128-column tile (72, 136, 264,
+    520); T from 1 (3 dead planes of the 4-row minimum) to 32; M on one
+    m64 tile (1, 4 at T <= 16), on two warpgroups' 256 rows in one row
+    tile, two and many (33, 100, 300 at T <= 4; more at larger T)."""
     dev = _cuda()
     rng = np.random.default_rng(7000 + M * 100 + T + K)
     packed, w = _mk(rng, T, M, K, N, density=0.2, w_density=0.5)
@@ -552,17 +556,21 @@ def test_dense_tc_matches_plain(M, T, K, N, fuse):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("T", [4, 16])
+@pytest.mark.parametrize("T", [4, 16, 32])
 def test_dense_tc_deterministic_and_batch_invariant(T):
     """At 8 K splits (K = 2048, N = 512): two runs equal bit for bit, and a
-    row computed alone (M = 1, the 64-row tile) or among 4 equals the same
-    row of a 300-row call (the 128-row tile), bit for bit."""
+    row computed alone (M = 1: one m64 tile), in a window of 4 (one tile at
+    T <= 16, two warpgroups of two at 32) and in a 300-row call (two
+    warpgroups of two, many row tiles) is equal bit for bit, for both
+    kernels."""
     dev = _cuda()
     rng = np.random.default_rng(50 + T)
     packed, w = _mk(rng, T, 300, 2048, 512, density=0.2, w_density=0.5)
     a = words_to_torch(packed, dev)
     wt = torch.from_numpy(w / 32).to(dev, torch.bfloat16)
     assert ftp_spmm.dense_tc_shape(300, 2048, 512, T)["splits"] == 8
+    assert ftp_spmm.dense_tc_shape(1, 2048, 512, T)["rows"] == 64
+    assert ftp_spmm.dense_tc_shape(300, 2048, 512, T)["rows"] == 256
     for fuse in (True, False):
         runs = [ops.dispatch(a, wt, PACKED_DENSE, T, fuse_lif=fuse)
                 for _ in range(2)]
@@ -572,14 +580,38 @@ def test_dense_tc_deterministic_and_batch_invariant(T):
             assert torch.equal(runs[0][1], runs[1][1])
         else:
             assert torch.equal(runs[0], runs[1])
-        for lo, hi in ((0, 1), (17, 18), (296, 300)):
-            part = ops.dispatch(a[lo:hi].contiguous(), wt, PACKED_DENSE, T,
-                                fuse_lif=fuse)
-            if fuse:
-                assert torch.equal(part[0], full[0][lo:hi])
-                assert torch.equal(part[1], full[1][lo:hi])
-            else:
-                assert torch.equal(part, full[:, lo:hi])
+        for row, window in ((0, 0), (17, 16), (299, 296)):
+            for lo, hi in ((row, row + 1), (window, window + 4)):
+                part = ops.dispatch(a[lo:hi].contiguous(), wt, PACKED_DENSE, T,
+                                    fuse_lif=fuse)
+                if fuse:
+                    assert torch.equal(part[0], full[0][lo:hi])
+                    assert torch.equal(part[1], full[1][lo:hi])
+                else:
+                    assert torch.equal(part, full[:, lo:hi])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [4, 300])
+def test_dense_tc_column_slab_with_parent_n_equals_whole(M):
+    """Kernel 1 on column slabs of a (2048, 2048) weight, each launched with
+    ``parent_n`` = 2048 (the whole weight's 4 splits of 512, where a slab of
+    its own shape would take 8): equal to the same columns of the whole
+    call bit for bit -- halves, a slab off the 128-column tile (256 .. 392)
+    and a narrow tail slab."""
+    dev = _cuda()
+    rng = np.random.default_rng(80 + M)
+    packed, w = _mk(rng, 4, M, 2048, 2048, density=0.2, w_density=0.5)
+    a = words_to_torch(packed, dev)
+    wt = torch.from_numpy(w / 32).to(dev, torch.bfloat16)
+    whole = ftp_spmm.ftp_spmm(a, wt, 4)
+    assert ftp_spmm.dense_tc_shape(M, 2048, 2048, 4)["splits"] == 4
+    for lo, hi in ((0, 1024), (1024, 2048), (256, 392), (2040, 2048)):
+        slab = wt[:, lo:hi].contiguous()
+        assert _instance(slab) == "ftp_dense_tc"
+        assert ftp_spmm.dense_tc_shape(M, 2048, hi - lo, 4)["splits"] == 8
+        got = ftp_spmm.ftp_spmm(a, slab, 4, parent_n=2048)
+        assert torch.equal(got, whole[:, :, lo:hi]), (lo, hi)
 
 
 @pytest.mark.gpu
