@@ -168,7 +168,8 @@ and the bound (`tc` faster), two runs of the window case equal, the
 gradients' share of the gate against the plain chain logged; dh 160 padded
 to 192; f32 (4, 512) causal on SIMT.  The build asserts that ptxas spills
 nothing in any of the 15 `tc` instances (dh 32 to 256), nor in the dense
-kernels' 4 `tc` instances (`wgmma`), whose MMAs it must not serialise.
+kernels' 4 `tc` instances or the BSR kernels' 8 (`wgmma`), whose MMAs it
+must not serialise.
 
 12. the slice's path, after phase 9:
              (a) gemma-2b at its published width (d_model 2048, 8 heads,
@@ -497,19 +498,22 @@ def phase_build():
     tc = {f: b for f, b in spills.items() if "_tc_kernel" in f}
     assert len(tc) == 15, sorted(spills)
     assert all(b == (0, 0) for b in tc.values()), tc
-    # the dense kernels' four wgmma instances (one or two consumer
-    # warpgroups, kernel 1 or 2): no spills, and no MMA that ptxas had to
+    # the wgmma instances of the dense kernels (one or two consumer
+    # warpgroups, kernel 1 or 2: four) and of the BSR kernels (those times
+    # 64 or 128 columns: eight): no spills, and no MMA that ptxas had to
     # serialise (too few registers, or A fragments built while MMAs run)
-    dense_log = built["ftp_dense"]["log"]
-    spills = _ptxas_spills(dense_log)
-    dense_tc = {f: b for f, b in spills.items() if "ftp_dense_tc_kernel" in f}
-    assert len(dense_tc) == 4, sorted(spills)
-    assert all(b == (0, 0) for b in dense_tc.values()), dense_tc
-    serialised = [ln for ln in dense_log.splitlines()
-                  if "wgmma.mma_async instructions are serialized" in ln]
-    assert not serialised, serialised
-    log(f"dense tc instances: 0 spill bytes, registers "
-        f"{_ptxas_registers(dense_log, 'ftp_dense_tc_kernel')}")
+    for lib, kernel, n in (("ftp_dense", "ftp_dense_tc_kernel", 4),
+                           ("ftp_bsr", "ftp_bsr_tc_kernel", 8)):
+        text = built[lib]["log"]
+        spills = _ptxas_spills(text)
+        tc = {f: b for f, b in spills.items() if kernel in f}
+        assert len(tc) == n, sorted(spills)
+        assert all(b == (0, 0) for b in tc.values()), tc
+        serialised = [ln for ln in text.splitlines()
+                      if "wgmma.mma_async instructions are serialized" in ln]
+        assert not serialised, serialised
+        log(f"{lib} tc instances: 0 spill bytes, registers "
+            f"{_ptxas_registers(text, kernel)}")
     log(f"build wall {time.perf_counter() - t0:.1f}s")
 
 

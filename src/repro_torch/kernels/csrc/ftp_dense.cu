@@ -253,7 +253,7 @@ struct Shape {
 // (m, n) pairs (p = kBN m + n over the tile's live rows), all T planes, in
 // items of 4 columns (item i: plane i / (share / 4), columns 4 (i % (share /
 // 4)) of the share); each value the S partial tiles added in ascending rank
-// order (the order of ftp_tc.cuh's rank_sum).  Distributed shared memory is
+// order (the order of ftp_bsr.cu's split sum).  Distributed shared memory is
 // slow to answer, so every rank's 16 bytes of kU items are loaded before
 // the first add.  Kernel 1 writes the sums out; kernel 2 keeps them in this
 // block's own tile (no peer reads this rank's values) for the LIF.

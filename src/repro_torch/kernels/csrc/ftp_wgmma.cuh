@@ -1,8 +1,9 @@
 // Hopper's asynchronous building blocks for the tensor-core FTP kernels
-// (ftp_dense.cu's `tc` instance): mbarriers, the 2D TMA load and the host's
-// tensor map, the cluster and named barriers, register hand-over between
-// warpgroups (setmaxnreg), and the warpgroup MMA with A in registers and B an
-// MN-major bf16 tile in shared memory with 128-byte swizzle.
+// (the `tc` instances of ftp_dense.cu and ftp_bsr.cu): mbarriers, the 2D TMA
+// load and the host's tensor map, the cluster and named barriers, register
+// hand-over between warpgroups (setmaxnreg), and the warpgroup MMA (64 or 128
+// columns) with A in registers and B an MN-major bf16 tile in shared memory
+// with 128-byte swizzle.
 //
 // B's layout is the one a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes
 // for a (K, N) row-major weight: boxes of 64 columns (128 bytes, the
@@ -14,10 +15,10 @@
 // transpose pass.
 //
 // A comes from registers in the mma.m16n8k16 A layout: warp w of the
-// warpgroup owns rows 16 w .. 16 w + 15 of the 64, so ftp_tc.cuh's
-// plane_pair builds it from spike words as its a_frag does.  The accumulator of m64nNk16 has
-// the m16n8 layout repeated: d[4 j + e] is row 16 w + lane / 4 (+ 8 for
-// e >= 2), column 8 j + 2 (lane % 4) + (e & 1).
+// warpgroup owns rows 16 w .. 16 w + 15 of the 64, and ftp_tc.cuh's
+// plane_pair builds it from spike words (a_frag_planes below).  The
+// accumulator of m64nNk16 has the m16n8 layout repeated: d[4 j + e] is row
+// 16 w + lane / 4 (+ 8 for e >= 2), column 8 j + 2 (lane % 4) + (e & 1).
 
 #pragma once
 
@@ -222,7 +223,7 @@ __device__ __forceinline__ uint64_t desc_mn_b128(uint32_t saddr,
 }
 
 // d (64 x 128 f32, this thread's 64) += A (64 x 16 bf16 from registers,
-// a_frag's layout) x B (16 x 128 bf16, MN-major, `desc`).
+// the m16n8k16 A layout) x B (16 x 128 bf16, MN-major, `desc`).
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
                                                     const uint32_t (&a)[4],
                                                     uint64_t desc) {
@@ -248,6 +249,38 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
+// d (64 x 64 f32, this thread's 32) += A (64 x 16 bf16 from registers) x B
+// (16 x 64 bf16, MN-major, `desc`): the same operands as the m64n128k16 form,
+// one 64-column box of B.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// the m64nNk16 form for N = 64 or 128 output columns
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t desc) {
+  static_assert(N == 64 || N == 128, "wgmma_rs takes 64 or 128 columns");
+  if constexpr (N == 128)
+    wgmma_m64n128k16_rs(d, a, desc);
+  else
+    wgmma_m64n64k16_rs(d, a, desc);
+}
+
 // ---- spike words ------------------------------------------------------------
 
 // A stage's spike words as a TMA load with 128-byte swizzle leaves them: two
@@ -264,9 +297,9 @@ __device__ __forceinline__ int2 words2_b128(const unsigned char* tile,
   return *reinterpret_cast<const int2*>(tile +
                                         word_offset_b128(box_bytes, m, k));
 }
-// The words a_frag reads for the k16 step at column k (= 16 ks + 2 (lane %
-// 4)) of rows m_lo and m_hi, from that layout: (m_lo, k), (m_hi, k),
-// (m_lo, k + 8), (m_hi, k + 8), two words each.
+// The words an A fragment reads for the k16 step at column k (= 16 ks + 2
+// (lane % 4)) of rows m_lo and m_hi, from that layout: (m_lo, k), (m_hi,
+// k), (m_lo, k + 8), (m_hi, k + 8), two words each.
 __device__ __forceinline__ void a_words_b128(int2 (&w)[4],
                                              const unsigned char* tile,
                                              int box_bytes, int m_lo, int m_hi,
@@ -276,7 +309,7 @@ __device__ __forceinline__ void a_words_b128(int2 (&w)[4],
   w[2] = words2_b128(tile, box_bytes, m_lo, k + 8);
   w[3] = words2_b128(tile, box_bytes, m_hi, k + 8);
 }
-// ftp_tc.cuh's a_frag from those words: the planes sh_lo (rows g) and sh_hi
+// The A fragment from those words: the planes sh_lo (rows g) and sh_hi
 // (rows g + 8), zero where the plane is dead.
 __device__ __forceinline__ void a_frag_planes(uint32_t (&af)[4],
                                               const int2 (&w)[4], int sh_lo,

@@ -87,7 +87,7 @@ def reset_launch_counts() -> None:
 _SMALL_BM = 4
 _COLS = 32        # output columns per thread block
 _MAX_BK = 256     # keeps the BSR SIMT instance's shared memory under 48 KB
-_MAX_ROW_TILES = 65535  # the grid's row-tile extent (y: simt, z: tc)
+_MAX_ROW_TILES = 65535  # the grid's row-tile extent (its y)
 
 
 def _large_bm(T: int) -> int:
@@ -117,8 +117,8 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
         ]
         lib.ftp_bsr_launch.restype = i
         lib.ftp_bsr_tc_launch.argtypes = [
-            p, i, i, i, p, i, i, p, p, p, i, i, p, i, p, i, i, i, i, i, i, f,
-            f, i, p, p, p,
+            p, i, i, i, p, i, i, i, p, p, p, i, i, p, i, i, p, i, i, i, i, i,
+            i, f, f, i, p, p, p,
         ]
         lib.ftp_bsr_tc_launch.restype = i
     else:
@@ -163,10 +163,13 @@ def _check_dense(a: torch.Tensor, b: torch.Tensor, T: int):
 
 # The tensor-core instances' launch shapes (csrc/ftp_dense.cu and
 # csrc/ftp_bsr.cu, namespace tc)
-_TC_BN = 64            # BSR: output columns per block
+_TC_BN = 64            # BSR: the narrower column tile; bn must be a multiple
+_TC_WIDE_BN = 128      # BSR: the column tile where bn is a multiple of it
 _TC_BK = 64            # K depth of a ring stage; split boundaries are multiples
 _TC_MAX_SPLITS = 8     # a portable thread-block cluster
-_TC_MIN_BLOCKS = 256   # BSR: ~2 blocks per SM of the H100's 132 at the smallest M
+_TC_MIN_BLOCKS = 64    # BSR: splits fill this many blocks at the smallest M ...
+_TC_MIN_SLOTS = 4      # BSR: ... while every rank keeps this many join slots
+_TC_WAVE = 132         # BSR: 256-row blocks only for a grid of a wave of SMs
 _DENSE_TC_BN = 128     # dense: output columns per block, m64n128k16
 _DENSE_TC_MMA = "m64n128k16"
 _DENSE_TC_MIN_BLOCKS = 64   # dense: K splits fill this many blocks at the smallest M
@@ -366,28 +369,44 @@ def bsr_instance(dtype: torch.dtype, bk: int, bn: int, aligned: bool) -> str:
     return "simt"
 
 
-def bsr_tc_shape(nnb: int, bn: int, jmax: int, T: int, bm: int) -> dict[str, int]:
+def bsr_tc_shape(nnb: int, bn: int, jmax: int, T: int, M: int) -> dict:
     """The BSR tensor-core instance's launch shape for a plan of ``nnb``
     column blocks of ``bn`` columns and join lists of ``jmax`` slots, at
-    ``T`` timesteps and act row tile ``bm``.
+    ``T`` timesteps and ``M`` spike rows.
 
-    ``bn`` (64 columns per block), ``splits`` (the cluster's ranks S, in
-    ascending order) and ``slots_per_rank`` (rank s takes join slots
-    [s * slots_per_rank, (s + 1) * slots_per_rank) of every column block)
-    depend on the plan alone, so every output element is summed in the
-    same order for any M: S doubles while ``nnb * (bn / 64) * S`` launches
-    fewer than ~2 blocks per SM, up to 8 and to ``jmax``.  ``rows`` (MMA
-    rows per block) = T' * bm, T' = T rounded up to a power of two, at
-    least 4, covers exactly one act row tile; the kernel runs 8 warps at
-    256 rows (T > 16 at bm = 8), else 4."""
-    n_cols = nnb * (bn // _TC_BN)
+    ``bn`` (a block's columns: 128 where the plan's ``bn`` is a multiple of
+    128, else 64), ``mma`` (the instruction, m64nNk16 with N = that tile),
+    ``splits`` (the cluster's ranks S, in ascending order) and
+    ``slots_per_rank`` (rank s takes join slots [s * slots_per_rank, (s +
+    1) * slots_per_rank) of every column block) depend on the plan alone,
+    so every output element is summed in the same order for any M: S
+    doubles while ``nnb * (bn / tile) * S`` launches fewer than 64 blocks
+    and every rank keeps at least 4 of the ``jmax`` slots, up to 8.  The
+    ranks' partial tiles meet through distributed shared memory, which
+    costs prefill more than the MMAs of a few slots, while decode streams
+    the payload faster over more blocks: this rule was the fastest of
+    those timed on the card at both (PERF.md).
+
+    Only the block's rows follow M (they decide work, not results):
+    ``rows`` MMA rows (256, two consumer warpgroups of two m64 tiles, where
+    M * T' > 64 and the 256-row grid fills a wave of the H100's 132 SMs;
+    else 64, one warpgroup of one tile, two such blocks an SM) hold ``bm``
+    = rows / T' spike rows, T' = T rounded up to a power of two, at least
+    4; an m64 tile holds 64 / T' of them, so a 256-row block covers several
+    act row tiles and reads each payload stage once for all of them."""
+    tile = _TC_WIDE_BN if bn % _TC_WIDE_BN == 0 else _TC_BN
+    n_cols = nnb * (bn // tile)
     splits = 1
     while (splits < _TC_MAX_SPLITS and n_cols * splits < _TC_MIN_BLOCKS
-           and 2 * splits <= jmax):
+           and 2 * splits * _TC_MIN_SLOTS <= jmax):
         splits *= 2
     t_pad = max(4, 1 << (T - 1).bit_length())
-    return {"bn": _TC_BN, "splits": splits,
-            "slots_per_rank": -(-jmax // splits), "rows": t_pad * bm}
+    rows = 64
+    if M * t_pad > 64 and -(-M // (256 // t_pad)) * n_cols * splits >= _TC_WAVE:
+        rows = 256
+    return {"bn": tile, "mma": f"m64n{tile}k16", "splits": splits,
+            "slots_per_rank": -(-jmax // splits), "rows": rows,
+            "bm": rows // t_pad}
 
 
 def _bsr_work(a, payload, kidx, vidx, cnt, act, n_out, T, v_th=DEFAULT_VTH,
@@ -483,15 +502,15 @@ def ftp_spmm_bsr(
     with _build.on_card(a.device):  # launch on the tensors' card
         if instance == "tc":
             p_nnb, p_jmax = (nnb, jmax) if parent is None else parent
-            shape = bsr_tc_shape(p_nnb, bn, p_jmax, T, bm)
+            shape = bsr_tc_shape(p_nnb, bn, p_jmax, T, M)
             a_vec = a.data_ptr() % 16 == 0 and K % 4 == 0
             rc = lib.ftp_bsr_tc_launch(
-                a.data_ptr(), M, K, int(a_vec), payload.data_ptr(), bk, bn,
-                kidx.data_ptr(), vidx.data_ptr(), cnt.data_ptr(), nnb, jmax,
-                act.data_ptr(), act.shape[1], tmap_ptr, T, shape["rows"], bm,
-                shape["splits"], shape["slots_per_rank"], n_out, float(v_th),
-                float(tau), int(fuse_lif), out.data_ptr(), u.data_ptr(),
-                stream)
+                a.data_ptr(), M, K, int(a_vec), payload.data_ptr(),
+                payload.shape[0], bk, bn, kidx.data_ptr(), vidx.data_ptr(),
+                cnt.data_ptr(), nnb, jmax, act.data_ptr(), act.shape[1], bm,
+                tmap_ptr, T, shape["rows"], shape["bn"], shape["splits"],
+                shape["slots_per_rank"], n_out, float(v_th), float(tau),
+                int(fuse_lif), out.data_ptr(), u.data_ptr(), stream)
         else:
             rc = lib.ftp_bsr_launch(
                 a.data_ptr(), M, K, payload.data_ptr(),

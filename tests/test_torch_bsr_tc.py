@@ -52,38 +52,72 @@ def test_bsr_instance_of_tiny_layers_plans_is_simt():
     (3, 128, 4),
     (1, 64, 1),
     (2, 256, 9),
+    (5, 192, 7),     # bn % 128 != 0: the 64-column tile
 ])
 def test_bsr_tc_shape_is_independent_of_M(T, nnb, bn, jmax):
-    """For every M from 1 to 4096 the cluster split, the slot ranges and
-    the column tile are the same; only the row tile follows pick_bm, and
-    the MMA rows cover exactly one act row tile of T' = pow2(T) >= 4
-    planes."""
+    """For every M from 1 to 4096 the keys that decide results (the column
+    tile and its instruction, the cluster split, the slot ranges) are the
+    same; only the block's rows follow M: one m64 tile while M * T' <= 64
+    (T' = pow2(T) >= 4) or while 256-row blocks would not fill a wave of
+    132 SMs, else 256 MMA rows, each m64 tile holding 64 / T' spike rows,
+    so a block covers whole act row tiles (pick_bm's) or lies inside
+    one."""
     t_pad = max(4, 1 << (T - 1).bit_length())
     fixed = set()
     for M in range(1, 4097):
-        bm = ftp_spmm.pick_bm(M, T)
-        s = ftp_spmm.bsr_tc_shape(nnb, bn, jmax, T, bm)
-        fixed.add((s["bn"], s["splits"], s["slots_per_rank"]))
-        assert bm in (4, 8, 16) and s["rows"] == t_pad * bm
-        assert 16 <= s["rows"] <= 256
+        s = ftp_spmm.bsr_tc_shape(nnb, bn, jmax, T, M)
+        fixed.add((s["bn"], s["mma"], s["splits"], s["slots_per_rank"]))
+        n_cols = nnb * bn // s["bn"]
+        wave = -(-M // (256 // t_pad)) * n_cols * s["splits"] >= 132
+        assert s["rows"] == (256 if M * t_pad > 64 and wave else 64)
+        assert s["bm"] * t_pad == s["rows"] and s["bm"] >= 2
+        act_bm = ftp_spmm.pick_bm(M, T)
+        assert s["bm"] % act_bm == 0 or act_bm % s["bm"] == 0
+        if s["rows"] == 256:  # several act row tiles a block, or one whole
+            assert s["bm"] >= act_bm
     assert len(fixed) == 1
-    _, splits, per = fixed.pop()
+    tile, mma, splits, per = fixed.pop()
+    assert bn % tile == 0 and mma == f"m64n{tile}k16"
     assert splits in (1, 2, 4, 8) and splits <= max(1, jmax)
     assert per == -(-jmax // splits)  # every live slot has one rank
 
 
 def test_bsr_tc_shape_reaches_2_and_8_on_the_llama_plans():
-    """The serve's plans (128 x 128 blocks): W_in 64 column blocks, W_out
-    16; at decode both launch >= 256 blocks (~2 per SM of 132)."""
+    """The serve's plans (128 x 128 blocks, so 128-column tiles): W_in's 64
+    column blocks fill the 64-block floor alone and keep one rank (2 in
+    the 64-column design); W_out's 16 split 4 ways, where 8 would leave a
+    rank fewer than 4 of its 29 slots.  Ranks reach 8 only where the join
+    lists are long and the columns few."""
     w_in = ftp_spmm.bsr_tc_shape(64, 128, 9, 4, 4)
     w_out = ftp_spmm.bsr_tc_shape(16, 128, 29, 4, 4)
-    assert (w_in["splits"], w_in["slots_per_rank"]) == (2, 5)
-    assert (w_out["splits"], w_out["slots_per_rank"]) == (8, 4)
-    for nnb, s in ((64, w_in), (16, w_out)):
-        assert nnb * (128 // s["bn"]) * s["splits"] >= 256
+    assert (w_in["splits"], w_in["slots_per_rank"]) == (1, 9)
+    assert (w_out["splits"], w_out["slots_per_rank"]) == (4, 8)
+    assert w_in["bn"] == w_out["bn"] == 128
+    assert ftp_spmm.bsr_tc_shape(8, 128, 38, 4, 4)["splits"] == 8
+    assert ftp_spmm.bsr_tc_shape(8, 128, 31, 4, 4)["splits"] == 4
     # a join list shorter than the doubling would want caps S
-    assert ftp_spmm.bsr_tc_shape(1, 64, 3, 4, 4)["splits"] == 2
-    assert ftp_spmm.bsr_tc_shape(1, 64, 1, 4, 4)["splits"] == 1
+    assert ftp_spmm.bsr_tc_shape(1, 64, 8, 4, 4)["splits"] == 2
+    assert ftp_spmm.bsr_tc_shape(1, 64, 7, 4, 4)["splits"] == 1
+
+
+@pytest.mark.parametrize("bn,tile", [
+    (64, 64), (128, 128), (192, 64), (256, 128), (320, 64), (384, 128),
+])
+def test_bsr_tc_shape_picks_the_n64_or_n128_instance(bn, tile):
+    """The column tile (the MMA's N) is 128 where the plan's bn is a
+    multiple of 128, else 64 (the tc route takes bn % 64 == 0); the same
+    plan gets the same instance at every M and T, and its splits count
+    column tiles of that width."""
+    for M, T in ((1, 1), (4, 4), (300, 16), (4096, 32)):
+        s = ftp_spmm.bsr_tc_shape(4, bn, 8, T, M)
+        assert (s["bn"], s["mma"]) == (tile, f"m64n{tile}k16")
+        assert ftp_spmm.bsr_instance(torch.bfloat16, 128, bn, True) == "tc"
+    # 4 column blocks and long join lists: the splits count column tiles
+    # of the instance's width, doubling while the grid is under 64 blocks
+    n_cols = 4 * bn // tile
+    splits = ftp_spmm.bsr_tc_shape(4, bn, 64, 4, 4)["splits"]
+    assert n_cols * splits >= 64 or splits == 8
+    assert splits == 1 or n_cols * splits // 2 < 64
 
 
 def test_bsr_instance_counts_are_named_and_start_at_zero():

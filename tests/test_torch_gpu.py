@@ -249,12 +249,12 @@ def test_adaptive_kernel_lossy_equals_full_on_masked_input(fuse):
 # kernels 3 and 4: the tensor-core instance (bf16 payloads)
 # ---------------------------------------------------------------------------
 
-def _bsr_tc_case(rng, T, M):
-    """bf16 words and plan: K = 500 (a K tail inside the last 128-deep
-    block), N = 330 (n_out short of the plan's 384 columns), column block
-    1 pruned whole (cnt == 0), one more block pruned, every 7th row
-    silent."""
-    packed, w = _mk(rng, T, M, 500, 330, density=0.2, w_density=0.5)
+def _bsr_tc_case(rng, T, M, N=330):
+    """bf16 words and weights: K = 500 (a K tail inside the last 128-deep
+    block), N columns (330: n_out short of a 128-column plan's 384),
+    columns 128..255 pruned whole (cnt == 0), k block 0 of every column
+    from 256 on pruned, every 7th row silent."""
+    packed, w = _mk(rng, T, M, 500, N, density=0.2, w_density=0.5)
     packed[1::7] = 0
     w[:, 128:256] = 0
     w[0:128, 256:] = 0
@@ -262,55 +262,124 @@ def _bsr_tc_case(rng, T, M):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bn", [64, 128])
 @pytest.mark.parametrize("fuse", [True, False])
 @pytest.mark.parametrize("T", [1, 3, 4, 16, 32])
-@pytest.mark.parametrize("M", [1, 4, 33, 300])
-def test_bsr_tc_matches_plain(M, T, fuse):
-    """Kernel 3's tensor-core instance at ragged shapes: T from 1 (three
-    dead planes of the 4-plane minimum) to 32 (256 MMA rows and 8 warps at
-    M = 300), both act row tiles, a K tail, a column tail, an empty column
-    block and silent rows; kernel 4 on the same inputs too."""
+@pytest.mark.parametrize("M", [1, 4, 33, 63, 300, 512, 784])
+def test_bsr_tc_matches_plain(M, T, fuse, bn):
+    """Kernel 3's tensor-core instance at ragged shapes and at each
+    row-block choice (one m64 tile while M * T' <= 64; 64-row blocks while
+    256-row ones would not fill a wave of SMs: M 33-300 here; else 256 MMA
+    rows over one to 16 act row tiles; ragged last blocks): T from 1
+    (three dead planes of the 4-plane minimum) to 32, both act row tiles,
+    both column tiles (bn 64: m64n64k16, bn 128: m64n128k16), a K tail, a
+    column tail (N = 2058, 10 columns into the last 128), empty column
+    blocks (cnt == 0) and silent rows; kernel 4 on the same inputs too."""
     dev = _cuda()
-    rng = np.random.default_rng(9000 + M * 100 + T)
-    packed, w = _bsr_tc_case(rng, T, M)
-    plan = build_weight_plan(w.to(dev))
-    assert int(plan.cnt[1]) == 0
+    rng = np.random.default_rng(9000 + M * 100 + T + (bn == 64) * 100000)
+    packed, w = _bsr_tc_case(rng, T, M, 2058)
+    plan = build_weight_plan(w.to(dev), bk=128, bn=bn)
+    empty = (1,) if bn == 128 else (2, 3)  # columns 128..255 pruned whole
+    assert all(int(plan.cnt[j]) == 0 for j in empty)
+    shape = ftp_spmm.bsr_tc_shape(plan.nnb, plan.bn, plan.jmax, T, M)
+    assert shape["bn"] == bn and shape["mma"] == f"m64n{bn}k16"
+    if M in (512, 784) or (M >= 300 and T >= 16):
+        assert shape["rows"] == 256, shape
     a = words_to_torch(packed, dev)
-    _check(a, plan, 330, T, fuse, instance="tc")
-    _check(a, plan, 330, T, fuse, PACKED_DUAL_ADAPTIVE, instance="tc")
+    _check(a, plan, 2058, T, fuse, instance="tc")
+    _check(a, plan, 2058, T, fuse, PACKED_DUAL_ADAPTIVE, instance="tc")
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("T", [4, 16])
 def test_bsr_tc_splits_8_deterministic_and_batch_invariant(T):
-    """A plan with 16 column blocks (as W_out has) reaches 8 ranks: held
-    against the plain version; two runs equal bit for bit; a row computed
-    alone (M = 1, bm = 4) or among 4 equals the same row of a 300-row call
-    (bm = 16 or 8), bit for bit."""
+    """A plan with 8 column blocks and join lists of 32 slots or more
+    reaches 8 ranks: held against the plain version; two runs equal bit for
+    bit; a row computed alone (M = 1, bm = 4) or among 4 equals the same
+    row of a 300-row call (bm = 16 or 8), bit for bit."""
     dev = _cuda()
     rng = np.random.default_rng(80 + T)
-    packed, _ = _mk(rng, T, 300, 2048, 8, density=0.2)
-    w = prune_by_magnitude(torch.from_numpy(rng.normal(size=(2048, 2048)).astype(
-        np.float32) / 32), 0.5, block=(128, 128))
+    packed, _ = _mk(rng, T, 300, 8192, 8, density=0.2)
+    w = prune_by_magnitude(torch.from_numpy(rng.normal(size=(8192, 1024)).astype(
+        np.float32) / 64), 0.6, block=(128, 128))
     plan = build_weight_plan(w.to(dev, torch.bfloat16))
+    assert plan.jmax >= 32
     assert ftp_spmm.bsr_tc_shape(plan.nnb, plan.bn, plan.jmax, T,
                                  4)["splits"] == 8
     a = words_to_torch(packed, dev)
-    _check(a, plan, 2048, T, False, instance="tc")
+    _check(a, plan, 1024, T, False, instance="tc")
     for fuse in (True, False):
-        runs = [ops.dispatch(a, plan, PACKED_DUAL, T, n_out=2048,
+        runs = [ops.dispatch(a, plan, PACKED_DUAL, T, n_out=1024,
                              fuse_lif=fuse) for _ in range(2)]
         assert torch.equal(runs[0][0], runs[1][0])
         assert torch.equal(runs[0][1], runs[1][1])
         full = runs[0]
         for lo, hi in ((0, 1), (17, 18), (296, 300)):
             part = ops.dispatch(a[lo:hi].contiguous(), plan, PACKED_DUAL, T,
-                                n_out=2048, fuse_lif=fuse)
+                                n_out=1024, fuse_lif=fuse)
             if fuse:
                 assert torch.equal(part[0], full[0][lo:hi])
             else:
                 assert torch.equal(part[0], full[0][:, lo:hi])
             assert torch.equal(part[1], full[1][lo:hi])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,M", [(4, 300), (16, 200)])
+def test_bsr_tc_row_alone_equals_row_in_a_256_row_block(T, M):
+    """A row alone (a 64-row block) equals the same row of a 256-row block
+    whose other act row tiles are active, bit for bit, and a row of a
+    silent act row tile (between two active ones in that block) alone
+    equals it in the block; a 4-row window across the silent tile's edges
+    too.  At T 4 the block holds 4 act row tiles of 16 rows, at T 16 (M <
+    256) 4 of 4."""
+    dev = _cuda()
+    rng = np.random.default_rng(600 + T)
+    packed, _ = _mk(rng, T, M, 1024, 8, density=0.2)
+    act_bm = ftp_spmm.pick_bm(M, T)
+    packed[act_bm:2 * act_bm] = 0  # act row tile 1 of block 0 silent
+    w = prune_by_magnitude(torch.from_numpy(rng.normal(size=(1024, 4096)).astype(
+        np.float32) / 16), 0.5, block=(128, 128))
+    plan = build_weight_plan(w.to(dev, torch.bfloat16))
+    a = words_to_torch(packed, dev)
+    whole = ftp_spmm.bsr_tc_shape(plan.nnb, plan.bn, plan.jmax, T, M)
+    assert whole["rows"] == 256 and whole["bm"] >= 3 * act_bm
+    for n in (1, 4):
+        assert ftp_spmm.bsr_tc_shape(plan.nnb, plan.bn, plan.jmax, T,
+                                     n)["rows"] == 64
+    for fuse in (True, False):
+        full = ops.dispatch(a, plan, PACKED_DUAL, T, n_out=4096, fuse_lif=fuse)
+        for lo, hi in ((0, 1), (act_bm + 1, act_bm + 2), (2 * act_bm + 3,
+                       2 * act_bm + 4), (M - 1, M), (2 * act_bm - 2,
+                                                     2 * act_bm + 2)):
+            part = ops.dispatch(a[lo:hi].contiguous(), plan, PACKED_DUAL, T,
+                                n_out=4096, fuse_lif=fuse)
+            got = full[0][lo:hi] if fuse else full[0][:, lo:hi]
+            assert torch.equal(part[0], got), (fuse, lo, hi)
+            assert torch.equal(part[1], full[1][lo:hi]), (fuse, lo, hi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,M", [(4, 300), (8, 2), (16, 40), (32, 9)])
+def test_bsr_tc_gated_plane_inside_an_m64_tile(T, M):
+    """An m64 tile holds all T' planes of its spike rows, so a plane that
+    tmap gates is a run of zero rows inside a tile that still issues its
+    MMA: kernel 4 equals kernel 3 bit for bit (min_spikes 1) and both hold
+    against the plain version."""
+    dev = _cuda()
+    rng = np.random.default_rng(700 + T + M)
+    packed, _ = _mk(rng, T, M, 512, 8, density=0.3)
+    packed &= ~np.uint32((1 << 1) | (1 << (T - 1)) if T > 2 else 1 << 1)
+    w = prune_by_magnitude(torch.from_numpy(rng.normal(size=(512, 384)).astype(
+        np.float32) / 16), 0.3, block=(128, 128))
+    plan = build_weight_plan(w.to(dev, torch.bfloat16))
+    a = words_to_torch(packed, dev)
+    tmap = timestep_activity_map(a, T)
+    assert int(tmap[1]) == 0 and int(tmap.sum()) >= 1
+    for fuse in (True, False):
+        c4, u4 = _check(a, plan, 384, T, fuse, PACKED_DUAL_ADAPTIVE, "tc")
+        c3, u3 = _check(a, plan, 384, T, fuse, PACKED_DUAL, "tc")
+        assert torch.equal(c4, c3) and torch.equal(u4, u3)
 
 
 @pytest.mark.gpu
